@@ -1,0 +1,7 @@
+"""Serving-path kernels: CUDA sources (csrc/), their wrappers, the plain
+PyTorch versions (ref.py) and the dispatching ops (ops.py).
+
+Nothing is built or loaded at import: a kernel library is compiled by
+`build.library` on the first launch, so the CPU tests import every
+module without nvcc.
+"""

@@ -1,0 +1,106 @@
+"""Quantization-aware building blocks (port of `repro.models.layers`).
+
+Every weight matmul goes through `qdot`:
+
+  none  x @ W
+  vp    ops.vp_dequant_matmul(x, W_packed) * scale: one packed VP word
+        per weight, consumed directly by the kernel (unpack and pow2
+        scale on chip, no float weight matrix in device memory).
+
+The reference's `fxp`, `vp_block` and two-plane layouts wait for a later
+slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import QuantConfig
+from repro_torch.core.formats import FXPFormat, default_vp_format
+from repro_torch.core.packing import dequant_words
+from repro_torch.kernels import ops
+
+
+def canonical_formats(q: QuantConfig):
+    """FXP(W, W-1) and its default VP(M, E) format: VP(7,[11,9,8,6])
+    on FXP(12,11) for the defaults."""
+    fxp = FXPFormat(q.W, q.W - 1)
+    return fxp, default_vp_format(fxp, q.M, q.E)
+
+
+def _pow2_scale(w: torch.Tensor) -> torch.Tensor:
+    """Smallest power of two >= max|w|, computed in w's dtype like the
+    reference; an all-zero tensor gets 1.0."""
+    amax = w.abs().max()
+    s = torch.exp2(torch.ceil(torch.log2(torch.clamp(amax, min=1e-30))))
+    return torch.where(amax > 0, s, torch.ones_like(s))
+
+
+def quantize_weight(w: torch.Tensor, q: QuantConfig) -> Any:
+    """Float weight (d_in, d_out) -> its serving form.
+
+    mode none: the float tensor; mode vp: {"w_packed", "scale"} with the
+    words of w / scale (exported by the quant kernel on the card).
+    """
+    if q.mode == "none":
+        return w
+    fxp, vp = canonical_formats(q)
+    s = _pow2_scale(w)
+    wn = (w / s).to(torch.float32)
+    return {"w_packed": ops.vp_quant(wn, fxp, vp, packed=True),
+            "scale": s.to(torch.float32)}
+
+
+def qdot(x: torch.Tensor, wq: Any, q: QuantConfig) -> torch.Tensor:
+    """x (..., d_in) @ W (d_in, d_out) under the quantization mode."""
+    dtype = x.dtype
+    if not isinstance(wq, dict):
+        return x @ wq.to(dtype)
+    _, vp = canonical_formats(q)
+    lead = x.shape[:-1]
+    out = ops.vp_dequant_matmul(x.reshape(-1, x.shape[-1]), wq["w_packed"],
+                                vp, out_dtype=dtype)
+    out = out * wq["scale"].to(dtype)
+    return out.reshape(*lead, -1)
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + gamma.to(torch.float32))).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4):
+    """Rotary embedding: x (..., S, H, dh), positions (..., S)."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., :, None, None].to(torch.float32) * freqs
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def embed_lookup(tokens: torch.Tensor, table: Any, q: QuantConfig):
+    """Token embedding.  A packed table gathers the packed rows first and
+    dequantizes only those (f32, like the reference)."""
+    if isinstance(table, dict):
+        _, vp = canonical_formats(q)
+        rows = table["w_packed"][tokens]
+        return dequant_words(rows, vp, torch.float32) * table["scale"]
+    return table[tokens]
+
+
+def weight_bytes(params: Dict[str, Any]) -> int:
+    """Bytes of every tensor in a parameter tree."""
+    if isinstance(params, torch.Tensor):
+        return params.numel() * params.element_size()
+    if isinstance(params, dict):
+        return sum(weight_bytes(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(weight_bytes(v) for v in params)
+    return 0

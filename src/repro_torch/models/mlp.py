@@ -1,0 +1,16 @@
+"""Feed-forward block: SwiGLU (port of `repro.models.mlp.swiglu`)."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import QuantConfig
+from .layers import qdot
+
+
+def swiglu(x: torch.Tensor, params, q: QuantConfig) -> torch.Tensor:
+    """params: w_gate (d, ff), w_up (d, ff), w_down (ff, d)."""
+    g = qdot(x, params["w_gate"], q)
+    u = qdot(x, params["w_up"], q)
+    h = F.silu(g.to(torch.float32)).to(x.dtype) * u
+    return qdot(h, params["w_down"], q)

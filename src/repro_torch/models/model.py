@@ -1,0 +1,187 @@
+"""Dense transformer serving path (port of the dense branches of
+`repro.models.model`).
+
+Parameters are plain dicts of tensors: {"embed", "final_norm", "lm_head",
+"layers": [per-layer {"attn", "mlp", "ln1", "ln2"}]}.  The reference
+stacks layers for `lax.scan`; here a Python loop walks the list.
+Caches are a list of per-layer dicts (see `models.attention.attn_block`).
+
+Entry points default to device="cuda" and raise when CUDA is absent;
+the CPU (plain versions of the kernels) must be asked for explicitly.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.packing import storage_dtype
+from .attention import attn_block, kv_cache_formats
+from .layers import embed_lookup, qdot, quantize_weight, rms_norm
+from .mlp import swiglu
+
+QUANT_KEYS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+              "embed", "lm_head"}
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device to run on; raises rather than fall back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: pass device='cpu' to run the plain "
+            "PyTorch versions of the kernels on the CPU")
+    return dev
+
+
+def model_dtype(cfg: ModelConfig) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (dense only)")
+
+
+def layer_pattern(cfg: ModelConfig) -> Tuple[str, Optional[int]]:
+    """(attention pattern, window) of every layer of a dense model."""
+    if cfg.sliding_window:
+        return "local", cfg.sliding_window
+    return "causal", None
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device="cuda") -> Dict[str, Any]:
+    """Random float weights from a seeded torch.Generator, with the
+    reference's shapes and scales (normal * 0.02; output projections
+    * 0.02 / sqrt(2 L); norms zero)."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    dtype = model_dtype(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def dense(shape, scale=0.02):
+        w = torch.randn(shape, generator=gen, device=dev,
+                        dtype=torch.float32)
+        return (w * scale).to(dtype)
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=torch.float32, device=dev)
+
+    d, ff, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out_scale = 0.02 / max(1, 2 * L) ** 0.5
+    params: Dict[str, Any] = {
+        "embed": dense((cfg.vocab, d)),
+        "final_norm": zeros(d),
+        "lm_head": dense((d, cfg.vocab)),
+        "layers": [],
+    }
+    for _ in range(L):
+        attn = {"wq": dense((d, H * dh)), "wk": dense((d, KV * dh)),
+                "wv": dense((d, KV * dh)), "wo": dense((H * dh, d), out_scale)}
+        if cfg.qk_norm:
+            attn["q_norm"] = zeros(dh)
+            attn["k_norm"] = zeros(dh)
+        mlp = {"w_gate": dense((d, ff)), "w_up": dense((d, ff)),
+               "w_down": dense((ff, d), out_scale)}
+        params["layers"].append(
+            {"attn": attn, "mlp": mlp, "ln1": zeros(d), "ln2": zeros(d)})
+    return params
+
+
+def quantize_params(params: Dict[str, Any], cfg: ModelConfig
+                    ) -> Dict[str, Any]:
+    """Export: every weight matrix -> {"w_packed", "scale"} (mode vp).
+
+    On the card each matrix goes through the quant kernel once.  The
+    float tensors are not kept: drop the input tree to free them.
+    """
+    if cfg.quant.mode == "none":
+        return params
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: (quantize_weight(v, cfg.quant)
+                        if k in QUANT_KEYS and isinstance(v, torch.Tensor)
+                        and v.ndim == 2 else walk(v))
+                    for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node
+
+    return walk(params)
+
+
+def init_cache(cfg: ModelConfig, B: int, max_len: int,
+               device="cuda") -> List[dict]:
+    """Per-layer decode caches: packed VP words + per-position f32 scales
+    with `quantize_kv_cache`, else float K/V in the model dtype."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    KV, dh = cfg.n_kv_heads, cfg.head_dim
+    _, window = layer_pattern(cfg)
+    buf = min(max_len, window) if window else max_len
+    caches = []
+    for _ in range(cfg.n_layers):
+        ln = torch.zeros((B,), dtype=torch.int32, device=dev)
+        if cfg.quant.quantize_kv_cache:
+            _, vp = kv_cache_formats(cfg.quant)
+            wdt = storage_dtype(vp)
+            caches.append(dict(
+                k_w=torch.zeros((B, buf, KV, dh), dtype=wdt, device=dev),
+                k_s=torch.zeros((B, buf, 1, 1), dtype=torch.float32,
+                                device=dev),
+                v_w=torch.zeros((B, buf, KV, dh), dtype=wdt, device=dev),
+                v_s=torch.zeros((B, buf, 1, 1), dtype=torch.float32,
+                                device=dev),
+                len=ln))
+        else:
+            dtype = model_dtype(cfg)
+            caches.append(dict(
+                k=torch.zeros((B, buf, KV, dh), dtype=dtype, device=dev),
+                v=torch.zeros((B, buf, KV, dh), dtype=dtype, device=dev),
+                len=ln))
+    return caches
+
+
+def _backbone(params, x, cfg: ModelConfig, positions, caches):
+    pattern, window = layer_pattern(cfg)
+    new_caches = []
+    for p, cache in zip(params["layers"], caches):
+        h, cache = attn_block(rms_norm(x, p["ln1"]), p["attn"], cfg,
+                              positions, pattern, window, cache)
+        x = x + h
+        x = x + swiglu(rms_norm(x, p["ln2"]), p["mlp"], cfg.quant)
+        new_caches.append(cache)
+    return x, new_caches
+
+
+@torch.no_grad()
+def prefill(params, tokens: torch.Tensor, caches, cfg: ModelConfig):
+    """One causal pass over the prompt (B, S) into empty caches ->
+    (last-position logits (B, V) f32, filled caches)."""
+    _check_family(cfg)
+    B, S = tokens.shape
+    x = embed_lookup(tokens, params["embed"], cfg.quant).to(model_dtype(cfg))
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device).expand(B, S)
+    x, caches = _backbone(params, x, cfg, positions, caches)
+    x = rms_norm(x, params["final_norm"])
+    logits = qdot(x[:, -1], params["lm_head"], cfg.quant)
+    return logits.to(torch.float32), caches
+
+
+@torch.no_grad()
+def decode_step(params, token: torch.Tensor, caches, cfg: ModelConfig):
+    """One decode step: token (B, 1) -> (logits (B, V) f32, caches)."""
+    _check_family(cfg)
+    x = embed_lookup(token, params["embed"], cfg.quant).to(model_dtype(cfg))
+    positions = caches[0]["len"][:, None]
+    x, caches = _backbone(params, x, cfg, positions, caches)
+    x = rms_norm(x, params["final_norm"])
+    logits = qdot(x[:, 0], params["lm_head"], cfg.quant)
+    return logits.to(torch.float32), caches

@@ -13,6 +13,10 @@ Run from the root of a checkout.  Phases, each raising on failure:
                over 20 launches (CUDA events, L2 flushed before each),
                the plain version's time, and the library call's time
                where one PyTorch call computes the same function.
+     The MIMO path's kernels (two-plane quantize, VP x VP matmul, fused
+     quantize + matmul) likewise, at the equalizer's shapes: G = 100,000
+     realizations of (16, 64) x (64, 2), and the G = 1 launches of the
+     masked mode at n = 256, (2048, 64) x (64, 256).
   4. serve   - full-width qwen3-0.6b in bf16 with packed VP weights and
                a packed VP KV cache: random weights from seed 0 exported
                by the quant kernel, batch 4 x 128 prompt tokens, 32
@@ -22,7 +26,17 @@ Run from the root of a checkout.  Phases, each raising on failure:
                the same run on the plain path, teacher-forced on the
                kernel path's tokens, in bf16 (held to the plain path's
                own rounding floor, or 2e-2 if larger) and in f32.
-  5. result  - a {"kernels": [...]} line, then the device line last.
+  5. mimo    - the paper's B-VP MIMO equalizer (B = 64 antennas, U = 8
+               users, 16-QAM, Sec. III-A): narrowband ensembles of
+               n = 100,000 channels at 2 dB and 20 dB equalized through
+               the kernels (fused default, unfused, CSPADE 0.5; masked
+               mode at n = 256), BER of float / A-FXP / B-FXP / B-VP, and
+               a wideband band of 64 subcarriers x 1024 realizations in
+               one batched launch.  Launch counts of that run, a profiler
+               check of the equalize calls (hand kernels only, no library
+               GEMM), every kernel-path estimate against the plain path,
+               and equalizations per second.
+  6. result  - a {"kernels": [...]} line, then the device line last.
 
 Exits non-zero without CUDA, and outside a checkout of the repository.
 Imports nothing of JAX and nothing of the JAX package.
@@ -54,7 +68,16 @@ BF16_TOL = 1e-2            # bf16: one rounding of the output (2^-8 rel)
 KERNEL_NAMES = {"vp_quant_packed": "vp_quant_packed_kernel",
                 "vp_dequant_matmul": "vp_dequant_matmul_kernel",
                 "vp_decode_attention": "vp_decode_attention_kernel",
-                "flash_prefill": "flash_prefill_kernel"}
+                "flash_prefill": "flash_prefill_kernel",
+                "vp_quant_planes": "vp_quant_planes_kernel",
+                "vp_matmul": "vp_mm_kernel<VPLoad",
+                "vp_quant_matmul": "vp_mm_kernel<VPQuantLoad"}
+MIMO_G = 100_000           # realizations (paper Sec. III-A)
+MIMO_SHAPE = (16, 64, 2)   # (2U, B) x (B, 2) per realization
+MASKED_N = 256             # masked mode: (n U, B) x (B, n)
+WIDEBAND = (64, 1024)      # subcarriers x realizations
+MIMO_RTOL = 1e-5           # kernel vs plain estimates, f32 sums
+CLI_N = 4096               # realizations per ensemble of the CLI run
 LIBRARY_KERNELS = re.compile(
     r"gemm|cublas|cutlass|xmma|sm90_|sm80_|ampere_|flash_fwd|fmha|"
     r"efficient_attention|scaled_dot_product|cudnn", re.IGNORECASE)
@@ -122,7 +145,9 @@ def main() -> None:
     record = {"device": {"nvidia_smi": smi, "kind": kind},
               "build_s": build_s}
     rows = kernel_phase(torch, peaks, record)
+    rows += mimo_kernel_phase(torch, peaks, record)
     serve_phase(torch, record, rows)
+    mimo_phase(torch, record, rows, smi)
 
     # ---- 5. result --------------------------------------------------------
     if args.json_out:
@@ -464,7 +489,8 @@ def serve_phase(torch, record, rows):
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != expected {expect}")
     for row in rows:
-        row["launches"] = counts[row["name"]]
+        if row["name"] in expect:
+            row["launches"] = counts[row["name"]]
     for lg in logits:
         if not bool(torch.isfinite(lg).all()):
             raise AssertionError("non-finite logits on the kernel path")
@@ -479,7 +505,8 @@ def serve_phase(torch, record, rows):
     names = [n for n, _ in k_pre + k_dec]
     seen = {k: sum(v in n for n in names) for k, v in KERNEL_NAMES.items()}
     want = {"vp_quant_packed": 4 * L, "vp_dequant_matmul": 2 * (7 * L + 1),
-            "vp_decode_attention": L, "flash_prefill": L}
+            "vp_decode_attention": L, "flash_prefill": L,
+            "vp_quant_planes": 0, "vp_matmul": 0, "vp_quant_matmul": 0}
     library = sorted({n for n in names if LIBRARY_KERNELS.search(n)
                       and not any(v in n for v in KERNEL_NAMES.values())})
     print(f"[profile] {len(names)} device kernels in one prefill + one "
@@ -534,6 +561,402 @@ def serve_phase(torch, record, rows):
         bf16_rel_logit_diff=rels, bf16_plain_floor=floor, bf16_limit=limit,
         bf16_token_agreement=agree, f32_rel_logit_diff=rels32,
         f32_token_agreement=agree32)
+
+
+# ---------------------------------------------------------------------------
+# 3b. the MIMO path's kernels
+# ---------------------------------------------------------------------------
+
+def _mimo_operands(torch, gen, G, M, K, N):
+    """AGC-scaled stand-ins for the equalizer's operands: heavy-tailed W
+    rows inside FXP(12,11) and y columns filling FXP(9,1), with exact
+    ties and saturating values in the first realizations."""
+    def t2(*shape):
+        z = torch.randn(shape, generator=gen, device="cuda")
+        c = torch.randn(shape, generator=gen, device="cuda")
+        return z / torch.sqrt(0.5 * (c * c + torch.randn(
+            shape, generator=gen, device="cuda") ** 2))
+    a = (t2(G, M, K) * 0.01).clamp(-1.2, 1.2)
+    b = (t2(G, K, N) * 8.0).clamp(-160.0, 160.0)
+    ks = torch.randint(-2048, 2048, (min(G, 64), M, K), generator=gen,
+                       device="cuda")
+    a[:ks.shape[0]] = ((ks.double() + 0.5) * 2.0 ** -11).float()
+    kb = torch.randint(-256, 256, (min(G, 64), K, N), generator=gen,
+                       device="cuda")
+    b[:kb.shape[0]] = ((kb.double() + 0.5) * 0.5).float()
+    return a.contiguous(), b.contiguous()
+
+
+def mimo_kernel_phase(torch, peaks, record):
+    from repro_torch.core.packing import unpack_vp
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.vp_matmul import vp_matmul_cuda
+    from repro_torch.kernels.vp_quant import (
+        vp_quant_packed_cuda, vp_quant_planes_cuda)
+    from repro_torch.kernels.vp_quant_matmul import vp_quant_matmul_cuda
+    from repro_torch.mimo.equalizer import table1_specs
+
+    bvp = table1_specs()[2]
+    wf, wv, yf, yv = bvp.w_fxp, bvp.w_vp, bvp.y_fxp, bvp.y_vp
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    timer = Timer(torch)
+    lines, rows = [], []
+    G, (M, K, N) = MIMO_G, MIMO_SHAPE
+    a, b = _mimo_operands(torch, gen, G, M, K, N)
+
+    # -- vp_quant_planes: bit-exact -------------------------------------------
+    planes = {}
+    for x, f_, v_, what in ((a, wf, wv, "W"), (b, yf, yv, "y")):
+        got = vp_quant_planes_cuda(x, f_, v_)
+        want = ref.vp_quant_ref(x, f_, v_)
+        for g_, w_, part in zip(got, want, ("significand", "index")):
+            if g_.dtype != w_.dtype or not torch.equal(g_, w_):
+                n = int((g_.to(torch.int32) != w_.to(torch.int32)).sum())
+                raise AssertionError(f"vp_quant_planes {what} {part}: {n} "
+                                     "values differ")
+        planes[what] = got
+    panel = a.reshape(G * M, K)
+    ms = timer(lambda: vp_quant_planes_cuda(panel, wf, wv))
+    plain_ms = timer(lambda: ref.vp_quant_ref(panel, wf, wv))
+    bnd = bound(peaks, panel.numel() * (4 + 1 + 1), 0, "f32")
+    shape = list(panel.shape)
+    _print_line("vp_quant_planes", shape, 0.0, 0.0, ms, plain_ms, bnd, None)
+    lines.append(("vp_quant_planes", shape, ms, plain_ms, bnd, None))
+    rows.append(_row("vp_quant_planes", "vp_quant.cu",
+                     "src/repro/kernels/vp_quant.py:40", shape, 0.0, ms,
+                     plain_ms, bnd, None))
+    print(f"[kernel] vp_quant_planes: bit-exact on the W panel {shape} and "
+          f"the y operand {[G, K, N]}, ties and saturation included")
+
+    # -- vp_matmul / vp_quant_matmul at G = 100,000 ---------------------------
+    words = {"W": vp_quant_packed_cuda(a, wf, wv),
+             "y": vp_quant_packed_cuda(b, yf, yv)}
+    for what, w in words.items():
+        fmt = wv if what == "W" else yv
+        m, i = planes[what]
+        um, ui = unpack_vp(w, fmt)
+        if not (torch.equal(um, m.to(torch.int32))
+                and torch.equal(ui, i.to(torch.int32))):
+            raise AssertionError(f"packed {what} words disagree with planes")
+    a_deq = ref.vp_dequant_ref(*planes["W"], wv)
+    b_deq = ref.vp_dequant_ref(*planes["y"], yv)
+    tiles = MIMO_SHAPE
+    a_act = (torch.rand((G, 1, 1), generator=gen, device="cuda") < 0.5).int()
+    b_act = (torch.rand((G, 1, 1), generator=gen, device="cuda") < 0.5).int()
+    mask_bytes = 4 * (a_act.numel() + b_act.numel())
+    flops = 2 * G * M * K * N
+    fused = vp_quant_matmul_cuda(a, b, wf, wv, yf, yv)
+    cases = {
+        "planes": (lambda: vp_matmul_cuda(*planes["W"], *planes["y"], wv, yv),
+                   lambda: ref.vp_matmul_batched_ref(
+                       *planes["W"], *planes["y"], wv, yv),
+                   G * (M * K * 2 + K * N * 2 + M * N * 4)),
+        "packed": (lambda: vp_matmul_cuda(words["W"], None, words["y"], None,
+                                          wv, yv),
+                   lambda: ref.vp_matmul_batched_packed_ref(
+                       words["W"], words["y"], wv, yv),
+                   G * (M * K * 2 + K * N + M * N * 4)),
+        "planes+masks": (
+            lambda: vp_matmul_cuda(*planes["W"], *planes["y"], wv, yv,
+                                   a_act, b_act, tiles),
+            lambda: ref.vp_matmul_batched_ref(
+                *planes["W"], *planes["y"], wv, yv, a_act, b_act, tiles),
+            G * (M * K * 2 + K * N * 2 + M * N * 4) + mask_bytes),
+    }
+    library_ms = timer(lambda: torch.bmm(a_deq, b_deq))
+    main_mm = None
+    for case, (kern, plain, nbytes) in cases.items():
+        out = kern()
+        err, rel = compare(torch, out, plain(), MIMO_RTOL,
+                           f"vp_matmul {case}")
+        if case != "planes+masks" and not torch.equal(out, fused):
+            raise AssertionError(f"fused kernel differs from quant -> "
+                                 f"vp_matmul ({case}) on the card")
+        ms, plain_ms = timer(kern), timer(plain)
+        bnd = bound(peaks, nbytes, flops, "f32")
+        shape = [G, M, K, N, case]
+        _print_line("vp_matmul", shape, err, rel, ms, plain_ms, bnd,
+                    library_ms)
+        lines.append(("vp_matmul", shape, ms, plain_ms, bnd, library_ms))
+        if case == "packed":
+            main_mm = _row("vp_matmul", "vp_matmul.cu",
+                           "src/repro/kernels/vp_matmul.py:82", shape, err,
+                           ms, plain_ms, bnd, library_ms)
+    rows.append(main_mm)
+    print("[kernel] vp_quant_matmul: bit-identical to vp_quant -> vp_matmul "
+          "on the card (planes and packed words)")
+
+    main_fu = None
+    for case, masks in (("", ()), ("masks", (a_act, b_act, tiles))):
+        def kern():
+            return vp_quant_matmul_cuda(a, b, wf, wv, yf, yv, *masks)
+
+        def plain():
+            return ref.vp_quant_matmul_batched_ref(a, b, wf, wv, yf, yv,
+                                                   *masks)
+        out = kern()
+        err, rel = compare(torch, out, plain(), MIMO_RTOL,
+                           f"vp_quant_matmul {case}")
+        if masks and not torch.equal(out, cases["planes+masks"][0]()):
+            raise AssertionError("masked fused kernel differs from quant -> "
+                                 "masked vp_matmul on the card")
+        ms, plain_ms = timer(kern), timer(plain)
+        nbytes = G * (M * K + K * N + M * N) * 4 + (mask_bytes if masks
+                                                    else 0)
+        bnd = bound(peaks, nbytes, flops, "f32")
+        shape = [G, M, K, N] + ([case] if case else [])
+        _print_line("vp_quant_matmul", shape, err, rel, ms, plain_ms, bnd,
+                    library_ms)
+        lines.append(("vp_quant_matmul", shape, ms, plain_ms, bnd,
+                      library_ms))
+        if main_fu is None:
+            main_fu = _row("vp_quant_matmul", "vp_quant_matmul.cu",
+                           "src/repro/kernels/vp_quant_matmul.py:106", shape,
+                           err, ms, plain_ms, bnd, library_ms)
+    rows.append(main_fu)
+    del a_deq, b_deq, planes, words, fused
+
+    # -- the G = 1 launches of the masked mode: (2048, 64) x (64, 256) -------
+    Mm, Nm = MASKED_N * 8, MASKED_N
+    a1, b1 = _mimo_operands(torch, gen, 1, Mm, K, Nm)
+    a1, b1 = a1[0], b1[0]
+    t1 = (256, 64, 256)
+    a1_act = (torch.rand((Mm // 256, 1), generator=gen, device="cuda")
+              < 0.5).int()
+    b1_act = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    p1 = {"W": vp_quant_planes_cuda(a1, wf, wv),
+          "y": vp_quant_planes_cuda(b1, yf, yv)}
+    w1 = {"W": vp_quant_packed_cuda(a1, wf, wv),
+          "y": vp_quant_packed_cuda(b1, yf, yv)}
+    f1 = vp_quant_matmul_cuda(a1[None], b1[None], wf, wv, yf, yv)[0]
+    deq1 = (ref.vp_dequant_ref(*p1["W"], wv), ref.vp_dequant_ref(*p1["y"], yv))
+    library_ms = timer(lambda: torch.mm(*deq1))
+    out_bytes, flops1 = Mm * Nm * 4, 2 * Mm * K * Nm
+    nbytes1 = {"packed": Mm * K * 2 + K * Nm + out_bytes,
+               "planes+masks": Mm * K * 2 + K * Nm * 2 + out_bytes
+               + 4 * (a1_act.numel() + b1_act.numel()),
+               "fused": (Mm * K + K * Nm) * 4 + out_bytes}
+    for case, kern, plain in (
+            ("packed", lambda: vp_matmul_cuda(
+                w1["W"][None], None, w1["y"][None], None, wv, yv)[0],
+             lambda: ref.vp_matmul_packed_ref(w1["W"], w1["y"], wv, yv)),
+            ("planes+masks", lambda: vp_matmul_cuda(
+                p1["W"][0][None], p1["W"][1][None], p1["y"][0][None],
+                p1["y"][1][None], wv, yv, a1_act[None], b1_act[None], t1)[0],
+             lambda: ref.vp_matmul_ref(*p1["W"], *p1["y"], wv, yv, a1_act,
+                                       b1_act, t1)),
+            ("fused", lambda: vp_quant_matmul_cuda(
+                a1[None], b1[None], wf, wv, yf, yv)[0],
+             lambda: ref.vp_quant_matmul_ref(a1, b1, wf, wv, yf, yv))):
+        out = kern()
+        err, rel = compare(torch, out, plain(), MIMO_RTOL,
+                           f"G = 1 {case} {[Mm, K, Nm]}")
+        if case == "packed" and not torch.equal(out, f1):
+            raise AssertionError("G = 1 fused kernel differs from quant -> "
+                                 "vp_matmul on the card")
+        ms, plain_ms = timer(kern), timer(plain)
+        bnd = bound(peaks, nbytes1[case], flops1, "f32")
+        name = "vp_quant_matmul" if case == "fused" else "vp_matmul"
+        shape = [1, Mm, K, Nm, case]
+        _print_line(name, shape, err, rel, ms, plain_ms, bnd, library_ms)
+        lines.append((name, shape, ms, plain_ms, bnd, library_ms))
+    record["mimo_kernel_lines"] = [
+        dict(name=n, shape=s, ms=m, plain_ms=p, bound_ms=b[0], bound_by=b[1],
+             library_ms=lib) for n, s, m, p, b, lib in lines]
+    print("kernels: vp_quant_planes, vp_matmul, vp_quant_matmul")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# 5. mimo
+# ---------------------------------------------------------------------------
+
+def _delta(before, after):
+    """Launches per kernel between two readings of the counters."""
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def _timed(torch, fn):
+    """(fn(), host seconds) around work that ends in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mimo_phase(torch, record, rows, smi):
+    from repro_torch.kernels import build, ops
+    from repro_torch.mimo.channel import ChannelConfig
+    from repro_torch.mimo.equalizer import equalize_quantized, table1_specs
+    from repro_torch.mimo.mvm_engine import equalize_vp_kernel
+    from repro_torch.mimo.ofdm import (
+        OFDMConfig, WidebandCalibrator, equalize_wideband,
+        make_wideband_ensemble, wideband_ber, wideband_nmse)
+    from repro_torch.mimo.sim import (
+        ber_float, bit_error_rate, calibrate_specs, make_ensemble)
+
+    cfg = ChannelConfig()
+    n = MIMO_G
+    variants = {"fused": {}, "unfused": dict(fused=False),
+                "cspade": dict(cspade_threshold_quantile=0.5)}
+    masked = {"masked": dict(mode="masked"),
+              "masked-fused": dict(mode="masked", fused=True),
+              "masked-cspade": dict(mode="masked",
+                                    cspade_threshold_quantile=0.5)}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    ens, specs, outs, secs, wide = {}, {}, {}, {}, {}
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    # -- the main path: ensembles, equalization through the kernels ----------
+    for snr in (2.0, 20.0):
+        e = ens[snr] = make_ensemble(gen, cfg, n, snr)
+        specs[snr] = calibrate_specs(table1_specs(), e)
+        bvp = specs[snr][2]
+        for name, kw in variants.items():
+            outs[snr, name], secs[snr, name] = _timed(
+                torch, lambda: equalize_vp_kernel(bvp, e.w_beam, e.y_beam,
+                                                  **kw))
+        if snr == 2.0:
+            before = dict(build.LAUNCHES)
+            for name, kw in masked.items():
+                outs[snr, name], secs[snr, name] = _timed(
+                    torch, lambda: equalize_vp_kernel(
+                        bvp, e.w_beam[:MASKED_N], e.y_beam[:MASKED_N], **kw))
+            masked_launches = _delta(before, build.LAUNCHES)
+    S, nw = WIDEBAND
+    wens = make_wideband_ensemble(gen, cfg, OFDMConfig(n_subcarriers=S), nw,
+                                  20.0)
+    wspecs = WidebandCalibrator(table1_specs()[2]).specs_for(wens)
+    before = dict(build.LAUNCHES)
+    wide["s_hat"], wide["s"] = _timed(torch, lambda: equalize_wideband(
+        wspecs, wens.w_beam, wens.y_beam, how="flat"))
+    wide_launches = _delta(before, build.LAUNCHES)
+    counts = dict(build.LAUNCHES)
+    # -------------------------------------------------------------------------
+    expect = {"vp_quant_matmul": 2 + 4 + 1, "vp_quant_packed": 2 * 2 + 4,
+              "vp_matmul": 2 + 2 + 4 + 4, "vp_quant_planes": 2 * 2 + 4}
+    print(f"[mimo] launches on the MIMO path: {counts}; of which the "
+          f"masked mode's G = 1 launches: {masked_launches}")
+    if counts != expect:
+        raise AssertionError(f"MIMO launch counts {counts} != {expect}")
+    if wide_launches != {"vp_quant_matmul": 1}:
+        raise AssertionError(f"wideband band took {wide_launches}, not one "
+                             "fused launch")
+    for row in rows:
+        if row["name"] in ("vp_quant_planes", "vp_matmul", "vp_quant_matmul"):
+            row["launches"] = counts[row["name"]]
+        else:
+            row["mimo_launches"] = counts.get(row["name"], 0)
+
+    # -- kernel path vs plain path, estimates and BER -------------------------
+    errs = {}
+    for (snr, name), got in outs.items():
+        e = ens[snr]
+        kw = {**variants, **masked}[name]
+        sl = slice(0, MASKED_N) if name.startswith("masked") else slice(None)
+        if got.shape != (e.w_beam[sl].shape[0], cfg.U):
+            raise AssertionError(f"{name}: shape {tuple(got.shape)}")
+        with ops.force_backend("ref"):
+            want = equalize_vp_kernel(specs[snr][2], e.w_beam[sl],
+                                      e.y_beam[sl], **kw)
+        err, rel = compare(torch, torch.view_as_real(got),
+                           torch.view_as_real(want), MIMO_RTOL,
+                           f"equalize {name} {snr} dB")
+        errs[f"{name}@{snr:g}dB"] = rel
+    print("[mimo] kernel path vs plain path, max|diff| / max|plain|: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    bers = {}
+    for snr in (2.0, 20.0):
+        e = ens[snr]
+        b = bers[snr] = {"float": ber_float(e, True)}
+        for spec in specs[snr]:
+            w, y = ((e.w_beam, e.y_beam) if spec.beamspace
+                    else (e.w_ant, e.y_ant))
+            b[spec.name] = bit_error_rate(equalize_quantized(spec, w, y),
+                                          e.bits)
+        b["B-VP kernel"] = bit_error_rate(outs[snr, "fused"], e.bits)
+        print(f"[mimo] BER at {snr:g} dB, n = {n}: "
+              + ", ".join(f"{k} {v:.6f}" for k, v in b.items()))
+        if abs(b["B-VP kernel"] - b["B-VP"]) > 1e-5:
+            raise AssertionError(
+                f"B-VP BER through the kernels {b['B-VP kernel']} != the "
+                f"fake-quant model's {b['B-VP']} at {snr:g} dB")
+    with ops.force_backend("ref"):
+        w_plain = equalize_wideband(wspecs, wens.w_beam, wens.y_beam)
+    _, w_rel = compare(torch, torch.view_as_real(wide["s_hat"]),
+                       torch.view_as_real(w_plain), MIMO_RTOL, "wideband")
+    wnmse = wideband_nmse(wide["s_hat"], wens.s)
+    wber = wideband_ber(wide["s_hat"], wens.bits)
+    print(f"[mimo] wideband S = {S} x n = {nw}: one vp_quant_matmul launch "
+          f"of G = {S * nw}; kernel vs plain {w_rel:.2e}; NMSE {wnmse:.3e}, "
+          f"BER {wber:.6f}")
+
+    # -- profiler: the default equalize call and the wideband call ----------
+    e, bvp = ens[2.0], specs[2.0][2]
+    _, k_nb = _profile(torch, "narrowband equalize (fused, n = 100000)",
+                       lambda: equalize_vp_kernel(bvp, e.w_beam, e.y_beam))
+    _, k_un = _profile(torch, "narrowband equalize (unfused)",
+                       lambda: equalize_vp_kernel(bvp, e.w_beam, e.y_beam,
+                                                  fused=False))
+    _, k_wb = _profile(torch, f"wideband equalize (S = {S}, n = {nw})",
+                       lambda: equalize_wideband(wspecs, wens.w_beam,
+                                                 wens.y_beam))
+    names = [nm for nm, _ in k_nb + k_un + k_wb]
+    seen = {k: sum(v in nm for nm in names) for k, v in KERNEL_NAMES.items()}
+    want = {"vp_quant_packed": 2, "vp_dequant_matmul": 0,
+            "vp_decode_attention": 0, "flash_prefill": 0,
+            "vp_quant_planes": 0, "vp_matmul": 1, "vp_quant_matmul": 2}
+    library = sorted({nm for nm in names if LIBRARY_KERNELS.search(nm)
+                      and not any(v in nm for v in KERNEL_NAMES.values())})
+    print(f"[profile] equalize calls: hand kernels {seen}")
+    if seen != want:
+        raise AssertionError(f"profiled launches {seen} != expected {want}")
+    if library:
+        raise AssertionError(f"library kernels in the equalize calls: "
+                             f"{library}")
+    print("[profile] no library GEMM in the equalize calls")
+
+    rates = {f"{name}@{snr:g}dB": (n if not name.startswith("masked")
+                                   else MASKED_N) / t
+             for (snr, name), t in secs.items()}
+    rates["wideband"] = S * nw / wide["s"]
+    print(f"[mimo] equalizations/s in the counted run (host clock around "
+          f"each call, first call of each variant included; {smi}): "
+          + ", ".join(f"{k} {v:.0f}" for k, v in rates.items()))
+    steady = {}
+    for name, fn, count in (
+            ("fused", lambda: equalize_vp_kernel(bvp, e.w_beam, e.y_beam), n),
+            ("unfused", lambda: equalize_vp_kernel(bvp, e.w_beam, e.y_beam,
+                                                   fused=False), n),
+            ("cspade", lambda: equalize_vp_kernel(
+                bvp, e.w_beam, e.y_beam, cspade_threshold_quantile=0.5), n),
+            ("wideband", lambda: equalize_wideband(wspecs, wens.w_beam,
+                                                   wens.y_beam), S * nw)):
+        t = statistics.median(_timed(torch, fn)[1] for _ in range(5))
+        steady[name] = count / t
+    print(f"[mimo] equalizations/s, median of 5 warm calls ({smi}): "
+          + ", ".join(f"{k} {v:.0f}" for k, v in steady.items()))
+    # -- the CLI a user runs, on the card (outside the counted run) --------
+    from repro_torch.launch import equalize as equalize_cli
+    cli = equalize_cli.main(["--n", str(CLI_N)])
+    if not (cli["device"].startswith("cuda")
+            and abs(cli["ber"]["B-VP kernel"] - cli["ber"]["B-VP"]) <= 1e-3
+            and all(0.0 <= v < 0.05 for v in cli["ber"].values())):
+        raise AssertionError(f"equalize CLI on the card: {cli['ber']}")
+    print(f"[mimo] CLI python -m repro_torch.launch.equalize --n {CLI_N} on "
+          f"{cli['device']}: BER {cli['ber']}, bit gap {cli['bit_gap']:.3f}")
+    record["mimo"] = dict(n=n, launches=counts,
+                          masked_launches=masked_launches, rel_err=errs, ber={
+        f"{k:g}dB": v for k, v in bers.items()}, wideband=dict(
+        S=S, n=nw, rel_err=w_rel, nmse=wnmse, ber=wber),
+        equalize_s={f"{nm}@{snr:g}dB": t for (snr, nm), t in secs.items()},
+        equalizations_per_s=rates, equalizations_per_s_warm=steady,
+        profiled=seen)
 
 
 def _profile(torch, what, fn):

@@ -43,3 +43,11 @@ def fxp2vp(raw: torch.Tensor, fxp: FXPFormat, vp: VPFormat
     m = torch.where(valid_any, m_sel, m_last).to(torch.int32)
     i = torch.where(valid_any, i_sel, vp.K - 1).to(torch.int32)
     return m, i
+
+
+def vp_to_float(m: torch.Tensor, i: torch.Tensor, vp: VPFormat,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Exact real value of VP numbers: m * 2^(-f_i) (eq. 1)."""
+    scales = torch.tensor([2.0 ** (-fk) for fk in vp.f], dtype=dtype,
+                          device=m.device)
+    return m.to(dtype) * scales[i.long()]

@@ -32,6 +32,18 @@ class FXPFormat:
     def raw_max(self) -> int:
         return (1 << (self.W - 1)) - 1
 
+    @property
+    def scale(self) -> float:
+        return 2.0 ** (-self.F)
+
+    @property
+    def min(self) -> float:
+        return self.raw_min * self.scale
+
+    @property
+    def max(self) -> float:
+        return self.raw_max * self.scale
+
     def __repr__(self) -> str:
         return f"FXP({self.W},{self.F})"
 

@@ -16,3 +16,19 @@ def fxp_quantize(x: torch.Tensor, fmt: FXPFormat) -> torch.Tensor:
     raw = torch.round(x.to(dtype) * (2.0 ** fmt.F))
     raw = torch.clamp(raw, fmt.raw_min, fmt.raw_max)
     return raw.to(torch.int32)
+
+
+def fxp_to_float(raw: torch.Tensor, fmt: FXPFormat,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Real value of raw FXP integers (an exact power-of-two scale)."""
+    return raw.to(dtype) * (2.0 ** (-fmt.F))
+
+
+def fxp_saturate(raw: torch.Tensor, fmt: FXPFormat) -> torch.Tensor:
+    """Clip raw integers into the W-bit two's-complement range."""
+    return torch.clamp(raw, fmt.raw_min, fmt.raw_max).to(torch.int32)
+
+
+def fxp_quantize_value(x: torch.Tensor, fmt: FXPFormat) -> torch.Tensor:
+    """Quantize-dequantize: nearest representable FXP real value (f32)."""
+    return fxp_to_float(fxp_quantize(x, fmt), fmt)

@@ -1,4 +1,4 @@
-"""Serving-path kernels: CUDA sources (csrc/), their wrappers, the plain
+"""The port's kernels: CUDA sources (csrc/), their wrappers, the plain
 PyTorch versions (ref.py) and the dispatching ops (ops.py).
 
 Nothing is built or loaded at import: a kernel library is compiled by

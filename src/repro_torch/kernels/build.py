@@ -58,6 +58,7 @@ class QuantFmtC(ctypes.Structure):
 _SIGNATURES = {
     "vp_quant": {
         "vp_quant_packed_launch": [_P, _P, _LL, _I, _P, _P],
+        "vp_quant_planes_launch": [_P, _P, _I, _P, _LL, _P, _P],
     },
     "vp_dequant_matmul": {
         "vp_dequant_matmul_launch":
@@ -67,6 +68,13 @@ _SIGNATURES = {
         "vp_decode_attention_launch":
             [_P, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_P, _P],
         "flash_prefill_launch": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+    },
+    "vp_matmul": {
+        "vp_matmul_launch":
+            [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P] + [_I] * 7 + [_P],
+    },
+    "vp_quant_matmul": {
+        "vp_quant_matmul_launch": [_P] * 7 + [_I] * 7 + [_P],
     },
 }
 SOURCES = tuple(_SIGNATURES)

@@ -1,0 +1,34 @@
+// Fused quantize + VP matmul: float (G, M, K) x float (G, K, N) -> (G, M,
+// N) f32, with optional CSPADE tile-activity flags.
+//
+// Replaces repro/kernels/vp_quant_matmul.py:
+// vp_quant_matmul_batched_pallas and, as its G = 1 launch,
+// vp_quant_matmul_pallas.  Each float operand element runs the Fig. 3
+// cascade (vp_common.cuh:vp_quantize) and is dequantized in registers as
+// it is staged, so no quantized plane reaches device memory.  The body
+// is vp_common.cuh:vp_mm_kernel, the one vp_matmul.cu runs, with the
+// quantizing loader VPQuantLoad: same tiling, same FMA order, same exact
+// m * 2^-f values, so the result is bit for bit the quantize kernel
+// followed by vp_matmul.
+//
+// Bound: bytes.  Per realization of the batched MVM it reads 1024 + 128
+// f32 operands and writes 32 f32 sums: 4096 FLOPs for 4736 bytes, plus a
+// few dozen integer operations per operand element for the cascade,
+// still well below the card's integer rate.  Design as in vp_matmul.cu:
+// one warp per realization's 16 x 2 output, each operand element read
+// and quantized once per warp.
+#include "vp_common.cuh"
+
+// a (G, M, K), b (G, K, N) contiguous f32 with their quantizer formats;
+// out, a_act, b_act as in vp_matmul_launch.  Returns the CUDA error.
+extern "C" int vp_quant_matmul_launch(const void* a, const QuantFmt* qa,
+                                      const void* b, const QuantFmt* qb,
+                                      void* out, const int* a_act,
+                                      const int* b_act, int G, int M, int K,
+                                      int N, int bm, int bk, int bn,
+                                      void* stream) {
+  const VPQuantLoad la{(const float*)a, *qa};
+  const VPQuantLoad lb{(const float*)b, *qb};
+  return vp_mm_launch(la, lb, out, a_act, b_act, G, M, K, N, bm, bk, bn,
+                      (cudaStream_t)stream);
+}

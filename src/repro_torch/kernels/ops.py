@@ -1,4 +1,4 @@
-"""Public ops of the serving path: dispatch between kernel and plain version.
+"""Public ops: dispatch between kernel and plain version.
 
 Counterpart of `repro.kernels.ops` with the same argument order.  Each op
 picks its path from the device of its input tensors (the port of
@@ -19,10 +19,15 @@ from typing import Iterator, Optional
 import torch
 
 from repro_torch.core.formats import FXPFormat, VPFormat
-from . import ref
+from repro_torch.core.packing import unpack_vp
+from repro_torch.core.vp_tensor import significand_dtype
+from . import autotune, ref
+from .autotune import Blocks
 from .vp_attention import flash_prefill_cuda, vp_decode_attention_cuda
 from .vp_dequant_matmul import vp_dequant_matmul_cuda
-from .vp_quant import vp_quant_packed_cuda
+from .vp_matmul import vp_matmul_cuda
+from .vp_quant import vp_quant_packed_cuda, vp_quant_planes_cuda
+from .vp_quant_matmul import vp_quant_matmul_cuda
 
 # Set only by `force_backend`.
 _FORCED: list = []
@@ -41,9 +46,11 @@ def force_backend(backend: str) -> Iterator[None]:
         _FORCED.pop()
 
 
-def _use_kernel(*tensors: torch.Tensor) -> bool:
-    """True for CUDA inputs, False for CPU inputs or a forced "ref"."""
-    devices = {t.device for t in tensors}
+def uses_kernel(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether ops on these tensors launch the CUDA kernels: True for
+    CUDA inputs, False for CPU inputs or a forced "ref".  None entries
+    (absent optional inputs) are skipped."""
+    devices = {t.device for t in tensors if t is not None}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
     kind = devices.pop().type
@@ -53,17 +60,175 @@ def _use_kernel(*tensors: torch.Tensor) -> bool:
 
 
 def vp_quant(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
-             packed: bool = True) -> torch.Tensor:
-    """float tensor (any rank) -> packed VP words of the same shape.
+             packed: bool = False):
+    """float tensor (any rank) -> VP-quantized planes of the same shape.
 
-    Only the packed layout is ported; the two-plane layout waits for a
-    later slice.
+    ``packed=False``: (significand of `significand_dtype(vp.M)`, uint8
+    index) planes.  ``packed=True``: one plane of packed words
+    (`core.packing` layout), the layout every matmul op accepts as
+    (words, None).
     """
-    if not packed:
-        raise NotImplementedError("the two-plane VP layout is not ported")
-    if _use_kernel(x):
-        return vp_quant_packed_cuda(x.to(torch.float32), fxp, vp)
-    return ref.vp_quant_packed_ref(x, fxp, vp)
+    if uses_kernel(x):
+        x32 = x.to(torch.float32)
+        if packed:
+            return vp_quant_packed_cuda(x32, fxp, vp)
+        return vp_quant_planes_cuda(x32, fxp, vp)
+    if packed:
+        return ref.vp_quant_packed_ref(x, fxp, vp)
+    return ref.vp_quant_ref(x, fxp, vp)
+
+
+def _check_masks(a_act, b_act, M: int, K: int, N: int, blocks: Blocks):
+    """Validate optional CSPADE masks against the (bm, bk, bn) tile grid."""
+    if (a_act is None) != (b_act is None):
+        raise ValueError(
+            "CSPADE masks come in pairs: pass both a_act and b_act or neither")
+    if a_act is None:
+        return
+    bm, bk, bn = blocks
+    if M % bm or K % bk or N % bn:
+        raise ValueError("CSPADE masks require tile-aligned operand shapes")
+    want_a, want_b = (M // bm, K // bk), (K // bk, N // bn)
+    if tuple(a_act.shape) != want_a or tuple(b_act.shape) != want_b:
+        raise ValueError(
+            f"CSPADE mask shapes {tuple(a_act.shape)}/{tuple(b_act.shape)} "
+            f"do not match the blocks={blocks} tile grid "
+            f"(want {want_a}/{want_b}); rebuild the masks on this grid")
+
+
+def _check_masks_batched(a_act, b_act, G: int, M: int, K: int, N: int,
+                         blocks: Blocks):
+    """Validate optional batched CSPADE masks against the (G, tile) grid."""
+    if (a_act is None) != (b_act is None):
+        raise ValueError(
+            "CSPADE masks come in pairs: pass both a_act and b_act or neither")
+    if a_act is None:
+        return
+    bm, bk, bn = blocks
+    if M % bm or K % bk or N % bn:
+        raise ValueError("CSPADE masks require tile-aligned operand shapes")
+    want_a = (G, M // bm, K // bk)
+    want_b = (G, K // bk, N // bn)
+    if tuple(a_act.shape) != want_a or tuple(b_act.shape) != want_b:
+        raise ValueError(
+            f"batched CSPADE mask shapes {tuple(a_act.shape)}/"
+            f"{tuple(b_act.shape)} do not match the blocks={blocks} grid "
+            f"(want {want_a}/{want_b}); rebuild the masks on this grid")
+
+
+def _blocks(blocks: Optional[Blocks], M: int, K: int, N: int) -> Blocks:
+    """The tile grid: explicit `blocks`, else the shape-clamped heuristic.
+    Only CSPADE masks depend on it; the unmasked math is tile-free."""
+    if blocks is not None:
+        return tuple(int(b) for b in blocks)
+    return autotune.heuristic_blocks(M, K, N)
+
+
+def _unpack_pair(x_m, x_i, fmt: VPFormat):
+    """Either layout -> planes: (words, None) is unpacked to a
+    (significand, uint8 index) pair, planes pass through."""
+    if x_i is None:
+        m, i = unpack_vp(x_m, fmt)
+        return m.to(significand_dtype(fmt.M)), i.to(torch.uint8)
+    return x_m, x_i
+
+
+def _require_f32(out_dtype: torch.dtype, what: str) -> None:
+    if out_dtype != torch.float32:
+        raise ValueError(f"the {what} kernel writes f32, got out_dtype "
+                         f"{out_dtype}")
+
+
+def vp_matmul_batched(a_m, a_i, b_m, b_i, a_fmt: VPFormat, b_fmt: VPFormat,
+                      a_act=None, b_act=None,
+                      blocks: Optional[Blocks] = None,
+                      out_dtype: torch.dtype = torch.float32
+                      ) -> torch.Tensor:
+    """(G, M, K) x (G, K, N) VP matmul, one program per batch element.
+
+    Operands are (significand, index) planes or packed words (pass the
+    words as `a_m` / `b_m` with `a_i` / `b_i` None); a packed operand
+    beside a plane operand is unpacked to planes first.  CSPADE masks
+    are per (batch, tile) on the `blocks` grid: a_act (G, M/bm, K/bk),
+    b_act (G, K/bk, N/bn).
+    """
+    G, M, K = a_m.shape
+    N = b_m.shape[2]
+    blocks = _blocks(blocks, M, K, N)
+    _check_masks_batched(a_act, b_act, G, M, K, N, blocks)
+    if not uses_kernel(a_m, a_i, b_m, b_i, a_act, b_act):
+        if a_i is None and b_i is None:
+            return ref.vp_matmul_batched_packed_ref(
+                a_m, b_m, a_fmt, b_fmt, a_act=a_act, b_act=b_act,
+                tiles=blocks, out_dtype=out_dtype)
+        return ref.vp_matmul_batched_ref(
+            *_unpack_pair(a_m, a_i, a_fmt), *_unpack_pair(b_m, b_i, b_fmt),
+            a_fmt, b_fmt, a_act=a_act, b_act=b_act, tiles=blocks,
+            out_dtype=out_dtype)
+    _require_f32(out_dtype, "vp_matmul")
+    if (a_i is None) != (b_i is None):
+        a_m, a_i = _unpack_pair(a_m, a_i, a_fmt)
+        b_m, b_i = _unpack_pair(b_m, b_i, b_fmt)
+    return vp_matmul_cuda(a_m, a_i, b_m, b_i, a_fmt, b_fmt, a_act, b_act,
+                          tiles=blocks)
+
+
+def vp_quant_matmul_batched(a, b, a_fxp: FXPFormat, a_vp: VPFormat,
+                            b_fxp: FXPFormat, b_vp: VPFormat,
+                            a_act=None, b_act=None,
+                            blocks: Optional[Blocks] = None,
+                            out_dtype: torch.dtype = torch.float32
+                            ) -> torch.Tensor:
+    """Fused quantize + matmul over (G, M, K) x (G, K, N) floats: one
+    launch for the whole batch, numerically `vp_quant` then
+    `vp_matmul_batched`."""
+    G, M, K = a.shape
+    N = b.shape[2]
+    blocks = _blocks(blocks, M, K, N)
+    _check_masks_batched(a_act, b_act, G, M, K, N, blocks)
+    if not uses_kernel(a, b, a_act, b_act):
+        return ref.vp_quant_matmul_batched_ref(
+            a, b, a_fxp, a_vp, b_fxp, b_vp, a_act=a_act, b_act=b_act,
+            tiles=blocks, out_dtype=out_dtype)
+    _require_f32(out_dtype, "vp_quant_matmul")
+    return vp_quant_matmul_cuda(
+        a.to(torch.float32), b.to(torch.float32), a_fxp, a_vp, b_fxp, b_vp,
+        a_act, b_act, tiles=blocks)
+
+
+def _one(x):
+    """A batch of one (None stays None)."""
+    return None if x is None else x[None]
+
+
+def vp_matmul(a_m, a_i, b_m, b_i, a_fmt: VPFormat, b_fmt: VPFormat,
+              a_act=None, b_act=None, blocks: Optional[Blocks] = None,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(M, K) x (K, N) VP matmul; CSPADE masks optional (grid `blocks`):
+    `vp_matmul_batched` on a batch of one (on the card, the G = 1 launch
+    of the batched kernel)."""
+    M, K = a_m.shape
+    N = b_m.shape[1]
+    blocks = _blocks(blocks, M, K, N)
+    _check_masks(a_act, b_act, M, K, N, blocks)
+    return vp_matmul_batched(
+        a_m[None], _one(a_i), b_m[None], _one(b_i), a_fmt, b_fmt,
+        _one(a_act), _one(b_act), blocks, out_dtype)[0]
+
+
+def vp_quant_matmul(a, b, a_fxp: FXPFormat, a_vp: VPFormat,
+                    b_fxp: FXPFormat, b_vp: VPFormat,
+                    a_act=None, b_act=None, blocks: Optional[Blocks] = None,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Fused float -> VP quantize + (M, K) x (K, N) matmul:
+    `vp_quant_matmul_batched` on a batch of one."""
+    M, K = a.shape
+    N = b.shape[1]
+    blocks = _blocks(blocks, M, K, N)
+    _check_masks(a_act, b_act, M, K, N, blocks)
+    return vp_quant_matmul_batched(
+        a[None], b[None], a_fxp, a_vp, b_fxp, b_vp, _one(a_act),
+        _one(b_act), blocks, out_dtype)[0]
 
 
 def vp_dequant_matmul(x: torch.Tensor, w: torch.Tensor, w_fmt: VPFormat,
@@ -76,7 +241,7 @@ def vp_dequant_matmul(x: torch.Tensor, w: torch.Tensor, w_fmt: VPFormat,
         raise ValueError(f"bad matmul shapes x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}")
     out_dtype = x.dtype if out_dtype is None else out_dtype
-    if _use_kernel(x, w):
+    if uses_kernel(x, w):
         return vp_dequant_matmul_cuda(x, w, w_fmt, out_dtype)
     return ref.vp_dequant_matmul_ref(x, w, w_fmt, out_dtype=out_dtype)
 
@@ -90,7 +255,7 @@ def vp_decode_attention(q, k_w, v_w, k_s, v_s, lengths, fmt: VPFormat,
     Only positions in the valid span are read (past `lengths`, outside
     `window`, or past the `rolling` ring's fill level are skipped).
     """
-    if not _use_kernel(q, k_w, v_w, k_s, v_s, lengths):
+    if not uses_kernel(q, k_w, v_w, k_s, v_s, lengths):
         return ref.vp_decode_attention_ref(
             q, k_w, v_w, k_s, v_s, lengths, fmt, window=window,
             rolling=rolling)
@@ -115,7 +280,7 @@ def flash_prefill(q, k, v, pattern: str = "causal",
     if pattern in ("causal", "local") and Sq != Sk:
         raise ValueError(
             f"causal/local prefill requires Sq == Sk, got {Sq} != {Sk}")
-    if not _use_kernel(q, k, v):
+    if not uses_kernel(q, k, v):
         return ref.flash_prefill_ref(q, k, v, pattern=pattern, window=window)
     dh = q.shape[-1]
     qs = q * torch.tensor(dh ** -0.5, dtype=q.dtype, device=q.device)

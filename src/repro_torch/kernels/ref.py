@@ -1,5 +1,7 @@
-"""Plain PyTorch versions of the four main-path kernels (port of the
-matching oracles in `repro.kernels.ref`).
+"""Plain PyTorch versions of the port's kernels (port of the matching
+oracles in `repro.kernels.ref`): the serving path's packed quantize,
+matmul and attention, and the MIMO path's two-plane quantize, VP x VP
+matmuls (with CSPADE tile muting) and fused quantize + matmul.
 
 `ops.py` runs these for CPU tensors, and inside `ops.force_backend("ref")`
 on the card; the CPU tests hold them against the JAX package, and
@@ -7,16 +9,25 @@ on the card; the CPU tests hold them against the JAX package, and
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.convert import fxp2vp
+from repro_torch.core.convert import fxp2vp, vp_to_float
 from repro_torch.core.formats import FXPFormat, VPFormat
 from repro_torch.core.fxp import fxp_quantize
-from repro_torch.core.packing import dequant_words, pack_vp
+from repro_torch.core.packing import dequant_words, pack_vp, unpack_vp
+from repro_torch.core.vp_tensor import significand_dtype
 
 NEG_INF = -1e30
+
+
+def vp_quant_ref(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float -> (significand, uint8 index) planes through the FXP grid;
+    the significand plane is `significand_dtype(vp.M)`."""
+    m, i = fxp2vp(fxp_quantize(x, fxp), fxp, vp)
+    return m.to(significand_dtype(vp.M)), i.to(torch.uint8)
 
 
 def vp_quant_packed_ref(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat
@@ -24,6 +35,78 @@ def vp_quant_packed_ref(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat
     """float -> packed VP words (`core.packing` layout, one plane)."""
     m, i = fxp2vp(fxp_quantize(x, fxp), fxp, vp)
     return pack_vp(m, i, vp)
+
+
+def vp_dequant_ref(m: torch.Tensor, i: torch.Tensor, vp: VPFormat,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(significand, index) -> real values m * 2^-f_i."""
+    return vp_to_float(m, i, vp, dtype)
+
+
+def tile_activity(x_abs_max: torch.Tensor, threshold) -> torch.Tensor:
+    """CSPADE tile-activity flag: a tile is loud if its max magnitude
+    reaches the threshold (paper Sec. IV-A, tile-granular adaptation)."""
+    return x_abs_max >= threshold
+
+
+def cspade_tile_masks_batched(a_deq, b_deq, bm: int, bk: int, bn: int,
+                              thresh_a, thresh_b):
+    """`cspade_tile_masks` with a leading batch axis: A (G, M, K), B (G,
+    K, N) -> (a_act (G, M/bm, K/bk), b_act (G, K/bk, N/bn)) int32."""
+    G, M, K = a_deq.shape
+    N = b_deq.shape[2]
+    a_tiles = a_deq.abs().reshape(G, M // bm, bm, K // bk, bk).amax((2, 4))
+    b_tiles = b_deq.abs().reshape(G, K // bk, bk, N // bn, bn).amax((2, 4))
+    return (tile_activity(a_tiles, thresh_a).to(torch.int32),
+            tile_activity(b_tiles, thresh_b).to(torch.int32))
+
+
+def vp_matmul_batched_ref(a_m, a_i, b_m, b_i, a_fmt: VPFormat,
+                          b_fmt: VPFormat, a_act=None, b_act=None,
+                          tiles: Tuple[int, int, int] = (128, 128, 128),
+                          out_dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
+    """(G, M, K) x (G, K, N) -> (G, M, N): `vp_matmul_ref` per batch
+    element, with the muting per (batch, tile pair)."""
+    a = vp_to_float(a_m, a_i, a_fmt, out_dtype)
+    b = vp_to_float(b_m, b_i, b_fmt, out_dtype)
+    if a_act is None:
+        return torch.bmm(a, b)
+    bm, bk, bn = tiles
+    G, M, K = a.shape
+    N = b.shape[2]
+    nm, nk, nn = M // bm, K // bk, N // bn
+    keep = (a_act[:, :, :, None] | b_act[:, None, :, :]).to(out_dtype)
+    a_t = a.reshape(G, nm, bm, nk, bk).permute(0, 1, 3, 2, 4)
+    b_t = b.reshape(G, nk, bk, nn, bn).permute(0, 1, 3, 2, 4)
+    prod = torch.einsum("gxyab,gyzbc->gxyzac", a_t, b_t)
+    out = (prod * keep[:, :, :, :, None, None]).sum(2)
+    return out.permute(0, 1, 3, 2, 4).reshape(G, M, N)
+
+
+def vp_matmul_batched_packed_ref(a_w, b_w, a_fmt: VPFormat, b_fmt: VPFormat,
+                                 a_act=None, b_act=None,
+                                 tiles: Tuple[int, int, int] = (128, 128, 128),
+                                 out_dtype: torch.dtype = torch.float32
+                                 ) -> torch.Tensor:
+    """Batched packed-word matmul: unpack, then `vp_matmul_batched_ref`."""
+    return vp_matmul_batched_ref(
+        *unpack_vp(a_w, a_fmt), *unpack_vp(b_w, b_fmt), a_fmt, b_fmt,
+        a_act=a_act, b_act=b_act, tiles=tiles, out_dtype=out_dtype)
+
+
+def vp_quant_matmul_batched_ref(a, b, a_fxp: FXPFormat, a_vp: VPFormat,
+                                b_fxp: FXPFormat, b_vp: VPFormat,
+                                a_act=None, b_act=None,
+                                tiles: Tuple[int, int, int] = (128, 128, 128),
+                                out_dtype: torch.dtype = torch.float32
+                                ) -> torch.Tensor:
+    """Batched fused quantize + matmul: quantize, then the batched
+    matmul."""
+    return vp_matmul_batched_ref(
+        *vp_quant_ref(a, a_fxp, a_vp), *vp_quant_ref(b, b_fxp, b_vp),
+        a_vp, b_vp, a_act=a_act, b_act=b_act, tiles=tiles,
+        out_dtype=out_dtype)
 
 
 def vp_dequant_matmul_ref(x: torch.Tensor, w: torch.Tensor, w_fmt: VPFormat,
@@ -37,6 +120,54 @@ def vp_dequant_matmul_ref(x: torch.Tensor, w: torch.Tensor, w_fmt: VPFormat,
     """
     deq = dequant_words(w, w_fmt, torch.float32)
     return (x.to(torch.float32) @ deq).to(out_dtype)
+
+
+def _one(x):
+    """A batch of one (None stays None)."""
+    return None if x is None else x[None]
+
+
+def cspade_tile_masks(a_deq, b_deq, bm: int, bk: int, bn: int,
+                      thresh_a, thresh_b):
+    """Per-tile activity of A (M, K) and B (K, N) on the (bm, bk, bn)
+    grid: (a_act (M/bm, K/bk), b_act (K/bk, N/bn)) int32 flags."""
+    a_act, b_act = cspade_tile_masks_batched(
+        a_deq[None], b_deq[None], bm, bk, bn, thresh_a, thresh_b)
+    return a_act[0], b_act[0]
+
+
+def vp_matmul_ref(a_m, a_i, b_m, b_i, a_fmt: VPFormat, b_fmt: VPFormat,
+                  a_act=None, b_act=None,
+                  tiles: Tuple[int, int, int] = (128, 128, 128),
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(M, K) x (K, N) VP matmul: `vp_matmul_batched_ref` on a batch of
+    one, as the kernel runs it."""
+    return vp_matmul_batched_ref(
+        a_m[None], a_i[None], b_m[None], b_i[None], a_fmt, b_fmt,
+        _one(a_act), _one(b_act), tiles, out_dtype)[0]
+
+
+def vp_matmul_packed_ref(a_w, b_w, a_fmt: VPFormat, b_fmt: VPFormat,
+                         a_act=None, b_act=None,
+                         tiles: Tuple[int, int, int] = (128, 128, 128),
+                         out_dtype: torch.dtype = torch.float32
+                         ) -> torch.Tensor:
+    """Packed-word (M, K) x (K, N) matmul on a batch of one."""
+    return vp_matmul_batched_packed_ref(
+        a_w[None], b_w[None], a_fmt, b_fmt, _one(a_act), _one(b_act),
+        tiles, out_dtype)[0]
+
+
+def vp_quant_matmul_ref(a, b, a_fxp: FXPFormat, a_vp: VPFormat,
+                        b_fxp: FXPFormat, b_vp: VPFormat,
+                        a_act=None, b_act=None,
+                        tiles: Tuple[int, int, int] = (128, 128, 128),
+                        out_dtype: torch.dtype = torch.float32
+                        ) -> torch.Tensor:
+    """Fused quantize + (M, K) x (K, N) matmul on a batch of one."""
+    return vp_quant_matmul_batched_ref(
+        a[None], b[None], a_fxp, a_vp, b_fxp, b_vp, _one(a_act),
+        _one(b_act), tiles, out_dtype)[0]
 
 
 def decode_attention_ref(q, k_cache, v_cache, cache_len,

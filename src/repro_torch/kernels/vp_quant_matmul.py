@@ -1,0 +1,52 @@
+"""Wrapper of the fused quantize + matmul kernel (csrc/vp_quant_matmul.cu).
+
+Replaces `repro/kernels/vp_quant_matmul.py:vp_quant_matmul_batched_pallas`
+and, as its G = 1 launch, `vp_quant_matmul_pallas`.  The plain versions
+are `ref.vp_quant_matmul_batched_ref` / `ref.vp_quant_matmul_ref`;
+dispatch lives in `ops.vp_quant_matmul` and `ops.vp_quant_matmul_batched`.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.formats import FXPFormat, VPFormat
+from . import build
+from .vp_matmul import mask_args
+
+
+def vp_quant_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
+                         a_fxp: FXPFormat, a_vp: VPFormat,
+                         b_fxp: FXPFormat, b_vp: VPFormat,
+                         a_act: Optional[torch.Tensor] = None,
+                         b_act: Optional[torch.Tensor] = None,
+                         tiles: Tuple[int, int, int] = (0, 0, 0)
+                         ) -> torch.Tensor:
+    """f32 (G, M, K) x f32 (G, K, N) on CUDA -> (G, M, N) f32, both
+    operands VP-quantized in the kernel; masks as in `vp_matmul_cuda`."""
+    if not (a.is_cuda and b.device == a.device):
+        raise ValueError("vp_quant_matmul kernel takes CUDA tensors on one "
+                         "device")
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise ValueError(f"vp_quant_matmul kernel takes f32 operands, got "
+                         f"{a.dtype} and {b.dtype}")
+    a, b = a.contiguous(), b.contiguous()
+    G, M, K = a.shape
+    N = b.shape[2]
+    out = torch.empty((G, M, N), dtype=torch.float32, device=a.device)
+    if out.numel() == 0:
+        return out
+    _flags, (pa, pb, bm, bk, bn) = mask_args(a_act, b_act, tiles, a.device)
+    lib = build.library("vp_quant_matmul")
+    qa = build.quant_fmt_struct(a_fxp, a_vp)
+    qb = build.quant_fmt_struct(b_fxp, b_vp)
+    with torch.cuda.device(a.device):
+        err = lib.vp_quant_matmul_launch(
+            a.data_ptr(), ctypes.byref(qa), b.data_ptr(), ctypes.byref(qb),
+            out.data_ptr(), pa, pb, G, M, K, N, bm, bk, bn,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "vp_quant_matmul")
+    build.LAUNCHES["vp_quant_matmul"] += 1
+    return out

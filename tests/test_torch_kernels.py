@@ -32,7 +32,7 @@ def assert_close(got, *wants):
 def _words(rng, shape):
     """Packed words of random weights in (-1, 1), int16."""
     x = rng.normal(0.0, 0.3, shape).clip(-0.99, 0.99).astype(np.float32)
-    return tops.vp_quant(torch.from_numpy(x), TFXP, TVP).numpy()
+    return tops.vp_quant(torch.from_numpy(x), TFXP, TVP, packed=True).numpy()
 
 
 @pytest.mark.parametrize("mkn", [(4, 64, 128), (16, 64, 192), (33, 96, 24)])

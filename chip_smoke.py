@@ -36,7 +36,23 @@ Run from the root of a checkout.  Phases, each raising on failure:
                check of the equalize calls (hand kernels only, no library
                GEMM), every kernel-path estimate against the plain path,
                and equalizations per second.
-  6. result  - a {"kernels": [...]} line, then the device line last.
+  6. train kernels - the backward kernels `vp_matmul_dx` and
+               `vp_matmul_dw` against their plain versions at the
+               full-width training shapes (M = 8 x 128 = 1024 tokens) in
+               f32 and bf16, timed like phase 3 with `torch.matmul` on the
+               pre-dequantized operand as the library yardstick; then the
+               autograd backward of `ops.vp_quant_matmul` at (2048, 64) x
+               (64, 256), da and db against the plain path.
+  7. train   - full-width qwen3-0.6b in bf16 trained through the CLI
+               (`launch.train.main`): random weights from seed 0,
+               SyntheticLM batch 8 x seq 128, packed QAT, VP gradient
+               compression and VP Adam moments, 4 steps.  Per-step loss,
+               grad norm, seconds, tokens/s, peak memory; launch counts
+               (196 per step of quant, serving matmul and dx: 28 layers x
+               7 weights); a profile of one step; then one step's loss and
+               gradients against the plain path in f32 and in bf16 (held
+               to the plain path's own rounding floor, or 2e-2 if larger).
+  8. result  - a {"kernels": [...]} line, then the device line last.
 
 Exits non-zero without CUDA, and outside a checkout of the repository.
 Imports nothing of JAX and nothing of the JAX package.
@@ -44,8 +60,10 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -64,20 +82,30 @@ F32_REL_LIMIT = 2e-3       # f32 end to end: summation order, plus the odd
                            # VP rounding flip in the KV cache (~1e-4)
 F32_RTOL = 1e-5            # f32: summation order only
 BF16_TOL = 1e-2            # bf16: one rounding of the output (2^-8 rel)
-                           # plus the bf16 cast of p in flash prefill
+                           # plus the bf16 cast of p in flash prefill; for
+                           # the backward kernels two roundings of f32 sums
+                           # of one product, at most one bf16 ulp (2^-7 of
+                           # the value) apart, plus f32 order
 KERNEL_NAMES = {"vp_quant_packed": "vp_quant_packed_kernel",
                 "vp_dequant_matmul": "vp_dequant_matmul_kernel",
                 "vp_decode_attention": "vp_decode_attention_kernel",
                 "flash_prefill": "flash_prefill_kernel",
                 "vp_quant_planes": "vp_quant_planes_kernel",
                 "vp_matmul": "vp_mm_kernel<VPLoad",
-                "vp_quant_matmul": "vp_mm_kernel<VPQuantLoad"}
+                "vp_quant_matmul": "vp_mm_kernel<VPQuantLoad",
+                "vp_matmul_dx": "vp_bwd_mm_kernel<true",
+                "vp_matmul_dw": "vp_bwd_mm_kernel<false"}
 MIMO_G = 100_000           # realizations (paper Sec. III-A)
 MIMO_SHAPE = (16, 64, 2)   # (2U, B) x (B, 2) per realization
 MASKED_N = 256             # masked mode: (n U, B) x (B, n)
 WIDEBAND = (64, 1024)      # subcarriers x realizations
 MIMO_RTOL = 1e-5           # kernel vs plain estimates, f32 sums
 CLI_N = 4096               # realizations per ensemble of the CLI run
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 4
+TRAIN_SHAPES = ((1024, 1024, 1024), (1024, 1024, 3072), (1024, 3072, 1024),
+                (1024, 1024, 512))   # (M tokens, K, N) of the 7 weights
+GRAD_RTOL = 1e-3           # f32 train step: each weight gradient vs plain
+QMM_SHAPE = (2048, 64, 256)          # vp_quant_matmul autograd check
 LIBRARY_KERNELS = re.compile(
     r"gemm|cublas|cutlass|xmma|sm90_|sm80_|ampere_|flash_fwd|fmha|"
     r"efficient_attention|scaled_dot_product|cudnn", re.IGNORECASE)
@@ -122,6 +150,8 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 plain versions: f32 sums rounded once, as the kernels do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     from repro_torch.kernels import build
 
@@ -146,10 +176,12 @@ def main() -> None:
               "build_s": build_s}
     rows = kernel_phase(torch, peaks, record)
     rows += mimo_kernel_phase(torch, peaks, record)
+    rows += train_kernel_phase(torch, peaks, record)
     serve_phase(torch, record, rows)
     mimo_phase(torch, record, rows, smi)
+    train_phase(torch, record, rows, smi)
 
-    # ---- 5. result --------------------------------------------------------
+    # ---- 8. result --------------------------------------------------------
     if args.json_out:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json_out).write_text(json.dumps(record, indent=1))
@@ -496,25 +528,22 @@ def serve_phase(torch, record, rows):
             raise AssertionError("non-finite logits on the kernel path")
 
     # -- profiler: one prefill and one decode step --------------------------
-    caches = init_cache(cfg, BATCH, PROMPT + GEN)
-    (_, caches), k_pre = _profile(
-        torch, "prefill", lambda: prefill(qparams, prompts, caches, cfg))
-    _, k_dec = _profile(
-        torch, "decode step",
-        lambda: decode_step(qparams, tokens[:, :1], caches, cfg))
-    names = [n for n, _ in k_pre + k_dec]
-    seen = {k: sum(v in n for n in names) for k, v in KERNEL_NAMES.items()}
-    want = {"vp_quant_packed": 4 * L, "vp_dequant_matmul": 2 * (7 * L + 1),
-            "vp_decode_attention": L, "flash_prefill": L,
-            "vp_quant_planes": 0, "vp_matmul": 0, "vp_quant_matmul": 0}
+    empty, caches = init_cache(cfg, BATCH, PROMPT + GEN), {}
+
+    def prefill_once():  # rewrites slots [0, PROMPT) of the same buffers
+        caches["after"] = prefill(qparams, prompts, empty, cfg)[1]
+
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want.update(vp_quant_packed=4 * L, vp_dequant_matmul=2 * (7 * L + 1),
+                vp_decode_attention=L, flash_prefill=L)
+    names, seen = _profile_kernels(torch, [
+        ("prefill", prefill_once),
+        ("decode step", lambda: decode_step(qparams, tokens[:, :1],
+                                            caches["after"], cfg))], want)
     library = sorted({n for n in names if LIBRARY_KERNELS.search(n)
                       and not any(v in n for v in KERNEL_NAMES.values())})
     print(f"[profile] {len(names)} device kernels in one prefill + one "
           f"decode step; hand kernels {seen}")
-    if not names:
-        raise AssertionError("the profiler recorded no device kernels")
-    if seen != want:
-        raise AssertionError(f"profiled launches {seen} != expected {want}")
     if library:
         raise AssertionError(f"library kernels on the path: {library}")
     print("[profile] no library GEMM or attention kernel")
@@ -850,7 +879,7 @@ def mimo_phase(torch, record, rows, smi):
     for row in rows:
         if row["name"] in ("vp_quant_planes", "vp_matmul", "vp_quant_matmul"):
             row["launches"] = counts[row["name"]]
-        else:
+        elif row["name"] not in ("vp_matmul_dx", "vp_matmul_dw"):
             row["mimo_launches"] = counts.get(row["name"], 0)
 
     # -- kernel path vs plain path, estimates and BER -------------------------
@@ -898,24 +927,18 @@ def mimo_phase(torch, record, rows, smi):
 
     # -- profiler: the default equalize call and the wideband call ----------
     e, bvp = ens[2.0], specs[2.0][2]
-    _, k_nb = _profile(torch, "narrowband equalize (fused, n = 100000)",
-                       lambda: equalize_vp_kernel(bvp, e.w_beam, e.y_beam))
-    _, k_un = _profile(torch, "narrowband equalize (unfused)",
-                       lambda: equalize_vp_kernel(bvp, e.w_beam, e.y_beam,
-                                                  fused=False))
-    _, k_wb = _profile(torch, f"wideband equalize (S = {S}, n = {nw})",
-                       lambda: equalize_wideband(wspecs, wens.w_beam,
-                                                 wens.y_beam))
-    names = [nm for nm, _ in k_nb + k_un + k_wb]
-    seen = {k: sum(v in nm for nm in names) for k, v in KERNEL_NAMES.items()}
-    want = {"vp_quant_packed": 2, "vp_dequant_matmul": 0,
-            "vp_decode_attention": 0, "flash_prefill": 0,
-            "vp_quant_planes": 0, "vp_matmul": 1, "vp_quant_matmul": 2}
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want.update(vp_quant_packed=2, vp_matmul=1, vp_quant_matmul=2)
+    names, seen = _profile_kernels(torch, [
+        ("narrowband equalize (fused, n = 100000)",
+         lambda: equalize_vp_kernel(bvp, e.w_beam, e.y_beam)),
+        ("narrowband equalize (unfused)",
+         lambda: equalize_vp_kernel(bvp, e.w_beam, e.y_beam, fused=False)),
+        (f"wideband equalize (S = {S}, n = {nw})",
+         lambda: equalize_wideband(wspecs, wens.w_beam, wens.y_beam))], want)
     library = sorted({nm for nm in names if LIBRARY_KERNELS.search(nm)
                       and not any(v in nm for v in KERNEL_NAMES.values())})
     print(f"[profile] equalize calls: hand kernels {seen}")
-    if seen != want:
-        raise AssertionError(f"profiled launches {seen} != expected {want}")
     if library:
         raise AssertionError(f"library kernels in the equalize calls: "
                              f"{library}")
@@ -959,6 +982,281 @@ def mimo_phase(torch, record, rows, smi):
         profiled=seen)
 
 
+# ---------------------------------------------------------------------------
+# 6. the training path's kernels
+# ---------------------------------------------------------------------------
+
+def train_kernel_phase(torch, peaks, record):
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core.packing import dequant_words
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.vp_bwd_matmul import (
+        vp_matmul_dw_cuda, vp_matmul_dx_cuda)
+    from repro_torch.kernels.vp_quant import vp_quant_packed_cuda
+    from repro_torch.mimo.equalizer import table1_specs
+    from repro_torch.models.layers import canonical_formats
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    timer = Timer(torch)
+    fxp, vp = canonical_formats(QuantConfig(mode="vp"))
+    lines, main = [], {}
+
+    def words(R, C):
+        x = torch.randn((R, C), generator=gen, device="cuda") * 0.3
+        return vp_quant_packed_cuda(x.clamp(-0.99, 0.99), fxp, vp)
+
+    # -- vp_matmul_dx / vp_matmul_dw at the training shapes ------------------
+    for (M, K, N) in TRAIN_SHAPES:
+        w, a = words(K, N), words(M, K)
+        w_deq, a_deq = dequant_words(w, vp), dequant_words(a, vp)
+        g32 = torch.randn((M, N), generator=gen, device="cuda")
+        for dtype, tol, peak in ((torch.float32, F32_RTOL, "f32"),
+                                 (torch.bfloat16, BF16_TOL, "bf16")):
+            g = g32.to(dtype)
+            wd, ad = w_deq.to(dtype), a_deq.to(dtype)
+            esz = g.element_size()
+            cases = {
+                "vp_matmul_dx": (
+                    lambda: vp_matmul_dx_cuda(g, w, vp, dtype),
+                    lambda: ref.vp_matmul_dx_ref(g, w, vp, dtype),
+                    lambda: torch.matmul(g, wd.t()),
+                    M * N * esz + K * N * 2 + M * K * esz),
+                "vp_matmul_dw": (
+                    lambda: vp_matmul_dw_cuda(a, g, vp, dtype),
+                    lambda: ref.vp_matmul_dw_ref(a, g, vp, dtype),
+                    lambda: torch.matmul(ad.t(), g),
+                    M * K * 2 + M * N * esz + K * N * esz),
+            }
+            for name, (kern, plain, lib, nbytes) in cases.items():
+                what = f"{name} {[M, K, N]} {peak}"
+                err, rel = compare(torch, kern(), plain(), tol, what)
+                ms, plain_ms, library_ms = timer(kern), timer(plain), \
+                    timer(lib)
+                bnd = bound(peaks, nbytes, 2 * M * K * N, peak)
+                shape = [M, K, N, peak]
+                _print_line(name, shape, err, rel, ms, plain_ms, bnd,
+                            library_ms)
+                lines.append((name, shape, ms, plain_ms, bnd, library_ms))
+                if (M, K, N) == (1024, 1024, 3072) and (
+                        (name, peak) in (("vp_matmul_dx", "bf16"),
+                                         ("vp_matmul_dw", "f32"))):
+                    main[name] = _row(
+                        name, "vp_bwd_matmul.cu",
+                        "src/repro/kernels/vp_bwd_matmul.py:"
+                        + ("58" if name == "vp_matmul_dx" else "108"),
+                        shape, err, ms, plain_ms, bnd, library_ms)
+        del w, a, w_deq, a_deq
+    print(f"[kernel] vp_matmul_dx / vp_matmul_dw: within {F32_RTOL:g} (f32) "
+          f"and {BF16_TOL:g} (bf16) of max|plain| at {list(TRAIN_SHAPES)}")
+
+    # -- the autograd backward of ops.vp_quant_matmul -------------------------
+    bvp = table1_specs()[2]
+    Mq, Kq, Nq = QMM_SHAPE
+    a, b = _mimo_operands(torch, gen, 1, Mq, Kq, Nq)
+    a, b = a[0], b[0]
+    gq = torch.randn((Mq, Nq), generator=gen, device="cuda")
+
+    def qmm_grads():
+        ta, tb = a.clone().requires_grad_(), b.clone().requires_grad_()
+        out = ops.vp_quant_matmul(ta, tb, bvp.w_fxp, bvp.w_vp, bvp.y_fxp,
+                                  bvp.y_vp)
+        out.backward(gq)
+        return out.detach(), ta.grad, tb.grad
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    # -- the path: one forward and backward through the public op --------------
+    got = qmm_grads()
+    qmm_counts = dict(build.LAUNCHES)
+    # -------------------------------------------------------------------------
+    want_counts = {"vp_quant_matmul": 1, "vp_quant_packed": 2,
+                   "vp_matmul_dx": 1, "vp_matmul_dw": 1}
+    if qmm_counts != want_counts:
+        raise AssertionError(f"vp_quant_matmul autograd launches {qmm_counts}"
+                             f" != {want_counts}")
+    with ops.force_backend("ref"):
+        want = qmm_grads()
+    errs = [compare(torch, x, y, F32_RTOL, f"vp_quant_matmul autograd {what}")
+            [1] for x, y, what in zip(got, want, ("out", "da", "db"))]
+    print(f"[kernel] vp_quant_matmul autograd at {[Mq, Kq]} x {[Kq, Nq]}: "
+          f"launches {qmm_counts}; out, da, db vs plain path (rel) "
+          + ", ".join(f"{e:.2e}" for e in errs))
+    for name in ("vp_matmul_dx", "vp_matmul_dw"):
+        main[name]["qmm_grad_launches"] = qmm_counts[name]
+    main["vp_matmul_dw"]["launches"] = qmm_counts["vp_matmul_dw"]
+    record["train_kernel_lines"] = [
+        dict(name=n, shape=s, ms=m, plain_ms=p, bound_ms=b[0], bound_by=b[1],
+             library_ms=lib) for n, s, m, p, b, lib in lines]
+    record["qmm_grad"] = dict(launches=qmm_counts, rel_err=errs)
+    print("kernels: vp_matmul_dx, vp_matmul_dw")
+    return [main["vp_matmul_dx"], main["vp_matmul_dw"]]
+
+
+# ---------------------------------------------------------------------------
+# 7. train
+# ---------------------------------------------------------------------------
+
+def _train_grads(torch, params, batch, cfg, plain=False, f64=False):
+    """(loss, {path: grad}) of one step's value_and_grad, on the kernel
+    path or the plain path (`f64`: plain matmuls summed in f64)."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.tree import tree_paths
+
+    with contextlib.ExitStack() as stack:
+        if plain:
+            stack.enter_context(ops.force_backend("ref"))
+        if f64:
+            stack.enter_context(_f64_matmuls(torch))
+        loss, _, grads = value_and_grad(params, batch, cfg)
+    return float(loss), dict(tree_paths(grads))
+
+
+def _grad_diffs(torch, got, want):
+    """(relative loss difference, {path: max|dg| / max|g_plain|})."""
+    (lk, gk), (lp, gp) = got, want
+    rels = {p: float((gk[p].float() - gp[p].float()).abs().max()
+                     / gp[p].float().abs().max().clamp(min=1e-30))
+            for p in gp}
+    return abs(lk - lp) / abs(lp), rels
+
+
+def train_phase(torch, record, rows, smi):
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.model import init_params, stack_layers
+    from repro_torch.optim.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.compression import (
+        CompressionConfig, init_compressor_state)
+    from repro_torch.train.train_step import make_train_step
+
+    qat = QuantConfig(mode="vp", qat_mode="packed")
+    cfg = registry.get_config(ARCH, qat)
+    L = cfg.n_layers
+    torch.cuda.synchronize()
+    build.reset_launches()
+    # -- the main path: the training CLI, 4 steps -----------------------------
+    report = train_cli.main([
+        "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH), "--seq",
+        str(TRAIN_SEQ), "--qat", "packed", "--compress-grads", "--grad-codec",
+        "vp", "--compress-moments", "--log-every", "1"])
+    counts = dict(build.LAUNCHES)
+    # -------------------------------------------------------------------------
+    steps = report["steps"]
+    for s in steps:
+        print(f"[train] step {s['step']}: loss {s['loss']:.6f}, grad norm "
+              f"{s['grad_norm']:.4f}, {s['seconds']:.4f} s, "
+              f"{s['tokens_per_s']:.1f} tokens/s")
+    warm = steps[1:]
+    s_step = statistics.median(s["seconds"] for s in warm)
+    print(f"[train] {cfg.name} {cfg.dtype}, {L} layers, batch {TRAIN_BATCH} "
+          f"x seq {TRAIN_SEQ}: median {s_step:.4f} s/step over steps 2-"
+          f"{TRAIN_STEPS} ({TRAIN_BATCH * TRAIN_SEQ / s_step:.1f} tokens/s), "
+          f"peak memory {report['peak_bytes'] / 1e9:.3f} GB ({smi})")
+    per_step = 7 * L
+    expect = {"vp_quant_packed": per_step * TRAIN_STEPS,
+              "vp_dequant_matmul": per_step * TRAIN_STEPS,
+              "vp_matmul_dx": per_step * TRAIN_STEPS}
+    print(f"[train] launches in {TRAIN_STEPS} steps: {counts} "
+          f"({per_step} of each per step)")
+    if counts != expect:
+        raise AssertionError(f"train launch counts {counts} != {expect}")
+    losses = [s["loss"] for s in steps]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    for row in rows:
+        if row["name"] == "vp_matmul_dx":
+            row["launches"] = counts["vp_matmul_dx"]
+        if row["name"] in counts:
+            row["train_launches"] = counts[row["name"]]
+
+    # -- profiler: one train step ----------------------------------------------
+    data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH),
+                       device="cuda")
+    batch = data.batch_at(0)
+    params = stack_layers(init_params(cfg, seed=0, device="cuda"))
+    opt_cfg = OptConfig(warmup_steps=0, total_steps=TRAIN_STEPS,
+                        moment_codec="vp")
+    step_fn = make_train_step(cfg, opt_cfg,
+                              compress_grads=CompressionConfig(codec="vp"))
+    opt, cmp = init_opt_state(params, opt_cfg), init_compressor_state(params)
+    step_fn(params, opt, batch, cmp)                      # warm-up
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want.update(vp_quant_packed=per_step, vp_dequant_matmul=per_step,
+                vp_matmul_dx=per_step)
+    _, seen = _profile_kernels(torch, [
+        ("train step", lambda: step_fn(params, opt, batch, cmp))], want)
+    print(f"[profile] train step: hand kernels {seen}")
+    del params, opt, cmp, step_fn
+
+    # -- one step's loss and gradients: kernel path vs plain path ------------
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = stack_layers(init_params(cfg32, seed=0, device="cuda"))
+    loss_rel32, g32 = _grad_diffs(torch, _train_grads(torch, p32, batch,
+                                                      cfg32),
+                                  _train_grads(torch, p32, batch, cfg32,
+                                               plain=True))
+    worst = max(g32, key=g32.get)
+    print(f"[train] f32 kernel vs plain path, one step: loss rel diff "
+          f"{loss_rel32:.3e} (limit {F32_RTOL:g}); max gradient diff / "
+          f"max|plain grad| {g32[worst]:.3e} at {worst} (limit {GRAD_RTOL:g})")
+    if loss_rel32 > F32_RTOL or g32[worst] > GRAD_RTOL:
+        raise AssertionError(f"f32 train step: loss {loss_rel32:.3e}, "
+                             f"gradients {g32}")
+    del p32
+    p16 = stack_layers(init_params(cfg, seed=0, device="cuda"))
+    plain = _train_grads(torch, p16, batch, cfg, plain=True)
+    loss_rel, g16 = _grad_diffs(torch, _train_grads(torch, p16, batch, cfg),
+                                plain)
+    floor_loss, floor_g = _grad_diffs(torch, _train_grads(
+        torch, p16, batch, cfg, plain=True, f64=True), plain)
+    floor = max(floor_loss, max(floor_g.values()))
+    limit = max(REL_LIMIT, FLOOR_MARGIN * floor)
+    worst16 = max(g16, key=g16.get)
+    print(f"[train] bf16 kernel vs plain path, one step: loss rel diff "
+          f"{loss_rel:.3e}, max gradient diff / max|plain grad| "
+          f"{g16[worst16]:.3e} at {worst16}; plain-path floor (f64-summed "
+          f"matmuls vs plain) loss {floor_loss:.3e}, gradients "
+          f"{max(floor_g.values()):.3e}; limit {limit:.3e}")
+    if max(loss_rel, g16[worst16]) > limit:
+        raise AssertionError(f"bf16 train step differs from the plain path "
+                             f"by {max(loss_rel, g16[worst16]):.3e} > "
+                             f"{limit:.3e}")
+    record["train"] = dict(
+        steps=steps, seconds_per_step=s_step,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / s_step,
+        peak_bytes=report["peak_bytes"], launches=counts, profiled=seen,
+        f32_loss_rel=loss_rel32, f32_grad_rel=g32, bf16_loss_rel=loss_rel,
+        bf16_grad_rel=g16, bf16_floor_loss=floor_loss, bf16_floor_grad=floor_g,
+        bf16_limit=limit)
+
+
+def _profile_kernels(torch, runs, want, attempts: int = 3):
+    """Profile each (what, fn) of `runs` (`_profile`) and count the hand
+    kernels in the traces -> (device kernel names, counts), which must
+    equal `want`.  The profiler can drop the device events of a short
+    window (a 3.7 ms equalize window once held none on the card), so
+    traces that disagree are taken again, up to `attempts` times; a path
+    that launches other kernels than `want` fails every attempt."""
+    for attempt in range(1, attempts + 1):
+        names = []
+        for what, fn in runs:
+            names += [n for n, _ in _profile(torch, what, fn)[1]]
+        seen = {k: sum(v in n for n in names) for k, v in KERNEL_NAMES.items()}
+        if seen == want:
+            return names, seen
+        print(f"[profile] attempt {attempt}: the traces hold hand kernels "
+              f"{seen}, expected {want}")
+    raise AssertionError(f"profiled launches {seen} != expected {want} in "
+                         f"{attempts} attempts")
+
+
 def _profile(torch, what, fn):
     """Run fn() once under torch.profiler; print its wall time (profiler
     on), device busy time, idle share and the kernels taking the most
@@ -989,31 +1287,45 @@ def _profile(torch, what, fn):
     return out, kernels
 
 
-def _plain_logits(torch, cfg, params, prompts, tokens, f64_matmul=False):
-    """Logits of prefill + one decode step per column of `tokens` on the
-    plain path (teacher-forced).  `f64_matmul` sums the plain matmul in
-    f64 instead of f32, to measure the path's own rounding floor."""
+@contextlib.contextmanager
+def _f64_matmuls(torch):
+    """Inside: the plain serving matmul and its dx sum in f64 instead of
+    f32 (swapped into `ref`), to measure the plain path's own rounding
+    floor."""
     from repro_torch.core.packing import dequant_words
-    from repro_torch.kernels import ops, ref
-    from repro_torch.models.model import decode_step, init_cache, prefill
+    from repro_torch.kernels import ref
 
     def matmul64(x, w, fmt, out_dtype=torch.float32):
         return (x.double() @ dequant_words(w, fmt).double()).to(out_dtype)
 
-    plain_matmul = ref.vp_dequant_matmul_ref
-    if f64_matmul:
-        ref.vp_dequant_matmul_ref = matmul64
+    def dx64(g, w, fmt, out_dtype=torch.float32):
+        return (g.double() @ dequant_words(w, fmt).double().t()).to(out_dtype)
+
+    saved = ref.vp_dequant_matmul_ref, ref.vp_matmul_dx_ref
+    ref.vp_dequant_matmul_ref, ref.vp_matmul_dx_ref = matmul64, dx64
     try:
-        with ops.force_backend("ref"):
-            caches = init_cache(cfg, BATCH, PROMPT + GEN)
-            lg, caches = prefill(params, prompts, caches, cfg)
-            out = [lg]
-            for i in range(tokens.shape[1]):
-                lg, caches = decode_step(params, tokens[:, i:i + 1], caches,
-                                         cfg)
-                out.append(lg)
+        yield
     finally:
-        ref.vp_dequant_matmul_ref = plain_matmul
+        ref.vp_dequant_matmul_ref, ref.vp_matmul_dx_ref = saved
+
+
+def _plain_logits(torch, cfg, params, prompts, tokens, f64_matmul=False):
+    """Logits of prefill + one decode step per column of `tokens` on the
+    plain path (teacher-forced).  `f64_matmul` sums the plain matmul in
+    f64 instead of f32, to measure the path's own rounding floor."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import decode_step, init_cache, prefill
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(ops.force_backend("ref"))
+        if f64_matmul:
+            stack.enter_context(_f64_matmuls(torch))
+        caches = init_cache(cfg, BATCH, PROMPT + GEN)
+        lg, caches = prefill(params, prompts, caches, cfg)
+        out = [lg]
+        for i in range(tokens.shape[1]):
+            lg, caches = decode_step(params, tokens[:, i:i + 1], caches, cfg)
+            out.append(lg)
     return out
 
 

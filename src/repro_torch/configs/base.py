@@ -1,6 +1,7 @@
 """Model configuration schema (a copy of `repro.configs.base` cut to
-the fields the dense serving path reads; other families' fields come
-with their slices, and `family` lets the model reject them until then).
+the fields the dense serving and training paths read; other families'
+fields come with their slices, and `family` lets the model reject them
+until then).
 """
 from __future__ import annotations
 
@@ -17,16 +18,24 @@ class QuantConfig:
       vp   - per-element VP weights stored as packed words
     (`fxp` and `vp_block` are modes of the reference that this port does
     not serve yet.)
+
+    qat_mode: how float master weights train under mode vp ("fake":
+    fake-quant STE in the float graph; "packed": quantize to packed
+    words and run the serving kernel forward and the packed-word
+    backward kernels, `kernels.ops.vp_qat_matmul`).
     """
     mode: str = "none"
     M: int = 7
     E: int = 2
     W: int = 12                      # FXP proxy grid width
     quantize_kv_cache: bool = False  # packed VP KV cache
+    qat_mode: str = "fake"
 
     def __post_init__(self):
         if self.mode not in ("none", "vp"):
             raise ValueError(f"unsupported quant mode {self.mode!r}")
+        if self.qat_mode not in ("fake", "packed"):
+            raise ValueError(f"unsupported qat mode {self.qat_mode!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +54,7 @@ class ModelConfig:
     sliding_window: Optional[int] = None
     dtype: str = "bfloat16"
     quant: QuantConfig = QuantConfig()
+    loss_chunk: int = 1024           # chunked cross-entropy seq block
 
     @property
     def head_dim(self) -> int:

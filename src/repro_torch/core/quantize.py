@@ -1,12 +1,16 @@
-"""Tensor-level VP fake quantization (port of `vp_fake_quant` of
+"""Tensor-level VP quantization (port of `vp_fake_quant`,
+`vp_fake_quant_ste` and the packed-word tensor codec of
 `repro.core.quantize`)."""
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from .convert import fxp2vp, vp_to_float
 from .formats import FXPFormat, VPFormat
 from .fxp import fxp_quantize
+from .packing import dequant_words, pack_vp
 
 
 def vp_fake_quant(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat
@@ -16,3 +20,65 @@ def vp_fake_quant(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat
     like the hardware."""
     m, i = fxp2vp(fxp_quantize(x, fxp), fxp, vp)
     return vp_to_float(m, i, vp, x.dtype)
+
+
+class _STE(torch.autograd.Function):
+    """Forward the quantized y; backward identity onto x, or, with
+    bounds, identity inside [lo, hi] and zero outside."""
+
+    @staticmethod
+    def forward(ctx, x, y, lo, hi):
+        if lo is not None:
+            ctx.save_for_backward(x)
+            ctx.bounds = (lo, hi)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.saved_tensors:
+            return g, None, None, None
+        (x,) = ctx.saved_tensors
+        lo, hi = (torch.tensor(b, dtype=x.dtype) for b in ctx.bounds)
+        inside = (x >= lo.to(x.device)) & (x <= hi.to(x.device))
+        return torch.where(inside, g, torch.zeros_like(g)), None, None, None
+
+
+def vp_fake_quant_ste(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
+                      clip_grad: bool = False) -> torch.Tensor:
+    """QAT straight-through estimator around `vp_fake_quant`.
+
+    ``clip_grad=False`` passes the gradient everywhere (the classic STE);
+    ``clip_grad=True`` zeroes it where x lies outside the FXP(W, F)
+    envelope [fxp.min, fxp.max] (bounds taken in x's dtype), where the
+    quantizer's Jacobian really is 0.
+    """
+    y = vp_fake_quant(x.detach(), fxp, vp)
+    if clip_grad:
+        return _STE.apply(x, y, fxp.min, fxp.max)
+    return _STE.apply(x, y, None, None)
+
+
+def vp_pack_tensor(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Real tensor (any rank, any float dtype) -> (packed words, f32
+    scale).
+
+    The memory codec of VP-packed gradient compression
+    (`train.compression`) and packed optimizer moments
+    (`optim.optimizer`): a per-tensor power-of-two scale (exact: it only
+    shifts exponents) brings max|x| into (-1, 1], then real -> FXP(W, F)
+    -> VP(M, f) -> `core.packing` words.  An all-zero tensor gets scale
+    1.0.  Plain tensor code, as in the reference (no kernel).
+    """
+    xf = x.to(torch.float32)
+    amax = xf.abs().max()
+    s = torch.exp2(torch.ceil(torch.log2(torch.clamp(amax, min=1e-30))))
+    scale = torch.where(amax > 0, s, torch.ones_like(s))
+    m, i = fxp2vp(fxp_quantize(xf / scale, fxp), fxp, vp)
+    return pack_vp(m, i, vp), scale
+
+
+def vp_unpack_tensor(w: torch.Tensor, scale: torch.Tensor, vp: VPFormat,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Invert `vp_pack_tensor`: (words, scale) -> real tensor."""
+    return dequant_words(w, vp, dtype) * scale.to(dtype)

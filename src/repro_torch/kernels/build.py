@@ -76,6 +76,10 @@ _SIGNATURES = {
     "vp_quant_matmul": {
         "vp_quant_matmul_launch": [_P] * 7 + [_I] * 7 + [_P],
     },
+    "vp_bwd_matmul": {
+        "vp_matmul_dx_launch": [_P, _P, _P] + [_I] * 6 + [_P, _P],
+        "vp_matmul_dw_launch": [_P, _P, _P] + [_I] * 6 + [_P, _P],
+    },
 }
 SOURCES = tuple(_SIGNATURES)
 

@@ -10,6 +10,14 @@ picks its path from the device of its input tensors (the port of
 There is no fallback: a failed build or launch raises.  Inside
 `force_backend("ref")` every op runs its plain version whatever the
 device; only comparisons use that (chip_smoke.py, tests).
+
+The trainable ops are `torch.autograd.Function`s, each the counterpart
+of a `jax.custom_vjp` of the reference: `vp_dequant_matmul` (dx from the
+`vp_matmul_dx` kernel over the packed words), `vp_qat_matmul` (packed
+forward, straight-through backward) and the unmasked `vp_quant_matmul`
+(dx and dw kernels over the quantized operands saved as packed words).
+A call that needs no gradient skips the Function and runs the forward
+alone.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from repro_torch.core.vp_tensor import significand_dtype
 from . import autotune, ref
 from .autotune import Blocks
 from .vp_attention import flash_prefill_cuda, vp_decode_attention_cuda
+from .vp_bwd_matmul import vp_matmul_dw_cuda, vp_matmul_dx_cuda
 from .vp_dequant_matmul import vp_dequant_matmul_cuda
 from .vp_matmul import vp_matmul_cuda
 from .vp_quant import vp_quant_packed_cuda, vp_quant_planes_cuda
@@ -57,6 +66,13 @@ def uses_kernel(*tensors: Optional[torch.Tensor]) -> bool:
     if kind not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device type {kind!r}")
     return kind == "cuda" and not _FORCED
+
+
+def _wants_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether autograd records this call (then the op runs its
+    Function; otherwise the forward alone)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def vp_quant(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
@@ -216,12 +232,8 @@ def vp_matmul(a_m, a_i, b_m, b_i, a_fmt: VPFormat, b_fmt: VPFormat,
         _one(a_act), _one(b_act), blocks, out_dtype)[0]
 
 
-def vp_quant_matmul(a, b, a_fxp: FXPFormat, a_vp: VPFormat,
-                    b_fxp: FXPFormat, b_vp: VPFormat,
-                    a_act=None, b_act=None, blocks: Optional[Blocks] = None,
-                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Fused float -> VP quantize + (M, K) x (K, N) matmul:
-    `vp_quant_matmul_batched` on a batch of one."""
+def _vp_quant_matmul_fwd(a, b, a_fxp, a_vp, b_fxp, b_vp, a_act, b_act,
+                         blocks, out_dtype):
     M, K = a.shape
     N = b.shape[1]
     blocks = _blocks(blocks, M, K, N)
@@ -231,19 +243,163 @@ def vp_quant_matmul(a, b, a_fxp: FXPFormat, a_vp: VPFormat,
         _one(b_act), blocks, out_dtype)[0]
 
 
+class _VPQuantMatmul(torch.autograd.Function):
+    """Counterpart of the reference's `_vp_quant_matmul_vjp`: the
+    straight-through estimator takes each quantizer's Jacobian as the
+    identity, so da = g qb^T (`vp_matmul_dx` over b's words) and
+    db = qa^T g (`vp_matmul_dw` over a's words).  The residuals are the
+    QUANTIZED operands as packed words, never float planes."""
+
+    @staticmethod
+    def forward(ctx, a, b, a_fxp, a_vp, b_fxp, b_vp, blocks, out_dtype):
+        out = _vp_quant_matmul_fwd(a, b, a_fxp, a_vp, b_fxp, b_vp, None,
+                                   None, blocks, out_dtype)
+        ctx.save_for_backward(vp_quant(a, a_fxp, a_vp, packed=True),
+                              vp_quant(b, b_fxp, b_vp, packed=True))
+        ctx.formats = (a_vp, b_vp)
+        ctx.dtypes = (a.dtype, b.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a_w, b_w = ctx.saved_tensors
+        (a_vp, b_vp), (a_dtype, b_dtype) = ctx.formats, ctx.dtypes
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = vp_matmul_dx(g, b_w, b_vp, out_dtype=a_dtype)
+        if ctx.needs_input_grad[1]:
+            db = vp_matmul_dw(a_w, g, a_vp, out_dtype=b_dtype)
+        return da, db, None, None, None, None, None, None
+
+
+def vp_quant_matmul(a, b, a_fxp: FXPFormat, a_vp: VPFormat,
+                    b_fxp: FXPFormat, b_vp: VPFormat,
+                    a_act=None, b_act=None, blocks: Optional[Blocks] = None,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Fused float -> VP quantize + (M, K) x (K, N) matmul:
+    `vp_quant_matmul_batched` on a batch of one.
+
+    Differentiable (unmasked) under the straight-through estimator, with
+    both gradients from the packed-word backward kernels; the CSPADE-
+    masked call stays forward-only, as in the reference.
+    """
+    if a_act is None and b_act is None and _wants_grad(a, b):
+        return _VPQuantMatmul.apply(a, b, a_fxp, a_vp, b_fxp, b_vp, blocks,
+                                    out_dtype)
+    return _vp_quant_matmul_fwd(a, b, a_fxp, a_vp, b_fxp, b_vp, a_act,
+                                b_act, blocks, out_dtype)
+
+
+def _vp_dequant_matmul_fwd(x, w, w_fmt, out_dtype):
+    if uses_kernel(x, w):
+        return vp_dequant_matmul_cuda(x, w, w_fmt, out_dtype)
+    return ref.vp_dequant_matmul_ref(x, w, w_fmt, out_dtype=out_dtype)
+
+
+class _VPDequantMatmul(torch.autograd.Function):
+    """Counterpart of the reference's `_vp_dequant_matmul_vjp`: the packed
+    words are the residual (`storage_bits` per element, where autograd
+    through a dequant would keep the f32 weight plane); dx comes from
+    `vp_matmul_dx` over the same words, in x's dtype.  Integer words
+    carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, w_fmt, out_dtype):
+        ctx.save_for_backward(w)
+        ctx.w_fmt, ctx.x_dtype = w_fmt, x.dtype
+        return _vp_dequant_matmul_fwd(x, w, w_fmt, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        return (vp_matmul_dx(g, w, ctx.w_fmt, out_dtype=ctx.x_dtype),
+                None, None, None)
+
+
 def vp_dequant_matmul(x: torch.Tensor, w: torch.Tensor, w_fmt: VPFormat,
                       out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Serving matmul: real x (M, K) @ dequant(w (K, N) packed VP words).
 
-    `out_dtype` defaults to x's dtype.
+    `out_dtype` defaults to x's dtype.  Differentiable in x (see
+    `_VPDequantMatmul`).
     """
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"bad matmul shapes x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}")
     out_dtype = x.dtype if out_dtype is None else out_dtype
-    if uses_kernel(x, w):
-        return vp_dequant_matmul_cuda(x, w, w_fmt, out_dtype)
-    return ref.vp_dequant_matmul_ref(x, w, w_fmt, out_dtype=out_dtype)
+    if _wants_grad(x):
+        return _VPDequantMatmul.apply(x, w, w_fmt, out_dtype)
+    return _vp_dequant_matmul_fwd(x, w, w_fmt, out_dtype)
+
+
+def vp_matmul_dx(g: torch.Tensor, w: torch.Tensor, w_fmt: VPFormat,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Backward op: g (M, N) @ dequant(w (K, N) packed words)^T -> (M, K).
+
+    The transposed serving matmul, the dx half of every packed-weight
+    gradient: the kernel reads the same word plane the forward read, so
+    the backward moves `storage_bits` per weight and no f32 weight plane
+    or transposed copy exists.
+    """
+    if g.ndim != 2 or w.ndim != 2 or g.shape[1] != w.shape[1]:
+        raise ValueError(f"bad dx shapes g {tuple(g.shape)}, "
+                         f"w {tuple(w.shape)}")
+    if uses_kernel(g, w):
+        return vp_matmul_dx_cuda(g, w, w_fmt, out_dtype)
+    return ref.vp_matmul_dx_ref(g, w, w_fmt, out_dtype=out_dtype)
+
+
+def vp_matmul_dw(a_w: torch.Tensor, g: torch.Tensor, a_fmt: VPFormat,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Backward op: dequant(a_w (M, K) packed words)^T @ g (M, N) ->
+    (K, N), contracting over M: the db half of the fused quantize +
+    matmul's gradient, over the quantized first operand saved as words.
+    """
+    if a_w.ndim != 2 or g.ndim != 2 or a_w.shape[0] != g.shape[0]:
+        raise ValueError(f"bad dw shapes a {tuple(a_w.shape)}, "
+                         f"g {tuple(g.shape)}")
+    if uses_kernel(a_w, g):
+        return vp_matmul_dw_cuda(a_w, g, a_fmt, out_dtype)
+    return ref.vp_matmul_dw_ref(a_w, g, a_fmt, out_dtype=out_dtype)
+
+
+class _VPQatMatmul(torch.autograd.Function):
+    """Counterpart of the reference's `_vp_qat_matmul_vjp`.  Forward:
+    quantize the float master weight to one packed word plane, then the
+    serving matmul on it.  Residual: (x, packed w_q), never the f32
+    weight plane.  Backward (straight-through): dx from `vp_matmul_dx`
+    over the same words; dW = x^T g in f32, cast to the master dtype (a
+    plain dense contraction outside any kernel, as in the reference)."""
+
+    @staticmethod
+    def forward(ctx, x, w, fxp, vp):
+        w_q = vp_quant(w.to(torch.float32), fxp, vp, packed=True)
+        ctx.save_for_backward(x, w_q)
+        ctx.vp, ctx.w_dtype = vp, w.dtype
+        return _vp_dequant_matmul_fwd(x, w_q, vp, x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_q = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = vp_matmul_dx(g, w_q, ctx.vp, out_dtype=x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = x.to(torch.float32).t().mm(g.to(torch.float32)).to(
+                ctx.w_dtype)
+        return dx, dw, None, None
+
+
+def vp_qat_matmul(x: torch.Tensor, w: torch.Tensor, fxp: FXPFormat,
+                  vp: VPFormat) -> torch.Tensor:
+    """QAT matmul: x (M, K) @ quantize-then-dequant(w (K, N) float master
+    weights), the trainable twin of `vp_dequant_matmul`: the forward runs
+    the quant and serving kernels, so training sees the numerics serving
+    will run; the backward is straight-through (`_VPQatMatmul`)."""
+    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"bad matmul shapes x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}")
+    return _VPQatMatmul.apply(x, w, fxp, vp)
 
 
 def vp_decode_attention(q, k_w, v_w, k_s, v_s, lengths, fmt: VPFormat,

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels (port of the matching
 oracles in `repro.kernels.ref`): the serving path's packed quantize,
-matmul and attention, and the MIMO path's two-plane quantize, VP x VP
-matmuls (with CSPADE tile muting) and fused quantize + matmul.
+matmul and attention, the MIMO path's two-plane quantize, VP x VP
+matmuls (with CSPADE tile muting) and fused quantize + matmul, and the
+training path's backward matmuls over packed words.
 
 `ops.py` runs these for CPU tensors, and inside `ops.force_backend("ref")`
 on the card; the CPU tests hold them against the JAX package, and
@@ -120,6 +121,30 @@ def vp_dequant_matmul_ref(x: torch.Tensor, w: torch.Tensor, w_fmt: VPFormat,
     """
     deq = dequant_words(w, w_fmt, torch.float32)
     return (x.to(torch.float32) @ deq).to(out_dtype)
+
+
+def vp_matmul_dx_ref(g: torch.Tensor, w: torch.Tensor, w_fmt: VPFormat,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """g (M, N) @ dequant(packed w (K, N))^T -> (M, K), the activation
+    gradient of `vp_dequant_matmul_ref`.
+
+    As the reference oracle does, the words are dequantized INTO
+    `out_dtype` and the product is taken in it (the kernel, like the
+    Pallas body, accumulates in f32 and casts once; in bf16 the two
+    differ by bf16 rounding).  In f32 this is the product autograd takes
+    for the forward's `x @ deq` (`grad.mm(deq.t())`), bit for bit.
+    """
+    deq = dequant_words(w, w_fmt, out_dtype)
+    return g.to(out_dtype).mm(deq.t())
+
+
+def vp_matmul_dw_ref(a_w: torch.Tensor, g: torch.Tensor, a_fmt: VPFormat,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """dequant(packed a_w (M, K))^T @ g (M, N) -> (K, N), the gradient of
+    `deq_a @ b` with respect to b (`deq_a.t().mm(grad)`, as autograd
+    takes it), dequantized into and contracted in `out_dtype`."""
+    deq = dequant_words(a_w, a_fmt, out_dtype)
+    return deq.t().mm(g.to(out_dtype))
 
 
 def _one(x):

@@ -7,6 +7,12 @@ Every weight matmul goes through `qdot`:
         per weight, consumed directly by the kernel (unpack and pow2
         scale on chip, no float weight matrix in device memory).
 
+Training (`train=True`) keeps float master weights and, under mode vp,
+fine-tunes them into the serving format (QAT): `qat_mode="packed"` runs
+`ops.vp_qat_matmul` (quant and serving kernels forward, the packed-word
+`vp_matmul_dx` kernel backward), `qat_mode="fake"` the fake-quant STE in
+the float graph.
+
 The reference's `fxp`, `vp_block` and two-plane layouts wait for a later
 slice.
 """
@@ -19,6 +25,7 @@ import torch
 from repro_torch.configs.base import QuantConfig
 from repro_torch.core.formats import FXPFormat, default_vp_format
 from repro_torch.core.packing import dequant_words
+from repro_torch.core.quantize import vp_fake_quant_ste
 from repro_torch.kernels import ops
 
 
@@ -52,11 +59,30 @@ def quantize_weight(w: torch.Tensor, q: QuantConfig) -> Any:
             "scale": s.to(torch.float32)}
 
 
-def qdot(x: torch.Tensor, wq: Any, q: QuantConfig) -> torch.Tensor:
-    """x (..., d_in) @ W (d_in, d_out) under the quantization mode."""
+def qdot(x: torch.Tensor, wq: Any, q: QuantConfig,
+         train: bool = False) -> torch.Tensor:
+    """x (..., d_in) @ W (d_in, d_out) under the quantization mode.
+
+    `wq` is a float tensor (training, or mode none) or the dict that
+    `quantize_weight` exports (serving).  With `train` and mode vp a
+    float master weight is quantized on the fly (QAT, module docstring);
+    its pow2 scale carries no gradient and commutes exactly with the
+    contraction.
+    """
     dtype = x.dtype
     if not isinstance(wq, dict):
-        return x @ wq.to(dtype)
+        w = wq
+        if train and q.mode == "vp":
+            fxp, vp = canonical_formats(q)
+            s = _pow2_scale(w.detach())
+            if q.qat_mode == "packed" and w.ndim == 2:
+                lead = x.shape[:-1]
+                x2 = x.reshape(-1, x.shape[-1]).to(dtype)
+                out = ops.vp_qat_matmul(x2, w / s, fxp, vp)
+                out = out.to(dtype) * s.to(dtype)
+                return out.reshape(*lead, -1)
+            w = vp_fake_quant_ste(w / s, fxp, vp) * s
+        return x @ w.to(dtype)
     _, vp = canonical_formats(q)
     lead = x.shape[:-1]
     out = ops.vp_dequant_matmul(x.reshape(-1, x.shape[-1]), wq["w_packed"],
@@ -85,9 +111,12 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4):
     return out.to(x.dtype)
 
 
-def embed_lookup(tokens: torch.Tensor, table: Any, q: QuantConfig):
+def embed_lookup(tokens: torch.Tensor, table: Any, q: QuantConfig,
+                 train: bool = False):
     """Token embedding.  A packed table gathers the packed rows first and
-    dequantizes only those (f32, like the reference)."""
+    dequantizes only those (f32, like the reference).  A float table is
+    gathered as it is, in training too (`train` is accepted for the
+    reference's signature; the embedding is not fake-quantized)."""
     if isinstance(table, dict):
         _, vp = canonical_formats(q)
         rows = table["w_packed"][tokens]

@@ -1,9 +1,13 @@
-"""Dense transformer serving path (port of the dense branches of
-`repro.models.model`).
+"""Dense transformer serving and training paths (port of the dense
+branches of `repro.models.model`).
 
 Parameters are plain dicts of tensors: {"embed", "final_norm", "lm_head",
-"layers": [per-layer {"attn", "mlp", "ln1", "ln2"}]}.  The reference
-stacks layers for `lax.scan`; here a Python loop walks the list.
+"layers": [per-layer {"attn", "mlp", "ln1", "ln2"}]}, the serving
+layout.  The reference stacks layers for `lax.scan`; here a Python loop
+walks the list.  Training keeps the reference's stack instead
+(`stack_layers`: "layers" is one dict of (L, ...) tensors), so that every
+per-tensor scale of the gradient and moment codecs covers the same
+elements as the reference's.
 Caches are a list of per-layer dicts (see `models.attention.attn_block`).
 
 Entry points default to device="cuda" and raise when CUDA is absent;
@@ -148,16 +152,88 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
     return caches
 
 
-def _backbone(params, x, cfg: ModelConfig, positions, caches):
+def stack_layers(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Serving layout -> training layout: the per-layer list becomes one
+    dict of tensors stacked on a leading (L, ...) axis (copies)."""
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return torch.stack(nodes)
+
+    return {**params, "layers": stack(params["layers"])}
+
+
+def _unbind(node) -> List[Any]:
+    """A stacked dict of (L, ...) tensors -> L per-layer dicts of views
+    (`unbind`, whose gradient is one stack)."""
+    if isinstance(node, dict):
+        parts = {k: _unbind(v) for k, v in node.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(node.unbind(0))
+
+
+def _backbone(layers, x, cfg: ModelConfig, positions,
+              caches: Optional[List[dict]] = None, train: bool = False):
     pattern, window = layer_pattern(cfg)
     new_caches = []
-    for p, cache in zip(params["layers"], caches):
+    for i, p in enumerate(layers):
+        cache = None if caches is None else caches[i]
         h, cache = attn_block(rms_norm(x, p["ln1"]), p["attn"], cfg,
-                              positions, pattern, window, cache)
+                              positions, pattern, window, cache, train)
         x = x + h
-        x = x + swiglu(rms_norm(x, p["ln2"]), p["mlp"], cfg.quant)
+        x = x + swiglu(rms_norm(x, p["ln2"]), p["mlp"], cfg.quant, train)
         new_caches.append(cache)
     return x, new_caches
+
+
+def chunked_cross_entropy(hidden: torch.Tensor, lm_head: torch.Tensor,
+                          labels: torch.Tensor, cfg: ModelConfig,
+                          chunk: int = 1024) -> torch.Tensor:
+    """Mean cross entropy over valid labels (-1 = ignore), logits in f32,
+    taken over sequence chunks (the largest divisor of S up to `chunk`)
+    so the (B, S, V) logits exist one chunk at a time in the forward.
+    The `lm_head` product is `qdot` without `train`: a float matmul."""
+    B, S, _ = hidden.shape
+    c = min(chunk, S)
+    while S % c:
+        c -= 1
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for j in range(0, S, c):
+        y = labels[:, j:j + c].to(torch.int64)
+        logits = qdot(hidden[:, j:j + c], lm_head, cfg.quant).to(
+            torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, torch.clamp(y, min=0)[..., None])[..., 0]
+        valid = (y >= 0).to(torch.float32)
+        tot = tot + ((logz - gold) * valid).sum()
+        cnt = cnt + valid.sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, train: bool = True):
+    """batch {"tokens" (B, S), "labels" (B, S)} -> (loss, metrics), for
+    parameters in the training layout (`stack_layers`).
+
+    `train` runs every weight matmul as a QAT `qdot` and attention as the
+    differentiable walk.  Dense models have no router, so the reference's
+    load-balance and router-z terms are 0 and the loss is the CE.
+    """
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed_lookup(tokens, params["embed"], cfg.quant, train).to(
+        model_dtype(cfg))
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device).expand(B, S)
+    x, _ = _backbone(_unbind(params["layers"]), x, cfg, positions,
+                     train=train)
+    x = rms_norm(x, params["final_norm"])
+    ce = chunked_cross_entropy(x, params["lm_head"], batch["labels"], cfg,
+                               cfg.loss_chunk)
+    zero = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce, {"ce": ce, "load_balance": zero, "router_z": zero}
 
 
 @torch.no_grad()
@@ -169,7 +245,7 @@ def prefill(params, tokens: torch.Tensor, caches, cfg: ModelConfig):
     x = embed_lookup(tokens, params["embed"], cfg.quant).to(model_dtype(cfg))
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
-    x, caches = _backbone(params, x, cfg, positions, caches)
+    x, caches = _backbone(params["layers"], x, cfg, positions, caches)
     x = rms_norm(x, params["final_norm"])
     logits = qdot(x[:, -1], params["lm_head"], cfg.quant)
     return logits.to(torch.float32), caches
@@ -181,7 +257,7 @@ def decode_step(params, token: torch.Tensor, caches, cfg: ModelConfig):
     _check_family(cfg)
     x = embed_lookup(token, params["embed"], cfg.quant).to(model_dtype(cfg))
     positions = caches[0]["len"][:, None]
-    x, caches = _backbone(params, x, cfg, positions, caches)
+    x, caches = _backbone(params["layers"], x, cfg, positions, caches)
     x = rms_norm(x, params["final_norm"])
     logits = qdot(x[:, 0], params["lm_head"], cfg.quant)
     return logits.to(torch.float32), caches

@@ -44,7 +44,8 @@ def test_model_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; "
             "import repro_torch.models.model, repro_torch.launch.serve, "
-            "repro_torch.models.weights; print('ok')")
+            "repro_torch.models.weights, repro_torch.launch.train, "
+            "repro_torch.launch.equalize; print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)

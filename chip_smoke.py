@@ -13,6 +13,13 @@ Run from the root of a checkout.  Phases, each raising on failure:
                over 20 launches (CUDA events, L2 flushed before each),
                the plain version's time, and the library call's time
                where one PyTorch call computes the same function.
+     The vp_block path's `block_vp_matmul` likewise, bit-identical to its
+     plain version at (4, 1024, 3072) decode, (512, 1024, 1024) prefill,
+     (4, 1024, 151936) lm_head and (4, 3072, 1024) w_down with bk 256
+     (timed), and at w_down prefill, k/v and a ragged shape (checked),
+     and the two dequant kernels behind `ops.vp_dequant`, bit-identical
+     in f32 and bf16: packed (1024, 3072) int16 words (timed) and int8
+     words (checked), and the MIMO planes (1.6e6, 64) int8 + uint8.
      The MIMO path's kernels (two-plane quantize, VP x VP matmul, fused
      quantize + matmul) likewise, at the equalizer's shapes: G = 100,000
      realizations of (16, 64) x (64, 2), and the G = 1 launches of the
@@ -26,6 +33,11 @@ Run from the root of a checkout.  Phases, each raising on failure:
                the same run on the plain path, teacher-forced on the
                kernel path's tokens, in bf16 (held to the plain path's
                own rounding floor, or 2e-2 if larger) and in f32.
+     The same in mode vp_block (block 256): every weight matmul through
+     `block_vp_matmul` on block-quantized activations, the embedding
+     table (not a multiple of 256 rows) as packed VP words; f32 held to
+     the larger of 2e-3 and the plain path's own floor.  Then the public
+     op `ops.vp_dequant` once on each dequant kernel's shapes.
   5. mimo    - the paper's B-VP MIMO equalizer (B = 64 antennas, U = 8
                users, 16-QAM, Sec. III-A): narrowband ensembles of
                n = 100,000 channels at 2 dB and 20 dB equalized through
@@ -94,7 +106,10 @@ KERNEL_NAMES = {"vp_quant_packed": "vp_quant_packed_kernel",
                 "vp_matmul": "vp_mm_kernel<VPLoad",
                 "vp_quant_matmul": "vp_mm_kernel<VPQuantLoad",
                 "vp_matmul_dx": "vp_bwd_mm_kernel<true",
-                "vp_matmul_dw": "vp_bwd_mm_kernel<false"}
+                "vp_matmul_dw": "vp_bwd_mm_kernel<false",
+                "block_vp_matmul": "block_vp_matmul_kernel",
+                "vp_dequant_planes": "vp_dequant_planes_kernel",
+                "vp_dequant_packed": "vp_dequant_packed_kernel"}
 MIMO_G = 100_000           # realizations (paper Sec. III-A)
 MIMO_SHAPE = (16, 64, 2)   # (2U, B) x (B, 2) per realization
 MASKED_N = 256             # masked mode: (n U, B) x (B, n)
@@ -106,14 +121,24 @@ TRAIN_SHAPES = ((1024, 1024, 1024), (1024, 1024, 3072), (1024, 3072, 1024),
                 (1024, 1024, 512))   # (M tokens, K, N) of the 7 weights
 GRAD_RTOL = 1e-3           # f32 train step: each weight gradient vs plain
 QMM_SHAPE = (2048, 64, 256)          # vp_quant_matmul autograd check
+BLOCK = 256                # vp_block index block (QuantConfig.block)
+BLOCK_SHAPES = ((4, 1024, 3072), (512, 1024, 1024), (4, 1024, 151936),
+                (4, 3072, 1024))     # timed: w_up decode, prefill, lm_head,
+                                     # w_down decode (12 k-tiles)
+BLOCK_CHECKED = ((512, 3072, 1024), (4, 1024, 512), (512, 1024, 512))
+                                     # checked only: w_down prefill, k/v
+DEQUANT_PACKED = (1024, 3072)        # int16 words of one weight panel
+DEQUANT_PLANES = (1_600_000, 64)     # the MIMO W planes (row 5's shape)
+WINDOW = "chip_smoke.window"        # profiler range around the profiled call
 LIBRARY_KERNELS = re.compile(
     r"gemm|cublas|cutlass|xmma|sm90_|sm80_|ampere_|flash_fwd|fmha|"
     r"efficient_attention|scaled_dot_product|cudnn", re.IGNORECASE)
 
-# Published dense peaks (NVIDIA data sheets): bytes/s, bf16 and f32 FLOP/s.
+# Published dense peaks (NVIDIA data sheets): bytes/s, bf16 and f32 FLOP/s,
+# int8 OP/s.
 PEAKS = {
-    "sxm": dict(bw=3.35e12, bf16=989e12, f32=67e12),
-    "pcie": dict(bw=2.0e12, bf16=756e12, f32=51e12),
+    "sxm": dict(bw=3.35e12, bf16=989e12, f32=67e12, int8=1979e12),
+    "pcie": dict(bw=2.0e12, bf16=756e12, f32=51e12, int8=1513e12),
 }
 
 
@@ -175,9 +200,12 @@ def main() -> None:
     record = {"device": {"nvidia_smi": smi, "kind": kind},
               "build_s": build_s}
     rows = kernel_phase(torch, peaks, record)
+    rows += block_kernel_phase(torch, peaks, record)
     rows += mimo_kernel_phase(torch, peaks, record)
     rows += train_kernel_phase(torch, peaks, record)
     serve_phase(torch, record, rows)
+    serve_block_phase(torch, record, rows, smi)
+    dequant_phase(torch, record, rows)
     mimo_phase(torch, record, rows, smi)
     train_phase(torch, record, rows, smi)
 
@@ -465,23 +493,240 @@ def kernel_phase(torch, peaks, record):
 
 
 # ---------------------------------------------------------------------------
+# 3a. the vp_block path's kernel and the dequant kernels
+# ---------------------------------------------------------------------------
+
+def _block_operands(torch, gen, M, K, N, fxp, vp, bk=BLOCK):
+    """Block-quantized activations (M, K) along k and weights (K, N)
+    along the contraction, as `qdot` in mode vp_block makes them."""
+    from repro_torch.core.quantize import block_vp_quantize
+
+    x = torch.randn((M, K), generator=gen, device="cuda")
+    x = x / x.abs().max().clamp(min=1e-30) * 0.99
+    w = (torch.randn((K, N), generator=gen, device="cuda") * 0.3).clamp(
+        -0.99, 0.99)
+    return (*block_vp_quantize(x, fxp, vp, bk, axis=-1),
+            *block_vp_quantize(w, fxp, vp, bk, axis=0))
+
+
+def block_kernel_phase(torch, peaks, record):
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core.formats import FXPFormat, default_vp_format
+    from repro_torch.core.quantize import block_vp_dequantize
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.vp_block_matmul import block_vp_matmul_cuda
+    from repro_torch.kernels.vp_dequant import (
+        vp_dequant_packed_cuda, vp_dequant_planes_cuda)
+    from repro_torch.kernels.vp_quant import (
+        vp_quant_packed_cuda, vp_quant_planes_cuda)
+    from repro_torch.mimo.equalizer import table1_specs
+    from repro_torch.models.layers import canonical_formats
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    timer = Timer(torch)
+    fxp, vp = canonical_formats(QuantConfig(mode="vp_block"))
+    lines, rows = [], []
+
+    def identical(got, want, what):
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            n = int((got.float() != want.float()).sum())
+            raise AssertionError(f"{what}: {n} of {got.numel()} values differ "
+                                 "from the plain version")
+
+    # -- block_vp_matmul: bit-identical at the serving shapes ----------------
+    for bk in (64, 256):                 # ragged M and N
+        ops_in = _block_operands(torch, gen, 3, 256, 131, fxp, vp, bk)
+        for dt in (torch.float32, torch.bfloat16):
+            identical(block_vp_matmul_cuda(*ops_in, vp, vp, bk, dt),
+                      ref.block_vp_matmul_ref(*ops_in, vp, vp, bk, dt),
+                      f"block_vp_matmul ragged (3, 256, 131) bk {bk} {dt}")
+    print("[kernel] block_vp_matmul ragged (3, 256, 131), bk 64 and 256: "
+          "bit-identical to the plain version (f32 and bf16)")
+    for (M, K, N) in BLOCK_CHECKED:
+        ops_in = _block_operands(torch, gen, M, K, N, fxp, vp)
+        identical(block_vp_matmul_cuda(*ops_in, vp, vp, BLOCK, torch.float32),
+                  ref.block_vp_matmul_ref(*ops_in, vp, vp, BLOCK),
+                  f"block_vp_matmul {[M, K, N]}")
+    print(f"[kernel] block_vp_matmul: bit-identical to the plain version at "
+          f"{list(BLOCK_CHECKED)}, bk {BLOCK} (checked, not timed)")
+    main_bl = None
+    for (M, K, N) in BLOCK_SHAPES:
+        a_m, a_i, b_m, b_i = _block_operands(torch, gen, M, K, N, fxp, vp)
+
+        def kern():
+            return block_vp_matmul_cuda(a_m, a_i, b_m, b_i, vp, vp, BLOCK,
+                                        torch.float32)
+
+        def plain():
+            return ref.block_vp_matmul_ref(a_m, a_i, b_m, b_i, vp, vp, BLOCK)
+
+        identical(kern(), plain(), f"block_vp_matmul {[M, K, N]}")
+        a32 = block_vp_dequantize(a_m, a_i, vp, BLOCK, axis=-1)
+        b32 = block_vp_dequantize(b_m, b_i, vp, BLOCK, axis=0)
+        a16, b16 = a32.to(torch.bfloat16), b32.to(torch.bfloat16)
+        ms, plain_ms = timer(kern), timer(plain)
+        library_ms = timer(lambda: torch.matmul(a16, b16))
+        library_f32_ms = timer(lambda: torch.matmul(a32, b32))
+        nk = K // BLOCK
+        nbytes = M * K + M * nk + K * N + nk * N + M * N * 4
+        bnd = bound(peaks, nbytes, 2 * M * K * N, "int8")
+        shape = [M, K, N, BLOCK]
+        _print_line("block_vp_matmul", shape, 0.0, 0.0, ms, plain_ms, bnd,
+                    library_ms)
+        print(f"[kernel] block_vp_matmul {shape}: torch.matmul on the "
+              f"dequantized operands, bf16 {library_ms:.4f} ms, f32 "
+              f"{library_f32_ms:.4f} ms")
+        lines.append(("block_vp_matmul", shape, ms, plain_ms, bnd,
+                      library_ms, library_f32_ms))
+        if main_bl is None:
+            main_bl = _row("block_vp_matmul", "vp_block_matmul.cu",
+                           "src/repro/kernels/vp_block_matmul.py:52", shape,
+                           0.0, ms, plain_ms, bnd, library_ms)
+        del a_m, a_i, b_m, b_i, a32, b32, a16, b16
+    rows.append(main_bl)
+    print(f"[kernel] block_vp_matmul: bit-identical to the plain version at "
+          f"{list(BLOCK_SHAPES)}, bk {BLOCK}")
+
+    # -- vp_dequant_packed / vp_dequant_planes: bit-identical ----------------
+    R, C = DEQUANT_PACKED
+    words = vp_quant_packed_cuda(
+        (torch.randn((R, C), generator=gen, device="cuda") * 0.3).clamp(
+            -0.99, 0.99), fxp, vp)
+    main_pk = None
+    for dt, esz in ((torch.float32, 4), (torch.bfloat16, 2)):
+        def kern():
+            return vp_dequant_packed_cuda(words, vp, dt)
+
+        def plain():
+            return ref.vp_dequant_packed_ref(words, vp, dt)
+
+        identical(kern(), plain(), f"vp_dequant_packed {dt}")
+        ms, plain_ms = timer(kern), timer(plain)
+        bnd = bound(peaks, R * C * (2 + esz), 0, "f32")
+        shape = [R, C, "int16", str(dt).split(".")[-1]]
+        _print_line("vp_dequant_packed", shape, 0.0, 0.0, ms, plain_ms, bnd,
+                    None)
+        lines.append(("vp_dequant_packed", shape, ms, plain_ms, bnd, None,
+                      None))
+        if main_pk is None:
+            main_pk = _row("vp_dequant_packed", "vp_dequant.cu",
+                           "src/repro/kernels/vp_dequant.py:52", shape, 0.0,
+                           ms, plain_ms, bnd, None)
+    fxp6 = FXPFormat(12, 11)
+    vp6 = default_vp_format(fxp6, 6, 2)          # int8 words
+    words6 = vp_quant_packed_cuda(
+        (torch.randn((R, C), generator=gen, device="cuda") * 0.3).clamp(
+            -0.99, 0.99), fxp6, vp6)
+    for dt in (torch.float32, torch.bfloat16):
+        identical(vp_dequant_packed_cuda(words6, vp6, dt),
+                  ref.vp_dequant_packed_ref(words6, vp6, dt),
+                  f"vp_dequant_packed int8 words {dt}")
+    wv, wf = table1_specs()[2].w_vp, table1_specs()[2].w_fxp
+    R, C = DEQUANT_PLANES
+    m, i = vp_quant_planes_cuda(
+        torch.randn((R, C), generator=gen, device="cuda") * 0.05, wf, wv)
+    for dt in (torch.bfloat16, torch.float32):     # the f32 line is timed
+        identical(vp_dequant_planes_cuda(m, i, wv, dt),
+                  ref.vp_dequant_ref(m, i, wv, dt),
+                  f"vp_dequant_planes {dt}")
+    ms = timer(lambda: vp_dequant_planes_cuda(m, i, wv, torch.float32))
+    plain_ms = timer(lambda: ref.vp_dequant_ref(m, i, wv, torch.float32))
+    bnd = bound(peaks, R * C * (1 + 1 + 4), 0, "f32")
+    shape = [R, C, "int8+uint8", "float32"]
+    _print_line("vp_dequant_planes", shape, 0.0, 0.0, ms, plain_ms, bnd, None)
+    lines.append(("vp_dequant_planes", shape, ms, plain_ms, bnd, None, None))
+    rows += [_row("vp_dequant_planes", "vp_dequant.cu",
+                  "src/repro/kernels/vp_dequant.py:31", shape, 0.0, ms,
+                  plain_ms, bnd, None), main_pk]
+    print("[kernel] vp_dequant_packed (int16 and int8 words; f32, bf16) and "
+          "vp_dequant_planes (int8; f32, bf16): bit-identical to their plain "
+          "versions")
+    record["block_kernel_lines"] = [
+        dict(name=n, shape=s, ms=m_, plain_ms=p, bound_ms=b[0],
+             bound_by=b[1], library_ms=lib, library_f32_ms=lib32)
+        for n, s, m_, p, b, lib, lib32 in lines]
+    print("kernels: block_vp_matmul, vp_dequant_packed, vp_dequant_planes")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # 4. serve
 # ---------------------------------------------------------------------------
 
 def serve_phase(torch, record, rows):
+    """Mode vp: packed VP weights through `vp_dequant_matmul`."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import QuantConfig
+
+    L = registry.get_config(ARCH).n_layers
+    expect = {
+        "vp_quant_packed": (2 + 7 * L) + 2 * L * (1 + GEN),
+        "vp_dequant_matmul": (7 * L + 1) * (1 + GEN),
+        "vp_decode_attention": L * GEN,
+        "flash_prefill": L,
+    }
+    out = _serve(torch, QuantConfig(mode="vp", quantize_kv_cache=True),
+                 expect, "vp_dequant_matmul", requantizes=False)
+    for row in rows:
+        if row["name"] in expect:
+            row["launches"] = out["launches"][row["name"]]
+    record["serve"] = out
+
+
+def serve_block_phase(torch, record, rows, smi):
+    """Mode vp_block: every weight matmul through `block_vp_matmul`; the
+    embedding table (vocab 151936 = 593.5 blocks of 256) falls back to
+    packed VP words, exported by the quant kernel."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import QuantConfig
+
+    L = registry.get_config(ARCH).n_layers
+    expect = {
+        "block_vp_matmul": (7 * L + 1) * (1 + GEN),
+        "vp_quant_packed": 1 + 2 * L * (1 + GEN),
+        "vp_decode_attention": L * GEN,
+        "flash_prefill": L,
+    }
+    out = _serve(torch, QuantConfig(mode="vp_block", block=BLOCK,
+                                    quantize_kv_cache=True),
+                 expect, "block_vp_matmul", requantizes=True)
+    for row in rows:
+        if row["name"] == "block_vp_matmul":
+            row["launches"] = out["launches"]["block_vp_matmul"]
+        elif row["name"] in expect:
+            row["block_serve_launches"] = out["launches"][row["name"]]
+    print(f"[serve vp_block] {smi}")
+    record["serve_vp_block"] = out
+
+
+def _serve(torch, quant, expect, matmul: str, requantizes: bool):
+    """Serve full-width qwen3-0.6b in `quant`'s mode: export, prefill
+    BATCH x PROMPT, GEN greedy steps; launch counts (== `expect`), a
+    profile of one prefill and one decode step (hand kernels only: the KV
+    quantizer, the weight `matmul` kernel and attention; no library GEMM
+    or attention kernel), and the plain path
+    teacher-forced on the kernel path's tokens in bf16 and f32.
+
+    bf16 is held to max(REL_LIMIT, FLOOR_MARGIN x the plain path's own
+    floor: its run with f64-summed matmuls against itself); f32 to
+    F32_REL_LIMIT.  A mode that `requantizes` its activations (vp_block)
+    turns a one-ulp difference into a one-step flip of a significand, or
+    of a whole block's exponent, so there the floor run sums attention
+    in f64 too (its matmuls are exact in f32: block-VP terms on a few
+    pow2 grids), and f32 is held to the larger of F32_REL_LIMIT and the
+    same margin over the f32 floor."""
     import numpy as np
 
     from repro_torch.configs import registry
-    from repro_torch.configs.base import QuantConfig
     from repro_torch.kernels import build
     from repro_torch.launch.serve import run_static
     from repro_torch.models.layers import weight_bytes
     from repro_torch.models.model import (
         decode_step, init_cache, init_params, prefill, quantize_params)
 
-    cfg = registry.get_config(
-        ARCH, QuantConfig(mode="vp", quantize_kv_cache=True))
-    L = cfg.n_layers
+    cfg = registry.get_config(ARCH, quant)
+    L, tag = cfg.n_layers, f"[serve {quant.mode}]"
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (BATCH, PROMPT)).astype(np.int64)).cuda()
 
@@ -504,25 +749,18 @@ def serve_phase(torch, record, rows):
     peak = torch.cuda.max_memory_allocated()
     # -------------------------------------------------------------------------
     words = weight_bytes(qparams)
-    print(f"[serve] {cfg.name}: {L} layers, d_model {cfg.d_model}, vocab "
-          f"{cfg.vocab}, {cfg.dtype}; exported weights {words / 1e9:.3f} GB")
-    print(f"[serve] init {init_s:.3f}s, export {export_s:.3f}s, prefill "
+    layout = {k: sorted(qparams[k]) for k in ("embed", "lm_head")}
+    print(f"{tag} {cfg.name}: {L} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}, {cfg.dtype}; exported weights {words / 1e9:.3f} GB; "
+          f"layouts {layout}")
+    print(f"{tag} init {init_s:.3f}s, export {export_s:.3f}s, prefill "
           f"{BATCH}x{PROMPT} {report['prefill_s']:.4f}s, decode {GEN} steps "
           f"{report['decode_s']:.4f}s ({report['tokens_per_s']:.1f} tok/s, "
           f"{report['decode_s'] / GEN * 1e3:.3f} ms/step), peak memory "
           f"{peak / 1e9:.3f} GB")
-    expect = {
-        "vp_quant_packed": (2 + 7 * L) + 2 * L * (1 + GEN),
-        "vp_dequant_matmul": (7 * L + 1) * (1 + GEN),
-        "vp_decode_attention": L * GEN,
-        "flash_prefill": L,
-    }
-    print(f"[serve] launches on the main path: {counts}")
+    print(f"{tag} launches on the main path: {counts}")
     if counts != expect:
         raise AssertionError(f"launch counts {counts} != expected {expect}")
-    for row in rows:
-        if row["name"] in expect:
-            row["launches"] = counts[row["name"]]
     for lg in logits:
         if not bool(torch.isfinite(lg).all()):
             raise AssertionError("non-finite logits on the kernel path")
@@ -533,13 +771,12 @@ def serve_phase(torch, record, rows):
     def prefill_once():  # rewrites slots [0, PROMPT) of the same buffers
         caches["after"] = prefill(qparams, prompts, empty, cfg)[1]
 
-    want = dict.fromkeys(KERNEL_NAMES, 0)
-    want.update(vp_quant_packed=4 * L, vp_dequant_matmul=2 * (7 * L + 1),
-                vp_decode_attention=L, flash_prefill=L)
+    per_pass = {"vp_quant_packed": 2 * L, matmul: 7 * L + 1}
     names, seen = _profile_kernels(torch, [
-        ("prefill", prefill_once),
+        ("prefill", prefill_once, dict(per_pass, flash_prefill=L)),
         ("decode step", lambda: decode_step(qparams, tokens[:, :1],
-                                            caches["after"], cfg))], want)
+                                            caches["after"], cfg),
+         dict(per_pass, vp_decode_attention=L))])
     library = sorted({n for n in names if LIBRARY_KERNELS.search(n)
                       and not any(v in n for v in KERNEL_NAMES.values())})
     print(f"[profile] {len(names)} device kernels in one prefill + one "
@@ -556,13 +793,14 @@ def serve_phase(torch, record, rows):
     plain = _plain_logits(torch, cfg, qparams, prompts, tokens)
     rels, agree = _rel_diffs(torch, logits, plain)
     floor, _ = _rel_diffs(torch, _plain_logits(
-        torch, cfg, qparams, prompts, tokens, f64_matmul=True), plain)
+        torch, cfg, qparams, prompts, tokens, f64_matmul=True,
+        f64_attention=requantizes), plain)
     limit = max(REL_LIMIT, FLOOR_MARGIN * max(floor))
-    print("[serve] bf16 kernel vs plain, per step (prefill first): "
+    print(f"{tag} bf16 kernel vs plain, per step (prefill first): "
           + " ".join(f"{r:.2e}" for r in rels))
-    print("[serve] bf16 plain (f64 matmul) vs plain, per step: "
+    print(f"{tag} bf16 plain (f64 sums) vs plain, per step: "
           + " ".join(f"{r:.2e}" for r in floor))
-    print(f"[serve] bf16 kernel path vs plain path: max |logit diff| / "
+    print(f"{tag} bf16 kernel path vs plain path: max |logit diff| / "
           f"max|logit| = {max(rels):.3e} over {len(rels)} steps; plain-path "
           f"floor {max(floor):.3e}; limit {limit:.3e}; greedy-token "
           f"agreement {agree:.4f}")
@@ -575,21 +813,80 @@ def serve_phase(torch, record, rows):
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     qp32 = quantize_params(init_params(cfg32, seed=0, device="cuda"), cfg32)
     tok32, lg32 = run_static(qp32, cfg32, prompts, GEN)
-    rels32, agree32 = _rel_diffs(
-        torch, lg32, _plain_logits(torch, cfg32, qp32, prompts, tok32))
-    print("[serve] f32 kernel vs plain, per step (prefill first): "
+    plain32 = _plain_logits(torch, cfg32, qp32, prompts, tok32)
+    rels32, agree32 = _rel_diffs(torch, lg32, plain32)
+    floor32, limit32 = None, F32_REL_LIMIT
+    if requantizes:
+        floor32, _ = _rel_diffs(torch, _plain_logits(
+            torch, cfg32, qp32, prompts, tok32, f64_matmul=True,
+            f64_attention=True), plain32)
+        limit32 = max(F32_REL_LIMIT, FLOOR_MARGIN * max(floor32))
+        print(f"{tag} f32 plain (f64 sums) vs plain, per step: "
+              + " ".join(f"{r:.2e}" for r in floor32))
+    print(f"{tag} f32 kernel vs plain, per step (prefill first): "
           + " ".join(f"{r:.2e}" for r in rels32))
-    print(f"[serve] f32 kernel path vs plain path: max {max(rels32):.3e} "
-          f"(limit {F32_REL_LIMIT}); greedy-token agreement {agree32:.4f}")
-    if max(rels32) > F32_REL_LIMIT:
+    print(f"{tag} f32 kernel path vs plain path: max {max(rels32):.3e} "
+          + (f"(plain-path floor {max(floor32):.3e}; " if requantizes
+             else "(")
+          + f"limit {limit32:.3e}); greedy-token agreement {agree32:.4f}")
+    if max(rels32) > limit32:
         raise AssertionError(f"f32 kernel path differs from the plain path "
-                             f"by {max(rels32):.3e} > {F32_REL_LIMIT}")
-    record["serve"] = dict(
+                             f"by {max(rels32):.3e} > {limit32:.3e}")
+    return dict(
         init_s=init_s, export_s=export_s, **report, peak_bytes=peak,
-        weight_bytes=words, launches=counts, profiled=seen,
+        weight_bytes=words, layouts=layout, launches=counts, profiled=seen,
         bf16_rel_logit_diff=rels, bf16_plain_floor=floor, bf16_limit=limit,
         bf16_token_agreement=agree, f32_rel_logit_diff=rels32,
+        f32_plain_floor=floor32, f32_limit=limit32,
         f32_token_agreement=agree32)
+
+
+def dequant_phase(torch, record, rows):
+    """The public op `ops.vp_dequant` on the card: the packed words of
+    one weight panel into f32 and bf16, and the MIMO W planes into f32,
+    each once, checked against the op's plain path."""
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.kernels import build, ops
+    from repro_torch.mimo.equalizer import table1_specs
+    from repro_torch.models.layers import canonical_formats
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    fxp, vp = canonical_formats(QuantConfig(mode="vp"))
+    wf, wv = table1_specs()[2].w_fxp, table1_specs()[2].w_vp
+    words = ops.vp_quant((torch.randn(DEQUANT_PACKED, generator=gen,
+                                      device="cuda") * 0.3).clamp(-0.99, 0.99),
+                         fxp, vp, packed=True)
+    m, i = ops.vp_quant(torch.randn(DEQUANT_PLANES, generator=gen,
+                                    device="cuda") * 0.05, wf, wv)
+    calls = {"packed f32": lambda: ops.vp_dequant(words, None, vp),
+             "packed bf16": lambda: ops.vp_dequant(words, None, vp,
+                                                   torch.bfloat16),
+             "planes f32": lambda: ops.vp_dequant(m, i, wv)}
+    torch.cuda.synchronize()
+    build.reset_launches()
+    # -- the path: the public op, once per call --------------------------------
+    outs = {what: fn() for what, fn in calls.items()}
+    counts = dict(build.LAUNCHES)
+    # -------------------------------------------------------------------------
+    expect = {"vp_dequant_packed": 2, "vp_dequant_planes": 1}
+    print(f"[dequant] ops.vp_dequant launches: {counts}")
+    if counts != expect:
+        raise AssertionError(f"vp_dequant launch counts {counts} != {expect}")
+    with ops.force_backend("ref"):
+        for what, fn in calls.items():
+            want = fn()
+            if outs[what].dtype != want.dtype or not torch.equal(outs[what],
+                                                                 want):
+                raise AssertionError(f"ops.vp_dequant {what} differs from "
+                                     "its plain path")
+    print(f"[dequant] ops.vp_dequant packed {list(DEQUANT_PACKED)} (f32, "
+          f"bf16) and planes {list(DEQUANT_PLANES)} (f32): bit-identical to "
+          "the plain path")
+    for row in rows:
+        if row["name"] in expect:
+            row["launches"] = counts[row["name"]]
+    record["dequant"] = dict(launches=counts)
 
 
 # ---------------------------------------------------------------------------
@@ -790,6 +1087,12 @@ def mimo_kernel_phase(torch, peaks, record):
         shape = [1, Mm, K, Nm, case]
         _print_line(name, shape, err, rel, ms, plain_ms, bnd, library_ms)
         lines.append((name, shape, ms, plain_ms, bnd, library_ms))
+        if case != "planes+masks":      # the unbatched TPU kernels' rows
+            rows.append(dict(_row(
+                name, f"{name}.cu", "src/repro/kernels/" + (
+                    "vp_quant_matmul.py:157" if case == "fused"
+                    else "vp_matmul.py:143"), shape, err, ms, plain_ms, bnd,
+                library_ms), g1=True))
     record["mimo_kernel_lines"] = [
         dict(name=n, shape=s, ms=m, plain_ms=p, bound_ms=b[0], bound_by=b[1],
              library_ms=lib) for n, s, m, p, b, lib in lines]
@@ -876,11 +1179,15 @@ def mimo_phase(torch, record, rows, smi):
     if wide_launches != {"vp_quant_matmul": 1}:
         raise AssertionError(f"wideband band took {wide_launches}, not one "
                              "fused launch")
-    for row in rows:
-        if row["name"] in ("vp_quant_planes", "vp_matmul", "vp_quant_matmul"):
-            row["launches"] = counts[row["name"]]
-        elif row["name"] not in ("vp_matmul_dx", "vp_matmul_dw"):
-            row["mimo_launches"] = counts.get(row["name"], 0)
+    for row in rows:     # G = 1 launches to the unbatched kernels' rows
+        name = row["name"]
+        if name == "vp_quant_planes":
+            row["launches"] = counts[name]
+        elif name in ("vp_matmul", "vp_quant_matmul"):
+            g1 = masked_launches.get(name, 0)
+            row["launches"] = g1 if row.get("g1") else counts[name] - g1
+        elif name in counts:
+            row["mimo_launches"] = counts[name]
 
     # -- kernel path vs plain path, estimates and BER -------------------------
     errs = {}
@@ -927,15 +1234,16 @@ def mimo_phase(torch, record, rows, smi):
 
     # -- profiler: the default equalize call and the wideband call ----------
     e, bvp = ens[2.0], specs[2.0][2]
-    want = dict.fromkeys(KERNEL_NAMES, 0)
-    want.update(vp_quant_packed=2, vp_matmul=1, vp_quant_matmul=2)
     names, seen = _profile_kernels(torch, [
         ("narrowband equalize (fused, n = 100000)",
-         lambda: equalize_vp_kernel(bvp, e.w_beam, e.y_beam)),
+         lambda: equalize_vp_kernel(bvp, e.w_beam, e.y_beam),
+         {"vp_quant_matmul": 1}),
         ("narrowband equalize (unfused)",
-         lambda: equalize_vp_kernel(bvp, e.w_beam, e.y_beam, fused=False)),
+         lambda: equalize_vp_kernel(bvp, e.w_beam, e.y_beam, fused=False),
+         {"vp_quant_packed": 2, "vp_matmul": 1}),
         (f"wideband equalize (S = {S}, n = {nw})",
-         lambda: equalize_wideband(wspecs, wens.w_beam, wens.y_beam))], want)
+         lambda: equalize_wideband(wspecs, wens.w_beam, wens.y_beam),
+         {"vp_quant_matmul": 1})])
     library = sorted({nm for nm in names if LIBRARY_KERNELS.search(nm)
                       and not any(v in nm for v in KERNEL_NAMES.values())})
     print(f"[profile] equalize calls: hand kernels {seen}")
@@ -1187,11 +1495,10 @@ def train_phase(torch, record, rows, smi):
                               compress_grads=CompressionConfig(codec="vp"))
     opt, cmp = init_opt_state(params, opt_cfg), init_compressor_state(params)
     step_fn(params, opt, batch, cmp)                      # warm-up
-    want = dict.fromkeys(KERNEL_NAMES, 0)
-    want.update(vp_quant_packed=per_step, vp_dequant_matmul=per_step,
-                vp_matmul_dx=per_step)
     _, seen = _profile_kernels(torch, [
-        ("train step", lambda: step_fn(params, opt, batch, cmp))], want)
+        ("train step", lambda: step_fn(params, opt, batch, cmp),
+         {"vp_quant_packed": per_step, "vp_dequant_matmul": per_step,
+          "vp_matmul_dx": per_step})])
     print(f"[profile] train step: hand kernels {seen}")
     del params, opt, cmp, step_fn
 
@@ -1237,41 +1544,64 @@ def train_phase(torch, record, rows, smi):
         bf16_limit=limit)
 
 
-def _profile_kernels(torch, runs, want, attempts: int = 3):
-    """Profile each (what, fn) of `runs` (`_profile`) and count the hand
-    kernels in the traces -> (device kernel names, counts), which must
-    equal `want`.  The profiler can drop the device events of a short
-    window (a 3.7 ms equalize window once held none on the card), so
-    traces that disagree are taken again, up to `attempts` times; a path
-    that launches other kernels than `want` fails every attempt."""
-    for attempt in range(1, attempts + 1):
-        names = []
-        for what, fn in runs:
-            names += [n for n, _ in _profile(torch, what, fn)[1]]
-        seen = {k: sum(v in n for n in names) for k, v in KERNEL_NAMES.items()}
-        if seen == want:
-            return names, seen
-        print(f"[profile] attempt {attempt}: the traces hold hand kernels "
-              f"{seen}, expected {want}")
-    raise AssertionError(f"profiled launches {seen} != expected {want} in "
-                         f"{attempts} attempts")
+def _profile_kernels(torch, runs, attempts: int = 3):
+    """Profile each (what, fn, want) of `runs` (`_profile`) and count the
+    hand kernels in its trace, which must equal `want` (kernels absent
+    from it: 0).  Returns (device kernel names, hand-kernel counts) over
+    all runs.  Should the profiler still drop device events of a window
+    (`_profile`), a run whose trace disagrees is profiled again, up to
+    `attempts` times; a path that launches other kernels than `want`
+    fails every attempt."""
+    names, total = [], dict.fromkeys(KERNEL_NAMES, 0)
+    for what, fn, want in runs:
+        full = {k: want.get(k, 0) for k in KERNEL_NAMES}
+        for attempt in range(1, attempts + 1):
+            got = [n for n, _ in _profile(torch, what, fn)[1]]
+            seen = {k: sum(v in n for n in got)
+                    for k, v in KERNEL_NAMES.items()}
+            if seen == full:
+                break
+            print(f"[profile] {what}, attempt {attempt}: the trace holds hand "
+                  f"kernels {seen}, expected {full}")
+        else:
+            raise AssertionError(f"{what}: profiled launches {seen} != "
+                                 f"expected {full} in {attempts} attempts")
+        names += got
+        total = {k: total[k] + seen[k] for k in total}
+    return names, total
 
 
 def _profile(torch, what, fn):
     """Run fn() once under torch.profiler; print its wall time (profiler
     on), device busy time, idle share and the kernels taking the most
-    device time.  Returns (fn's result, [(kernel name, device us)])."""
-    from torch.profiler import ProfilerActivity, profile
+    device time.  Returns (fn's result, [(kernel name, device us)]).
+
+    After the long serve windows the profiler loses the first device
+    records of a new window (the short MIMO windows lost their hand
+    kernels that way).  A burst of tiny kernels at the
+    window's head takes that loss; only the device events that start
+    inside the `WINDOW` range around fn() are kept."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
+        head = torch.ones(16, device="cuda")
+        for _ in range(64):
+            head.neg_()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+        with record_function(WINDOW):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    start = min(e.time_range.start for e in events
+                if e.name == WINDOW
+                and e.device_type == torch.autograd.DeviceType.CPU)
+    kernels = [(e.name, e.time_range.elapsed_us()) for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name != WINDOW and e.time_range.start >= start]
     busy = sum(us for _, us in kernels)
     by_name = {}
     for name, us in kernels:
@@ -1289,9 +1619,9 @@ def _profile(torch, what, fn):
 
 @contextlib.contextmanager
 def _f64_matmuls(torch):
-    """Inside: the plain serving matmul and its dx sum in f64 instead of
-    f32 (swapped into `ref`), to measure the plain path's own rounding
-    floor."""
+    """Inside: the plain serving matmul, its dx and the block-VP matmul
+    sum in f64 instead of f32 (swapped into `ref`), to measure the plain
+    path's own rounding floor."""
     from repro_torch.core.packing import dequant_words
     from repro_torch.kernels import ref
 
@@ -1301,18 +1631,93 @@ def _f64_matmuls(torch):
     def dx64(g, w, fmt, out_dtype=torch.float32):
         return (g.double() @ dequant_words(w, fmt).double().t()).to(out_dtype)
 
-    saved = ref.vp_dequant_matmul_ref, ref.vp_matmul_dx_ref
-    ref.vp_dequant_matmul_ref, ref.vp_matmul_dx_ref = matmul64, dx64
+    def block64(a_m, a_i, b_m, b_i, a_fmt, b_fmt, bk,
+                out_dtype=torch.float32):
+        lut_a = torch.tensor([2.0 ** -f for f in a_fmt.f],
+                             dtype=torch.float64, device=a_m.device)
+        lut_b = torch.tensor([2.0 ** -f for f in b_fmt.f],
+                             dtype=torch.float64, device=a_m.device)
+        out = 0.0
+        for t in range(a_m.shape[1] // bk):
+            acc = a_m[:, t * bk:(t + 1) * bk].double() @ \
+                b_m[t * bk:(t + 1) * bk].double()
+            out = out + (acc * lut_a[a_i[:, t].long()][:, None]
+                         * lut_b[b_i[t].long()][None, :])
+        return out.to(out_dtype)
+
+    names = ("vp_dequant_matmul_ref", "vp_matmul_dx_ref",
+             "block_vp_matmul_ref")
+    saved = [getattr(ref, n) for n in names]
+    for n, fn in zip(names, (matmul64, dx64, block64)):
+        setattr(ref, n, fn)
     try:
         yield
     finally:
-        ref.vp_dequant_matmul_ref, ref.vp_matmul_dx_ref = saved
+        for n, fn in zip(names, saved):
+            setattr(ref, n, fn)
 
 
-def _plain_logits(torch, cfg, params, prompts, tokens, f64_matmul=False):
+@contextlib.contextmanager
+def _f64_attention(torch):
+    """Inside: the plain prefill and decode attention sum in f64 instead
+    of f32 (swapped into `ref`), with the same masks, the same cast of
+    the probabilities to v's dtype before PV, and the result cast back."""
+    from repro_torch.kernels import ref
+
+    def valid_decode(cache_len, Smax, window, rolling, device):
+        pos = torch.arange(Smax, device=device)[None, :]
+        length = cache_len.to(torch.int64)[:, None]
+        if rolling:
+            return pos < torch.clamp(length, max=Smax)
+        valid = pos < length
+        if window:
+            valid &= pos >= length - window
+        return valid
+
+    def decode64(q, k_cache, v_cache, cache_len, window=None, rolling=False):
+        B, _, H, dh = q.shape
+        Smax, KV = k_cache.shape[1], k_cache.shape[2]
+        qr = q.reshape(B, KV, H // KV, dh).double() * dh ** -0.5
+        s = torch.einsum("bkgd,bksd->bkgs", qr,
+                         k_cache.transpose(1, 2).double())
+        valid = valid_decode(cache_len, Smax, window, rolling, q.device)
+        s = torch.where(valid[:, None, None, :], s, ref.NEG_INF)
+        out = torch.einsum("bkgs,bksd->bkgd", torch.softmax(s, dim=-1),
+                           v_cache.transpose(1, 2).double())
+        return out.reshape(B, 1, H, dh).to(q.dtype)
+
+    def prefill64(q, k, v, pattern="causal", window=None):
+        B, Sq, H, dh = q.shape
+        Sk, KV = k.shape[1], k.shape[2]
+        qr = q.reshape(B, Sq, KV, H // KV, dh).double() * dh ** -0.5
+        s = torch.einsum("bqkgd,bskd->bkgqs", qr, k.double())
+        if pattern in ("causal", "local"):
+            q_pos = torch.arange(Sq, device=q.device)[:, None]
+            k_pos = torch.arange(Sk, device=q.device)[None, :]
+            mask = k_pos <= q_pos
+            if pattern == "local" and window:
+                mask &= q_pos - k_pos < window
+            s = torch.where(mask, s, ref.NEG_INF)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(v.dtype).double(),
+                          v.double())
+        out = (pv / p.sum(dim=-1)[..., None]).permute(0, 3, 1, 2, 4)
+        return out.reshape(B, Sq, H, dh).to(q.dtype)
+
+    saved = ref.decode_attention_ref, ref.flash_prefill_ref
+    ref.decode_attention_ref, ref.flash_prefill_ref = decode64, prefill64
+    try:
+        yield
+    finally:
+        ref.decode_attention_ref, ref.flash_prefill_ref = saved
+
+
+def _plain_logits(torch, cfg, params, prompts, tokens, f64_matmul=False,
+                  f64_attention=False):
     """Logits of prefill + one decode step per column of `tokens` on the
-    plain path (teacher-forced).  `f64_matmul` sums the plain matmul in
-    f64 instead of f32, to measure the path's own rounding floor."""
+    plain path (teacher-forced).  `f64_matmul` sums the plain matmuls in
+    f64 instead of f32, and `f64_attention` the plain attention, to
+    measure the path's own rounding floor."""
     from repro_torch.kernels import ops
     from repro_torch.models.model import decode_step, init_cache, prefill
 
@@ -1320,6 +1725,8 @@ def _plain_logits(torch, cfg, params, prompts, tokens, f64_matmul=False):
         stack.enter_context(ops.force_backend("ref"))
         if f64_matmul:
             stack.enter_context(_f64_matmuls(torch))
+        if f64_attention:
+            stack.enter_context(_f64_attention(torch))
         caches = init_cache(cfg, BATCH, PROMPT + GEN)
         lg, caches = prefill(params, prompts, caches, cfg)
         out = [lg]

@@ -14,25 +14,30 @@ class QuantConfig:
     """How the VP technique is applied to the model's matmuls.
 
     mode:
-      none - float baseline
-      vp   - per-element VP weights stored as packed words
-    (`fxp` and `vp_block` are modes of the reference that this port does
-    not serve yet.)
+      none     - float baseline
+      fxp      - int8 fixed-point weights (the FXP baseline)
+      vp       - per-element VP weights stored as packed words
+      vp_block - block VP: int8 significands with one exponent index per
+                 `block` weights along the contraction, and activations
+                 block-quantized on the fly, through the int8
+                 `block_vp_matmul` kernel
 
-    qat_mode: how float master weights train under mode vp ("fake":
-    fake-quant STE in the float graph; "packed": quantize to packed
-    words and run the serving kernel forward and the packed-word
-    backward kernels, `kernels.ops.vp_qat_matmul`).
+    qat_mode: how float master weights train under mode vp or vp_block
+    (both per element; "fake": fake-quant STE in the float graph;
+    "packed": quantize to packed words and run the serving kernel
+    forward and the packed-word backward kernels,
+    `kernels.ops.vp_qat_matmul`).
     """
     mode: str = "none"
     M: int = 7
     E: int = 2
     W: int = 12                      # FXP proxy grid width
+    block: int = 256                 # vp_block index granularity
     quantize_kv_cache: bool = False  # packed VP KV cache
     qat_mode: str = "fake"
 
     def __post_init__(self):
-        if self.mode not in ("none", "vp"):
+        if self.mode not in ("none", "fxp", "vp", "vp_block"):
             raise ValueError(f"unsupported quant mode {self.mode!r}")
         if self.qat_mode not in ("fake", "packed"):
             raise ValueError(f"unsupported qat mode {self.qat_mode!r}")

@@ -1,16 +1,17 @@
 """Tensor-level VP quantization (port of `vp_fake_quant`,
-`vp_fake_quant_ste` and the packed-word tensor codec of
-`repro.core.quantize`)."""
+`vp_fake_quant_ste`, the packed-word tensor codec and the block-VP
+quantizer of `repro.core.quantize`)."""
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
 
-from .convert import fxp2vp, vp_to_float
+from .convert import _shift, fxp2vp, vp_to_float
 from .formats import FXPFormat, VPFormat
 from .fxp import fxp_quantize
 from .packing import dequant_words, pack_vp
+from .vp_tensor import significand_dtype
 
 
 def vp_fake_quant(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat
@@ -82,3 +83,45 @@ def vp_unpack_tensor(w: torch.Tensor, scale: torch.Tensor, vp: VPFormat,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Invert `vp_pack_tensor`: (words, scale) -> real tensor."""
     return dequant_words(w, vp, dtype) * scale.to(dtype)
+
+
+def block_vp_quantize(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
+                      block: int, axis: int = -1
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantize with ONE exponent index per `block` contiguous elements
+    along `axis` (block VP, the VP analogue of block floating point).
+
+    The block's index is the largest per-element FXP2VP index in it (the
+    option of its largest magnitude), so every element of the block fits
+    at that fractional length; each element is then re-shifted at the
+    block's f and clipped to the significand range.  Returns
+    (significands of `significand_dtype(vp.M)` shaped like x, uint8
+    indices with `axis` reduced by `block`).  Plain tensor code, as in
+    the reference (no kernel).
+    """
+    axis = axis % x.ndim
+    n = x.shape[axis]
+    if n % block:
+        raise ValueError(f"axis size {n} not divisible by block {block}")
+    raw = fxp_quantize(x, fxp)
+    _, i_elt = fxp2vp(raw, fxp, vp)
+    shp = list(x.shape)
+    shp[axis:axis + 1] = [n // block, block]
+    i_blk = i_elt.reshape(shp).amax(dim=axis + 1)
+    i_full = torch.repeat_interleave(i_blk, block, dim=axis)
+    m = torch.zeros_like(raw)
+    for k in range(vp.K):
+        m = torch.where(i_full == k, _shift(raw, fxp.F - vp.f[k]), m)
+    m = torch.clamp(m, vp.raw_min, vp.raw_max)
+    return m.to(significand_dtype(vp.M)), i_blk.to(torch.uint8)
+
+
+def block_vp_dequantize(m: torch.Tensor, i_blk: torch.Tensor, vp: VPFormat,
+                        block: int, axis: int = -1,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Invert `block_vp_quantize`: m * 2^-f of each element's block."""
+    axis = axis % m.ndim
+    scales = torch.tensor([2.0 ** (-fk) for fk in vp.f], dtype=dtype,
+                          device=m.device)
+    s = torch.repeat_interleave(scales[i_blk.long()], block, dim=axis)
+    return m.to(dtype) * s

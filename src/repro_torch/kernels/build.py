@@ -80,6 +80,13 @@ _SIGNATURES = {
         "vp_matmul_dx_launch": [_P, _P, _P] + [_I] * 6 + [_P, _P],
         "vp_matmul_dw_launch": [_P, _P, _P] + [_I] * 6 + [_P, _P],
     },
+    "vp_block_matmul": {
+        "block_vp_matmul_launch": [_P] * 5 + [_I] * 5 + [_P] * 3,
+    },
+    "vp_dequant": {
+        "vp_dequant_planes_launch": [_P, _P, _P, _LL, _I, _P, _P],
+        "vp_dequant_packed_launch": [_P, _I, _P, _LL, _I, _P, _P],
+    },
 }
 SOURCES = tuple(_SIGNATURES)
 

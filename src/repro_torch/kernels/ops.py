@@ -26,13 +26,16 @@ from typing import Iterator, Optional
 
 import torch
 
+from repro_torch.analysis import contracts
 from repro_torch.core.formats import FXPFormat, VPFormat
 from repro_torch.core.packing import unpack_vp
 from repro_torch.core.vp_tensor import significand_dtype
 from . import autotune, ref
 from .autotune import Blocks
 from .vp_attention import flash_prefill_cuda, vp_decode_attention_cuda
+from .vp_block_matmul import block_vp_matmul_cuda
 from .vp_bwd_matmul import vp_matmul_dw_cuda, vp_matmul_dx_cuda
+from .vp_dequant import vp_dequant_packed_cuda, vp_dequant_planes_cuda
 from .vp_dequant_matmul import vp_dequant_matmul_cuda
 from .vp_matmul import vp_matmul_cuda
 from .vp_quant import vp_quant_packed_cuda, vp_quant_planes_cuda
@@ -92,6 +95,63 @@ def vp_quant(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
     if packed:
         return ref.vp_quant_packed_ref(x, fxp, vp)
     return ref.vp_quant_ref(x, fxp, vp)
+
+
+def vp_dequant(m: torch.Tensor, i: Optional[torch.Tensor] = None,
+               vp: Optional[VPFormat] = None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(significand, index) planes, or packed words with ``i=None``, back
+    to real values of any shape: ``vp_dequant(m, i, fmt)`` or
+    ``vp_dequant(w, None, fmt)``."""
+    if isinstance(i, VPFormat) or vp is None:
+        raise TypeError(
+            "vp_dequant takes (m, i, vp) for planes or (w, None, vp) for "
+            "packed words: the format is always the THIRD argument")
+    contracts.require_format_serviceable(vp, "vp_dequant")
+    if i is None:
+        if uses_kernel(m):
+            return vp_dequant_packed_cuda(m, vp, dtype)
+        return ref.vp_dequant_packed_ref(m, vp, dtype)
+    if uses_kernel(m, i):
+        return vp_dequant_planes_cuda(m, i, vp, dtype)
+    return ref.vp_dequant_ref(m, i, vp, dtype)
+
+
+def block_vp_matmul(a_m, a_i, b_m, b_i, a_fmt: VPFormat, b_fmt: VPFormat,
+                    bk: int = 256, blocks: Optional[Blocks] = None,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Block-VP matmul: a_m (M, K) int8 with a_i (M, K/bk) indices per
+    (row, k-tile), b_m (K, N) int8 with b_i (K/bk, N) per (k-tile, col)
+    -> (M, N), each tile's int32 product scaled into an f32 sum.
+
+    `bk` is the format's index block, not a free tiling axis: the int32
+    contract is proved for it and, as in the reference, a `blocks` whose
+    k-tile differs raises on every device.  The card's kernel keeps its
+    own (M, N) tiling, so `blocks` is only checked.
+    """
+    contracts.require_format_serviceable(a_fmt, "block_vp_matmul")
+    contracts.require_format_serviceable(b_fmt, "block_vp_matmul")
+    contracts.require_int_accum_safe(a_fmt, b_fmt, bk)
+    if blocks is not None and blocks[1] != bk:
+        raise ValueError(
+            f"kernel k-tile {blocks[1]} must equal index block size {bk}")
+    if a_m.ndim != 2 or b_m.ndim != 2 or a_m.shape[1] != b_m.shape[0]:
+        raise ValueError(f"bad matmul shapes a {tuple(a_m.shape)}, "
+                         f"b {tuple(b_m.shape)}")
+    M, K = a_m.shape
+    N = b_m.shape[1]
+    if K % bk:
+        raise ValueError(f"K = {K} is not a multiple of the block {bk}")
+    if (tuple(a_i.shape) != (M, K // bk)
+            or tuple(b_i.shape) != (K // bk, N)):
+        raise ValueError(f"index shapes {tuple(a_i.shape)} / "
+                         f"{tuple(b_i.shape)}, want {(M, K // bk)} / "
+                         f"{(K // bk, N)}")
+    if uses_kernel(a_m, a_i, b_m, b_i):
+        return block_vp_matmul_cuda(a_m, a_i, b_m, b_i, a_fmt, b_fmt, bk,
+                                    out_dtype)
+    return ref.block_vp_matmul_ref(a_m, a_i, b_m, b_i, a_fmt, b_fmt, bk,
+                                   out_dtype=out_dtype)
 
 
 def _check_masks(a_act, b_act, M: int, K: int, N: int, blocks: Blocks):

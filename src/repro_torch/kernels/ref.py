@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the port's kernels (port of the matching
 oracles in `repro.kernels.ref`): the serving path's packed quantize,
 matmul and attention, the MIMO path's two-plane quantize, VP x VP
-matmuls (with CSPADE tile muting) and fused quantize + matmul, and the
-training path's backward matmuls over packed words.
+matmuls (with CSPADE tile muting) and fused quantize + matmul, the
+training path's backward matmuls over packed words, the block-VP
+matmul of the `vp_block` serving mode and the two dequantizers behind
+`ops.vp_dequant`.
 
 `ops.py` runs these for CPU tensors, and inside `ops.force_backend("ref")`
 on the card; the CPU tests hold them against the JAX package, and
@@ -42,6 +44,46 @@ def vp_dequant_ref(m: torch.Tensor, i: torch.Tensor, vp: VPFormat,
                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(significand, index) -> real values m * 2^-f_i."""
     return vp_to_float(m, i, vp, dtype)
+
+
+def vp_dequant_packed_ref(w: torch.Tensor, vp: VPFormat,
+                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Packed VP words -> real values (word table or unpack, exact)."""
+    return dequant_words(w, vp, dtype)
+
+
+def block_vp_matmul_ref(a_m: torch.Tensor, a_i: torch.Tensor,
+                        b_m: torch.Tensor, b_i: torch.Tensor,
+                        a_fmt: VPFormat, b_fmt: VPFormat, bk: int,
+                        out_dtype: torch.dtype = torch.float32
+                        ) -> torch.Tensor:
+    """Block-VP matmul: a_m (M, K) significands with a_i (M, K/bk)
+    indices per (row, k-tile), b_m (K, N) with b_i (K/bk, N) per
+    (k-tile, col).  For k-tile t, in order 0 .. nk-1:
+
+        out += f32(A_t @ B_t) * 2^-f_a[a_i[:, t]] * 2^-f_b[b_i[t, :]]
+
+    into an f32 accumulator, cast to `out_dtype` at the end (as the
+    Pallas body and the CUDA kernel do).  Each tile's integer product is
+    taken in f64, exact while the int32 contract holds (and `torch.mm`
+    has no integer path on the card); every scale is a power of two, so
+    each term is exact and only the f32 additions round.
+    """
+    M, K = a_m.shape
+    N = b_m.shape[1]
+    lut_a = torch.tensor([2.0 ** (-f) for f in a_fmt.f],
+                         dtype=torch.float32, device=a_m.device)
+    lut_b = torch.tensor([2.0 ** (-f) for f in b_fmt.f],
+                         dtype=torch.float32, device=a_m.device)
+    out = torch.zeros((M, N), dtype=torch.float32, device=a_m.device)
+    for t in range(K // bk):
+        at = a_m[:, t * bk:(t + 1) * bk].double()
+        bt = b_m[t * bk:(t + 1) * bk, :].double()
+        acc = (at @ bt).float()
+        sa = lut_a[a_i[:, t].long()]
+        sb = lut_b[b_i[t, :].long()]
+        out = out + acc * sa[:, None] * sb[None, :]
+    return out.to(out_dtype)
 
 
 def tile_activity(x_abs_max: torch.Tensor, threshold) -> torch.Tensor:
@@ -202,7 +244,8 @@ def decode_attention_ref(q, k_cache, v_cache, cache_len,
     q (B, 1, H, dh), caches (B, Smax, KV, dh), cache_len (B,) ->
     (B, 1, H, dh).  Positions outside the valid span get NEG_INF before
     the softmax; the reference slices a window first, which drops only
-    exact zeros.
+    exact zeros.  `chip_smoke._f64_attention` mirrors this in float64:
+    keep the two in step.
     """
     B, _, H, dh = q.shape
     Smax, KV = k_cache.shape[1], k_cache.shape[2]
@@ -250,6 +293,8 @@ def flash_prefill_ref(q, k, v, pattern: str = "causal",
     unnormalized probabilities are cast to v's dtype before the PV
     product, as the TPU kernel and the reference model's prefill scan
     do (a no-op in f32); the denominator stays in f32.
+    `chip_smoke._f64_attention` mirrors this in float64: keep the two in
+    step.
     """
     B, Sq, H, dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]

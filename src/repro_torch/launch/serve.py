@@ -8,8 +8,11 @@ Runs on the card by default and raises when CUDA is absent; `--device
 cpu` runs the plain PyTorch versions of the kernels.  Weights are random
 from `--seed` (torch generator), prompts from a numpy generator with the
 same seed.  With `--quant vp` every weight matmul reads packed VP words
-through the `vp_dequant_matmul` kernel; `--kv-quant` keeps the KV cache
-as packed words read by the `vp_decode_attention` kernel.
+through the `vp_dequant_matmul` kernel; with `--quant vp_block` (index
+block `--block`) it block-quantizes its activations and runs the int8
+`block_vp_matmul` kernel; `--quant fxp` serves int8 fixed-point weights.
+`--kv-quant` keeps the KV cache as packed words read by the
+`vp_decode_attention` kernel.
 """
 from __future__ import annotations
 
@@ -81,7 +84,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     choices=registry.ARCH_NAMES)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU tests)")
-    ap.add_argument("--quant", default="none", choices=["none", "vp"])
+    ap.add_argument("--quant", default="none",
+                    choices=["none", "fxp", "vp", "vp_block"])
+    ap.add_argument("--block", type=int, default=256,
+                    help="vp_block index granularity; a weight whose "
+                         "contraction dim it does not divide falls back to "
+                         "per-element packed VP")
     ap.add_argument("--kv-quant", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -93,11 +101,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    quant = QuantConfig(mode=args.quant, quantize_kv_cache=args.kv_quant)
+    quant = QuantConfig(mode=args.quant, block=args.block,
+                        quantize_kv_cache=args.kv_quant)
     cfg = (registry.get_smoke_config(args.arch, quant) if args.smoke
            else registry.get_config(args.arch, quant))
     params = init_params(cfg, seed=args.seed, device=device)
-    report = {"arch": args.arch, "quant": args.quant,
+    report = {"arch": args.arch, "quant": args.quant, "block": args.block,
               "kv_quant": args.kv_quant, "smoke": args.smoke,
               "batch": args.batch, "prompt_len": args.prompt_len,
               "gen": args.gen, "device": str(device)}

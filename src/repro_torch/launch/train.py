@@ -71,7 +71,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     help="quantization-aware fine-tune into the serving VP "
                          "format: 'fake' = STE in the float graph, 'packed' "
                          "= packed-word kernels forward and backward")
-    ap.add_argument("--quant", default="none", choices=["none", "vp"])
+    ap.add_argument("--quant", default="none",
+                    choices=["none", "fxp", "vp", "vp_block"])
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)

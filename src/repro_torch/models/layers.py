@@ -1,19 +1,30 @@
 """Quantization-aware building blocks (port of `repro.models.layers`).
 
-Every weight matmul goes through `qdot`:
+Every weight matmul goes through `qdot`, which dispatches on the keys of
+the weight's exported dict, as the reference does:
 
-  none  x @ W
-  vp    ops.vp_dequant_matmul(x, W_packed) * scale: one packed VP word
-        per weight, consumed directly by the kernel (unpack and pow2
-        scale on chip, no float weight matrix in device memory).
+  none      x @ W
+  fxp       x @ (int8 W * scale)           {"m", "scale"}
+  vp        ops.vp_dequant_matmul(x, W_packed) * scale: one packed VP
+            word per weight, consumed directly by the kernel (unpack and
+            pow2 scale on chip, no float weight matrix in device memory)
+                                           {"w_packed", "scale"}
+  vp_block  ops.block_vp_matmul(x_q, W_q) * (s_x * scale): int8
+            significands with one exponent index per `block` weights
+            along the contraction; the activations are block-quantized
+            on the fly with a dynamic pow2 scale s_x
+                                           {"m", "i_blk", "scale"}
+            A weight whose contraction dim is not a multiple of `block`
+            (the embedding table: it is indexed by vocab) falls back to
+            the per-element packed layout of vp.
 
-Training (`train=True`) keeps float master weights and, under mode vp,
-fine-tunes them into the serving format (QAT): `qat_mode="packed"` runs
-`ops.vp_qat_matmul` (quant and serving kernels forward, the packed-word
-`vp_matmul_dx` kernel backward), `qat_mode="fake"` the fake-quant STE in
-the float graph.
+Training (`train=True`) keeps float master weights and, under mode vp or
+vp_block, fine-tunes them into the per-element serving format (QAT):
+`qat_mode="packed"` runs `ops.vp_qat_matmul` (quant and serving kernels
+forward, the packed-word `vp_matmul_dx` kernel backward),
+`qat_mode="fake"` the fake-quant STE in the float graph.
 
-The reference's `fxp`, `vp_block` and two-plane layouts wait for a later
+The reference's two-plane ("planes") weight layout waits for a later
 slice.
 """
 from __future__ import annotations
@@ -23,9 +34,10 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import QuantConfig
+from repro_torch.core.convert import vp_to_float
 from repro_torch.core.formats import FXPFormat, default_vp_format
 from repro_torch.core.packing import dequant_words
-from repro_torch.core.quantize import vp_fake_quant_ste
+from repro_torch.core.quantize import block_vp_quantize, vp_fake_quant_ste
 from repro_torch.kernels import ops
 
 
@@ -47,15 +59,27 @@ def _pow2_scale(w: torch.Tensor) -> torch.Tensor:
 def quantize_weight(w: torch.Tensor, q: QuantConfig) -> Any:
     """Float weight (d_in, d_out) -> its serving form.
 
-    mode none: the float tensor; mode vp: {"w_packed", "scale"} with the
-    words of w / scale (exported by the quant kernel on the card).
+    none: the float tensor.  fxp: {"m" int8, "scale"}.  vp:
+    {"w_packed", "scale"}, the words of w / scale (exported by the quant
+    kernel on the card).  vp_block: {"m" int8, "i_blk" uint8 (d_in /
+    block, d_out), "scale"} from `block_vp_quantize` along d_in (plain
+    tensor code, as in the reference), or the vp dict when d_in is not a
+    multiple of the block.
     """
     if q.mode == "none":
         return w
     fxp, vp = canonical_formats(q)
     s = _pow2_scale(w)
-    wn = (w / s).to(torch.float32)
-    return {"w_packed": ops.vp_quant(wn, fxp, vp, packed=True),
+    wn = w / s
+    if q.mode == "fxp":
+        m = torch.clamp(torch.round(wn * 127.0), -128, 127).to(torch.int8)
+        return {"m": m, "scale": (s / 127.0).to(torch.float32)}
+    if q.mode == "vp_block" and w.shape[0] % q.block == 0:
+        m, i_blk = block_vp_quantize(wn.to(torch.float32), fxp, vp,
+                                     q.block, axis=0)
+        return {"m": m, "i_blk": i_blk, "scale": s.to(torch.float32)}
+    return {"w_packed": ops.vp_quant(wn.to(torch.float32), fxp, vp,
+                                     packed=True),
             "scale": s.to(torch.float32)}
 
 
@@ -64,15 +88,15 @@ def qdot(x: torch.Tensor, wq: Any, q: QuantConfig,
     """x (..., d_in) @ W (d_in, d_out) under the quantization mode.
 
     `wq` is a float tensor (training, or mode none) or the dict that
-    `quantize_weight` exports (serving).  With `train` and mode vp a
-    float master weight is quantized on the fly (QAT, module docstring);
-    its pow2 scale carries no gradient and commutes exactly with the
-    contraction.
+    `quantize_weight` exports (serving), dispatched on its keys.  With
+    `train` and mode vp or vp_block a float master weight is quantized
+    on the fly (QAT, module docstring); its pow2 scale carries no
+    gradient and commutes exactly with the contraction.
     """
     dtype = x.dtype
     if not isinstance(wq, dict):
         w = wq
-        if train and q.mode == "vp":
+        if train and q.mode in ("vp", "vp_block"):
             fxp, vp = canonical_formats(q)
             s = _pow2_scale(w.detach())
             if q.qat_mode == "packed" and w.ndim == 2:
@@ -83,11 +107,21 @@ def qdot(x: torch.Tensor, wq: Any, q: QuantConfig,
                 return out.reshape(*lead, -1)
             w = vp_fake_quant_ste(w / s, fxp, vp) * s
         return x @ w.to(dtype)
-    _, vp = canonical_formats(q)
+    fxp, vp = canonical_formats(q)
     lead = x.shape[:-1]
-    out = ops.vp_dequant_matmul(x.reshape(-1, x.shape[-1]), wq["w_packed"],
-                                vp, out_dtype=dtype)
-    out = out * wq["scale"].to(dtype)
+    x2 = x.reshape(-1, x.shape[-1])
+    if "w_packed" in wq:
+        out = ops.vp_dequant_matmul(x2, wq["w_packed"], vp, out_dtype=dtype)
+        out = out * wq["scale"].to(dtype)
+    elif "i_blk" in wq:
+        xf = x2.to(torch.float32)
+        sa = _pow2_scale(xf)
+        a_m, a_i = block_vp_quantize(xf / sa, fxp, vp, q.block, axis=-1)
+        out = ops.block_vp_matmul(a_m, a_i, wq["m"], wq["i_blk"], vp, vp,
+                                  bk=q.block)
+        out = (out * (sa * wq["scale"])).to(dtype)
+    else:
+        out = x2 @ (wq["m"].to(dtype) * wq["scale"].to(dtype))
     return out.reshape(*lead, -1)
 
 
@@ -113,15 +147,25 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4):
 
 def embed_lookup(tokens: torch.Tensor, table: Any, q: QuantConfig,
                  train: bool = False):
-    """Token embedding.  A packed table gathers the packed rows first and
-    dequantizes only those (f32, like the reference).  A float table is
-    gathered as it is, in training too (`train` is accepted for the
-    reference's signature; the embedding is not fake-quantized)."""
-    if isinstance(table, dict):
-        _, vp = canonical_formats(q)
-        rows = table["w_packed"][tokens]
-        return dequant_words(rows, vp, torch.float32) * table["scale"]
-    return table[tokens]
+    """Token embedding, dispatched on the table's keys.  A quantized
+    table gathers the rows of its tokens first and dequantizes only those
+    (f32, like the reference; every value is an elementwise function of
+    its row, so this equals dequantizing the table and then gathering):
+    packed words; block VP, whose row r takes the indices of block
+    r // block; int8 FXP.  A float table is gathered as it is, in
+    training too (`train` is accepted for the reference's signature; the
+    embedding is not fake-quantized)."""
+    if not isinstance(table, dict):
+        return table[tokens]
+    _, vp = canonical_formats(q)
+    if "w_packed" in table:
+        rows = dequant_words(table["w_packed"][tokens], vp, torch.float32)
+    elif "i_blk" in table:
+        rows = vp_to_float(table["m"][tokens],
+                           table["i_blk"][tokens // q.block], vp)
+    else:
+        rows = table["m"][tokens].to(torch.float32)
+    return rows * table["scale"]
 
 
 def weight_bytes(params: Dict[str, Any]) -> int:

@@ -99,10 +99,13 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 def quantize_params(params: Dict[str, Any], cfg: ModelConfig
                     ) -> Dict[str, Any]:
-    """Export: every weight matrix -> {"w_packed", "scale"} (mode vp).
+    """Export: every weight matrix -> its serving dict
+    (`layers.quantize_weight`: {"w_packed", "scale"} in mode vp, {"m",
+    "i_blk", "scale"} in vp_block, {"m", "scale"} in fxp).
 
-    On the card each matrix goes through the quant kernel once.  The
-    float tensors are not kept: drop the input tree to free them.
+    On the card each packed matrix goes through the quant kernel once;
+    block VP and FXP are plain tensor code.  The float tensors are not
+    kept: drop the input tree to free them.
     """
     if cfg.quant.mode == "none":
         return params

@@ -53,6 +53,26 @@ def test_model_imports_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
+def test_kernel_modules_import_without_jax_cuda_or_build():
+    """The contract checks and the block-VP and dequant wrappers import
+    with JAX blocked and no card, and importing loads no kernel library
+    (nvcc runs at the first launch, never at import)."""
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None; "
+            "import repro_torch.analysis.bitwidth, "
+            "repro_torch.analysis.contracts, "
+            "repro_torch.kernels.vp_block_matmul, "
+            "repro_torch.kernels.vp_dequant, repro_torch.kernels.ops; "
+            "from repro_torch.kernels import block_vp_matmul, vp_dequant, "
+            "build; print(len(build._LIBS), sorted(build.LAUNCHES))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "0 []"
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.configs import registry
     from repro_torch.launch import serve

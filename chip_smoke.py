@@ -13,6 +13,8 @@ Run from the root of a checkout.  Phases, each raising on failure:
                over 20 launches (CUDA events, L2 flushed before each),
                the plain version's time, and the library call's time
                where one PyTorch call computes the same function.
+     `vp_dequant_matmul` is timed at (4, 1024, 3072) decode, (512, 1024,
+     1024) prefill, (4, 1024, 151936) lm_head and (4, 3072, 1024) w_down.
      The vp_block path's `block_vp_matmul` likewise, bit-identical to its
      plain version at (4, 1024, 3072) decode, (512, 1024, 1024) prefill,
      (4, 1024, 151936) lm_head and (4, 3072, 1024) w_down with bk 256
@@ -49,12 +51,18 @@ Run from the root of a checkout.  Phases, each raising on failure:
                GEMM), every kernel-path estimate against the plain path,
                and equalizations per second.
   6. train kernels - the backward kernels `vp_matmul_dx` and
-               `vp_matmul_dw` against their plain versions at the
-               full-width training shapes (M = 8 x 128 = 1024 tokens) in
-               f32 and bf16, timed like phase 3 with `torch.matmul` on the
-               pre-dequantized operand as the library yardstick; then the
-               autograd backward of `ops.vp_quant_matmul` at (2048, 64) x
-               (64, 256), da and db against the plain path.
+               `vp_matmul_dw` (tensor-core body) against their plain
+               versions at the full-width training shapes (M = 8 x 128 =
+               1024 tokens) and at (2048, 64, 256), the shape of
+               `ops.vp_quant_matmul`'s backward, in f32 and bf16, timed
+               like phase 3 with `torch.matmul` on the pre-dequantized
+               operand as the library yardstick, with TFLOP/s and the share
+               of the bound; HGMMA counted in their SASS (cuobjdump); a
+               ragged and an unaligned shape and a format with M > 9 (the
+               CUDA-core body) checked; the CUDA-core body timed through its
+               C entry at the bf16 training shapes beside the tensor-core
+               body; then the autograd backward of `ops.vp_quant_matmul` at
+               (2048, 64) x (64, 256), da and db against the plain path.
   7. train   - full-width qwen3-0.6b in bf16 trained through the CLI
                (`launch.train.main`): random weights from seed 0,
                SyntheticLM batch 8 x seq 128, packed QAT, VP gradient
@@ -105,8 +113,10 @@ KERNEL_NAMES = {"vp_quant_packed": "vp_quant_packed_kernel",
                 "vp_quant_planes": "vp_quant_planes_kernel",
                 "vp_matmul": "vp_mm_kernel<VPLoad",
                 "vp_quant_matmul": "vp_mm_kernel<VPQuantLoad",
-                "vp_matmul_dx": "vp_bwd_mm_kernel<true",
-                "vp_matmul_dw": "vp_bwd_mm_kernel<false",
+                "vp_matmul_dx": "vp_matmul_dx_tc_kernel",
+                "vp_matmul_dw": "vp_matmul_dw_tc_kernel",
+                "vp_bwd_splitk_reduce": "vp_bwd_splitk_reduce_kernel",
+                "vp_bwd_cuda_core": "vp_bwd_mm_kernel",
                 "block_vp_matmul": "block_vp_matmul_kernel",
                 "vp_dequant_planes": "vp_dequant_planes_kernel",
                 "vp_dequant_packed": "vp_dequant_packed_kernel"}
@@ -356,7 +366,7 @@ def kernel_phase(torch, peaks, record):
 
     main_mm = None
     for (M, K, N) in ((4, 1024, 3072), (512, 1024, 1024),
-                      (4, 1024, 151936), (33, 96, 24)):
+                      (4, 1024, 151936), (4, 3072, 1024), (33, 96, 24)):
         w = words(K, N)
         x32 = randn(M, K)
         got = vp_dequant_matmul_cuda(x32, w, vp, torch.float32)
@@ -1294,12 +1304,35 @@ def mimo_phase(torch, record, rows, smi):
 # 6. the training path's kernels
 # ---------------------------------------------------------------------------
 
+def _sass_counts(lib_path: Path, nvcc: str, opcode: str = "HGMMA"):
+    """{kernel symbol: count of `opcode` in its SASS} from the cuobjdump
+    beside `nvcc` (the toolkit that built the library)."""
+    cuobjdump = Path(nvcc).with_name("cuobjdump")
+    if not cuobjdump.exists():
+        raise RuntimeError(f"no cuobjdump beside {nvcc}: cannot show the "
+                           "tensor cores in the SASS")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and opcode in line:
+            counts[name] += 1
+    return counts
+
+
 def train_kernel_phase(torch, peaks, record):
+    import ctypes
+
     from repro_torch.configs.base import QuantConfig
+    from repro_torch.core.formats import FXPFormat, default_vp_format
     from repro_torch.core.packing import dequant_words
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.vp_bwd_matmul import (
-        vp_matmul_dw_cuda, vp_matmul_dx_cuda)
+        bwd_body, plan_tiles, vp_matmul_dw_cuda, vp_matmul_dx_cuda)
     from repro_torch.kernels.vp_quant import vp_quant_packed_cuda
     from repro_torch.mimo.equalizer import table1_specs
     from repro_torch.models.layers import canonical_formats
@@ -1308,58 +1341,146 @@ def train_kernel_phase(torch, peaks, record):
     gen.manual_seed(2)
     timer = Timer(torch)
     fxp, vp = canonical_formats(QuantConfig(mode="vp"))
+    bvp = table1_specs()[2]
     lines, main = [], {}
 
-    def words(R, C):
-        x = torch.randn((R, C), generator=gen, device="cuda") * 0.3
-        return vp_quant_packed_cuda(x.clamp(-0.99, 0.99), fxp, vp)
+    # -- the tensor cores in the SASS of the tensor-core body ----------------
+    hgmma = _sass_counts(build._target("vp_bwd_matmul"), build._nvcc())
+    tc = {k: v for k, v in hgmma.items() if "_tc_kernel" in k}
+    if not tc or min(tc.values()) == 0:
+        raise AssertionError(f"tensor-core body without HGMMA: {tc}")
+    print(f"[kernel] vp_bwd_matmul SASS: HGMMA in {len(tc)} tensor-core "
+          f"kernels, {sum(tc.values())} in all ({min(tc.values())} to "
+          f"{max(tc.values())} each); {sum(hgmma.values()) - sum(tc.values())}"
+          " elsewhere")
+    record["hgmma"] = hgmma
 
-    # -- vp_matmul_dx / vp_matmul_dw at the training shapes ------------------
-    for (M, K, N) in TRAIN_SHAPES:
-        w, a = words(K, N), words(M, K)
-        w_deq, a_deq = dequant_words(w, vp), dequant_words(a, vp)
+    def words(R, C, f_=fxp, v_=vp):
+        x = torch.randn((R, C), generator=gen, device="cuda") * 0.3
+        return vp_quant_packed_cuda(x.clamp(-0.99, 0.99), f_, v_)
+
+    def cases(dtype, w, w_vp, a, a_vp, g):
+        return {"vp_matmul_dx": (
+                    lambda: vp_matmul_dx_cuda(g, w, w_vp, dtype),
+                    lambda: ref.vp_matmul_dx_ref(g, w, w_vp, dtype)),
+                "vp_matmul_dw": (
+                    lambda: vp_matmul_dw_cuda(a, g, a_vp, dtype),
+                    lambda: ref.vp_matmul_dw_ref(a, g, a_vp, dtype))}
+
+    # -- vp_matmul_dx / vp_matmul_dw at the training shapes and QMM_SHAPE ----
+    # An f32 g runs as three bf16 terms on the tensor cores, so its bound is
+    # 3 x 2MKN at the bf16 rate (or its bytes); bf16 g: 2MKN.
+    for (M, K, N) in TRAIN_SHAPES + (QMM_SHAPE,):
+        # At QMM_SHAPE the backward of ops.vp_quant_matmul's words: dx over
+        # b's (the y format, int8), dw over a's (the w format, int16).
+        qmm = (M, K, N) == QMM_SHAPE
+        w_vp, a_vp = (bvp.y_vp, bvp.w_vp) if qmm else (vp, vp)
+        w = words(K, N, bvp.y_fxp, w_vp) if qmm else words(K, N)
+        a = words(M, K, bvp.w_fxp, a_vp) if qmm else words(M, K)
+        w_deq, a_deq = dequant_words(w, w_vp), dequant_words(a, a_vp)
         g32 = torch.randn((M, N), generator=gen, device="cuda")
         for dtype, tol, peak in ((torch.float32, F32_RTOL, "f32"),
                                  (torch.bfloat16, BF16_TOL, "bf16")):
             g = g32.to(dtype)
             wd, ad = w_deq.to(dtype), a_deq.to(dtype)
             esz = g.element_size()
-            cases = {
-                "vp_matmul_dx": (
-                    lambda: vp_matmul_dx_cuda(g, w, vp, dtype),
-                    lambda: ref.vp_matmul_dx_ref(g, w, vp, dtype),
-                    lambda: torch.matmul(g, wd.t()),
-                    M * N * esz + K * N * 2 + M * K * esz),
-                "vp_matmul_dw": (
-                    lambda: vp_matmul_dw_cuda(a, g, vp, dtype),
-                    lambda: ref.vp_matmul_dw_ref(a, g, vp, dtype),
-                    lambda: torch.matmul(ad.t(), g),
-                    M * K * 2 + M * N * esz + K * N * esz),
-            }
-            for name, (kern, plain, lib, nbytes) in cases.items():
+            libs = {"vp_matmul_dx": (lambda: torch.matmul(g, wd.t()),
+                                     M * N * esz + K * N * w.element_size()
+                                     + M * K * esz),
+                    "vp_matmul_dw": (lambda: torch.matmul(ad.t(), g),
+                                     M * K * a.element_size() + M * N * esz
+                                     + K * N * esz)}
+            for name, (kern, plain) in cases(dtype, w, w_vp, a, a_vp,
+                                             g).items():
                 what = f"{name} {[M, K, N]} {peak}"
                 err, rel = compare(torch, kern(), plain(), tol, what)
+                lib, nbytes = libs[name]
                 ms, plain_ms, library_ms = timer(kern), timer(plain), \
                     timer(lib)
-                bnd = bound(peaks, nbytes, 2 * M * K * N, peak)
+                flops = 2 * M * K * N * (3 if dtype == torch.float32 else 1)
+                bnd = bound(peaks, nbytes, flops, "bf16")
                 shape = [M, K, N, peak]
                 _print_line(name, shape, err, rel, ms, plain_ms, bnd,
                             library_ms)
+                tflops = 2 * M * K * N / ms / 1e9
+                print(f"[kernel]   {name} {shape}: {tflops:.1f} TFLOP/s "
+                      f"(2MKN), {bnd[0] / ms:.1%} of the bound, "
+                      f"{ms / library_ms:.2f}x torch.matmul")
                 lines.append((name, shape, ms, plain_ms, bnd, library_ms))
-                if (M, K, N) == (1024, 1024, 3072) and (
-                        (name, peak) in (("vp_matmul_dx", "bf16"),
-                                         ("vp_matmul_dw", "f32"))):
+                if (name, shape) in (
+                        ("vp_matmul_dx", [1024, 1024, 3072, "bf16"]),
+                        ("vp_matmul_dw", list(QMM_SHAPE) + ["f32"])):
                     main[name] = _row(
                         name, "vp_bwd_matmul.cu",
                         "src/repro/kernels/vp_bwd_matmul.py:"
                         + ("58" if name == "vp_matmul_dx" else "108"),
                         shape, err, ms, plain_ms, bnd, library_ms)
+                    main[name]["tflops"] = tflops
         del w, a, w_deq, a_deq
     print(f"[kernel] vp_matmul_dx / vp_matmul_dw: within {F32_RTOL:g} (f32) "
-          f"and {BF16_TOL:g} (bf16) of max|plain| at {list(TRAIN_SHAPES)}")
+          f"and {BF16_TOL:g} (bf16) of max|plain| at "
+          f"{list(TRAIN_SHAPES + (QMM_SHAPE,))}")
+
+    # -- checked only: a ragged shape and a format for the CUDA-core body ----
+    fxp10 = FXPFormat(14, 12)
+    vp10 = default_vp_format(fxp10, 10, 1)   # VP(10,[12,8]), int16 words
+    for (M, K, N), f_, v_, body in (((1000, 1000, 3000), fxp, vp,
+                                     "tensor_core"),
+                                    ((37, 45, 29), bvp.y_fxp, bvp.y_vp,
+                                     "tensor_core"),
+                                    ((1024, 1024, 512), fxp10, vp10,
+                                     "cuda_core")):
+        w, a = words(K, N, f_, v_), words(M, K, f_, v_)
+        g32 = torch.randn((M, N), generator=gen, device="cuda")
+        for dtype, tol in ((torch.float32, F32_RTOL),
+                           (torch.bfloat16, BF16_TOL)):
+            if bwd_body(dtype, v_) != body:
+                raise AssertionError(f"{v_} {dtype}: body "
+                                     f"{bwd_body(dtype, v_)} != {body}")
+            build.reset_launches()
+            for name, (kern, plain) in cases(dtype, w, v_, a, v_,
+                                             g32.to(dtype)).items():
+                compare(torch, kern(), plain(), tol,
+                        f"{name} {[M, K, N]} {v_} {dtype}")
+            cc = build.LAUNCHES["vp_bwd_cuda_core"]
+            if cc != (2 if body == "cuda_core" else 0):
+                raise AssertionError(f"{v_}: {cc} CUDA-core launches")
+        print(f"[kernel] vp_matmul_dx / vp_matmul_dw {[M, K, N]} {v_} "
+              f"({body} body): within tolerance (f32 and bf16)")
+
+    # -- the CUDA-core body through its C entry, in the same run --------------
+    lib = build.library("vp_bwd_matmul")
+    f_c = build.vp_fmt_struct(vp)
+    stream = torch.cuda.current_stream().cuda_stream
+    cuda_core = {}
+    for (M, K, N) in TRAIN_SHAPES:
+        w, a = words(K, N), words(M, K)
+        g = torch.randn((M, N), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        out_dx = torch.empty((M, K), dtype=torch.bfloat16, device="cuda")
+        out_dw = torch.empty((K, N), dtype=torch.bfloat16, device="cuda")
+        runs = {
+            "vp_matmul_dx": (lambda: lib.vp_matmul_dx_cc_launch(
+                g.data_ptr(), w.data_ptr(), out_dx.data_ptr(), M, K, N, 1, 2,
+                1, ctypes.byref(f_c), stream),
+                lambda: vp_matmul_dx_cuda(g, w, vp, torch.bfloat16)),
+            "vp_matmul_dw": (lambda: lib.vp_matmul_dw_cc_launch(
+                a.data_ptr(), g.data_ptr(), out_dw.data_ptr(), M, K, N, 1, 2,
+                1, ctypes.byref(f_c), stream),
+                lambda: vp_matmul_dw_cuda(a, g, vp, torch.bfloat16))}
+        for name, (cc_run, tc_run) in runs.items():
+            build.check(lib, cc_run(), f"{name} (CUDA-core body)")
+            cc_ms, tc_ms = timer(cc_run), timer(tc_run)
+            cuda_core[f"{name} {[M, K, N]}"] = (cc_ms, tc_ms)
+            print(f"[kernel] {name} {[M, K, N, 'bf16']}: CUDA-core body "
+                  f"{cc_ms:.4f} ms, tensor-core body {tc_ms:.4f} ms "
+                  f"({cc_ms / tc_ms:.1f}x)")
+            if (M, K, N) == (1024, 1024, 3072):
+                main[name]["cuda_core_ms"] = cc_ms
+                main[name]["cuda_core_shape"] = [M, K, N, "bf16"]
+    record["cuda_core_vs_tensor_core"] = cuda_core
 
     # -- the autograd backward of ops.vp_quant_matmul -------------------------
-    bvp = table1_specs()[2]
     Mq, Kq, Nq = QMM_SHAPE
     a, b = _mimo_operands(torch, gen, 1, Mq, Kq, Nq)
     a, b = a[0], b[0]
@@ -1378,8 +1499,13 @@ def train_kernel_phase(torch, peaks, record):
     got = qmm_grads()
     qmm_counts = dict(build.LAUNCHES)
     # -------------------------------------------------------------------------
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = sum(plan_tiles(R, C, S, num_sms).split > 1
+                 for R, C, S in ((Mq, Kq, Nq), (Kq, Nq, Mq)))
     want_counts = {"vp_quant_matmul": 1, "vp_quant_packed": 2,
                    "vp_matmul_dx": 1, "vp_matmul_dw": 1}
+    if splits:
+        want_counts["vp_bwd_splitk_reduce"] = splits
     if qmm_counts != want_counts:
         raise AssertionError(f"vp_quant_matmul autograd launches {qmm_counts}"
                              f" != {want_counts}")
@@ -1614,6 +1740,11 @@ def _profile(torch, what, fn):
           f"share {max(0.0, 1 - busy / wall_us):.3f}; top: "
           + "; ".join(f"{k} {us / 1e3:.3f} ms ({us / busy:.1%})"
                       for k, us in top))
+    hand = [(k, by_name[k]) for k in KERNEL_NAMES if k in by_name]
+    if hand:
+        print(f"[profile] {what}: hand-kernel device time "
+              + "; ".join(f"{k} {us / 1e3:.3f} ms ({us / busy:.1%})"
+                          for k, us in hand))
     return out, kernels
 
 

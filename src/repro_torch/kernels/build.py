@@ -77,8 +77,10 @@ _SIGNATURES = {
         "vp_quant_matmul_launch": [_P] * 7 + [_I] * 7 + [_P],
     },
     "vp_bwd_matmul": {
-        "vp_matmul_dx_launch": [_P, _P, _P] + [_I] * 6 + [_P, _P],
-        "vp_matmul_dw_launch": [_P, _P, _P] + [_I] * 6 + [_P, _P],
+        "vp_matmul_dx_cc_launch": [_P, _P, _P] + [_I] * 6 + [_P, _P],
+        "vp_matmul_dw_cc_launch": [_P, _P, _P] + [_I] * 6 + [_P, _P],
+        "vp_matmul_dx_tc_launch": [_P] * 4 + [_I] * 8 + [_P, _P],
+        "vp_matmul_dw_tc_launch": [_P] * 4 + [_I] * 8 + [_P, _P],
     },
     "vp_block_matmul": {
         "block_vp_matmul_launch": [_P] * 5 + [_I] * 5 + [_P] * 3,

@@ -13,8 +13,14 @@ Run from the root of a checkout.  Phases, each raising on failure:
                over 20 launches (CUDA events, L2 flushed before each),
                the plain version's time, and the library call's time
                where one PyTorch call computes the same function.
-     `vp_dequant_matmul` is timed at (4, 1024, 3072) decode, (512, 1024,
-     1024) prefill, (4, 1024, 151936) lm_head and (4, 3072, 1024) w_down.
+     `vp_dequant_matmul` on the body its planner picks: the skinny body
+     at every decode shape (batch 4: w_up, w_down, q/o, k/v, lm_head),
+     the tensor-core body at prefill (512, 1024, 1024) and the four
+     train-forward shapes, each timed; ragged and unaligned shapes, int8
+     and int32 words and VP(10,[12,8]) (CUDA-core body) checked; each
+     split body run twice, bit-identical; HGMMA counted in its SASS; the
+     three bodies timed over M = 1..64 (the planner's thresholds); the
+     timer's floor and the wrapper's host time per call.
      The vp_block path's `block_vp_matmul` likewise, bit-identical to its
      plain version at (4, 1024, 3072) decode, (512, 1024, 1024) prefill,
      (4, 1024, 151936) lm_head and (4, 3072, 1024) w_down with bk 256
@@ -29,7 +35,9 @@ Run from the root of a checkout.  Phases, each raising on failure:
   4. serve   - full-width qwen3-0.6b in bf16 with packed VP weights and
                a packed VP KV cache: random weights from seed 0 exported
                by the quant kernel, batch 4 x 128 prompt tokens, 32
-               greedy decode steps.  Launch counts of that run, a
+               greedy decode steps (prefill's weight matmuls on the
+               tensor-core body, decode's and lm_head on the skinny
+               body, by the per-body counters).  Launch counts of that run, a
                profiler check of one prefill and one decode step (hand
                kernels only, no library GEMM or attention kernel), then
                the same run on the plain path, teacher-forced on the
@@ -61,7 +69,9 @@ Run from the root of a checkout.  Phases, each raising on failure:
                ragged and an unaligned shape and a format with M > 9 (the
                CUDA-core body) checked; the CUDA-core body timed through its
                C entry at the bf16 training shapes beside the tensor-core
-               body; then the autograd backward of `ops.vp_quant_matmul` at
+               body; an f32 g with +-FLT_MAX elements held against the
+               CUDA-core body, and one below 2^-110 measured against it;
+               then the autograd backward of `ops.vp_quant_matmul` at
                (2048, 64) x (64, 256), da and db against the plain path.
   7. train   - full-width qwen3-0.6b in bf16 trained through the CLI
                (`launch.train.main`): random weights from seed 0,
@@ -69,7 +79,8 @@ Run from the root of a checkout.  Phases, each raising on failure:
                compression and VP Adam moments, 4 steps.  Per-step loss,
                grad norm, seconds, tokens/s, peak memory; launch counts
                (196 per step of quant, serving matmul and dx: 28 layers x
-               7 weights); a profile of one step; then one step's loss and
+               7 weights; the forward on the tensor-core body); a profile
+               of one step; then one step's loss and
                gradients against the plain path in f32 and in bf16 (held
                to the plain path's own rounding floor, or 2e-2 if larger).
   8. result  - a {"kernels": [...]} line, then the device line last.
@@ -107,7 +118,11 @@ BF16_TOL = 1e-2            # bf16: one rounding of the output (2^-8 rel)
                            # of one product, at most one bf16 ulp (2^-7 of
                            # the value) apart, plus f32 order
 KERNEL_NAMES = {"vp_quant_packed": "vp_quant_packed_kernel",
-                "vp_dequant_matmul": "vp_dequant_matmul_kernel",
+                "vp_dequant_matmul": "vp_dequant_matmul_",   # every body
+                "vp_dqmm_skinny": "vp_dequant_matmul_skinny_kernel",
+                "vp_dqmm_tc": "vp_dequant_matmul_tc_kernel",
+                "vp_dqmm_cuda_core": "vp_dequant_matmul_cc_kernel",
+                "vp_dqmm_splitk_reduce": "vp_dqmm_splitk_reduce_kernel",
                 "vp_decode_attention": "vp_decode_attention_kernel",
                 "flash_prefill": "flash_prefill_kernel",
                 "vp_quant_planes": "vp_quant_planes_kernel",
@@ -129,6 +144,13 @@ CLI_N = 4096               # realizations per ensemble of the CLI run
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 4
 TRAIN_SHAPES = ((1024, 1024, 1024), (1024, 1024, 3072), (1024, 3072, 1024),
                 (1024, 1024, 512))   # (M tokens, K, N) of the 7 weights
+# vp_dequant_matmul: decode at batch 4 (w_up/w_gate, w_down, q/o, k/v,
+# lm_head), prefill (4 x 128 tokens), then the train forward (timed)
+DQMM_DECODE = ((4, 1024, 3072), (4, 3072, 1024), (4, 1024, 1024),
+               (4, 1024, 512), (4, 1024, 151936))
+DQMM_SHAPES = DQMM_DECODE + ((512, 1024, 1024),) + TRAIN_SHAPES
+DQMM_SWEEP_M = (1, 4, 8, 16, 32, 64)  # the three bodies side by side, for
+DQMM_SWEEP_KN = ((1024, 3072), (3072, 1024))  # the planner's thresholds
 GRAD_RTOL = 1e-3           # f32 train step: each weight gradient vs plain
 QMM_SHAPE = (2048, 64, 256)          # vp_quant_matmul autograd check
 BLOCK = 256                # vp_block index block (QuantConfig.block)
@@ -313,11 +335,9 @@ def kernel_phase(torch, peaks, record):
 
     from repro_torch.configs.base import QuantConfig
     from repro_torch.core.formats import FXPFormat, default_vp_format
-    from repro_torch.core.packing import dequant_words
     from repro_torch.kernels import ref
     from repro_torch.kernels.vp_attention import (
         flash_prefill_cuda, vp_decode_attention_cuda)
-    from repro_torch.kernels.vp_dequant_matmul import vp_dequant_matmul_cuda
     from repro_torch.kernels.vp_quant import vp_quant_packed_cuda
     from repro_torch.models.layers import canonical_formats
 
@@ -359,44 +379,13 @@ def kernel_phase(torch, peaks, record):
     print("[kernel] vp_quant_packed: bit-exact on the panel, ties and "
           "saturation (int16 and int8 words)")
 
-    # -- vp_dequant_matmul -----------------------------------------------------
+    # -- vp_dequant_matmul: its three bodies ------------------------------------
     def words(K, N):
         return vp_quant_packed_cuda(
             (randn(K, N) * 0.3).clamp(-0.99, 0.99), fxp, vp)
 
-    main_mm = None
-    for (M, K, N) in ((4, 1024, 3072), (512, 1024, 1024),
-                      (4, 1024, 151936), (4, 3072, 1024), (33, 96, 24)):
-        w = words(K, N)
-        x32 = randn(M, K)
-        got = vp_dequant_matmul_cuda(x32, w, vp, torch.float32)
-        want = ref.vp_dequant_matmul_ref(x32, w, vp, torch.float32)
-        compare(torch, got, want, F32_RTOL, f"vp_dequant_matmul f32 {M, K, N}")
-        x = x32.to(torch.bfloat16)
-        got = vp_dequant_matmul_cuda(x, w, vp, torch.bfloat16)
-        want = ref.vp_dequant_matmul_ref(x, w, vp, torch.bfloat16)
-        err, rel = compare(torch, got, want, BF16_TOL,
-                           f"vp_dequant_matmul bf16 {M, K, N}")
-        if M == 33:
-            print(f"[kernel] vp_dequant_matmul ragged {[M, K, N]}: "
-                  f"within tolerance (f32 and bf16)")
-            continue
-        w_deq = dequant_words(w, vp).to(torch.bfloat16)
-        ms = timer(lambda: vp_dequant_matmul_cuda(x, w, vp, torch.bfloat16))
-        plain_ms = timer(
-            lambda: ref.vp_dequant_matmul_ref(x, w, vp, torch.bfloat16))
-        library_ms = timer(lambda: torch.matmul(x, w_deq))
-        bnd = bound(peaks, 2 * (M * K + K * N + M * N), 2 * M * K * N, "bf16")
-        _print_line("vp_dequant_matmul", [M, K, N], err, rel, ms, plain_ms,
-                    bnd, library_ms)
-        lines.append(("vp_dequant_matmul", [M, K, N], ms, plain_ms, bnd,
-                      library_ms))
-        if main_mm is None:
-            main_mm = _row("vp_dequant_matmul", "vp_dequant_matmul.cu",
-                           "src/repro/kernels/vp_dequant_matmul.py:50",
-                           [M, K, N], err, ms, plain_ms, bnd, library_ms)
-        del w, w_deq
-    rows.append(main_mm)
+    rows.append(_dequant_matmul_row(torch, peaks, timer, gen, randn, words,
+                                    vp, lines, record))
 
     # -- vp_decode_attention --------------------------------------------------
     B, smax, KV, G, dh = 4, 160, 8, 2, 64
@@ -500,6 +489,172 @@ def kernel_phase(torch, peaks, record):
     print("kernels: vp_quant_packed, vp_dequant_matmul, "
           "vp_decode_attention, flash_prefill")
     return rows
+
+
+def _dequant_matmul_row(torch, peaks, timer, gen, randn, words, vp, lines,
+                        record):
+    """Row 2, `vp_dequant_matmul`, on the body `fwd_body` picks: the
+    skinny body at every decode shape, the tensor-core body at prefill and
+    the train forward, each against the plain version in f32 (F32_RTOL)
+    and bf16 (BF16_TOL) and timed in bf16 beside the plain version and
+    `torch.matmul` on the pre-dequantized words.  Then ragged and
+    unaligned shapes, int8 and int32 words and a format with M > 9 (the
+    CUDA-core body), each body's launches counted; two runs of each split
+    body bit-identical; HGMMA in the tensor-core body's SASS; and the
+    three bodies timed side by side over M (the planner's thresholds)."""
+    from repro_torch.core.formats import VPFormat
+    from repro_torch.core.packing import dequant_words, pack_vp
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.vp_bwd_matmul import plan_tiles
+    from repro_torch.kernels.vp_dequant_matmul import (
+        BODY_COUNTER, fwd_body, plan_skinny, vp_dequant_matmul_cuda)
+    from repro_torch.mimo.equalizer import table1_specs
+
+    hgmma = _sass_counts(build._target("vp_dequant_matmul"), build._nvcc())
+    tc = {k: v for k, v in hgmma.items() if "_tc_kernel" in k}
+    if not tc or min(tc.values()) == 0:
+        raise AssertionError(f"tensor-core body without HGMMA: {tc}")
+    print(f"[kernel] vp_dequant_matmul SASS: HGMMA in {len(tc)} tensor-core "
+          f"kernels, {sum(tc.values())} in all ({min(tc.values())} to "
+          f"{max(tc.values())} each); {sum(hgmma.values()) - sum(tc.values())}"
+          " elsewhere")
+    record["hgmma_dequant_matmul"] = hgmma
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def check(x32, w, fmt, body, what):
+        """Both dtypes on `body`, which must be fwd_body's choice; returns
+        the bf16 (err, rel)."""
+        M = x32.shape[0]
+        build.reset_launches()
+        for dtype, tol in ((f32, F32_RTOL), (bf16, BF16_TOL)):
+            if fwd_body(M, dtype, fmt) != body:
+                raise AssertionError(f"{what} {dtype}: body "
+                                     f"{fwd_body(M, dtype, fmt)} != {body}")
+            x = x32.to(dtype)
+            err = compare(torch, vp_dequant_matmul_cuda(x, w, fmt, dtype),
+                          ref.vp_dequant_matmul_ref(x, w, fmt, dtype), tol,
+                          f"vp_dequant_matmul {what} {dtype}")
+        if build.LAUNCHES[BODY_COUNTER[body]] != 2:
+            raise AssertionError(f"{what}: launches {dict(build.LAUNCHES)}")
+        return err
+
+    # -- every main-path shape: checked and timed --------------------------------
+    main, shapes = None, []
+    for (M, K, N) in DQMM_SHAPES:
+        w, x32 = words(K, N), randn(M, K)
+        body = "skinny" if (M, K, N) in DQMM_DECODE else "tensor_core"
+        err, rel = check(x32, w, vp, body, [M, K, N])
+        x, w_deq = x32.to(bf16), dequant_words(w, vp).to(bf16)
+        ms = timer(lambda: vp_dequant_matmul_cuda(x, w, vp, bf16))
+        plain_ms = timer(lambda: ref.vp_dequant_matmul_ref(x, w, vp, bf16))
+        library_ms = timer(lambda: torch.matmul(x, w_deq))
+        bnd = bound(peaks, 2 * (M * K + K * N + M * N), 2 * M * K * N, "bf16")
+        _print_line("vp_dequant_matmul", [M, K, N], err, rel, ms, plain_ms,
+                    bnd, library_ms)
+        print(f"[kernel]   vp_dequant_matmul {[M, K, N]}: {body} body, "
+              f"{bnd[0] / ms:.1%} of the bound, {ms / library_ms:.2f}x "
+              f"torch.matmul")
+        lines.append(("vp_dequant_matmul", [M, K, N], ms, plain_ms, bnd,
+                      library_ms))
+        shapes.append(dict(shape=[M, K, N], body=body, ms=ms,
+                           plain_ms=plain_ms, bound_ms=bnd[0],
+                           bound_by=bnd[1], library_ms=library_ms,
+                           max_abs_err=err))
+        if main is None:
+            main = _row("vp_dequant_matmul", "vp_dequant_matmul.cu",
+                        "src/repro/kernels/vp_dequant_matmul.py:50",
+                        [M, K, N], err, ms, plain_ms, bnd, library_ms)
+        del w, w_deq
+    main["shapes"] = shapes
+    print(f"[kernel] vp_dequant_matmul: within {F32_RTOL:g} (f32) and "
+          f"{BF16_TOL:g} (bf16) of max|plain| at {list(DQMM_SHAPES)}")
+    # What the timer reads for an empty kernel (its floor at the decode
+    # shapes), and the host's time per call at w_up decode (wrapper and
+    # launch; the device needs less, so the host sets the pace).
+    floor_ms = timer(lambda: torch.cuda._sleep(1))
+    M, K, N = DQMM_DECODE[0]
+    x, w = randn(M, K).to(bf16), words(K, N)
+    vp_dequant_matmul_cuda(x, w, vp, bf16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        vp_dequant_matmul_cuda(x, w, vp, bf16)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    print(f"[kernel] timer floor (an empty kernel) {floor_ms:.4f} ms; "
+          f"vp_dequant_matmul {[M, K, N]} bf16 host time per call "
+          f"(wrapper + launch, 200 calls) {host_us:.1f} us")
+    main.update(timer_floor_ms=floor_ms, host_us_per_call=host_us)
+
+    # -- checked only: ragged, unaligned, int8 / int32 words, M > 9 ------------
+    def rand_words(K, N, fmt):
+        m = torch.randint(fmt.raw_min, fmt.raw_max + 1, (K, N), generator=gen,
+                          device="cuda")
+        i = torch.randint(0, fmt.K, (K, N), generator=gen, device="cuda")
+        return pack_vp(m, i, fmt)
+
+    y_vp = table1_specs()[2].y_vp                 # VP(7,[1,-1]), int8
+    vp16 = VPFormat(16, (18, 14))                  # int32 words
+    vp10 = VPFormat(10, (12, 8))                   # int16, M > 9
+    for (M, K, N), fmt, body in (
+            ((33, 96, 24), vp, "tensor_core"),
+            ((40, 100, 77), vp, "tensor_core"),   # rows not 16-byte aligned
+            ((5, 1000, 3000), vp, "tensor_core"),
+            ((3, 100, 77), vp, "skinny"),         # rows not 16-byte aligned
+            ((40, 512, 200), vp10, "skinny"),     # M in chunks of 16
+            ((20, 300, 40), vp, "tensor_core"),
+            ((4, 1024, 3072), y_vp, "skinny"),
+            ((512, 1024, 1024), y_vp, "tensor_core"),
+            ((4, 1024, 1024), vp16, "skinny"),
+            ((512, 256, 264), vp16, "cuda_core"),
+            ((1024, 1024, 512), vp10, "cuda_core")):
+        check(randn(M, K), rand_words(K, N, fmt), fmt, body,
+              f"{[M, K, N]} {fmt}")
+        print(f"[kernel] vp_dequant_matmul {[M, K, N]} {fmt} ({body} body): "
+              "within tolerance (f32 and bf16)")
+
+    # -- the split bodies run twice: bit-identical ---------------------------------
+    for (M, K, N), body in (((4, 3072, 1024), "skinny"),
+                            ((512, 1024, 1024), "tensor_core")):
+        split = (plan_skinny(M, K, N, num_sms).split if body == "skinny"
+                 else plan_tiles(M, N, K, num_sms).split)
+        if split < 2:
+            raise AssertionError(f"{[M, K, N]}: {body} body does not split")
+        w, x32 = words(K, N), randn(M, K)
+        for dtype in (f32, bf16):
+            x = x32.to(dtype)
+            a = vp_dequant_matmul_cuda(x, w, vp, dtype)
+            b = vp_dequant_matmul_cuda(x, w, vp, dtype)
+            if not torch.equal(a, b):
+                raise AssertionError(f"{body} body {[M, K, N]} {dtype}: two "
+                                     "runs differ")
+        print(f"[kernel] vp_dequant_matmul {[M, K, N]} ({body} body, split "
+              f"{split}): two runs bit-identical (f32 and bf16)")
+
+    # -- the three bodies over M: the planner's thresholds --------------------
+    sweep = []
+    for K, N in DQMM_SWEEP_KN:
+        w = words(K, N)
+        w_deq = dequant_words(w, vp).to(bf16)
+        for M in DQMM_SWEEP_M:
+            x = randn(M, K).to(bf16)
+            t = {b: timer(lambda: vp_dequant_matmul_cuda(x, w, vp, bf16,
+                                                         body=b))
+                 for b in BODY_COUNTER}
+            lib_ms = timer(lambda: torch.matmul(x, w_deq))
+            pick = fwd_body(M, bf16, vp)
+            print(f"[kernel] vp_dequant_matmul sweep {[M, K, N]} bf16: skinny "
+                  f"{t['skinny']:.4f} ms, tensor cores {t['tensor_core']:.4f}"
+                  f" ms, CUDA cores {t['cuda_core']:.4f} ms, torch.matmul "
+                  f"{lib_ms:.4f} ms; planner: {pick} (M > 9 formats: "
+                  f"{fwd_body(M, bf16, vp10)})")
+            sweep.append(dict(shape=[M, K, N], skinny_ms=t["skinny"],
+                              tensor_core_ms=t["tensor_core"],
+                              cuda_core_ms=t["cuda_core"], library_ms=lib_ms,
+                              planner=pick))
+    record["dqmm_sweep"] = sweep
+    return main
 
 
 # ---------------------------------------------------------------------------
@@ -664,20 +819,65 @@ def block_kernel_phase(torch, peaks, record):
 # 4. serve
 # ---------------------------------------------------------------------------
 
+def _weight_shapes(cfg):
+    """(K, N) of a layer's 7 weights: q, k, v, o, gate, up, down."""
+    d, dh, ff = cfg.d_model, cfg.head_dim, cfg.d_ff
+    q, kv = cfg.n_heads * dh, cfg.n_kv_heads * dh
+    return ((d, q), (d, kv), (d, kv), (q, d), (d, ff), (d, ff), (ff, d))
+
+
+def _dqmm_counts(torch, cfg, M: int):
+    """The launches `vp_dequant_matmul` makes in one pass over the layers'
+    weights at M tokens: the body `fwd_body` picks and, on the tensor-core
+    body, the split reductions `plan_tiles` plans."""
+    from repro_torch.kernels.vp_bwd_matmul import plan_tiles
+    from repro_torch.kernels.vp_dequant_matmul import BODY_COUNTER, fwd_body
+    from repro_torch.models.layers import canonical_formats
+
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    body = fwd_body(M, getattr(torch, cfg.dtype),
+                    canonical_formats(cfg.quant)[1])
+    n = cfg.n_layers * 7
+    out = {"vp_dequant_matmul": n, BODY_COUNTER[body]: n}
+    if body == "tensor_core":
+        red = sum(plan_tiles(M, N, K, num_sms).split > 1
+                  for K, N in _weight_shapes(cfg))
+        if red:
+            out["vp_dqmm_splitk_reduce"] = cfg.n_layers * red
+    return out
+
+
+def _add(*counts):
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
 def serve_phase(torch, record, rows):
-    """Mode vp: packed VP weights through `vp_dequant_matmul`."""
+    """Mode vp: packed VP weights through `vp_dequant_matmul`: prefill's
+    weight matmuls (M = 4 x 128) on the tensor-core body, every decode
+    matmul and `lm_head` (M = 4) on the skinny body."""
     from repro_torch.configs import registry
     from repro_torch.configs.base import QuantConfig
 
-    L = registry.get_config(ARCH).n_layers
-    expect = {
-        "vp_quant_packed": (2 + 7 * L) + 2 * L * (1 + GEN),
-        "vp_dequant_matmul": (7 * L + 1) * (1 + GEN),
-        "vp_decode_attention": L * GEN,
-        "flash_prefill": L,
-    }
-    out = _serve(torch, QuantConfig(mode="vp", quantize_kv_cache=True),
-                 expect, "vp_dequant_matmul", requantizes=False)
+    quant = QuantConfig(mode="vp", quantize_kv_cache=True)
+    cfg = registry.get_config(ARCH, quant)
+    L = cfg.n_layers
+    head = {"vp_dequant_matmul": 1, "vp_dqmm_skinny": 1}     # lm_head
+    prefill = _add(_dqmm_counts(torch, cfg, BATCH * PROMPT), head,
+                   {"vp_quant_packed": 2 * L, "flash_prefill": L})
+    decode = _add(_dqmm_counts(torch, cfg, BATCH), head,
+                  {"vp_quant_packed": 2 * L, "vp_decode_attention": L})
+    if prefill.get("vp_dqmm_tc") != 7 * L or decode.get(
+            "vp_dqmm_skinny") != 7 * L + 1:
+        raise AssertionError(f"planned bodies: prefill {prefill}, decode "
+                             f"{decode}")
+    expect = _add(prefill, *[decode] * GEN, {"vp_quant_packed": 7 * L + 2})
+    out = _serve(torch, quant, expect, {"prefill": prefill,
+                                        "decode step": decode},
+                 requantizes=False)
     for row in rows:
         if row["name"] in expect:
             row["launches"] = out["launches"][row["name"]]
@@ -698,9 +898,13 @@ def serve_block_phase(torch, record, rows, smi):
         "vp_decode_attention": L * GEN,
         "flash_prefill": L,
     }
+    per_pass = {"vp_quant_packed": 2 * L, "block_vp_matmul": 7 * L + 1}
     out = _serve(torch, QuantConfig(mode="vp_block", block=BLOCK,
                                     quantize_kv_cache=True),
-                 expect, "block_vp_matmul", requantizes=True)
+                 expect, {"prefill": dict(per_pass, flash_prefill=L),
+                          "decode step": dict(per_pass,
+                                              vp_decode_attention=L)},
+                 requantizes=True)
     for row in rows:
         if row["name"] == "block_vp_matmul":
             row["launches"] = out["launches"]["block_vp_matmul"]
@@ -710,13 +914,13 @@ def serve_block_phase(torch, record, rows, smi):
     record["serve_vp_block"] = out
 
 
-def _serve(torch, quant, expect, matmul: str, requantizes: bool):
+def _serve(torch, quant, expect, passes, requantizes: bool):
     """Serve full-width qwen3-0.6b in `quant`'s mode: export, prefill
     BATCH x PROMPT, GEN greedy steps; launch counts (== `expect`), a
-    profile of one prefill and one decode step (hand kernels only: the KV
-    quantizer, the weight `matmul` kernel and attention; no library GEMM
-    or attention kernel), and the plain path
-    teacher-forced on the kernel path's tokens in bf16 and f32.
+    profile of one prefill and one decode step (hand kernels only, as
+    many of each as `passes` says: the KV quantizer, the weight matmul
+    kernel and attention; no library GEMM or attention kernel), and the
+    plain path teacher-forced on the kernel path's tokens in bf16 and f32.
 
     bf16 is held to max(REL_LIMIT, FLOOR_MARGIN x the plain path's own
     floor: its run with f64-summed matmuls against itself); f32 to
@@ -781,12 +985,11 @@ def _serve(torch, quant, expect, matmul: str, requantizes: bool):
     def prefill_once():  # rewrites slots [0, PROMPT) of the same buffers
         caches["after"] = prefill(qparams, prompts, empty, cfg)[1]
 
-    per_pass = {"vp_quant_packed": 2 * L, matmul: 7 * L + 1}
     names, seen = _profile_kernels(torch, [
-        ("prefill", prefill_once, dict(per_pass, flash_prefill=L)),
+        ("prefill", prefill_once, passes["prefill"]),
         ("decode step", lambda: decode_step(qparams, tokens[:, :1],
                                             caches["after"], cfg),
-         dict(per_pass, vp_decode_attention=L))])
+         passes["decode step"])])
     library = sorted({n for n in names if LIBRARY_KERNELS.search(n)
                       and not any(v in n for v in KERNEL_NAMES.values())})
     print(f"[profile] {len(names)} device kernels in one prefill + one "
@@ -1480,6 +1683,46 @@ def train_kernel_phase(torch, peaks, record):
                 main[name]["cuda_core_shape"] = [M, K, N, "bf16"]
     record["cuda_core_vs_tensor_core"] = cuda_core
 
+    # -- the f32 split at the ends of f32's range, against the CUDA cores ------
+    # +-FLT_MAX: one per row and column of g (dx and dw stay finite); the
+    # truncating split is exact there.  |g| < 2^-110: its lo term falls
+    # into bf16's subnormals, so the error is measured and recorded.
+    Me, Ke, Ne = 256, 320, 192
+    w, a = words(Ke, Ne), words(Me, Ke)
+    base = torch.randn((Me, Ne), generator=gen, device="cuda").clamp(-4, 4)
+    big = base.clone()
+    d = torch.arange(min(Me, Ne), device="cuda")
+    big[d, d] = torch.finfo(torch.float32).max * (1.0 - 2.0 * (d % 2))
+    ends = {}
+    for what, g in (("+-FLT_MAX", big), ("|g| < 2^-110", base * 2.0 ** -112)):
+        cc = {"vp_matmul_dx": torch.empty((Me, Ke), device="cuda"),
+              "vp_matmul_dw": torch.empty((Ke, Ne), device="cuda")}
+        build.check(lib, lib.vp_matmul_dx_cc_launch(
+            g.data_ptr(), w.data_ptr(), cc["vp_matmul_dx"].data_ptr(), Me, Ke,
+            Ne, 0, 2, 0, ctypes.byref(f_c), stream), "vp_matmul_dx (CUDA cores)")
+        build.check(lib, lib.vp_matmul_dw_cc_launch(
+            a.data_ptr(), g.data_ptr(), cc["vp_matmul_dw"].data_ptr(), Me, Ke,
+            Ne, 0, 2, 0, ctypes.byref(f_c), stream), "vp_matmul_dw (CUDA cores)")
+        for name, got in (("vp_matmul_dx", vp_matmul_dx_cuda(g, w, vp,
+                                                              torch.float32)),
+                          ("vp_matmul_dw", vp_matmul_dw_cuda(a, g, vp,
+                                                              torch.float32))):
+            want = cc[name]
+            if not (bool(torch.isfinite(want).all())
+                    and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"{name} f32 g {what}: non-finite output")
+            if what == "+-FLT_MAX":
+                err, rel = compare(torch, got, want, F32_RTOL,
+                                   f"{name} f32 g {what} vs CUDA cores")
+            else:
+                err = float((got.double() - want.double()).abs().max())
+                rel = err / float(want.abs().max())
+            ends[f"{name} {what}"] = dict(max_abs_err=err, rel=rel)
+            print(f"[kernel] {name} {[Me, Ke, Ne]} f32 g {what}: tensor-core "
+                  f"body vs CUDA-core body, max abs err {err:.3e} (rel "
+                  f"{rel:.3e})")
+    record["split_ends"] = ends
+
     # -- the autograd backward of ops.vp_quant_matmul -------------------------
     Mq, Kq, Nq = QMM_SHAPE
     a, b = _mimo_operands(torch, gen, 1, Mq, Kq, Nq)
@@ -1592,11 +1835,15 @@ def train_phase(torch, record, rows, smi):
           f"{TRAIN_STEPS} ({TRAIN_BATCH * TRAIN_SEQ / s_step:.1f} tokens/s), "
           f"peak memory {report['peak_bytes'] / 1e9:.3f} GB ({smi})")
     per_step = 7 * L
-    expect = {"vp_quant_packed": per_step * TRAIN_STEPS,
-              "vp_dequant_matmul": per_step * TRAIN_STEPS,
-              "vp_matmul_dx": per_step * TRAIN_STEPS}
+    # the forward at M = 8 x 128 tokens on the tensor-core body
+    fwd = _dqmm_counts(torch, cfg, TRAIN_BATCH * TRAIN_SEQ)
+    if fwd.get("vp_dqmm_tc") != per_step:
+        raise AssertionError(f"planned train forward: {fwd}")
+    step = _add(fwd, {"vp_quant_packed": per_step,
+                      "vp_matmul_dx": per_step})
+    expect = {k: v * TRAIN_STEPS for k, v in step.items()}
     print(f"[train] launches in {TRAIN_STEPS} steps: {counts} "
-          f"({per_step} of each per step)")
+          f"(per step: {step})")
     if counts != expect:
         raise AssertionError(f"train launch counts {counts} != {expect}")
     losses = [s["loss"] for s in steps]
@@ -1623,8 +1870,7 @@ def train_phase(torch, record, rows, smi):
     step_fn(params, opt, batch, cmp)                      # warm-up
     _, seen = _profile_kernels(torch, [
         ("train step", lambda: step_fn(params, opt, batch, cmp),
-         {"vp_quant_packed": per_step, "vp_dequant_matmul": per_step,
-          "vp_matmul_dx": per_step})])
+         step)])
     print(f"[profile] train step: hand kernels {seen}")
     del params, opt, cmp, step_fn
 
@@ -1730,9 +1976,10 @@ def _profile(torch, what, fn):
                and e.name != WINDOW and e.time_range.start >= start]
     busy = sum(us for _, us in kernels)
     by_name = {}
-    for name, us in kernels:
-        key = next((k for k, v in KERNEL_NAMES.items() if v in name),
-                   name.split("<")[0].split("(")[0][-60:])
+    for name, us in kernels:   # a hand kernel under its most specific name
+        hits = [k for k, v in KERNEL_NAMES.items() if v in name]
+        key = (max(hits, key=lambda k: len(KERNEL_NAMES[k])) if hits
+               else name.split("<")[0].split("(")[0][-60:])
         by_name[key] = by_name.get(key, 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     print(f"[profile] {what}: wall {wall_us / 1e3:.3f} ms (profiler on), "

@@ -4,7 +4,7 @@ Each source under `csrc/` is compiled at first use by `nvcc` for
 `sm_90a` into `<repo>/.repro_torch_build/<name>-<hash>.so`, a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), and loaded with `ctypes`.  The hash covers the source, the
-shared header and the flags, so an edit rebuilds and an unchanged tree
+shared headers and the flags, so an edit rebuilds and an unchanged tree
 reuses what it built.  `build_all` starts one `nvcc` per source, all at
 once.  Nothing here falls back: a failed build raises.
 
@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -61,8 +62,9 @@ _SIGNATURES = {
         "vp_quant_planes_launch": [_P, _P, _I, _P, _LL, _P, _P],
     },
     "vp_dequant_matmul": {
-        "vp_dequant_matmul_launch":
-            [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+        "vp_dqmm_skinny_launch": [_P] * 3 + [_I] * 9 + [_P, _P],
+        "vp_dqmm_tc_launch": [_P] * 4 + [_I] * 8 + [_P, _P],
+        "vp_dqmm_cc_launch": [_P, _P, _P] + [_I] * 6 + [_P, _P],
     },
     "vp_attention": {
         "vp_decode_attention_launch":
@@ -107,6 +109,9 @@ def reset_launches() -> None:
     LAUNCHES.clear()
 
 
+# The format structs are built once per format (a launch's host time
+# counts on decode paths) and only read: the kernels take them as const.
+@functools.lru_cache(maxsize=None)
 def vp_fmt_struct(vp: VPFormat) -> VPFmtC:
     if vp.K > VP_MAX_K:
         raise ValueError(f"{vp}: the CUDA kernels take K <= {VP_MAX_K}")
@@ -116,6 +121,7 @@ def vp_fmt_struct(vp: VPFormat) -> VPFmtC:
     return s
 
 
+@functools.lru_cache(maxsize=None)
 def quant_fmt_struct(fxp: FXPFormat, vp: VPFormat) -> QuantFmtC:
     s = QuantFmtC(vp=vp_fmt_struct(vp), two_f=2.0 ** fxp.F,
                   raw_lo=fxp.raw_min, raw_hi=fxp.raw_max)
@@ -136,7 +142,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256()
-    for path in (CSRC / f"{name}.cu", CSRC / "vp_common.cuh"):
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

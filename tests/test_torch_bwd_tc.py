@@ -7,7 +7,8 @@ The body runs only on the card; these tests hold its plain statements:
       kernel's own decode (magic-number int -> float, scale table, high
       halves of the f32 bits), and `bwd_body` picks the tensor cores
       exactly where that holds (M <= 9);
-  (b) the three-term bf16 split of an f32 g sums back to g exactly;
+  (b) the three-term bf16 split of an f32 g (a truncation) gives finite
+      terms that sum back to g exactly, up to +-FLT_MAX;
   (c) the f32 path emulated (three bf16 products per 64-deep slice,
       summed in f32) agrees with the reference's oracles within 1e-5 of
       max|reference|, the kernel's own tolerance (F32_RTOL);
@@ -56,15 +57,15 @@ SHAPES = [(8, 8, 8), (16, 24, 8), (16, 8, 24), (33, 40, 24), (70, 130, 200)]
 
 
 def split_bf16(g: torch.Tensor):
-    """f32 g -> (hi, mid, lo) bf16, each the round-to-nearest bf16 of what
-    the earlier terms left: the tensor-core body's split of an f32 g
-    (csrc/vp_bwd_matmul.cu: split8)."""
+    """f32 g -> (hi, mid, lo) bf16, each the high 16 bits of what the
+    earlier terms left (a truncation): the tensor-core body's split of an
+    f32 operand (csrc/vp_tc_mm.cuh: split8)."""
     r = g.to(torch.float32)
     terms = []
     for _ in range(3):
-        t = r.to(torch.bfloat16)
-        terms.append(t)
-        r = r - t.to(torch.float32)
+        t = (r.view(torch.int32) & -65536).view(torch.float32)
+        terms.append(t.to(torch.bfloat16))   # exact: the low half is zero
+        r = r - t
     return tuple(terms)
 
 
@@ -159,29 +160,33 @@ def test_magic_number_int_to_float():
 
 # -- (b) the three-term split ------------------------------------------------
 
-# |g| in [2^-110, 2^127): above bf16's largest value hi would round to inf
-_NORMAL = st.tuples(st.integers(-110, 126), st.integers(0, 2 ** 23 - 1),
+# |g| in [2^-110, FLT_MAX]: the split is exact over the whole range
+_NORMAL = st.tuples(st.integers(-110, 127), st.integers(0, 2 ** 23 - 1),
                     st.booleans())
 
 
 @settings(max_examples=200, deadline=None)
 @given(st.lists(_NORMAL, min_size=1, max_size=64))
 def test_split_bf16_sums_back_exactly(parts):
-    """hi + mid + lo == g for f32 g of exponent -110 to 126, any
-    significand, either sign; each term is a bf16 and each partial sum is
-    exact in f32."""
+    """hi + mid + lo == g for f32 g of exponent -110 to 127, any
+    significand, either sign; each term is a finite bf16 and each partial
+    sum is exact in f32."""
     bits = [(int(s) << 31) | ((e + 127) << 23) | frac for e, frac, s in parts]
     g = torch.tensor(np.array(bits, dtype=np.uint32).view(np.float32))
     hi, mid, lo = split_bf16(g)
     assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    assert all(bool(torch.isfinite(t).all()) for t in (hi, mid, lo))
     total = hi.float() + mid.float() + lo.float()
     np.testing.assert_array_equal(total.numpy(), g.numpy())
 
 
 def test_split_bf16_zeros_and_signs():
+    fmax = float(np.finfo(np.float32).max)
     g = torch.tensor([0.0, -0.0, 1.0, -1.0, 3.0e38, -3.0e38, 1e-30,
-                      -1e-30, 1.0 + 2.0 ** -23], dtype=torch.float32)
+                      -1e-30, 1.0 + 2.0 ** -23, fmax, -fmax, 3.4e38,
+                      -3.4e38], dtype=torch.float32)
     hi, mid, lo = split_bf16(g)
+    assert all(bool(torch.isfinite(t).all()) for t in (hi, mid, lo))
     total = hi.float() + mid.float() + lo.float()
     np.testing.assert_array_equal(total.numpy(), g.numpy())
     assert (torch.signbit(hi[:2]) == torch.signbit(g[:2])).all()

@@ -21,13 +21,19 @@ Run from the root of a checkout.  Phases, each raising on failure:
      split body run twice, bit-identical; HGMMA counted in its SASS; the
      three bodies timed over M = 1..64 (the planner's thresholds); the
      timer's floor and the wrapper's host time per call.
-     The vp_block path's `block_vp_matmul` likewise, bit-identical to its
-     plain version at (4, 1024, 3072) decode, (512, 1024, 1024) prefill,
-     (4, 1024, 151936) lm_head and (4, 3072, 1024) w_down with bk 256
-     (timed), and at w_down prefill, k/v and a ragged shape (checked),
-     and the two dequant kernels behind `ops.vp_dequant`, bit-identical
-     in f32 and bf16: packed (1024, 3072) int16 words (timed) and int8
-     words (checked), and the MIMO planes (1.6e6, 64) int8 + uint8.
+     The vp_block path's `block_vp_matmul`: each of its three bodies
+     (skinny, tensor cores, dp4a) bit-identical to its plain version in
+     f32 and bf16 at every decode and prefill weight shape and lm_head,
+     bk 256 (each timed, beside torch.matmul on the dequantized
+     operands), and at ragged shapes of its own; IGMMA counted in its
+     SASS; the bodies timed over M = 1..512 (the planner's threshold).
+     Its activation block-quantizer `vp_block_quant` bit-identical to
+     its plain version (significands, indices, scale) at the decode,
+     prefill and weight-export shapes (lm_head's included) and at the
+     scale's edge cases, timed.  The two dequant kernels behind
+     `ops.vp_dequant`, bit-identical in f32 and bf16: packed (1024,
+     3072) int16 words (timed) and int8 words (checked), and the MIMO
+     planes (1.6e6, 64) int8 + uint8.
      The MIMO path's kernels (two-plane quantize, VP x VP matmul, fused
      quantize + matmul) likewise, at the equalizer's shapes: G = 100,000
      realizations of (16, 64) x (64, 2), and the G = 1 launches of the
@@ -44,10 +50,12 @@ Run from the root of a checkout.  Phases, each raising on failure:
                kernel path's tokens, in bf16 (held to the plain path's
                own rounding floor, or 2e-2 if larger) and in f32.
      The same in mode vp_block (block 256): every weight matmul through
-     `block_vp_matmul` on block-quantized activations, the embedding
-     table (not a multiple of 256 rows) as packed VP words; f32 held to
-     the larger of 2e-3 and the plain path's own floor.  Then the public
-     op `ops.vp_dequant` once on each dequant kernel's shapes.
+     `block_vp_matmul` (decode and lm_head on the skinny body, prefill on
+     the tensor-core body) on activations block-quantized by the
+     `vp_block_quant` kernel, which also exports the weights; the
+     embedding table (not a multiple of 256 rows) as packed VP words; f32
+     held to the larger of 2e-3 and the plain path's own floor.  Then the
+     public op `ops.vp_dequant` once on each dequant kernel's shapes.
   5. mimo    - the paper's B-VP MIMO equalizer (B = 64 antennas, U = 8
                users, 16-QAM, Sec. III-A): narrowband ensembles of
                n = 100,000 channels at 2 dB and 20 dB equalized through
@@ -132,7 +140,12 @@ KERNEL_NAMES = {"vp_quant_packed": "vp_quant_packed_kernel",
                 "vp_matmul_dw": "vp_matmul_dw_tc_kernel",
                 "vp_bwd_splitk_reduce": "vp_bwd_splitk_reduce_kernel",
                 "vp_bwd_cuda_core": "vp_bwd_mm_kernel",
-                "block_vp_matmul": "block_vp_matmul_kernel",
+                "block_vp_matmul": "block_vp_matmul_",       # every body
+                "vp_bmm_skinny": "block_vp_matmul_skinny_kernel",
+                "vp_bmm_tc": "block_vp_matmul_tc_kernel",
+                "vp_bmm_dp4a": "block_vp_matmul_dp4a_kernel",
+                "vp_block_quant": "vp_block_quant_kernel",
+                "vp_block_amax": "vp_block_amax_kernel",
                 "vp_dequant_planes": "vp_dequant_planes_kernel",
                 "vp_dequant_packed": "vp_dequant_packed_kernel"}
 MIMO_G = 100_000           # realizations (paper Sec. III-A)
@@ -154,11 +167,13 @@ DQMM_SWEEP_KN = ((1024, 3072), (3072, 1024))  # the planner's thresholds
 GRAD_RTOL = 1e-3           # f32 train step: each weight gradient vs plain
 QMM_SHAPE = (2048, 64, 256)          # vp_quant_matmul autograd check
 BLOCK = 256                # vp_block index block (QuantConfig.block)
-BLOCK_SHAPES = ((4, 1024, 3072), (512, 1024, 1024), (4, 1024, 151936),
-                (4, 3072, 1024))     # timed: w_up decode, prefill, lm_head,
-                                     # w_down decode (12 k-tiles)
-BLOCK_CHECKED = ((512, 3072, 1024), (4, 1024, 512), (512, 1024, 512))
-                                     # checked only: w_down prefill, k/v
+# block_vp_matmul: decode at batch 4 (w_up/w_gate, w_down, q/o, k/v,
+# lm_head), then prefill (4 x 128 tokens) at the same weights
+BLOCK_SHAPES = ((4, 1024, 3072), (4, 3072, 1024), (4, 1024, 1024),
+                (4, 1024, 512), (4, 1024, 151936), (512, 1024, 1024),
+                (512, 1024, 3072), (512, 3072, 1024), (512, 1024, 512))
+BLOCK_SWEEP_M = (1, 4, 8, 16, 64, 512)   # the bodies side by side, for
+BLOCK_SWEEP_KN = ((1024, 3072), (3072, 1024))  # the planner's threshold
 DEQUANT_PACKED = (1024, 3072)        # int16 words of one weight panel
 DEQUANT_PLANES = (1_600_000, 64)     # the MIMO W planes (row 5's shape)
 WINDOW = "chip_smoke.window"        # profiler range around the profiled call
@@ -674,12 +689,238 @@ def _block_operands(torch, gen, M, K, N, fxp, vp, bk=BLOCK):
             *block_vp_quantize(w, fxp, vp, bk, axis=0))
 
 
+def _block_matmul_row(torch, peaks, timer, gen, fxp, vp, lines, record):
+    """Row 12, `block_vp_matmul`: each of its three bodies bit-identical
+    to the plain version (f32 and bf16 out) at every main-path shape and
+    at ragged shapes of its own, and timed at every main-path shape
+    beside the plain version and `torch.matmul` on the pre-dequantized
+    operands; IGMMA in the tensor-core body's SASS; the bodies over M
+    (the planner's threshold)."""
+    from repro_torch.core.quantize import block_vp_dequantize
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.vp_block_matmul import (
+        BODY_COUNTER, block_body, block_vp_matmul_cuda, plan_skinny)
+
+    igmma = _sass_counts(build._target("vp_block_matmul"), build._nvcc(),
+                         "IGMMA")
+    tc = {k: v for k, v in igmma.items() if "_tc_kernel" in k}
+    if not tc or min(tc.values()) == 0:
+        raise AssertionError(f"block_vp_matmul tensor-core body without "
+                             f"IGMMA: {igmma}")
+    print(f"[kernel] block_vp_matmul SASS: IGMMA {sum(tc.values())} in the "
+          f"tensor-core kernel, {sum(igmma.values()) - sum(tc.values())} "
+          "elsewhere")
+    record["igmma_block_matmul"] = igmma
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def check(ops_in, bk, body, what):
+        """`body` (f32 and bf16 out) bit-identical to the plain version,
+        one launch counted on it each."""
+        build.reset_launches()
+        for dt in (f32, bf16):
+            got = block_vp_matmul_cuda(*ops_in, vp, vp, bk, dt, body=body)
+            want = ref.block_vp_matmul_ref(*ops_in, vp, vp, bk, dt)
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                n = int((got.float() != want.float()).sum())
+                raise AssertionError(f"block_vp_matmul {what} {body} body "
+                                     f"{dt}: {n} of {got.numel()} values "
+                                     "differ from the plain version")
+        if build.LAUNCHES[BODY_COUNTER[body]] != 2:
+            raise AssertionError(f"{what}: launches {dict(build.LAUNCHES)}")
+
+    # -- ragged shapes, each on the body the planner gives it ----------------
+    for (M, K, N), bk, body in (
+            ((3, 256, 144), BLOCK, "skinny"),
+            ((1, 512, 64), BLOCK, "skinny"),
+            ((8, 2048, 48), BLOCK, "skinny"),
+            ((4, 768, 64), BLOCK, "skinny"),        # 3 tiles in 2 runs
+            ((6, 3072, 1040), BLOCK, "skinny"),     # a part column block
+            ((130, 512, 80), BLOCK, "tensor_core"),
+            ((17, 1024, 3072), BLOCK, "tensor_core"),
+            ((200, 768, 208), BLOCK, "tensor_core"),
+            ((3, 256, 131), BLOCK, "dp4a"),         # N % 16 != 0
+            ((3, 256, 131), 64, "dp4a"),
+            ((33, 192, 40), 64, "dp4a")):            # bk other than 256
+        if block_body(M, K, N, bk) != body:
+            raise AssertionError(f"{[M, K, N]} bk {bk}: planner picks "
+                                 f"{block_body(M, K, N, bk)}, not {body}")
+        check(_block_operands(torch, gen, M, K, N, fxp, vp, bk), bk, body,
+              f"{[M, K, N]} bk {bk}")
+    print("[kernel] block_vp_matmul ragged shapes: each body bit-identical "
+          "to the plain version (f32 and bf16)")
+
+    # -- every main-path shape: every body checked and timed -----------------
+    main, shapes = None, []
+    for (M, K, N) in BLOCK_SHAPES:
+        ops_in = _block_operands(torch, gen, M, K, N, fxp, vp)
+        pick = block_body(M, K, N, BLOCK)
+        want_pick = "skinny" if M == BATCH else "tensor_core"
+        if pick != want_pick:
+            raise AssertionError(f"{[M, K, N]}: planner picks {pick}")
+        plain_ms = timer(lambda: ref.block_vp_matmul_ref(*ops_in, vp, vp,
+                                                         BLOCK))
+        a32 = block_vp_dequantize(ops_in[0], ops_in[1], vp, BLOCK, axis=-1)
+        b32 = block_vp_dequantize(ops_in[2], ops_in[3], vp, BLOCK, axis=0)
+        a16, b16 = a32.to(bf16), b32.to(bf16)
+        library_ms = timer(lambda: torch.matmul(a16, b16))
+        library_f32_ms = timer(lambda: torch.matmul(a32, b32))
+        nk = K // BLOCK
+        nbytes = M * K + M * nk + K * N + nk * N + M * N * 4
+        bnd = bound(peaks, nbytes, 2 * M * K * N, "int8")
+        body_ms = {}
+        for body in BODY_COUNTER:
+            check(ops_in, BLOCK, body, [M, K, N])
+            body_ms[body] = timer(lambda: block_vp_matmul_cuda(
+                *ops_in, vp, vp, BLOCK, f32, body=body))
+        ms = body_ms[pick]
+        shape = [M, K, N, BLOCK]
+        _print_line("block_vp_matmul", shape, 0.0, 0.0, ms, plain_ms, bnd,
+                    library_ms)
+        sp = plan_skinny(M, K, N, num_sms)
+        split = f"{sp.split} block(s) x {sp.tile_groups} tile group(s)"
+        print(f"[kernel]   block_vp_matmul {shape}: {pick} body; skinny "
+              f"{body_ms['skinny']:.4f} ms ({split}), tensor cores "
+              f"{body_ms['tensor_core']:.4f} ms, dp4a {body_ms['dp4a']:.4f}"
+              f" ms; torch.matmul bf16 {library_ms:.4f} ms, f32 "
+              f"{library_f32_ms:.4f} ms; {ms / library_ms:.2f}x bf16, "
+              f"{bnd[0] / ms:.1%} of the bound")
+        lines.append(("block_vp_matmul", shape, ms, plain_ms, bnd,
+                      library_ms, library_f32_ms))
+        shapes.append(dict(shape=shape, body=pick, ms=ms, body_ms=body_ms,
+                           split=split, plain_ms=plain_ms, bound_ms=bnd[0],
+                           bound_by=bnd[1], library_ms=library_ms,
+                           library_f32_ms=library_f32_ms))
+        if main is None:
+            main = _row("block_vp_matmul", "vp_block_matmul.cu",
+                        "src/repro/kernels/vp_block_matmul.py:52", shape,
+                        0.0, ms, plain_ms, bnd, library_ms)
+        del ops_in, a32, b32, a16, b16
+    main["shapes"] = shapes
+    print(f"[kernel] block_vp_matmul: every body bit-identical to the plain "
+          f"version (f32 and bf16) at {list(BLOCK_SHAPES)}, bk {BLOCK}")
+
+    # -- the bodies over M: the planner's threshold --------------------------
+    sweep = []
+    for K, N in BLOCK_SWEEP_KN:
+        for M in BLOCK_SWEEP_M:
+            ops_in = _block_operands(torch, gen, M, K, N, fxp, vp)
+            t = {b: timer(lambda: block_vp_matmul_cuda(
+                *ops_in, vp, vp, BLOCK, f32, body=b)) for b in BODY_COUNTER}
+            a16 = block_vp_dequantize(ops_in[0], ops_in[1], vp, BLOCK,
+                                      axis=-1).to(bf16)
+            b16 = block_vp_dequantize(ops_in[2], ops_in[3], vp, BLOCK,
+                                      axis=0).to(bf16)
+            lib_ms = timer(lambda: torch.matmul(a16, b16))
+            pick = block_body(M, K, N, BLOCK)
+            print(f"[kernel] block_vp_matmul sweep {[M, K, N]}: skinny "
+                  f"{t['skinny']:.4f} ms, tensor cores {t['tensor_core']:.4f}"
+                  f" ms, dp4a {t['dp4a']:.4f} ms, torch.matmul bf16 "
+                  f"{lib_ms:.4f} ms; planner: {pick}")
+            sweep.append(dict(shape=[M, K, N], skinny_ms=t["skinny"],
+                              tensor_core_ms=t["tensor_core"],
+                              dp4a_ms=t["dp4a"], library_ms=lib_ms,
+                              planner=pick))
+    record["block_sweep"] = sweep
+    return main
+
+
+def _block_quant_row(torch, peaks, timer, gen, fxp, vp, record):
+    """The activation block-quantizer (`ops.block_vp_quant`'s kernel)
+    bit-identical to its plain version (significands, indices and scale)
+    at the decode, prefill and export shapes and at the scale's edge
+    cases, and timed at decode, prefill and the `lm_head` export."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.vp_block_quant import (
+        block_vp_quant_cuda, plan_amax)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def check(x, block, axis, mdt, what):
+        got = block_vp_quant_cuda(x, fxp, vp, block, axis, mdt == bf16)
+        want = ref.block_vp_quant_ref(x, fxp, vp, block, axis, mdt)
+        for g, w, part in zip(got, want, ("significands", "indices",
+                                          "scale")):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                n = int((g.float() != w.float()).sum())
+                raise AssertionError(
+                    f"vp_block_quant {what} {part}: {n} of {g.numel()} "
+                    f"differ from the plain version (scale {float(got[2])!r}"
+                    f" vs {float(want[2])!r})")
+
+    # -- the path's shapes: activations (f32 math) and weights (their own) --
+    cases = []
+    for (R, C), axis, dt, mdt in (
+            ((BATCH, 1024), -1, bf16, f32), ((BATCH, 3072), -1, bf16, f32),
+            ((BATCH, 1024), -1, f32, f32),
+            ((BATCH * PROMPT, 1024), -1, bf16, f32),
+            ((BATCH * PROMPT, 3072), -1, bf16, f32),
+            ((1024, 3072), 0, bf16, bf16), ((3072, 1024), 0, bf16, bf16),
+            ((1024, 151936), 0, bf16, bf16), ((1024, 3072), 0, f32, f32)):
+        x = (torch.randn((R, C), generator=gen, device="cuda") *
+             (0.02 if axis == 0 else 3.0)).to(dt)
+        for block in (BLOCK, 64):
+            check(x, block, axis, mdt, f"{[R, C]} axis {axis} {dt} "
+                  f"block {block}")
+        cases.append(((R, C), axis, dt, mdt, x))
+    # -- the scale's edge cases ----------------------------------------------
+    big = [2.0 ** k * (1 + 2.0 ** -23) for k in (-20, 5, 20, 60, 100, 126)]
+    edges = {
+        "all zero": torch.zeros(BATCH, 1024, device="cuda"),
+        "a zero block": torch.cat([torch.zeros(BATCH, 256, device="cuda"),
+                                   torch.randn(BATCH, 768, device="cuda")],
+                                  1),
+        "saturating": torch.randn(BATCH, 1024, device="cuda") * 1e3,
+        "bf16 log2 rounds down (amax 16.125)": torch.full(
+            (BATCH, 1024), 16.125, device="cuda"),
+    }
+    for v in big:
+        x = torch.randn(BATCH, 1024, generator=gen, device="cuda") * 0.5 * v
+        x[0, 0] = v
+        edges[f"amax just above 2^{round(math.log2(v))}"] = x
+    for what, x in edges.items():
+        for dt in (f32, bf16):
+            for block in (BLOCK, 64):
+                check(x.to(dt), block, -1, dt, f"{what} {dt} block {block}")
+    print(f"[kernel] vp_block_quant: bit-identical to the plain version "
+          f"(significands, indices, scale) at {[c[0] for c in cases]}, "
+          f"blocks {BLOCK} and 64, and at the scale's edge cases "
+          f"{sorted(edges)} (f32 and bf16)")
+    # -- timed: decode and prefill activations, the lm_head export ----------
+    main, shapes = None, []
+    for (R, C), axis, dt, mdt, x in cases:
+        if (R, C) not in ((BATCH, 1024), (BATCH * PROMPT, 1024),
+                          (1024, 151936)) or dt != bf16:
+            continue
+        bf = mdt == bf16
+        ms = timer(lambda: block_vp_quant_cuda(x, fxp, vp, BLOCK, axis, bf))
+        plain_ms = timer(lambda: ref.block_vp_quant_ref(x, fxp, vp, BLOCK,
+                                                        axis, mdt))
+        n = R * C
+        nbytes = n * x.element_size() + n + n // BLOCK + 4
+        bnd = bound(peaks, nbytes, 0, "f32")
+        shape = [R, C, "axis", axis, str(dt).split(".")[-1]]
+        launches = 1 if plan_amax(n) == 0 else 2
+        _print_line("vp_block_quant", shape, 0.0, 0.0, ms, plain_ms, bnd,
+                    None)
+        print(f"[kernel]   vp_block_quant {shape}: {launches} launch(es), "
+              f"{bnd[0] / ms:.1%} of the bound")
+        shapes.append(dict(shape=shape, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bnd[0], bound_by=bnd[1],
+                           launches_per_call=launches))
+        if main is None:
+            main = _row("vp_block_quant", "vp_block_quant.cu",
+                        "src/repro/core/quantize.py:164", shape, 0.0, ms,
+                        plain_ms, bnd, None)
+    main["shapes"] = shapes
+    record["block_quant"] = shapes
+    return main
+
+
 def block_kernel_phase(torch, peaks, record):
     from repro_torch.configs.base import QuantConfig
     from repro_torch.core.formats import FXPFormat, default_vp_format
-    from repro_torch.core.quantize import block_vp_dequantize
     from repro_torch.kernels import ref
-    from repro_torch.kernels.vp_block_matmul import block_vp_matmul_cuda
     from repro_torch.kernels.vp_dequant import (
         vp_dequant_packed_cuda, vp_dequant_planes_cuda)
     from repro_torch.kernels.vp_quant import (
@@ -699,59 +940,10 @@ def block_kernel_phase(torch, peaks, record):
             raise AssertionError(f"{what}: {n} of {got.numel()} values differ "
                                  "from the plain version")
 
-    # -- block_vp_matmul: bit-identical at the serving shapes ----------------
-    for bk in (64, 256):                 # ragged M and N
-        ops_in = _block_operands(torch, gen, 3, 256, 131, fxp, vp, bk)
-        for dt in (torch.float32, torch.bfloat16):
-            identical(block_vp_matmul_cuda(*ops_in, vp, vp, bk, dt),
-                      ref.block_vp_matmul_ref(*ops_in, vp, vp, bk, dt),
-                      f"block_vp_matmul ragged (3, 256, 131) bk {bk} {dt}")
-    print("[kernel] block_vp_matmul ragged (3, 256, 131), bk 64 and 256: "
-          "bit-identical to the plain version (f32 and bf16)")
-    for (M, K, N) in BLOCK_CHECKED:
-        ops_in = _block_operands(torch, gen, M, K, N, fxp, vp)
-        identical(block_vp_matmul_cuda(*ops_in, vp, vp, BLOCK, torch.float32),
-                  ref.block_vp_matmul_ref(*ops_in, vp, vp, BLOCK),
-                  f"block_vp_matmul {[M, K, N]}")
-    print(f"[kernel] block_vp_matmul: bit-identical to the plain version at "
-          f"{list(BLOCK_CHECKED)}, bk {BLOCK} (checked, not timed)")
-    main_bl = None
-    for (M, K, N) in BLOCK_SHAPES:
-        a_m, a_i, b_m, b_i = _block_operands(torch, gen, M, K, N, fxp, vp)
-
-        def kern():
-            return block_vp_matmul_cuda(a_m, a_i, b_m, b_i, vp, vp, BLOCK,
-                                        torch.float32)
-
-        def plain():
-            return ref.block_vp_matmul_ref(a_m, a_i, b_m, b_i, vp, vp, BLOCK)
-
-        identical(kern(), plain(), f"block_vp_matmul {[M, K, N]}")
-        a32 = block_vp_dequantize(a_m, a_i, vp, BLOCK, axis=-1)
-        b32 = block_vp_dequantize(b_m, b_i, vp, BLOCK, axis=0)
-        a16, b16 = a32.to(torch.bfloat16), b32.to(torch.bfloat16)
-        ms, plain_ms = timer(kern), timer(plain)
-        library_ms = timer(lambda: torch.matmul(a16, b16))
-        library_f32_ms = timer(lambda: torch.matmul(a32, b32))
-        nk = K // BLOCK
-        nbytes = M * K + M * nk + K * N + nk * N + M * N * 4
-        bnd = bound(peaks, nbytes, 2 * M * K * N, "int8")
-        shape = [M, K, N, BLOCK]
-        _print_line("block_vp_matmul", shape, 0.0, 0.0, ms, plain_ms, bnd,
-                    library_ms)
-        print(f"[kernel] block_vp_matmul {shape}: torch.matmul on the "
-              f"dequantized operands, bf16 {library_ms:.4f} ms, f32 "
-              f"{library_f32_ms:.4f} ms")
-        lines.append(("block_vp_matmul", shape, ms, plain_ms, bnd,
-                      library_ms, library_f32_ms))
-        if main_bl is None:
-            main_bl = _row("block_vp_matmul", "vp_block_matmul.cu",
-                           "src/repro/kernels/vp_block_matmul.py:52", shape,
-                           0.0, ms, plain_ms, bnd, library_ms)
-        del a_m, a_i, b_m, b_i, a32, b32, a16, b16
-    rows.append(main_bl)
-    print(f"[kernel] block_vp_matmul: bit-identical to the plain version at "
-          f"{list(BLOCK_SHAPES)}, bk {BLOCK}")
+    # -- block_vp_matmul: its three bodies; the activation quantizer -------
+    rows.append(_block_matmul_row(torch, peaks, timer, gen, fxp, vp, lines,
+                                  record))
+    rows.append(_block_quant_row(torch, peaks, timer, gen, fxp, vp, record))
 
     # -- vp_dequant_packed / vp_dequant_planes: bit-identical ----------------
     R, C = DEQUANT_PACKED
@@ -811,7 +1003,8 @@ def block_kernel_phase(torch, peaks, record):
         dict(name=n, shape=s, ms=m_, plain_ms=p, bound_ms=b[0],
              bound_by=b[1], library_ms=lib, library_f32_ms=lib32)
         for n, s, m_, p, b, lib, lib32 in lines]
-    print("kernels: block_vp_matmul, vp_dequant_packed, vp_dequant_planes")
+    print("kernels: block_vp_matmul, vp_block_quant, vp_dequant_packed, "
+          "vp_dequant_planes")
     return rows
 
 
@@ -885,31 +1078,72 @@ def serve_phase(torch, record, rows):
 
 
 def serve_block_phase(torch, record, rows, smi):
-    """Mode vp_block: every weight matmul through `block_vp_matmul`; the
-    embedding table (vocab 151936 = 593.5 blocks of 256) falls back to
-    packed VP words, exported by the quant kernel."""
+    """Mode vp_block: every weight matmul through `block_vp_matmul` (the
+    skinny body at decode and for `lm_head`, the tensor-core body for
+    prefill's layer weights), its activations block-quantized by the
+    `vp_block_quant` kernel, which also exports every weight whose d_in
+    is a multiple of the block; the embedding table (vocab 151936 = 593.5
+    blocks of 256) falls back to packed VP words, exported by the quant
+    kernel."""
     from repro_torch.configs import registry
     from repro_torch.configs.base import QuantConfig
+    from repro_torch.kernels.vp_block_matmul import BODY_COUNTER, block_body
+    from repro_torch.kernels.vp_block_quant import plan_amax
 
-    L = registry.get_config(ARCH).n_layers
-    expect = {
-        "block_vp_matmul": (7 * L + 1) * (1 + GEN),
-        "vp_quant_packed": 1 + 2 * L * (1 + GEN),
-        "vp_decode_attention": L * GEN,
-        "flash_prefill": L,
-    }
-    per_pass = {"vp_quant_packed": 2 * L, "block_vp_matmul": 7 * L + 1}
-    out = _serve(torch, QuantConfig(mode="vp_block", block=BLOCK,
-                                    quantize_kv_cache=True),
-                 expect, {"prefill": dict(per_pass, flash_prefill=L),
-                          "decode step": dict(per_pass,
-                                              vp_decode_attention=L)},
+    quant = QuantConfig(mode="vp_block", block=BLOCK, quantize_kv_cache=True)
+    cfg = registry.get_config(ARCH, quant)
+    L = cfg.n_layers
+    head = (cfg.d_model, cfg.vocab)
+
+    def matmuls(M):
+        """Launches of one pass's 7 L + 1 weight matmuls at M tokens
+        (`lm_head` reads the last position only: BATCH rows)."""
+        counts = {}
+        for m, K, N in ([(M, K, N) for K, N in _weight_shapes(cfg)] * L
+                        + [(BATCH, *head)]):
+            keys = ["block_vp_matmul", BODY_COUNTER[block_body(m, K, N,
+                                                               BLOCK)],
+                    "vp_block_quant"]
+            if plan_amax(m * K):
+                keys.append("vp_block_amax")
+            counts = _add(counts, dict.fromkeys(keys, 1))
+        return counts
+
+    prefill = _add(matmuls(BATCH * PROMPT),
+                   {"vp_quant_packed": 2 * L, "flash_prefill": L})
+    decode = _add(matmuls(BATCH),
+                  {"vp_quant_packed": 2 * L, "vp_decode_attention": L})
+    if (prefill.get("vp_bmm_tc") != 7 * L
+            or prefill.get("vp_bmm_skinny") != 1
+            or decode.get("vp_bmm_skinny") != 7 * L + 1
+            or decode.get("vp_block_quant") != 7 * L + 1):
+        raise AssertionError(f"planned bodies: prefill {prefill}, decode "
+                             f"{decode}")
+    weights = [(K, N) for K, N in _weight_shapes(cfg)] * L + [head]
+    export = {"vp_block_quant": len(weights),
+              "vp_block_amax": sum(plan_amax(K * N) > 0
+                                   for K, N in weights),
+              "vp_quant_packed": 1}                   # the embedding
+    expect = _add(export, prefill, *[decode] * GEN)
+    out = _serve(torch, quant, expect, {"prefill": prefill,
+                                        "decode step": decode},
                  requantizes=True)
+    got = out["launches"]
+    print(f"[serve vp_block] block_vp_matmul bodies: skinny "
+          f"{got.get('vp_bmm_skinny', 0)}, tensor cores "
+          f"{got.get('vp_bmm_tc', 0)}, dp4a {got.get('vp_bmm_dp4a', 0)}; "
+          f"vp_block_quant {got.get('vp_block_quant', 0)} calls "
+          f"({got.get('vp_block_amax', 0)} with an amax pass)")
     for row in rows:
         if row["name"] == "block_vp_matmul":
-            row["launches"] = out["launches"]["block_vp_matmul"]
+            row["launches"] = got["block_vp_matmul"]
+            row["body_launches"] = {b: got.get(c, 0)
+                                    for b, c in BODY_COUNTER.items()}
+        elif row["name"] == "vp_block_quant":
+            row["launches"] = got["vp_block_quant"]
+            row["amax_launches"] = got.get("vp_block_amax", 0)
         elif row["name"] in expect:
-            row["block_serve_launches"] = out["launches"][row["name"]]
+            row["block_serve_launches"] = got[row["name"]]
     print(f"[serve vp_block] {smi}")
     record["serve_vp_block"] = out
 

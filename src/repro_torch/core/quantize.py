@@ -59,6 +59,15 @@ def vp_fake_quant_ste(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
     return _STE.apply(x, y, None, None)
 
 
+def pow2_scale(w: torch.Tensor) -> torch.Tensor:
+    """Smallest power of two >= max|w| as a 0-d tensor of w's dtype, each
+    step (log2, ceil, exp2) taken in that dtype like the reference's
+    `_pow2_scale`; an all-zero tensor gets 1.0."""
+    amax = w.abs().max()
+    s = torch.exp2(torch.ceil(torch.log2(torch.clamp(amax, min=1e-30))))
+    return torch.where(amax > 0, s, torch.ones_like(s))
+
+
 def vp_pack_tensor(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Real tensor (any rank, any float dtype) -> (packed words, f32
@@ -72,9 +81,7 @@ def vp_pack_tensor(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat
     1.0.  Plain tensor code, as in the reference (no kernel).
     """
     xf = x.to(torch.float32)
-    amax = xf.abs().max()
-    s = torch.exp2(torch.ceil(torch.log2(torch.clamp(amax, min=1e-30))))
-    scale = torch.where(amax > 0, s, torch.ones_like(s))
+    scale = pow2_scale(xf)
     m, i = fxp2vp(fxp_quantize(xf / scale, fxp), fxp, vp)
     return pack_vp(m, i, vp), scale
 

@@ -85,7 +85,12 @@ _SIGNATURES = {
         "vp_matmul_dw_tc_launch": [_P] * 4 + [_I] * 8 + [_P, _P],
     },
     "vp_block_matmul": {
-        "block_vp_matmul_launch": [_P] * 5 + [_I] * 5 + [_P] * 3,
+        "block_vp_matmul_skinny_launch": [_P] * 5 + [_I] * 7 + [_P] * 3,
+        "block_vp_matmul_tc_launch": [_P] * 5 + [_I] * 4 + [_P] * 3,
+        "block_vp_matmul_dp4a_launch": [_P] * 5 + [_I] * 5 + [_P] * 3,
+    },
+    "vp_block_quant": {
+        "vp_block_quant_launch": [_P] * 6 + [_LL, _LL] + [_I] * 5 + [_P, _P],
     },
     "vp_dequant": {
         "vp_dequant_planes_launch": [_P, _P, _P, _LL, _I, _P, _P],

@@ -62,14 +62,18 @@ __device__ __forceinline__ int vp_shift(int v, int s) {
   return (-s >= 32) ? 0 : (int)((unsigned)v << (-s));
 }
 
-// float -> (significand m, index i) (paper Fig. 3): round half to even
-// onto the FXP grid, clip, take the first exponent option whose shifted
-// value fits in M signed bits, saturate at the last option.
+// float -> raw FXP integer: round half to even onto the grid, clip.
+__device__ __forceinline__ int vp_fxp_raw(float x, const QuantFmt& q) {
+  const float r = rintf(x * q.two_f);
+  return (int)fminf(fmaxf(r, q.raw_lo), q.raw_hi);
+}
+
+// float -> (significand m, index i) (paper Fig. 3): vp_fxp_raw, then the
+// first exponent option whose shifted value fits in M signed bits,
+// saturating at the last option.
 __device__ __forceinline__ void vp_quantize(float x, const QuantFmt& q,
                                             int& m, int& i) {
-  float r = rintf(x * q.two_f);
-  r = fminf(fmaxf(r, q.raw_lo), q.raw_hi);
-  const int raw = (int)r;
+  const int raw = vp_fxp_raw(x, q);
   int m_sel = 0, i_sel = 0;
   bool any = false;
   int s_last = q.shift[0];

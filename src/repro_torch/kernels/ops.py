@@ -34,6 +34,7 @@ from . import autotune, ref
 from .autotune import Blocks
 from .vp_attention import flash_prefill_cuda, vp_decode_attention_cuda
 from .vp_block_matmul import block_vp_matmul_cuda
+from .vp_block_quant import block_vp_quant_cuda
 from .vp_bwd_matmul import vp_matmul_dw_cuda, vp_matmul_dx_cuda
 from .vp_dequant import vp_dequant_packed_cuda, vp_dequant_planes_cuda
 from .vp_dequant_matmul import vp_dequant_matmul_cuda
@@ -115,6 +116,27 @@ def vp_dequant(m: torch.Tensor, i: Optional[torch.Tensor] = None,
     if uses_kernel(m, i):
         return vp_dequant_planes_cuda(m, i, vp, dtype)
     return ref.vp_dequant_ref(m, i, vp, dtype)
+
+
+def block_vp_quant(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
+                   block: int, axis: int = -1,
+                   math_dtype: Optional[torch.dtype] = None):
+    """x (R, C) / pow2_scale(x), block-VP quantized along `axis` ->
+    (significands of `significand_dtype(vp.M)` shaped like x, uint8
+    indices with `axis` reduced by `block`, the scale as a 0-d f32).
+
+    The scale and the division are taken in `math_dtype` (default x's
+    dtype; f32 for a bf16 x upcasts it exactly), as `qdot` does for its
+    activations (f32) and `quantize_weight` for a weight (its dtype).
+    The scale stays on the device: no host sync.
+    """
+    math_dtype = math_dtype or x.dtype
+    if uses_kernel(x):
+        if math_dtype not in (x.dtype, torch.float32):
+            raise ValueError(f"math in {math_dtype} for a {x.dtype} x")
+        return block_vp_quant_cuda(x, fxp, vp, block, axis,
+                                   bf16_math=math_dtype == torch.bfloat16)
+    return ref.block_vp_quant_ref(x, fxp, vp, block, axis, math_dtype)
 
 
 def block_vp_matmul(a_m, a_i, b_m, b_i, a_fmt: VPFormat, b_fmt: VPFormat,

@@ -3,8 +3,8 @@ oracles in `repro.kernels.ref`): the serving path's packed quantize,
 matmul and attention, the MIMO path's two-plane quantize, VP x VP
 matmuls (with CSPADE tile muting) and fused quantize + matmul, the
 training path's backward matmuls over packed words, the block-VP
-matmul of the `vp_block` serving mode and the two dequantizers behind
-`ops.vp_dequant`.
+matmul of the `vp_block` serving mode and its activation quantizer, and
+the two dequantizers behind `ops.vp_dequant`.
 
 `ops.py` runs these for CPU tensors, and inside `ops.force_backend("ref")`
 on the card; the CPU tests hold them against the JAX package, and
@@ -20,6 +20,7 @@ from repro_torch.core.convert import fxp2vp, vp_to_float
 from repro_torch.core.formats import FXPFormat, VPFormat
 from repro_torch.core.fxp import fxp_quantize
 from repro_torch.core.packing import dequant_words, pack_vp, unpack_vp
+from repro_torch.core.quantize import block_vp_quantize, pow2_scale
 from repro_torch.core.vp_tensor import significand_dtype
 
 NEG_INF = -1e30
@@ -50,6 +51,20 @@ def vp_dequant_packed_ref(w: torch.Tensor, vp: VPFormat,
                           dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Packed VP words -> real values (word table or unpack, exact)."""
     return dequant_words(w, vp, dtype)
+
+
+def block_vp_quant_ref(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
+                       block: int, axis: int = -1,
+                       math_dtype: Optional[torch.dtype] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x / pow2_scale(x), both in `math_dtype` (default x's), then
+    `block_vp_quantize` of its f32 value along `axis` -> (significands,
+    uint8 indices, the scale as a 0-d f32)."""
+    xm = x.to(math_dtype or x.dtype)
+    s = pow2_scale(xm)
+    m, i = block_vp_quantize((xm / s).to(torch.float32), fxp, vp, block,
+                             axis=axis)
+    return m, i, s.to(torch.float32)
 
 
 def block_vp_matmul_ref(a_m: torch.Tensor, a_i: torch.Tensor,

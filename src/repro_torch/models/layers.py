@@ -12,7 +12,8 @@ the weight's exported dict, as the reference does:
   vp_block  ops.block_vp_matmul(x_q, W_q) * (s_x * scale): int8
             significands with one exponent index per `block` weights
             along the contraction; the activations are block-quantized
-            on the fly with a dynamic pow2 scale s_x
+            on the fly with a dynamic pow2 scale s_x (`ops.block_vp_quant`,
+            one kernel on the card, which also exports the weights)
                                            {"m", "i_blk", "scale"}
             A weight whose contraction dim is not a multiple of `block`
             (the embedding table: it is indexed by vocab) falls back to
@@ -37,7 +38,7 @@ from repro_torch.configs.base import QuantConfig
 from repro_torch.core.convert import vp_to_float
 from repro_torch.core.formats import FXPFormat, default_vp_format
 from repro_torch.core.packing import dequant_words
-from repro_torch.core.quantize import block_vp_quantize, vp_fake_quant_ste
+from repro_torch.core.quantize import pow2_scale, vp_fake_quant_ste
 from repro_torch.kernels import ops
 
 
@@ -48,36 +49,27 @@ def canonical_formats(q: QuantConfig):
     return fxp, default_vp_format(fxp, q.M, q.E)
 
 
-def _pow2_scale(w: torch.Tensor) -> torch.Tensor:
-    """Smallest power of two >= max|w|, computed in w's dtype like the
-    reference; an all-zero tensor gets 1.0."""
-    amax = w.abs().max()
-    s = torch.exp2(torch.ceil(torch.log2(torch.clamp(amax, min=1e-30))))
-    return torch.where(amax > 0, s, torch.ones_like(s))
-
-
 def quantize_weight(w: torch.Tensor, q: QuantConfig) -> Any:
     """Float weight (d_in, d_out) -> its serving form.
 
     none: the float tensor.  fxp: {"m" int8, "scale"}.  vp:
     {"w_packed", "scale"}, the words of w / scale (exported by the quant
     kernel on the card).  vp_block: {"m" int8, "i_blk" uint8 (d_in /
-    block, d_out), "scale"} from `block_vp_quantize` along d_in (plain
-    tensor code, as in the reference), or the vp dict when d_in is not a
-    multiple of the block.
+    block, d_out), "scale"}, w / scale block-quantized along d_in by
+    `ops.block_vp_quant` (scale and division in w's dtype, as in the
+    reference), or the vp dict when d_in is not a multiple of the block.
     """
     if q.mode == "none":
         return w
     fxp, vp = canonical_formats(q)
-    s = _pow2_scale(w)
+    if q.mode == "vp_block" and w.shape[0] % q.block == 0:
+        m, i_blk, s = ops.block_vp_quant(w, fxp, vp, q.block, axis=0)
+        return {"m": m, "i_blk": i_blk, "scale": s}
+    s = pow2_scale(w)
     wn = w / s
     if q.mode == "fxp":
         m = torch.clamp(torch.round(wn * 127.0), -128, 127).to(torch.int8)
         return {"m": m, "scale": (s / 127.0).to(torch.float32)}
-    if q.mode == "vp_block" and w.shape[0] % q.block == 0:
-        m, i_blk = block_vp_quantize(wn.to(torch.float32), fxp, vp,
-                                     q.block, axis=0)
-        return {"m": m, "i_blk": i_blk, "scale": s.to(torch.float32)}
     return {"w_packed": ops.vp_quant(wn.to(torch.float32), fxp, vp,
                                      packed=True),
             "scale": s.to(torch.float32)}
@@ -98,7 +90,7 @@ def qdot(x: torch.Tensor, wq: Any, q: QuantConfig,
         w = wq
         if train and q.mode in ("vp", "vp_block"):
             fxp, vp = canonical_formats(q)
-            s = _pow2_scale(w.detach())
+            s = pow2_scale(w.detach())
             if q.qat_mode == "packed" and w.ndim == 2:
                 lead = x.shape[:-1]
                 x2 = x.reshape(-1, x.shape[-1]).to(dtype)
@@ -114,9 +106,8 @@ def qdot(x: torch.Tensor, wq: Any, q: QuantConfig,
         out = ops.vp_dequant_matmul(x2, wq["w_packed"], vp, out_dtype=dtype)
         out = out * wq["scale"].to(dtype)
     elif "i_blk" in wq:
-        xf = x2.to(torch.float32)
-        sa = _pow2_scale(xf)
-        a_m, a_i = block_vp_quantize(xf / sa, fxp, vp, q.block, axis=-1)
+        a_m, a_i, sa = ops.block_vp_quant(x2, fxp, vp, q.block, axis=-1,
+                                          math_dtype=torch.float32)
         out = ops.block_vp_matmul(a_m, a_i, wq["m"], wq["i_blk"], vp, vp,
                                   bk=q.block)
         out = (out * (sa * wq["scale"])).to(dtype)

@@ -36,8 +36,15 @@ Run from the root of a checkout.  Phases, each raising on failure:
      planes (1.6e6, 64) int8 + uint8.
      The MIMO path's kernels (two-plane quantize, VP x VP matmul, fused
      quantize + matmul) likewise, at the equalizer's shapes: G = 100,000
-     realizations of (16, 64) x (64, 2), and the G = 1 launches of the
-     masked mode at n = 256, (2048, 64) x (64, 256).
+     realizations of (16, 64) x (64, 2) on the warp body, and the G = 1
+     launches of the masked mode at n = 256, (2048, 64) x (64, 256), on
+     the tile body (`mm_body`).  The tile body bit-identical to the warp
+     body (forced through `body=`) in packed, planes, mixed words x
+     planes and fused, unmasked and on CSPADE grids that cut across its
+     tiles, at the path shape and two ragged ones; fused equal to
+     quantize -> unfused on it; no local memory in its SASS; both bodies
+     timed at the path shape beside torch.mm (f32) and swept over G, M
+     and N (the planner's bound).
   4. serve   - full-width qwen3-0.6b in bf16 with packed VP weights and
                a packed VP KV cache: random weights from seed 0 exported
                by the quant kernel, batch 4 x 128 prompt tokens, 32
@@ -65,7 +72,9 @@ Run from the root of a checkout.  Phases, each raising on failure:
                one batched launch.  Launch counts of that run, a profiler
                check of the equalize calls (hand kernels only, no library
                GEMM), every kernel-path estimate against the plain path,
-               and equalizations per second.
+               and equalizations per second.  The masked mode's 12 G = 1
+               launches run on the tile body, every batched one on the
+               warp body (per-body counters `vp_mm_tile` / `vp_mm_warp`).
   6. train kernels - the backward kernels `vp_matmul_dx` and
                `vp_matmul_dw` (tensor-core body) against their plain
                versions at the full-width training shapes (M = 8 x 128 =
@@ -80,7 +89,8 @@ Run from the root of a checkout.  Phases, each raising on failure:
                body; an f32 g with +-FLT_MAX elements held against the
                CUDA-core body, and one below 2^-110 measured against it;
                then the autograd backward of `ops.vp_quant_matmul` at
-               (2048, 64) x (64, 256), da and db against the plain path.
+               (2048, 64) x (64, 256) (its forward on the tile body), da
+               and db against the plain path.
   7. train   - full-width qwen3-0.6b in bf16 trained through the CLI
                (`launch.train.main`): random weights from seed 0,
                SyntheticLM batch 8 x seq 128, packed QAT, VP gradient
@@ -134,8 +144,10 @@ KERNEL_NAMES = {"vp_quant_packed": "vp_quant_packed_kernel",
                 "vp_decode_attention": "vp_decode_attention_kernel",
                 "flash_prefill": "flash_prefill_kernel",
                 "vp_quant_planes": "vp_quant_planes_kernel",
-                "vp_matmul": "vp_mm_kernel<VPLoad",
-                "vp_quant_matmul": "vp_mm_kernel<VPQuantLoad",
+                "vp_matmul": "_kernel<VPLoad",               # both bodies
+                "vp_quant_matmul": "_kernel<VPQuantLoad",    # both bodies
+                "vp_mm_warp": "vp_mm_warp_kernel",
+                "vp_mm_tile": "vp_mm_tile_kernel",
                 "vp_matmul_dx": "vp_matmul_dx_tc_kernel",
                 "vp_matmul_dw": "vp_matmul_dw_tc_kernel",
                 "vp_bwd_splitk_reduce": "vp_bwd_splitk_reduce_kernel",
@@ -166,6 +178,18 @@ DQMM_SWEEP_M = (1, 4, 8, 16, 32, 64)  # the three bodies side by side, for
 DQMM_SWEEP_KN = ((1024, 3072), (3072, 1024))  # the planner's thresholds
 GRAD_RTOL = 1e-3           # f32 train step: each weight gradient vs plain
 QMM_SHAPE = (2048, 64, 256)          # vp_quant_matmul autograd check
+# The G = 1 VP x VP bodies: (M, K, N) -> CSPADE grids (bm, bk, bn) held
+# bit-identical warp vs tile (None: unmasked).  The path's grid, one cut
+# across the 64 x 64 tile, one mixing loud and muted outputs inside a 4 x
+# 4 micro-tile; ragged shapes with grids of their own.
+G1_CHECKS = {(2048, 64, 256): (None, (256, 64, 256), (16, 32, 8),
+                               (2, 16, 1)),
+             (200, 50, 72): (None, (8, 25, 8), (1, 10, 3)),
+             (2047, 64, 255): (None, (89, 16, 17), (23, 8, 5))}
+# (G, M, N) at K = 64, both bodies timed: mm_body's bounds (G = 1 over
+# M and N, and two batched launches of the engine's (16, 64) x (64, 2))
+MM_SWEEP = tuple((1, 2048, n) for n in (2, 8, 32, 64, 256)) + (
+    (1, 16, 2), (1, 16, 256), (1, 256, 256), (1024, 16, 2), (8192, 16, 2))
 BLOCK = 256                # vp_block index block (QuantConfig.block)
 # block_vp_matmul: decode at batch 4 (w_up/w_gate, w_down, q/o, k/v,
 # lm_head), then prefill (4 x 128 tokens) at the same weights
@@ -1491,59 +1515,166 @@ def mimo_kernel_phase(torch, peaks, record):
     del a_deq, b_deq, planes, words, fused
 
     # -- the G = 1 launches of the masked mode: (2048, 64) x (64, 256) -------
+    rows += _g1_kernels(torch, peaks, timer, gen, bvp, lines, record)
+    record["mimo_kernel_lines"] = [
+        dict(name=n, shape=s, ms=m, plain_ms=p, bound_ms=b[0], bound_by=b[1],
+             library_ms=lib) for n, s, m, p, b, lib in lines]
+    print("kernels: vp_quant_planes, vp_matmul, vp_quant_matmul")
+    return rows
+
+
+def _mm_layouts(torch, gen, bvp, G, M, K, N, grid):
+    """G products (M, K) x (K, N) on the MIMO operands: ({layout:
+    fn(body) -> (G, M, N)}, {layout: its plain version}, fn() -> the
+    first product's dequantized operands) for packed, planes and mixed
+    words x planes through `vp_matmul_cuda` and fused through
+    `vp_quant_matmul_cuda`, all with CSPADE flags on `grid` (about half
+    the tiles loud) where it is not None."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.vp_matmul import vp_matmul_cuda
+    from repro_torch.kernels.vp_quant import (
+        vp_quant_packed_cuda, vp_quant_planes_cuda)
+    from repro_torch.kernels.vp_quant_matmul import vp_quant_matmul_cuda
+
+    wf, wv, yf, yv = bvp.w_fxp, bvp.w_vp, bvp.y_fxp, bvp.y_vp
+    a, b = _mimo_operands(torch, gen, G, M, K, N)
+    pa, pb = vp_quant_planes_cuda(a, wf, wv), vp_quant_planes_cuda(b, yf, yv)
+    wa, wb = vp_quant_packed_cuda(a, wf, wv), vp_quant_packed_cuda(b, yf, yv)
+    masks = ()
+    if grid is not None:
+        bm, bk, bn = grid
+        masks = tuple((torch.rand(shape, generator=gen, device="cuda")
+                       < 0.5).int() for shape in
+                      ((G, M // bm, K // bk), (G, K // bk, N // bn))) + (grid,)
+    fns = {"packed": lambda body: vp_matmul_cuda(
+               wa, None, wb, None, wv, yv, *masks, body=body),
+           "planes": lambda body: vp_matmul_cuda(
+               *pa, *pb, wv, yv, *masks, body=body),
+           "mixed": lambda body: vp_matmul_cuda(
+               wa, None, *pb, wv, yv, *masks, body=body),
+           "fused": lambda body: vp_quant_matmul_cuda(
+               a, b, wf, wv, yf, yv, *masks, body=body)}
+    planes = lambda: ref.vp_matmul_batched_ref(  # noqa: E731
+        *pa, *pb, wv, yv, *masks)
+    plains = {"packed": lambda: ref.vp_matmul_batched_packed_ref(
+                  wa, wb, wv, yv, *masks),
+              "planes": planes, "mixed": planes,
+              "fused": lambda: ref.vp_quant_matmul_batched_ref(
+                  a, b, wf, wv, yf, yv, *masks)}
+    deq = lambda: (ref.vp_dequant_ref(*pa, wv)[0],  # noqa: E731
+                   ref.vp_dequant_ref(*pb, yv)[0])
+    return fns, plains, deq
+
+
+def _g1_kernels(torch, peaks, timer, gen, bvp, lines, record):
+    """The G = 1 launches of `vp_matmul` and `vp_quant_matmul` (the TPU
+    kernels `vp_matmul_pallas` and `vp_quant_matmul_pallas`): the tile
+    body bit-identical to the warp body, fused equal to quantize ->
+    unfused on it, both within MIMO_RTOL of the plain version, at every
+    shape and grid of G1_CHECKS; its SASS free of local memory; the path
+    shape timed on the planner's body and on each body, beside torch.mm;
+    both bodies swept over MM_SWEEP.  Returns the two kernels' rows."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.vp_matmul import mm_body
+
+    K = MIMO_SHAPE[1]
     Mm, Nm = MASKED_N * 8, MASKED_N
-    a1, b1 = _mimo_operands(torch, gen, 1, Mm, K, Nm)
-    a1, b1 = a1[0], b1[0]
-    t1 = (256, 64, 256)
-    a1_act = (torch.rand((Mm // 256, 1), generator=gen, device="cuda")
-              < 0.5).int()
-    b1_act = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
-    p1 = {"W": vp_quant_planes_cuda(a1, wf, wv),
-          "y": vp_quant_planes_cuda(b1, yf, yv)}
-    w1 = {"W": vp_quant_packed_cuda(a1, wf, wv),
-          "y": vp_quant_packed_cuda(b1, yf, yv)}
-    f1 = vp_quant_matmul_cuda(a1[None], b1[None], wf, wv, yf, yv)[0]
-    deq1 = (ref.vp_dequant_ref(*p1["W"], wv), ref.vp_dequant_ref(*p1["y"], yv))
-    library_ms = timer(lambda: torch.mm(*deq1))
+    if mm_body(1, Mm, K, Nm) != "tile":
+        raise AssertionError(f"mm_body picks {mm_body(1, Mm, K, Nm)} at the "
+                             "masked mode's shape")
+
+    # -- the tile body's SASS: its 4 x 4 micro-tile stays in registers ------
+    local = {}
+    for lib in ("vp_matmul", "vp_quant_matmul"):
+        for op in ("LDL", "STL"):
+            got = _sass_counts(build._target(lib), build._nvcc(), op)
+            tile = {k: v for k, v in got.items() if "vp_mm_tile_kernel" in k}
+            if len(tile) != 1:
+                raise AssertionError(f"{lib}: tile kernels in the SASS {tile}")
+            local[f"{lib} {op}"] = sum(tile.values())
+    print(f"[kernel] vp_mm_tile_kernel SASS: local loads / stores {local}")
+    if any(local.values()):
+        raise AssertionError(f"the tile body spills to local memory: {local}")
+
+    # -- bit identity: tile body == warp body, fused == quantize -> unfused --
+    checked = 0
+    for (M, Kc, N), grids in G1_CHECKS.items():
+        for grid in grids:
+            fns, plains, _ = _mm_layouts(torch, gen, bvp, 1, M, Kc, N, grid)
+            plain = plains["planes"]()
+            outs = {}
+            for layout, fn in fns.items():
+                tile, warp = fn("tile"), fn("warp")
+                what = f"G = 1 {layout} {[M, Kc, N]} grid {grid}"
+                if not torch.equal(tile, warp):
+                    n = int((tile != warp).sum())
+                    raise AssertionError(f"{what}: tile body differs from the "
+                                         f"warp body in {n} outputs")
+                compare(torch, tile, plain, MIMO_RTOL, what)
+                outs[layout] = tile
+                checked += 1
+            for layout in ("packed", "mixed", "fused"):
+                if not torch.equal(outs[layout], outs["planes"]):
+                    raise AssertionError(
+                        f"G = 1 {[M, Kc, N]} grid {grid}: {layout} differs "
+                        "from planes (quantize -> unfused) on the tile body")
+    print(f"[kernel] vp_mm G = 1: tile body bit-identical to the warp body "
+          f"in {checked} cases (packed, planes, mixed, fused; shapes and "
+          f"grids {G1_CHECKS}); fused == quantize -> unfused on it; each "
+          f"within {MIMO_RTOL:g} of the plain version")
+
+    # -- the path shape, timed: planner's body (tile) and the warp body ------
+    fns, plains, deq = _mm_layouts(torch, gen, bvp, 1, Mm, K, Nm, None)
+    mfns, mplains, _ = _mm_layouts(torch, gen, bvp, 1, Mm, K, Nm,
+                                   (256, 64, 256))
+    a_deq, b_deq = deq()
+    library_ms = timer(lambda: torch.mm(a_deq, b_deq))
     out_bytes, flops1 = Mm * Nm * 4, 2 * Mm * K * Nm
-    nbytes1 = {"packed": Mm * K * 2 + K * Nm + out_bytes,
-               "planes+masks": Mm * K * 2 + K * Nm * 2 + out_bytes
-               + 4 * (a1_act.numel() + b1_act.numel()),
-               "fused": (Mm * K + K * Nm) * 4 + out_bytes}
-    for case, kern, plain in (
-            ("packed", lambda: vp_matmul_cuda(
-                w1["W"][None], None, w1["y"][None], None, wv, yv)[0],
-             lambda: ref.vp_matmul_packed_ref(w1["W"], w1["y"], wv, yv)),
-            ("planes+masks", lambda: vp_matmul_cuda(
-                p1["W"][0][None], p1["W"][1][None], p1["y"][0][None],
-                p1["y"][1][None], wv, yv, a1_act[None], b1_act[None], t1)[0],
-             lambda: ref.vp_matmul_ref(*p1["W"], *p1["y"], wv, yv, a1_act,
-                                       b1_act, t1)),
-            ("fused", lambda: vp_quant_matmul_cuda(
-                a1[None], b1[None], wf, wv, yf, yv)[0],
-             lambda: ref.vp_quant_matmul_ref(a1, b1, wf, wv, yf, yv))):
-        out = kern()
+    mask_bytes = 4 * (Mm // 256 + Nm // 256)
+    rows, times = [], {}
+    for case, fn, plain, nbytes in (
+            ("packed", fns["packed"], plains["packed"],
+             Mm * K * 2 + K * Nm + out_bytes),
+            ("planes+masks", mfns["planes"], mplains["planes"],
+             Mm * K * 2 + K * Nm * 2 + out_bytes + mask_bytes),
+            ("fused", fns["fused"], plains["fused"],
+             (Mm * K + K * Nm) * 4 + out_bytes)):
+        out = fn(None)
         err, rel = compare(torch, out, plain(), MIMO_RTOL,
                            f"G = 1 {case} {[Mm, K, Nm]}")
-        if case == "packed" and not torch.equal(out, f1):
-            raise AssertionError("G = 1 fused kernel differs from quant -> "
-                                 "vp_matmul on the card")
-        ms, plain_ms = timer(kern), timer(plain)
-        bnd = bound(peaks, nbytes1[case], flops1, "f32")
+        ms, warp_ms = timer(lambda: fn(None)), timer(lambda: fn("warp"))
+        plain_ms = timer(plain)
+        bnd = bound(peaks, nbytes, flops1, "f32")
         name = "vp_quant_matmul" if case == "fused" else "vp_matmul"
         shape = [1, Mm, K, Nm, case]
         _print_line(name, shape, err, rel, ms, plain_ms, bnd, library_ms)
+        print(f"[kernel] {name} {shape}: tile body {ms:.4f} ms, warp body "
+              f"{warp_ms:.4f} ms, torch.mm (f32) {library_ms:.4f} ms: tile "
+              f"{ms / library_ms:.2f}x torch.mm")
         lines.append((name, shape, ms, plain_ms, bnd, library_ms))
+        times[case] = dict(tile_ms=ms, warp_ms=warp_ms, library_ms=library_ms,
+                           bound_ms=bnd[0])
         if case != "planes+masks":      # the unbatched TPU kernels' rows
             rows.append(dict(_row(
                 name, f"{name}.cu", "src/repro/kernels/" + (
                     "vp_quant_matmul.py:157" if case == "fused"
                     else "vp_matmul.py:143"), shape, err, ms, plain_ms, bnd,
-                library_ms), g1=True))
-    record["mimo_kernel_lines"] = [
-        dict(name=n, shape=s, ms=m, plain_ms=p, bound_ms=b[0], bound_by=b[1],
-             library_ms=lib) for n, s, m, p, b, lib in lines]
-    print("kernels: vp_quant_planes, vp_matmul, vp_quant_matmul")
+                library_ms), g1=True, body=mm_body(1, Mm, K, Nm),
+                warp_ms=warp_ms))
+
+    # -- the planner's bounds: both bodies over G, M and N ------------------
+    sweep = []
+    for G, M, N in MM_SWEEP:
+        fns, _, _ = _mm_layouts(torch, gen, bvp, G, M, K, N, None)
+        t = {f"{layout} {body}": timer(lambda: fns[layout](body))
+             for layout in ("packed", "fused") for body in ("warp", "tile")}
+        sweep.append(dict(G=G, M=M, K=K, N=N, planner=mm_body(G, M, K, N),
+                          **t))
+        print(f"[sweep] vp_mm {[G, M, K, N]}: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+              + f" ms; mm_body picks {mm_body(G, M, K, N)}")
+    record["g1_bodies"] = dict(checked=checked, local_memory=local,
+                               times=times, sweep=sweep)
     return rows
 
 
@@ -1617,13 +1748,20 @@ def mimo_phase(torch, record, rows, smi):
     wide_launches = _delta(before, build.LAUNCHES)
     counts = dict(build.LAUNCHES)
     # -------------------------------------------------------------------------
+    # the masked mode's 12 G = 1 launches on the tile body, the batched
+    # and wideband launches (4 vp_matmul, 3 vp_quant_matmul) on the warp body
     expect = {"vp_quant_matmul": 2 + 4 + 1, "vp_quant_packed": 2 * 2 + 4,
-              "vp_matmul": 2 + 2 + 4 + 4, "vp_quant_planes": 2 * 2 + 4}
+              "vp_matmul": 2 + 2 + 4 + 4, "vp_quant_planes": 2 * 2 + 4,
+              "vp_mm_tile": 4 + 4 + 4, "vp_mm_warp": 4 + 3}
     print(f"[mimo] launches on the MIMO path: {counts}; of which the "
           f"masked mode's G = 1 launches: {masked_launches}")
     if counts != expect:
         raise AssertionError(f"MIMO launch counts {counts} != {expect}")
-    if wide_launches != {"vp_quant_matmul": 1}:
+    if masked_launches.get("vp_mm_tile") != 12 or "vp_mm_warp" in \
+            masked_launches:
+        raise AssertionError(f"masked mode's G = 1 launches "
+                             f"{masked_launches}: not all 12 on the tile body")
+    if wide_launches != {"vp_quant_matmul": 1, "vp_mm_warp": 1}:
         raise AssertionError(f"wideband band took {wide_launches}, not one "
                              "fused launch")
     for row in rows:     # G = 1 launches to the unbatched kernels' rows
@@ -1684,13 +1822,13 @@ def mimo_phase(torch, record, rows, smi):
     names, seen = _profile_kernels(torch, [
         ("narrowband equalize (fused, n = 100000)",
          lambda: equalize_vp_kernel(bvp, e.w_beam, e.y_beam),
-         {"vp_quant_matmul": 1}),
+         {"vp_quant_matmul": 1, "vp_mm_warp": 1}),
         ("narrowband equalize (unfused)",
          lambda: equalize_vp_kernel(bvp, e.w_beam, e.y_beam, fused=False),
-         {"vp_quant_packed": 2, "vp_matmul": 1}),
+         {"vp_quant_packed": 2, "vp_matmul": 1, "vp_mm_warp": 1}),
         (f"wideband equalize (S = {S}, n = {nw})",
          lambda: equalize_wideband(wspecs, wens.w_beam, wens.y_beam),
-         {"vp_quant_matmul": 1})])
+         {"vp_quant_matmul": 1, "vp_mm_warp": 1})])
     library = sorted({nm for nm in names if LIBRARY_KERNELS.search(nm)
                       and not any(v in nm for v in KERNEL_NAMES.values())})
     print(f"[profile] equalize calls: hand kernels {seen}")
@@ -1979,8 +2117,8 @@ def train_kernel_phase(torch, peaks, record):
     num_sms = torch.cuda.get_device_properties(0).multi_processor_count
     splits = sum(plan_tiles(R, C, S, num_sms).split > 1
                  for R, C, S in ((Mq, Kq, Nq), (Kq, Nq, Mq)))
-    want_counts = {"vp_quant_matmul": 1, "vp_quant_packed": 2,
-                   "vp_matmul_dx": 1, "vp_matmul_dw": 1}
+    want_counts = {"vp_quant_matmul": 1, "vp_mm_tile": 1,
+                   "vp_quant_packed": 2, "vp_matmul_dx": 1, "vp_matmul_dw": 1}
     if splits:
         want_counts["vp_bwd_splitk_reduce"] = splits
     if qmm_counts != want_counts:

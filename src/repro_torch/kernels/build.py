@@ -73,10 +73,10 @@ _SIGNATURES = {
     },
     "vp_matmul": {
         "vp_matmul_launch":
-            [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P] + [_I] * 7 + [_P],
+            [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P] + [_I] * 8 + [_P],
     },
     "vp_quant_matmul": {
-        "vp_quant_matmul_launch": [_P] * 7 + [_I] * 7 + [_P],
+        "vp_quant_matmul_launch": [_P] * 7 + [_I] * 8 + [_P],
     },
     "vp_bwd_matmul": {
         "vp_matmul_dx_cc_launch": [_P, _P, _P] + [_I] * 6 + [_P, _P],

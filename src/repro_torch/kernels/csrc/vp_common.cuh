@@ -3,15 +3,16 @@
 // Replaces the in-tile helpers of the JAX package's kernel substrate
 // (repro/kernels/substrate.py, part (b)): unpack_cascade, scale_of_index,
 // quantize_cascade, quantize_pack_cascade and quantize_dequant_cascade,
-// and the batched matmul body that its VP x VP kernels share
-// (vp_mm_kernel below).  Formats are not template parameters: they ride
-// each launch as a small struct passed by value, so one compiled kernel
-// serves every format with K <= VP_MAX_K.
+// and the matmul bodies that its VP x VP kernels share
+// (vp_mm_warp_kernel and vp_mm_tile_kernel below).  Formats are not
+// template parameters: they ride each launch as a small struct passed by
+// value, so one compiled kernel serves every format with K <= VP_MAX_K.
 //
 // Built with nvcc for sm_90a and without --use_fast_math: rintf, expf
 // and division must round as the plain PyTorch versions do.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,6 +55,19 @@ __device__ __forceinline__ float vp_dequant(int w, const VPFmt& f) {
   return (float)m * vp_scale_of_index(i, f);
 }
 
+// tab[k] = vp_scale_of_index(k, f) for k < VP_MAX_K, written by threads
+// 0 .. VP_MAX_K - 1 of a block: the select chain run once per block, and
+// vp_scale_lookup reads the same numbers back with one load (an index
+// past the table gets tab[0], as the chain gives scale[0]).
+__device__ __forceinline__ void vp_scale_table(float* tab, const VPFmt& f) {
+  if (threadIdx.x < VP_MAX_K)
+    tab[threadIdx.x] = vp_scale_of_index(threadIdx.x, f);
+}
+
+__device__ __forceinline__ float vp_scale_lookup(int i, const float* tab) {
+  return tab[(unsigned)i < VP_MAX_K ? i : 0];
+}
+
 // Arithmetic shift of an int32: right by s >= 0, left by -s.  Shifts of
 // 32 or more give what the reference's int32 shifts give (sign fill on
 // the right, 0 on the left).
@@ -68,12 +82,11 @@ __device__ __forceinline__ int vp_fxp_raw(float x, const QuantFmt& q) {
   return (int)fminf(fmaxf(r, q.raw_lo), q.raw_hi);
 }
 
-// float -> (significand m, index i) (paper Fig. 3): vp_fxp_raw, then the
-// first exponent option whose shifted value fits in M signed bits,
-// saturating at the last option.
-__device__ __forceinline__ void vp_quantize(float x, const QuantFmt& q,
-                                            int& m, int& i) {
-  const int raw = vp_fxp_raw(x, q);
+// Raw FXP integer -> (significand m, index i) (paper Fig. 3): the first
+// exponent option whose shifted value fits in M signed bits, saturating
+// at the last option.
+__device__ __forceinline__ void vp_quantize_raw(int raw, const QuantFmt& q,
+                                                int& m, int& i) {
   int m_sel = 0, i_sel = 0;
   bool any = false;
   int s_last = q.shift[0];
@@ -96,6 +109,12 @@ __device__ __forceinline__ void vp_quantize(float x, const QuantFmt& q,
   }
   m = m_sel;
   i = i_sel;
+}
+
+// float -> (significand m, index i): vp_fxp_raw, then vp_quantize_raw.
+__device__ __forceinline__ void vp_quantize(float x, const QuantFmt& q,
+                                            int& m, int& i) {
+  vp_quantize_raw(vp_fxp_raw(x, q), q, m, i);
 }
 
 // float -> packed VP word (m << E) | i.
@@ -123,73 +142,176 @@ __device__ __forceinline__ __nv_bfloat16 vp_from_float<__nv_bfloat16>(float v) {
 enum VPDtype { VP_F32 = 0, VP_BF16 = 1 };
 
 // ---------------------------------------------------------------------------
-// Batched VP x VP matmul body, shared by vp_matmul.cu and
-// vp_quant_matmul.cu: (G, M, K) x (G, K, N) -> (G, M, N) f32.
+// VP x VP matmul bodies, shared by vp_matmul.cu and vp_quant_matmul.cu:
+// (G, M, K) x (G, K, N) -> (G, M, N) f32.  Two bodies, one sum.
 //
-// One warp computes a tm x tn = 32 tile of one batch element's output,
-// one output per lane.  The k axis is walked in chunks of 32: the warp
-// stages its A rows (tm x 32) and B columns (32 x tn) in shared memory,
-// each element read and converted to its real value once by the
-// operand's loader, then every lane runs an f32 FMA chain over the chunk
-// in k order.  The loaders are the only difference between the kernels
-// (words or planes -> dequant; floats -> quantize -> dequant), and every
-// converted value is an exact m * 2^-f, so the fused kernel is bit for
-// bit the quantize kernel followed by the plane or word matmul.
+// The warp body (vp_mm_warp_kernel), for many small products (the MIMO
+// engine's G = 100,000 x (16, 64) x (64, 2)): one warp computes a tm x
+// tn = 32 tile of one batch element's output, one output per lane.  The
+// k axis is walked in chunks of 32: the warp stages its A rows (tm x 32)
+// and B columns (32 x tn) in shared memory, each element read and
+// converted to its real value once by the operand's loader, then every
+// lane runs an f32 FMA chain over the chunk in k order.
+//
+// The tile body (vp_mm_tile_kernel), for one large product (the masked
+// mode's and vp_quant_matmul's G = 1 launches, (2048, 64) x (64, 256)):
+// a block of 512 threads stages the operands of a 64 x 64 output tile,
+// and its first 256 threads compute the tile, each a 4 x 4 micro-tile in
+// registers.  The block holds A (64 x 64, k-major) and B (64 x 64) in
+// shared memory for each k chunk of 64; it converts only its half of the
+// A tile and copies the other half from the other block of its cluster
+// pair (the two blocks along n that share the A tile), so an A element
+// is loaded and converted once per pair and a B element once per block,
+// not once per warp.  Per k a computing thread reads 4 A and 4 B values
+// (two 16-byte loads, free of bank conflicts) for 16 FMAs; 2 x 4
+// micro-tiles on all 512 threads would take more shared-memory reads per
+// FMA.  The quantizing loader's cascade is its other cost: the
+// block looks up the scales in a table in shared memory and, for an FXP
+// grid of at most VP_LUT_MAX values (the MIMO y operand's 512), the
+// value of every raw FXP integer too, built while the chunk's loads are
+// in flight.
+//
+// The loaders are the only difference between the kernels (words or
+// planes -> dequant; floats -> quantize -> dequant), and every converted
+// value is an exact m * 2^-f, so the fused kernel is bit for bit the
+// quantize kernel followed by the plane or word matmul.
+//
+// The sum of one output is the same in both bodies: acc starts at +0
+// and runs acc = fmaf(a, b, acc) over k = 0 .. K-1 in order, skipping
+// the k-ranges that CSPADE mutes.  So the two bodies are bit-identical
+// at every shape, mask grid and layout.  The tile body pads ragged M, N
+// and K with zeros and, where a micro-tile holds loud and muted outputs
+// of one k-range, multiplies the muted ones by +0: fmaf(0, b, acc) is
+// acc for a finite b, and an acc that starts at +0 never becomes -0.
 //
 // CSPADE: with activity flags, the k-range of mask tile kt contributes
 // to output (g, m, n) iff a_act[g, m / bm, kt] | b_act[g, kt, n / bn]
 // (repro/kernels/ref.py:vp_matmul_batched_ref).  The mask grid (bm, bk,
-// bn) is the caller's, not this kernel's tiling; a muted range is
-// skipped in the FMA chain, so with every tile loud the sum is the
-// unmasked one bit for bit.  Ragged M, N and K are bounds-checked.
+// bn) is the caller's, not the kernels' tiling.  Ragged M, N and K are
+// bounds-checked.
 // ---------------------------------------------------------------------------
 
-constexpr int VP_MM_WARPS = 4;  // warps per block
-constexpr int VP_MM_KC = 32;    // k chunk staged per step
+constexpr int VP_MM_WARPS = 4;  // warp body: warps per block
+constexpr int VP_MM_KC = 32;    // warp body: k chunk staged per step
 constexpr int VP_MM_APAD = VP_MM_KC + 1;  // A row stride in shared memory
 constexpr int VP_MM_BPAD = 9;             // B row stride (tn <= 8)
+
+constexpr int VP_TM_BM = 64;       // tile body: output rows per block
+constexpr int VP_TM_BN = 64;       // output columns per block
+constexpr int VP_TM_KC = 64;       // k chunk staged per step
+constexpr int VP_TM_THREADS = 512;  // threads per block: staging
+constexpr int VP_TM_MR = 4;        // micro-tile: output rows per thread
+constexpr int VP_TM_NR = 4;        // output columns per thread
+constexpr int VP_TM_FMA_THREADS =  // the first 256: 16 x 16 micro-tiles
+    VP_TM_BM / VP_TM_MR * (VP_TM_BN / VP_TM_NR);
+// Row strides of the k-major A tile and the B tile in shared memory: a
+// multiple of 4 floats keeps the 8- and 16-byte micro-tile reads aligned,
+// and 4 mod 32 banks lets a warp store 8 k x 4 rows of A without
+// conflicts.
+constexpr int VP_TM_AST = VP_TM_BM + 4;
+constexpr int VP_TM_BST = VP_TM_BN + 4;
+
+// Which body a launch runs; the codes are shared with the Python wrappers.
+enum VPMMBody { VP_MM_WARP = 0, VP_MM_TILE = 1 };
 
 // Real value of element `idx` of a VP operand stored as packed words
 // (i == nullptr) or as a significand plane plus a uint8 index plane.
 // `bytes` is the element size of `m` (1, 2 or 4); the branches on it are
-// uniform across the warp.
+// uniform across the warp.  A loader reads an element as 32 raw bits
+// (`fetch`) plus an index byte (`fetch_aux`, planes only: kAux) and
+// converts them (`value`), so a body can put many reads in flight before
+// it converts; raw 0 converts to +0.  Given a table of the format's
+// scales (vp_scale_table of `fmt()`), `value` looks each scale up instead
+// of running the select chain: the same numbers.
 struct VPLoad {
   const void* m;
   const uint8_t* i;
   int bytes;
   VPFmt f;
-  __device__ __forceinline__ float operator()(long long idx) const {
-    const int v = bytes == 1 ? (int)((const int8_t*)m)[idx]
-                : bytes == 2 ? (int)((const int16_t*)m)[idx]
-                             : ((const int*)m)[idx];
+  static constexpr bool kAux = true;
+  static constexpr bool kLut = false;
+  __device__ __forceinline__ const VPFmt& fmt() const { return f; }
+  __device__ __forceinline__ int fetch(long long idx) const {
+    return bytes == 1 ? (int)((const int8_t*)m)[idx]
+         : bytes == 2 ? (int)((const int16_t*)m)[idx]
+                      : ((const int*)m)[idx];
+  }
+  __device__ __forceinline__ int fetch_aux(long long idx) const {
+    return i == nullptr ? 0 : (int)i[idx];
+  }
+  __device__ __forceinline__ float value(int v, int aux) const {
     if (i == nullptr) return vp_dequant(v, f);
-    return (float)v * vp_scale_of_index((int)i[idx], f);
+    return (float)v * vp_scale_of_index(aux, f);
+  }
+  __device__ __forceinline__ float value(int v, int aux,
+                                         const float* tab) const {
+    const bool packed = i == nullptr;  // then vp_dequant, scale looked up
+    const int m_ = packed ? v >> f.E : v;
+    return (float)m_ * vp_scale_lookup(packed ? v & (f.K - 1) : aux, tab);
+  }
+  __device__ __forceinline__ float operator()(long long idx) const {
+    return value(fetch(idx), fetch_aux(idx));
   }
 };
 
 // Real value of element `idx` of a float operand after the Fig. 3
 // quantizer: the VP-rounded m * 2^-f_i (substrate.quantize_dequant_cascade).
+// Its raw bits are the float's.  Where the FXP grid has at most
+// VP_LUT_MAX raw values (`lut_size`), a body may tabulate the value of
+// each (`lut_entry`: vp_quantize_raw, as `value` runs it) and look an
+// element up by its raw value (`lut_index`: vp_fxp_raw, as `value` runs
+// it): the same number for one FXP rounding and a load.
+constexpr int VP_LUT_MAX = 1024;
+
 struct VPQuantLoad {
   const float* x;
   QuantFmt q;
-  __device__ __forceinline__ float operator()(long long idx) const {
+  static constexpr bool kAux = false;
+  static constexpr bool kLut = true;
+  __device__ __forceinline__ int lut_size() const {
+    const float n = q.raw_hi - q.raw_lo + 1.f;
+    return n <= (float)VP_LUT_MAX ? (int)n : 0;
+  }
+  __device__ __forceinline__ float lut_entry(int j, const float* tab) const {
     int m, i;
-    vp_quantize(x[idx], q, m, i);
+    vp_quantize_raw((int)q.raw_lo + j, q, m, i);
+    return (float)m * vp_scale_lookup(i, tab);
+  }
+  __device__ __forceinline__ int lut_index(int bits) const {
+    return vp_fxp_raw(__int_as_float(bits), q) - (int)q.raw_lo;
+  }
+  __device__ __forceinline__ const VPFmt& fmt() const { return q.vp; }
+  __device__ __forceinline__ int fetch(long long idx) const {
+    return __float_as_int(x[idx]);
+  }
+  __device__ __forceinline__ int fetch_aux(long long) const { return 0; }
+  __device__ __forceinline__ float value(int bits, int) const {
+    int m, i;
+    vp_quantize(__int_as_float(bits), q, m, i);
     return (float)m * vp_scale_of_index(i, q.vp);
+  }
+  __device__ __forceinline__ float value(int bits, int,
+                                         const float* tab) const {
+    int m, i;
+    vp_quantize(__int_as_float(bits), q, m, i);
+    return (float)m * vp_scale_lookup(i, tab);
+  }
+  __device__ __forceinline__ float operator()(long long idx) const {
+    return value(fetch(idx), 0);
   }
 };
 
 struct VPMMGeom {
   int G, M, K, N;
   int bm, bk, bn;  // CSPADE mask grid
-  int tm, tn;      // warp tile, tm * tn = 32
+  int tm, tn;      // warp body's warp tile, tm * tn = 32
 };
 
 template <class LoadA, class LoadB>
 __global__ void __launch_bounds__(VP_MM_WARPS * 32)
-vp_mm_kernel(LoadA load_a, LoadB load_b, float* __restrict__ out,
-             const int* __restrict__ a_act, const int* __restrict__ b_act,
-             VPMMGeom g) {
+vp_mm_warp_kernel(LoadA load_a, LoadB load_b, float* __restrict__ out,
+                  const int* __restrict__ a_act,
+                  const int* __restrict__ b_act, VPMMGeom g) {
   __shared__ float a_s[VP_MM_WARPS][32 * VP_MM_APAD];
   __shared__ float b_s[VP_MM_WARPS][VP_MM_KC * VP_MM_BPAD];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -248,13 +370,282 @@ vp_mm_kernel(LoadA load_a, LoadB load_b, float* __restrict__ out,
   if (valid) out[(gi * g.M + gm) * g.N + gn] = acc;
 }
 
-// Launch vp_mm_kernel on the warp tiling for this shape: tn = the
-// smallest power of two >= N, at most 8; tm = 32 / tn.  Both kernels
-// pick the same tiling, so their sums run in the same order.
+// The tile body's thread-block cluster: the VP_TM_CN = 2 blocks along n
+// of one output row band, which share its A tile.  Each block loads and
+// converts one half of the A tile's rows, and all of its B tile, then
+// copies the other half of A out of its partner's shared memory: 6144
+// conversions per block where a lone block needs 8192.  Larger clusters
+// would convert less, but an H100 holds fewer clusters of 4 or 8 at once
+// (cudaOccupancyMaxActiveClusters) than the masked mode's 128 tiles
+// need, and a second wave costs more than the conversions save.
+constexpr int VP_TM_CN = 2;
+constexpr int VP_TM_SHARE_A = VP_TM_BM / VP_TM_CN;  // A rows a block converts
+constexpr int VP_TM_PER_A = VP_TM_SHARE_A * VP_TM_KC / VP_TM_THREADS;  // 4
+constexpr int VP_TM_PER_B = VP_TM_KC * VP_TM_BN / VP_TM_THREADS;       // 8
+static_assert(VP_TM_PER_A * VP_TM_THREADS == VP_TM_SHARE_A * VP_TM_KC &&
+              VP_TM_PER_B * VP_TM_THREADS == VP_TM_KC * VP_TM_BN,
+              "whole shares per thread");
+
+// Where element s of this thread's share lies: A (row r, k c) for s <
+// VP_TM_PER_A, with a warp on 4 rows x 8 consecutive k (its stores to the
+// k-major tile hit 32 banks); B (k kb, column n) for s < VP_TM_PER_B, a
+// warp on 32 consecutive columns of one k row.
+__device__ __forceinline__ void vp_tm_slot_a(int s, int cx, int& r, int& c) {
+  const int e = threadIdx.x + s * VP_TM_THREADS;
+  const int q = e >> 5, l = e & 31;
+  r = cx * VP_TM_SHARE_A + (q / (VP_TM_KC / 8)) * 4 + (l >> 3);
+  c = (q % (VP_TM_KC / 8)) * 8 + (l & 7);
+}
+
+__device__ __forceinline__ void vp_tm_slot_b(int s, int& kb, int& n) {
+  const int e = threadIdx.x + s * VP_TM_THREADS;
+  kb = e / VP_TM_BN;
+  n = e % VP_TM_BN;
+}
+
+// The value of one raw element: from the loader's table of values where
+// it has one (lut non-null), else by its conversion.
+template <class Load>
+__device__ __forceinline__ float vp_tm_value(const Load& load, int bits,
+                                             int aux, const float* tab,
+                                             const float* lut) {
+  if constexpr (Load::kLut) {
+    if (lut != nullptr) return lut[load.lut_index(bits)];
+  }
+  return load.value(bits, aux, tab);
+}
+
+// Fill `lut` with the loader's table of values (threads in turn) and
+// return it, or return null where the loader has none.
+template <class Load>
+__device__ __forceinline__ const float* vp_tm_lut(const Load& load,
+                                                  float* lut,
+                                                  const float* tab) {
+  if constexpr (Load::kLut) {
+    const int n = load.lut_size();
+    if (n == 0) return nullptr;
+    for (int j = threadIdx.x; j < n; j += VP_TM_THREADS)
+      lut[j] = load.lut_entry(j, tab);
+    return lut;
+  }
+  return nullptr;
+}
+
+// Stage this block's share of one k chunk, A rows into a_s[k][m] and B
+// k rows into b_s[k][n], zeros outside the operands, in two steps.
+// vp_tm_fetch reads a thread's raw elements (32 bits, plus an index byte
+// for planes) into registers all at once: one memory round trip, during
+// which the caller can do other work.  vp_tm_convert converts them, all
+// in flight together, with the scales looked up in a_tab / b_tab or the
+// values in a_lut / b_lut, and stores them.
+struct VPTMRaw {
+  int va[VP_TM_PER_A], xa[VP_TM_PER_A], vb[VP_TM_PER_B], xb[VP_TM_PER_B];
+};
+
+template <class LoadA, class LoadB>
+__device__ __forceinline__ void vp_tm_fetch(
+    const LoadA& load_a, const LoadB& load_b, VPTMRaw& raw,
+    const VPMMGeom& g, long long a0, long long b0, int m0, int n0, int k0,
+    int cx) {
+#pragma unroll
+  for (int s = 0; s < VP_TM_PER_A; ++s) {
+    int r, c;
+    vp_tm_slot_a(s, cx, r, c);
+    const bool in = m0 + r < g.M && k0 + c < g.K;
+    const long long idx = a0 + (long long)(m0 + r) * g.K + k0 + c;
+    raw.va[s] = in ? load_a.fetch(idx) : 0;
+    raw.xa[s] = LoadA::kAux && in ? load_a.fetch_aux(idx) : 0;
+  }
+#pragma unroll
+  for (int s = 0; s < VP_TM_PER_B; ++s) {
+    int kb, n;
+    vp_tm_slot_b(s, kb, n);
+    const bool in = k0 + kb < g.K && n0 + n < g.N;
+    const long long idx = b0 + (long long)(k0 + kb) * g.N + n0 + n;
+    raw.vb[s] = in ? load_b.fetch(idx) : 0;
+    raw.xb[s] = LoadB::kAux && in ? load_b.fetch_aux(idx) : 0;
+  }
+}
+
+template <class LoadA, class LoadB>
+__device__ __forceinline__ void vp_tm_convert(
+    const LoadA& load_a, const LoadB& load_b, const VPTMRaw& raw,
+    float* a_s, float* b_s, const float* a_tab, const float* b_tab,
+    const float* a_lut, const float* b_lut, int cx) {
+#pragma unroll
+  for (int s = 0; s < VP_TM_PER_A; ++s) {   // outside A: raw 0, value +0
+    int r, c;
+    vp_tm_slot_a(s, cx, r, c);
+    a_s[c * VP_TM_AST + r] =
+        vp_tm_value(load_a, raw.va[s], raw.xa[s], a_tab, a_lut);
+  }
+#pragma unroll
+  for (int s = 0; s < VP_TM_PER_B; ++s) {
+    int kb, n;
+    vp_tm_slot_b(s, kb, n);
+    b_s[kb * VP_TM_BST + n] =
+        vp_tm_value(load_b, raw.vb[s], raw.xb[s], b_tab, b_lut);
+  }
+}
+
+// Copy the other half of the chunk's A tile out of the partner block's
+// shared memory: one 16-byte value per thread.
+__device__ __forceinline__ void vp_tm_gather(float* a_s, int cx) {
+  constexpr int AQ = VP_TM_SHARE_A / 4;   // float4 per k of a half
+  static_assert(VP_TM_CN == 2 && VP_TM_KC * AQ == VP_TM_THREADS,
+                "one float4 of the partner's half per thread");
+  const int px = 1 - cx;                  // the partner's rank
+  const int o = (threadIdx.x / AQ) * VP_TM_AST + px * VP_TM_SHARE_A +
+                (threadIdx.x % AQ) * 4;
+  *(float4*)(a_s + o) = *(const float4*)cooperative_groups::this_cluster()
+                             .map_shared_rank(a_s + o, px);
+}
+
+// acc[i][j] += a[k][rm + i] * b[k][cn + j] for k in [c, c_end) of the
+// staged chunk, in k order; with kMixed, a product whose output is muted
+// (!(a_on[i] || b_on[j])) adds +0 instead.
+template <bool kMixed>
+__device__ __forceinline__ void vp_tm_fma(
+    float (&acc)[VP_TM_MR][VP_TM_NR], const float* a_s, const float* b_s,
+    int rm, int cn, int c, int c_end, const bool (&a_on)[VP_TM_MR],
+    const bool (&b_on)[VP_TM_NR]) {
+  static_assert(VP_TM_MR == 4 && VP_TM_NR == 4, "16-byte reads");
+#pragma unroll 8
+  for (; c < c_end; ++c) {
+    const float4 a = *(const float4*)&a_s[c * VP_TM_AST + rm];
+    const float4 b = *(const float4*)&b_s[c * VP_TM_BST + cn];
+    const float av[VP_TM_MR] = {a.x, a.y, a.z, a.w};
+    const float bv[VP_TM_NR] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < VP_TM_MR; ++i)
+#pragma unroll
+      for (int j = 0; j < VP_TM_NR; ++j)
+        acc[i][j] = fmaf(!kMixed || a_on[i] || b_on[j] ? av[i] : 0.f,
+                         bv[j], acc[i][j]);
+  }
+}
+
+// Grid (n tiles rounded up to whole pairs, m tiles, G); a block past the
+// output's edge still stages its half of A for its partner.
+template <class LoadA, class LoadB>
+__global__ void __launch_bounds__(VP_TM_THREADS, 1)
+vp_mm_tile_kernel(LoadA load_a, LoadB load_b, float* __restrict__ out,
+                  const int* __restrict__ a_act,
+                  const int* __restrict__ b_act, VPMMGeom g) {
+  constexpr int A_WORDS = VP_TM_KC * VP_TM_AST, B_WORDS = VP_TM_KC * VP_TM_BST;
+  __shared__ __align__(16) float a_s[A_WORDS];  // [k][m]
+  __shared__ __align__(16) float b_s[B_WORDS];  // [k][n]
+  __shared__ float a_tab[VP_MAX_K], b_tab[VP_MAX_K];  // 2^-f_i per index
+  __shared__ float a_lv[LoadA::kLut ? VP_LUT_MAX : 1];  // value per FXP raw
+  __shared__ float b_lv[LoadB::kLut ? VP_LUT_MAX : 1];
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int cx = blockIdx.x % VP_TM_CN;
+  const int m0 = blockIdx.y * VP_TM_BM, n0 = blockIdx.x * VP_TM_BN;
+  const long long gi = blockIdx.z;
+  // Blocks past the output's edge only stage; threads past the first
+  // VP_TM_FMA_THREADS only stage.
+  const bool active = m0 < g.M && n0 < g.N &&
+                      threadIdx.x < VP_TM_FMA_THREADS;
+  // A warp covers 4 x 8 micro-tiles, so each k's micro-tile reads touch
+  // 64 bytes of A (4 distinct 16-byte values) and 128 of B (8 distinct).
+  constexpr int WX = VP_TM_BN / VP_TM_NR / 8;  // warps along n
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rm = ((warp / WX) * 4 + lane / 8) * VP_TM_MR;
+  const int cn = ((warp % WX) * 8 + lane % 8) * VP_TM_NR;
+  const long long a0 = gi * g.M * g.K, b0 = gi * g.K * g.N;
+  const int nkt = a_act ? g.K / g.bk : 0;
+  float acc[VP_TM_MR][VP_TM_NR];
+#pragma unroll
+  for (int i = 0; i < VP_TM_MR; ++i)
+#pragma unroll
+    for (int j = 0; j < VP_TM_NR; ++j) acc[i][j] = 0.f;
+  const float* a_lut = nullptr;
+  const float* b_lut = nullptr;
+  for (int k0 = 0; k0 < g.K; k0 += VP_TM_KC) {
+    // The partner has copied this block's last half of A (and this block
+    // has used its tiles) before the next chunk overwrites them.
+    if (k0 > 0) cluster.sync();
+    VPTMRaw raw;
+    vp_tm_fetch(load_a, load_b, raw, g, a0, b0, m0, n0, k0, cx);
+    if (k0 == 0) {   // the tables, while the first chunk is in flight
+      vp_scale_table(a_tab, load_a.fmt());
+      vp_scale_table(b_tab, load_b.fmt());
+      __syncthreads();
+      a_lut = vp_tm_lut(load_a, a_lv, a_tab);
+      b_lut = vp_tm_lut(load_b, b_lv, b_tab);
+      if (a_lut || b_lut) __syncthreads();
+    }
+    vp_tm_convert(load_a, load_b, raw, a_s, b_s, a_tab, b_tab, a_lut, b_lut,
+                  cx);
+    cluster.sync();                  // both halves of A converted
+    vp_tm_gather(a_s, cx);
+    __syncthreads();                 // this block's tiles complete
+    // Without masks the whole chunk (its padding adds +0); with masks one
+    // k-range per mask tile kt.
+    const bool loud_a[VP_TM_MR] = {}, loud_b[VP_TM_NR] = {};  // unread
+    if (active && !a_act)
+      vp_tm_fma<false>(acc, a_s, b_s, rm, cn, 0, VP_TM_KC, loud_a, loud_b);
+    const int kc = min(VP_TM_KC, g.K - k0);
+    int c = active && a_act ? 0 : kc;
+    while (c < kc) {
+      const int kt = (k0 + c) / g.bk;
+      const int c_end = min(kc, (kt + 1) * g.bk - k0);
+      bool a_on[VP_TM_MR], b_on[VP_TM_NR];
+      bool all_a = true, all_b = true, any = false;
+#pragma unroll
+      for (int i = 0; i < VP_TM_MR; ++i) {   // rows past the edge: loud,
+        const int row = m0 + rm + i;         // and discarded
+        a_on[i] = row >= g.M ||
+                  a_act[(gi * (g.M / g.bm) + row / g.bm) * nkt + kt] != 0;
+        all_a = all_a && a_on[i];
+        any = any || a_on[i];
+      }
+#pragma unroll
+      for (int j = 0; j < VP_TM_NR; ++j) {
+        const int col = n0 + cn + j;
+        b_on[j] = col >= g.N ||
+                  b_act[(gi * nkt + kt) * (g.N / g.bn) + col / g.bn] != 0;
+        all_b = all_b && b_on[j];
+        any = any || b_on[j];
+      }
+      const bool all = all_a || all_b;
+      if (all) {
+        vp_tm_fma<false>(acc, a_s, b_s, rm, cn, c, c_end, a_on, b_on);
+      } else if (any) {
+        vp_tm_fma<true>(acc, a_s, b_s, rm, cn, c, c_end, a_on, b_on);
+      }
+      c = c_end;
+    }
+  }
+  cluster.sync();  // no block leaves while its partner may still copy
+  if (!active) return;
+  const bool vec = (g.N & 3) == 0;
+#pragma unroll
+  for (int i = 0; i < VP_TM_MR; ++i) {
+    const int row = m0 + rm + i, col = n0 + cn;
+    if (row >= g.M) continue;
+    float* o = out + (gi * g.M + row) * g.N + col;
+    if (vec && col + 3 < g.N) {
+      *(float4*)o = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VP_TM_NR; ++j)
+        if (col + j < g.N) o[j] = acc[i][j];
+    }
+  }
+}
+
+// Launch one body (VP_MM_WARP or VP_MM_TILE) after checking the masks.
+// The warp body takes tn = the smallest power of two >= N, at most 8, and
+// tm = 32 / tn; the tile body one block per 64 x 64 output tile, in
+// pairs along n.  Both kernels run the body they are
+// given, so at one shape and body their sums run in the same order.
 template <class LoadA, class LoadB>
 int vp_mm_launch(const LoadA& load_a, const LoadB& load_b, void* out,
                  const int* a_act, const int* b_act, int G, int M, int K,
-                 int N, int bm, int bk, int bn, cudaStream_t stream) {
+                 int N, int bm, int bk, int bn, int body,
+                 cudaStream_t stream) {
   VPMMGeom g{G, M, K, N, bm, bk, bn, 0, 0};
   if ((a_act == nullptr) != (b_act == nullptr)) {
     return (int)cudaErrorInvalidValue;
@@ -263,18 +654,43 @@ int vp_mm_launch(const LoadA& load_a, const LoadB& load_b, void* out,
                 N % bn)) {
     return (int)cudaErrorInvalidValue;
   }
-  g.tn = 1;
-  while (g.tn < N && g.tn < 8) g.tn <<= 1;
-  g.tm = 32 / g.tn;
-  const long long warps = (long long)G * ((M + g.tm - 1) / g.tm) *
-                          ((N + g.tn - 1) / g.tn);
-  const long long blocks = (warps + VP_MM_WARPS - 1) / VP_MM_WARPS;
-  if (blocks < 1) return 0;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  vp_mm_kernel<LoadA, LoadB><<<(unsigned)blocks, VP_MM_WARPS * 32, 0,
-                               stream>>>(load_a, load_b, (float*)out, a_act,
-                                         b_act, g);
-  return (int)cudaGetLastError();
+  if (body == VP_MM_WARP) {
+    g.tn = 1;
+    while (g.tn < N && g.tn < 8) g.tn <<= 1;
+    g.tm = 32 / g.tn;
+    const long long warps = (long long)G * ((M + g.tm - 1) / g.tm) *
+                            ((N + g.tn - 1) / g.tn);
+    const long long blocks = (warps + VP_MM_WARPS - 1) / VP_MM_WARPS;
+    if (blocks < 1) return 0;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    vp_mm_warp_kernel<LoadA, LoadB><<<(unsigned)blocks, VP_MM_WARPS * 32, 0,
+                                      stream>>>(load_a, load_b, (float*)out,
+                                                a_act, b_act, g);
+    return (int)cudaGetLastError();
+  }
+  if (body != VP_MM_TILE) return (int)cudaErrorInvalidValue;
+  const long long nx = ((N + VP_TM_BN - 1) / VP_TM_BN + VP_TM_CN - 1) /
+                       VP_TM_CN * VP_TM_CN;
+  const long long ny = (M + VP_TM_BM - 1) / VP_TM_BM;
+  if (G < 1 || M < 1 || N < 1) return 0;
+  if (nx > 0x7fffffffLL || ny > 65535 || G > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)nx, (unsigned)ny, (unsigned)G);
+  cfg.blockDim = dim3(VP_TM_THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = VP_TM_CN;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, vp_mm_tile_kernel<LoadA, LoadB>, load_a, load_b, (float*)out,
+      a_act, b_act, g);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 extern "C" const char* vp_error_string(int err) {

@@ -4,36 +4,48 @@
 //
 // Replaces repro/kernels/vp_matmul.py:vp_matmul_batched_pallas and, as
 // its G = 1 launch, vp_matmul_pallas (both Pallas launches share
-// _vp_matmul_kernel).  The body is vp_common.cuh:vp_mm_kernel with the
-// dequantizing loader VPLoad on both sides; see there for the tiling,
-// the mask semantics and the summation order.
+// _vp_matmul_kernel).  Two bodies in vp_common.cuh, both with the
+// dequantizing loader VPLoad on both sides, and the caller names one
+// (kernels/vp_matmul.py:mm_body picks it): vp_mm_warp_kernel for many
+// small products, vp_mm_tile_kernel for one large product.  Each
+// output's sum runs in the same order in both, so they agree bit for
+// bit; see there for the tilings, the mask semantics and that order.
 //
-// Bound: bytes at the MIMO engine's shapes.  Per realization of the
-// batched MVM, (16, 64) x (64, 2), the kernel reads 1024 W words (2 bytes
-// each), 128 y words (1 byte) and writes 32 f32 sums for 4096 FLOPs:
-// 2.7 FLOP per byte, far below the card's ratio.  Design: one warp per
-// realization's 16 x 2 output (one output per lane), operands staged
-// once per warp in shared memory, so every word is read and unpacked
-// once; neighbouring lanes read neighbouring words.  No tensor cores: a
-// 16 x 64 x 2 product is too small for them to pay.
+// Bound.  Batched, at the MIMO engine's (16, 64) x (64, 2) per
+// realization: bytes.  The kernel reads 1024 W words (2 bytes each), 128
+// y words (1 byte) and writes 32 f32 sums for 4096 FLOPs: 2.7 FLOP per
+// byte, far below the card's ratio.  The warp body gives each
+// realization's 16 x 2 output one warp (one output per lane), operands
+// staged once per warp in shared memory, so every word is read and
+// unpacked once; no tensor cores, a 16 x 64 x 2 product is too small for
+// them to pay.  G = 1, at the masked mode's (2048, 64) x (64, 256):
+// f32 operations (67 MFLOP against 0.4 MB), under the launch floor at
+// the card's rate, so latency: the load round trip, the conversions and
+// the 64-long FMA chains.  There the warp body would stage each A word
+// 32 times and each B word 512 times; the tile body stages each A word
+// twice (once per cluster pair of 64 x 64 output tiles) and each B word
+// 32 times, with 512 threads per block, and runs 16 FMAs per 8
+// shared-memory values.  No tensor cores there either: they would sum in
+// another order than the warp body.
 #include "vp_common.cuh"
 
 // a_m / b_m: significand planes (a_i / b_i: uint8 index planes) or
 // packed words (a_i / b_i null), element sizes a_bytes / b_bytes; out:
 // f32 (G, M, N); a_act (G, M/bm, K/bk) and b_act (G, K/bk, N/bn) int32
-// flags, or both null.  All contiguous.  Returns the CUDA error.
+// flags, or both null; body: VP_MM_WARP or VP_MM_TILE.  All contiguous.
+// Returns the CUDA error.
 extern "C" int vp_matmul_launch(const void* a_m, const void* a_i,
                                 int a_bytes, const VPFmt* fa,
                                 const void* b_m, const void* b_i,
                                 int b_bytes, const VPFmt* fb, void* out,
                                 const int* a_act, const int* b_act, int G,
                                 int M, int K, int N, int bm, int bk, int bn,
-                                void* stream) {
+                                int body, void* stream) {
   const bool a_ok = a_bytes == 1 || a_bytes == 2 || a_bytes == 4;
   const bool b_ok = b_bytes == 1 || b_bytes == 2 || b_bytes == 4;
   if (!a_ok || !b_ok) return (int)cudaErrorInvalidValue;
   const VPLoad la{a_m, (const uint8_t*)a_i, a_bytes, *fa};
   const VPLoad lb{b_m, (const uint8_t*)b_i, b_bytes, *fb};
   return vp_mm_launch(la, lb, out, a_act, b_act, G, M, K, N, bm, bk, bn,
-                      (cudaStream_t)stream);
+                      body, (cudaStream_t)stream);
 }

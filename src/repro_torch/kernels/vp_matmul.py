@@ -4,6 +4,16 @@ Replaces `repro/kernels/vp_matmul.py:vp_matmul_batched_pallas` and, as
 its G = 1 launch, `vp_matmul_pallas`.  The plain versions are
 `ref.vp_matmul_batched_ref` / `ref.vp_matmul_ref` and their packed
 twins; dispatch lives in `ops.vp_matmul` and `ops.vp_matmul_batched`.
+
+Two CUDA bodies (csrc/vp_common.cuh), and `mm_body` alone picks one
+from the shape before the launch, for this kernel and the fused one
+(`vp_quant_matmul.py`): the warp body (one warp per 32 outputs) for many
+small products, the tile body (a 64 x 64 output tile per block, 4 x 4
+outputs per thread) for large ones.  Both run each output's sum in the
+same order, so the choice never changes a bit of the result.  A failed
+build or launch raises; no body stands in for another.  `build.LAUNCHES`
+counts every launch under `vp_matmul` (or `vp_quant_matmul`) and also
+under its body's counter, `vp_mm_warp` or `vp_mm_tile`.
 """
 from __future__ import annotations
 
@@ -16,6 +26,34 @@ from repro_torch.core.formats import VPFormat
 from repro_torch.core.packing import storage_dtype
 from repro_torch.core.vp_tensor import significand_dtype
 from . import build
+
+# The tile body takes launches of at most TILE_MAX_G products: in the
+# sweep of both bodies in chip_smoke.py (PERF.md §6) it wins every G = 1
+# shape, M = 16 to 2048 by N = 2 to 256, and the warp body wins the
+# batched ones (G = 1024 and 8192 of (16, 64) x (64, 2)).
+TILE_MAX_G = 1
+BODY_CODES = {"warp": 0, "tile": 1}     # VPMMBody of csrc/vp_common.cuh
+BODY_COUNTER = {"warp": "vp_mm_warp", "tile": "vp_mm_tile"}
+
+
+def mm_body(G: int, M: int, K: int, N: int) -> str:
+    """The body that computes (G, M, K) x (G, K, N): "tile" for one large
+    product (G <= TILE_MAX_G), "warp" for many small ones.  M, K and N do
+    not enter: the sweep found no G = 1 shape where the warp body wins."""
+    del M, K, N
+    return "tile" if G <= TILE_MAX_G else "warp"
+
+
+def check_body(body: Optional[str]) -> None:
+    """Raise unless `body` is None (the planner's) or a body's name."""
+    if body is not None and body not in BODY_CODES:
+        raise ValueError(f"unknown body {body!r}; one of {sorted(BODY_CODES)}")
+
+
+def body_code(body: Optional[str], G: int, M: int, K: int, N: int):
+    """(body, its launcher code): `mm_body`'s where body is None."""
+    body = mm_body(G, M, K, N) if body is None else body
+    return body, BODY_CODES[body]
 
 
 def _operand(x_m: torch.Tensor, x_i: Optional[torch.Tensor], fmt: VPFormat,
@@ -55,13 +93,16 @@ def vp_matmul_cuda(a_m: torch.Tensor, a_i: Optional[torch.Tensor],
                    a_fmt: VPFormat, b_fmt: VPFormat,
                    a_act: Optional[torch.Tensor] = None,
                    b_act: Optional[torch.Tensor] = None,
-                   tiles: Tuple[int, int, int] = (0, 0, 0)) -> torch.Tensor:
+                   tiles: Tuple[int, int, int] = (0, 0, 0),
+                   body: Optional[str] = None) -> torch.Tensor:
     """(G, M, K) x (G, K, N) VP operands on CUDA -> (G, M, N) f32.
 
     Each operand is planes (m, uint8 i) or packed words (m, None).  With
     CSPADE flags a_act (G, M/bm, K/bk) / b_act (G, K/bk, N/bn), `tiles`
-    is their grid (bm, bk, bn); shapes are checked by `ops`.
+    is their grid (bm, bk, bn); shapes are checked by `ops`.  The body is
+    `mm_body`'s, or `body` where a caller measures one.
     """
+    check_body(body)
     if not a_m.is_cuda:
         raise ValueError("vp_matmul kernel takes CUDA tensors")
     dev = a_m.device
@@ -72,6 +113,7 @@ def vp_matmul_cuda(a_m: torch.Tensor, a_i: Optional[torch.Tensor],
     out = torch.empty((G, M, N), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    body, code = body_code(body, G, M, K, N)
     _flags, (pa, pb, bm, bk, bn) = mask_args(a_act, b_act, tiles, dev)
     lib = build.library("vp_matmul")
     fa, fb = build.vp_fmt_struct(a_fmt), build.vp_fmt_struct(b_fmt)
@@ -81,7 +123,9 @@ def vp_matmul_cuda(a_m: torch.Tensor, a_i: Optional[torch.Tensor],
             a_m.element_size(), ctypes.byref(fa),
             b_m.data_ptr(), None if b_i is None else b_i.data_ptr(),
             b_m.element_size(), ctypes.byref(fb), out.data_ptr(), pa, pb,
-            G, M, K, N, bm, bk, bn, torch.cuda.current_stream().cuda_stream)
-    build.check(lib, err, "vp_matmul")
+            G, M, K, N, bm, bk, bn, code,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, f"vp_matmul ({body} body)")
     build.LAUNCHES["vp_matmul"] += 1
+    build.LAUNCHES[BODY_COUNTER[body]] += 1
     return out

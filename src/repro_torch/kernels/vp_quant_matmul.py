@@ -4,6 +4,7 @@ Replaces `repro/kernels/vp_quant_matmul.py:vp_quant_matmul_batched_pallas`
 and, as its G = 1 launch, `vp_quant_matmul_pallas`.  The plain versions
 are `ref.vp_quant_matmul_batched_ref` / `ref.vp_quant_matmul_ref`;
 dispatch lives in `ops.vp_quant_matmul` and `ops.vp_quant_matmul_batched`.
+It runs the bodies of `vp_matmul.py`, picked by the same `mm_body`.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 
 from repro_torch.core.formats import FXPFormat, VPFormat
 from . import build
-from .vp_matmul import mask_args
+from .vp_matmul import BODY_COUNTER, body_code, check_body, mask_args
 
 
 def vp_quant_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
@@ -22,10 +23,12 @@ def vp_quant_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
                          b_fxp: FXPFormat, b_vp: VPFormat,
                          a_act: Optional[torch.Tensor] = None,
                          b_act: Optional[torch.Tensor] = None,
-                         tiles: Tuple[int, int, int] = (0, 0, 0)
-                         ) -> torch.Tensor:
+                         tiles: Tuple[int, int, int] = (0, 0, 0),
+                         body: Optional[str] = None) -> torch.Tensor:
     """f32 (G, M, K) x f32 (G, K, N) on CUDA -> (G, M, N) f32, both
-    operands VP-quantized in the kernel; masks as in `vp_matmul_cuda`."""
+    operands VP-quantized in the kernel; masks and body as in
+    `vp_matmul_cuda`."""
+    check_body(body)
     if not (a.is_cuda and b.device == a.device):
         raise ValueError("vp_quant_matmul kernel takes CUDA tensors on one "
                          "device")
@@ -38,6 +41,7 @@ def vp_quant_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
     out = torch.empty((G, M, N), dtype=torch.float32, device=a.device)
     if out.numel() == 0:
         return out
+    body, code = body_code(body, G, M, K, N)
     _flags, (pa, pb, bm, bk, bn) = mask_args(a_act, b_act, tiles, a.device)
     lib = build.library("vp_quant_matmul")
     qa = build.quant_fmt_struct(a_fxp, a_vp)
@@ -45,8 +49,9 @@ def vp_quant_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
     with torch.cuda.device(a.device):
         err = lib.vp_quant_matmul_launch(
             a.data_ptr(), ctypes.byref(qa), b.data_ptr(), ctypes.byref(qb),
-            out.data_ptr(), pa, pb, G, M, K, N, bm, bk, bn,
+            out.data_ptr(), pa, pb, G, M, K, N, bm, bk, bn, code,
             torch.cuda.current_stream().cuda_stream)
-    build.check(lib, err, "vp_quant_matmul")
+    build.check(lib, err, f"vp_quant_matmul ({body} body)")
     build.LAUNCHES["vp_quant_matmul"] += 1
+    build.LAUNCHES[BODY_COUNTER[body]] += 1
     return out

@@ -14,7 +14,10 @@ kernel ops.  Two execution modes:
   * ``mode="masked"`` (legacy parity oracle): realizations are folded
     into a tall (n U, B) x (B, n) matmul and each row's own realization
     column is selected afterwards (8 n^2 U B FLOPs).  On the card these
-    are the G = 1 launches of the same kernels.
+    are the G = 1 launches of the same kernels, which `mm_body`
+    (`kernels/vp_matmul.py`) runs on their register-tiled body; the
+    batched launches run on the warp body.  Both bodies sum each output
+    in the same order, so the numbers do not depend on the choice.
 
 Both quantize re/im planes to VP (`ops.vp_quant`, or in registers by the
 fused kernel), run the complex MVM as 4 real VP products, and can mute

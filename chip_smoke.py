@@ -21,6 +21,17 @@ Run from the root of a checkout.  Phases, each raising on failure:
      split body run twice, bit-identical; HGMMA counted in its SASS; the
      three bodies timed over M = 1..64 (the planner's thresholds); the
      timer's floor and the wrapper's host time per call.
+     `vp_decode_attention` on its split body (the span cut over the warps
+     of a block and the blocks of a cluster) at the serve's decode shape
+     (B 4, Smax 160, KV 8, G 2, dh 64) in the full, window 64 and rolling
+     cases, at lengths 1 and smax and across the ring's wrap, f32 and
+     bf16 q, and `flash_prefill` causal and local 64 at S = 128 and 100
+     on its tensor-core body (bf16) and CUDA-core body (f32, and bf16
+     forced): each against its plain version, twice bit-identical, and
+     bit-identical with the q scaling it folds in done outside; timed
+     beside SDPA (span or band mask), decode swept over valid lengths
+     160-4096, prefill over S = 128-2048; local memory and HMMA counted
+     in their SASS.
      The vp_block path's `block_vp_matmul`: each of its three bodies
      (skinny, tensor cores, dp4a) bit-identical to its plain version in
      f32 and bf16 at every decode and prefill weight shape and lm_head,
@@ -50,7 +61,8 @@ Run from the root of a checkout.  Phases, each raising on failure:
                by the quant kernel, batch 4 x 128 prompt tokens, 32
                greedy decode steps (prefill's weight matmuls on the
                tensor-core body, decode's and lm_head on the skinny
-               body, by the per-body counters).  Launch counts of that run, a
+               body, prefill attention on the tensor-core body, decode
+               attention on the split body, by the per-body counters).  Launch counts of that run, a
                profiler check of one prefill and one decode step (hand
                kernels only, no library GEMM or attention kernel), then
                the same run on the plain path, teacher-forced on the
@@ -141,8 +153,11 @@ KERNEL_NAMES = {"vp_quant_packed": "vp_quant_packed_kernel",
                 "vp_dqmm_tc": "vp_dequant_matmul_tc_kernel",
                 "vp_dqmm_cuda_core": "vp_dequant_matmul_cc_kernel",
                 "vp_dqmm_splitk_reduce": "vp_dqmm_splitk_reduce_kernel",
-                "vp_decode_attention": "vp_decode_attention_kernel",
-                "flash_prefill": "flash_prefill_kernel",
+                "vp_decode_attention": "vp_decode_attention_",  # its body
+                "vp_dec_split": "vp_decode_attention_split_kernel",
+                "flash_prefill": "flash_prefill_",           # both bodies
+                "flash_tc": "flash_prefill_tc_kernel",
+                "flash_cuda_core": "flash_prefill_cc_kernel",
                 "vp_quant_planes": "vp_quant_planes_kernel",
                 "vp_matmul": "_kernel<VPLoad",               # both bodies
                 "vp_quant_matmul": "_kernel<VPQuantLoad",    # both bodies
@@ -200,6 +215,9 @@ BLOCK_SWEEP_M = (1, 4, 8, 16, 64, 512)   # the bodies side by side, for
 BLOCK_SWEEP_KN = ((1024, 3072), (3072, 1024))  # the planner's threshold
 DEQUANT_PACKED = (1024, 3072)        # int16 words of one weight panel
 DEQUANT_PLANES = (1_600_000, 64)     # the MIMO W planes (row 5's shape)
+DEC_SHAPE = (4, 160, 8, 2, 64)       # decode: B, Smax, KV, G, dh of serve
+DEC_SWEEP = (160, 1024, 4096)        # decode valid lengths at B = 4
+FLASH_SWEEP = (128, 512, 2048)       # causal bf16 prompts at B = 4
 WINDOW = "chip_smoke.window"        # profiler range around the profiled call
 LIBRARY_KERNELS = re.compile(
     r"gemm|cublas|cutlass|xmma|sm90_|sm80_|ampere_|flash_fwd|fmha|"
@@ -370,13 +388,9 @@ def _print_line(name, shape, err, rel, ms, plain_ms, bnd, library_ms):
 # ---------------------------------------------------------------------------
 
 def kernel_phase(torch, peaks, record):
-    import torch.nn.functional as F
-
     from repro_torch.configs.base import QuantConfig
     from repro_torch.core.formats import FXPFormat, default_vp_format
     from repro_torch.kernels import ref
-    from repro_torch.kernels.vp_attention import (
-        flash_prefill_cuda, vp_decode_attention_cuda)
     from repro_torch.kernels.vp_quant import vp_quant_packed_cuda
     from repro_torch.models.layers import canonical_formats
 
@@ -426,108 +440,283 @@ def kernel_phase(torch, peaks, record):
     rows.append(_dequant_matmul_row(torch, peaks, timer, gen, randn, words,
                                     vp, lines, record))
 
-    # -- vp_decode_attention --------------------------------------------------
-    B, smax, KV, G, dh = 4, 160, 8, 2, 64
-    H = KV * G
-    k_w = words(B * smax * KV, dh).reshape(B, smax, KV, dh)
-    v_w = words(B * smax * KV, dh).reshape(B, smax, KV, dh)
-    scales = torch.tensor([2.0 ** -3, 2.0 ** -2, 0.5, 1.0, 2.0],
-                          device="cuda")
-    k_s = scales[torch.randint(0, 5, (B, smax, 1, 1), generator=gen,
-                               device="cuda")]
-    v_s = scales[torch.randint(0, 5, (B, smax, 1, 1), generator=gen,
-                               device="cuda")]
-    q = randn(B, 1, H, dh)
-    cases = {"full": ([160, 150, 129, 100], None, False),
-             "window": ([160, 150, 129, 40], 64, False),
-             "rolling": ([200, 170, 161, 300], 160, True)}
-    main_dec = None
-    for case, (lens, window, rolling) in cases.items():
-        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        qr = q.reshape(B, KV, G, dh) * dh ** -0.5
-
-        def kern():
-            return vp_decode_attention_cuda(qr, k_w, v_w, k_s, v_s, lengths,
-                                            vp, window, rolling)
-
-        def plain():
-            return ref.vp_decode_attention_ref(q, k_w, v_w, k_s, v_s, lengths,
-                                               vp, window, rolling)
-
-        err, rel = compare(torch, kern().reshape(B, 1, H, dh), plain(),
-                           F32_RTOL, f"vp_decode_attention {case}")
-        ms, plain_ms = timer(kern), timer(plain)
-        spans = []
-        for ln in lens:
-            hi = min(ln, smax)
-            lo = max(ln - window, 0) if window and not rolling else 0
-            spans.append(max(hi - lo, 0))
-        valid = sum(spans)
-        nbytes = valid * KV * dh * 2 * 2 + valid * 2 * 4 + 2 * B * H * dh * 4
-        bnd = bound(peaks, nbytes, 4 * valid * KV * G * dh, "f32")
-        shape = [B, smax, KV, G, dh, case]
-        _print_line("vp_decode_attention", shape, err, rel, ms, plain_ms, bnd,
-                    None)
-        lines.append(("vp_decode_attention", shape, ms, plain_ms, bnd, None))
-        if main_dec is None:
-            main_dec = _row("vp_decode_attention", "vp_attention.cu",
-                            "src/repro/kernels/vp_attention.py:155", shape,
-                            err, ms, plain_ms, bnd, None)
-    rows.append(main_dec)
-
-    # -- flash_prefill ----------------------------------------------------------
-    B, H, KV, dh = 4, 16, 8, 64
-    main_fl = None
-    for S in (128, 100):
-        for pattern, window in (("causal", None), ("local", 64)):
-            q32, k32, v32 = randn(B, S, H, dh), randn(B, S, KV, dh), \
-                randn(B, S, KV, dh)
-            for dtype, tol in ((torch.float32, F32_RTOL),
-                               (torch.bfloat16, BF16_TOL)):
-                qd, kd, vd = (t.to(dtype) for t in (q32, k32, v32))
-                qs = qd * torch.tensor(dh ** -0.5, dtype=dtype, device="cuda")
-
-                def kern():
-                    return flash_prefill_cuda(qs, kd, vd, True, window)
-
-                def plain():
-                    return ref.flash_prefill_ref(qd, kd, vd, pattern, window)
-
-                err, rel = compare(torch, kern(), plain(), tol,
-                                   f"flash_prefill {S} {pattern} {dtype}")
-            # time the model's form: bf16
-            ms, plain_ms = timer(kern), timer(plain)
-            library_ms = None
-            if pattern == "causal":
-                qt = qd.transpose(1, 2)
-                kt = kd.repeat_interleave(H // KV, dim=2).transpose(1, 2)
-                vt = vd.repeat_interleave(H // KV, dim=2).transpose(1, 2)
-                library_ms = timer(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True))
-            qpos = torch.arange(S)[:, None]
-            kpos = torch.arange(S)[None, :]
-            mask = kpos <= qpos
-            if window:
-                mask &= qpos - kpos < window
-            pairs = int(mask.sum())
-            nbytes = 2 * (2 * B * S * H * dh + 2 * B * S * KV * dh)
-            bnd = bound(peaks, nbytes, 4 * B * H * dh * pairs, "bf16")
-            shape = [B, S, H, KV, dh, pattern]
-            _print_line("flash_prefill", shape, err, rel, ms, plain_ms, bnd,
-                        library_ms)
-            lines.append(("flash_prefill", shape, ms, plain_ms, bnd,
-                          library_ms))
-            if main_fl is None:
-                main_fl = _row("flash_prefill", "vp_attention.cu",
-                               "src/repro/kernels/vp_attention.py:264", shape,
-                               err, ms, plain_ms, bnd, library_ms)
-    rows.append(main_fl)
+    # -- vp_decode_attention and flash_prefill: their three bodies --------------
+    rows += _attention_rows(torch, peaks, timer, gen, randn, words, vp, lines,
+                            record)
     record["kernel_lines"] = [
         dict(name=n, shape=s, ms=m, plain_ms=p, bound_ms=b[0], bound_by=b[1],
              library_ms=lib) for n, s, m, p, b, lib in lines]
     print("kernels: vp_quant_packed, vp_dequant_matmul, "
-          "vp_decode_attention, flash_prefill")
+          "vp_decode_attention (split body), flash_prefill (tensor-core and "
+          "CUDA-core bodies)")
     return rows
+
+
+def _identical(torch, got, want, what):
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        raise AssertionError(f"{what}: not bit-identical")
+
+
+def _attention_rows(torch, peaks, timer, gen, randn, words, vp, lines,
+                    record):
+    """The two attention kernels and their three bodies.  Returns their
+    rows.
+
+    `vp_decode_attention` (the split body) at serve's decode shape in the
+    full, window 64 and rolling cases, at lengths 1 and smax, and across
+    the rolling ring's wrap: f32 q within F32_RTOL and bf16 q within
+    BF16_TOL of the plain version, two launches bit-identical, the folded
+    q scaling bit-identical to the scaling it replaced (the kernel on an
+    f32 q pre-scaled by torch at scale 1, cast to q's dtype); timed beside
+    SDPA on the pre-dequantized cache with a boolean span mask, and over
+    the valid lengths of DEC_SWEEP.  `flash_prefill` causal and local 64 at
+    S = 128 and 100: bf16 on the tensor-core body within BF16_TOL, f32 on
+    the CUDA-core body within F32_RTOL, and bf16 on the CUDA-core body
+    (forced) within BF16_TOL; each bit-identical across launches and to
+    the pre-scaled q; timed beside SDPA (causal, or a band mask), and the
+    tensor-core body over FLASH_SWEEP.  The SASS of every body: no local
+    memory, HMMA in the tensor-core body."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.packing import dequant_words
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.vp_attention import (
+        flash_body, flash_prefill_cuda, plan_decode, vp_decode_attention_cuda)
+
+    # -- SASS: registers only; the tensor cores in the prefill body ----------
+    target = build._target("vp_attention")
+    sass = {op: _sass_counts(target, build._nvcc(), op)
+            for op in ("LDL", "STL", "HMMA")}
+    inst = {}
+    for sym in sass["HMMA"]:
+        m = (re.search(r"split_kernelI([ais])Li(\d+)E", sym)
+             or re.search(r"(tc)_kernelILi(\d+)E", sym)
+             or re.search(r"(cc)_kernelI(f|13__nv_bfloat16)E", sym))
+        if m:
+            name = {"a": "decode int8 G<=", "s": "decode int16 G<=",
+                    "i": "decode int32 G<=", "tc": "prefill tc dh ",
+                    "cc": "prefill cc "}[m[1]] + m[2].replace(
+                        "13__nv_", "")
+            inst[name] = {op: sass[op][sym] for op in sass}
+    print("[kernel] vp_attention SASS (LDL, STL, HMMA): " + "; ".join(
+        f"{k} {v['LDL']}/{v['STL']}/{v['HMMA']}" for k, v in inst.items()))
+    spills = {k: v for k, v in inst.items() if v["LDL"] or v["STL"]}
+    tc = {k: v for k, v in inst.items() if k.startswith("prefill tc")}
+    if spills:
+        raise AssertionError(f"attention bodies use local memory: {spills}")
+    if len(tc) != 8 or not all(v["HMMA"] for v in tc.values()):
+        raise AssertionError(f"tensor-core prefill instances: {tc}")
+    record["attention_sass"] = inst
+
+    # -- vp_decode_attention -------------------------------------------------
+    B, smax, KV, G, dh = DEC_SHAPE
+    H = KV * G
+    scales = torch.tensor([2.0 ** -3, 2.0 ** -2, 0.5, 1.0, 2.0],
+                          device="cuda")
+
+    def cache(L):
+        k_w = words(B * L * KV, dh).reshape(B, L, KV, dh)
+        v_w = words(B * L * KV, dh).reshape(B, L, KV, dh)
+        k_s, v_s = (scales[torch.randint(0, 5, (B, L, 1, 1), generator=gen,
+                                         device="cuda")] for _ in range(2))
+        return k_w, v_w, k_s, v_s
+
+    def sdpa_decode(q, k_w, v_w, k_s, v_s, lengths, window, rolling):
+        """One SDPA call over the pre-dequantized cache, the span masked."""
+        L = k_w.shape[1]
+        kd, vd = ((dequant_words(w, vp, torch.float32) * s)
+                  .repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+                  for w, s in ((k_w, k_s), (v_w, v_s)))
+        pos = torch.arange(L, device="cuda")[None, :]
+        ln = lengths.to(torch.int64)[:, None]
+        valid = pos < (ln.clamp(max=L) if rolling else ln)
+        if window and not rolling:
+            valid &= pos >= ln - window
+        qt, mask = q.transpose(1, 2), valid[:, None, None, :]
+        return lambda: F.scaled_dot_product_attention(qt, kd, vd,
+                                                      attn_mask=mask)
+
+    def dec_bound(lens, L, window, rolling):
+        valid = 0
+        for ln in lens:
+            hi = min(ln, L)
+            lo = max(ln - window, 0) if window and not rolling else 0
+            valid += max(hi - lo, 0)
+        nbytes = valid * KV * dh * 2 * 2 + valid * 2 * 4 + 2 * B * H * dh * 4
+        return bound(peaks, nbytes, 4 * valid * KV * G * dh, "f32")
+
+    k_w, v_w, k_s, v_s = cache(smax)
+    q = randn(B, 1, H, dh)
+    plan = plan_decode(B, KV, smax, G, dh)
+    print(f"[kernel] vp_decode_attention split: {plan} ({B * KV * plan.cluster}"
+          f" blocks of {plan.warps} warps)")
+    cases = {"full": ([160, 150, 129, 100], None, False),
+             "window": ([160, 150, 129, 40], 64, False),
+             "rolling": ([200, 170, 161, 300], 160, True),
+             "edges": ([1, 160, 2, 159], None, False),      # 1 and smax
+             "wrap": ([161, 1000, 160, 1], 160, True)}      # the ring wraps
+    main_dec = None
+    for case, (lens, window, rolling) in cases.items():
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        args = (k_w, v_w, k_s, v_s, lengths, vp, window, rolling)
+        for dtype, tol in ((torch.float32, F32_RTOL),
+                           (torch.bfloat16, BF16_TOL)):
+            qd = q.to(dtype)
+            got = ops.vp_decode_attention(qd, *args)
+            err, rel = compare(torch, got, ref.vp_decode_attention_ref(
+                qd, *args), tol, f"vp_decode_attention {case} {dtype}")
+            _identical(torch, ops.vp_decode_attention(qd, *args), got,
+                       f"vp_decode_attention {case} {dtype}, two launches")
+            pre = qd.reshape(B, KV, G, dh).to(torch.float32) * dh ** -0.5
+            _identical(torch, got, vp_decode_attention_cuda(
+                pre, *args, scale=1.0).reshape(B, 1, H, dh).to(dtype),
+                f"vp_decode_attention {case} {dtype}, folded scale")
+        if case not in ("full", "window", "rolling"):
+            print(f"[kernel] vp_decode_attention {case} {lens}: within "
+                  f"tolerance in f32 (rel {rel:.3e} in bf16), bit-identical "
+                  "across launches and to the pre-scaled q")
+            continue
+        # time the f32 form, as earlier rows did
+        err, rel = compare(torch, ops.vp_decode_attention(q, *args),
+                           ref.vp_decode_attention_ref(q, *args), F32_RTOL,
+                           f"vp_decode_attention {case}")
+        ms = timer(lambda: ops.vp_decode_attention(q, *args))
+        plain_ms = timer(lambda: ref.vp_decode_attention_ref(q, *args))
+        library_ms = timer(sdpa_decode(q, k_w, v_w, k_s, v_s, lengths,
+                                       window, rolling))
+        bnd = dec_bound(lens, smax, window, rolling)
+        shape = [B, smax, KV, G, dh, case]
+        _print_line("vp_decode_attention", shape, err, rel, ms, plain_ms, bnd,
+                    library_ms)
+        lines.append(("vp_decode_attention", shape, ms, plain_ms, bnd,
+                      library_ms))
+        if main_dec is None:
+            main_dec = _row("vp_decode_attention", "vp_attention.cu",
+                            "src/repro/kernels/vp_attention.py:155", shape,
+                            err, ms, plain_ms, bnd, library_ms)
+            main_dec["body"] = "split"
+    sweep = []
+    for L in DEC_SWEEP:
+        ck = cache(L)
+        lengths = torch.full((B,), L, dtype=torch.int32, device="cuda")
+        args = (*ck, lengths, vp, None, False)
+        err, rel = compare(torch, ops.vp_decode_attention(q, *args),
+                           ref.vp_decode_attention_ref(q, *args), F32_RTOL,
+                           f"vp_decode_attention length {L}")
+        ms = timer(lambda: ops.vp_decode_attention(q, *args))
+        library_ms = timer(sdpa_decode(q, *ck, lengths, None, False))
+        bnd = dec_bound([L] * B, L, None, False)
+        sweep.append(dict(length=L, plan=dataclasses.asdict(
+            plan_decode(B, KV, L, G, dh)), ms=ms, bound_ms=bnd[0],
+            library_ms=library_ms, max_abs_err=err))
+        print(f"[kernel] vp_decode_attention sweep B {B} length {L} "
+              f"{plan_decode(B, KV, L, G, dh)}: ms {ms:.4f} bound_ms "
+              f"{bnd[0]:.4f} ({ms / bnd[0]:.1f}x) library_ms (SDPA) "
+              f"{library_ms:.4f} (rel err {rel:.2e})")
+    record["decode_sweep"] = sweep
+
+    # -- flash_prefill -------------------------------------------------------
+    B, H, KV, dh = 4, 16, 8, 64
+    G = H // KV
+
+    def sdpa_prefill(qd, kd, vd, window):
+        qt = qd.transpose(1, 2)
+        kt, vt = (t.repeat_interleave(G, dim=2).transpose(1, 2)
+                  for t in (kd, vd))
+        if not window:
+            return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=True)
+        S = qd.shape[1]
+        qpos = torch.arange(S, device="cuda")[:, None]
+        kpos = torch.arange(S, device="cuda")[None, :]
+        band = (kpos <= qpos) & (qpos - kpos < window)
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=band)
+
+    def fl_bound(S, window):
+        qpos = torch.arange(S)[:, None]
+        kpos = torch.arange(S)[None, :]
+        mask = kpos <= qpos
+        if window:
+            mask &= qpos - kpos < window
+        nbytes = 2 * (2 * B * S * H * dh + 2 * B * S * KV * dh)
+        return bound(peaks, nbytes, 4 * B * H * dh * int(mask.sum()), "bf16")
+
+    if flash_body(torch.bfloat16, dh) != "tensor_core":
+        raise AssertionError(f"bf16 dh {dh} not planned on the tensor cores")
+    main_fl = None
+    for S in (128, 100):
+        for pattern, window in (("causal", None), ("local", 64)):
+            q32, k32, v32 = (randn(B, S, n, dh) for n in (H, KV, KV))
+            for dtype, tol, body in (
+                    (torch.float32, F32_RTOL, "cuda_core"),
+                    (torch.bfloat16, BF16_TOL, "tensor_core"),
+                    (torch.bfloat16, BF16_TOL, "cuda_core")):
+                qd, kd, vd = (t.to(dtype) for t in (q32, k32, v32))
+                scale = torch.tensor(dh ** -0.5, dtype=dtype, device="cuda")
+                forced = None if body == flash_body(dtype, dh) else body
+
+                def kern(q_=qd, k_=kd, v_=vd, s_=float(scale), b_=forced):
+                    if b_ is None:   # the public op, on the planned body
+                        return ops.flash_prefill(q_, k_, v_, pattern, window)
+                    return flash_prefill_cuda(q_, k_, v_, True, window, s_,
+                                              body=b_)
+
+                got = kern()
+                err, rel = compare(torch, got, ref.flash_prefill_ref(
+                    qd, kd, vd, pattern, window), tol,
+                    f"flash_prefill {S} {pattern} {dtype} {body}")
+                _identical(torch, kern(), got, f"flash_prefill {S} {pattern} "
+                           f"{dtype} {body}, two launches")
+                _identical(torch, flash_prefill_cuda(
+                    qd * scale, kd, vd, True, window, 1.0, body=body), got,
+                    f"flash_prefill {S} {pattern} {dtype} {body}, folded "
+                    "scale")
+                if dtype == torch.bfloat16 and body == "tensor_core":
+                    tc_kern, tc_err, tc_rel = kern, err, rel
+            # time the model's form, bf16: the tensor-core body (planned)
+            # beside the CUDA-core body it replaced on the path
+            ms, cc_ms = timer(tc_kern), timer(kern)
+            plain_ms = timer(lambda: ref.flash_prefill_ref(qd, kd, vd,
+                                                           pattern, window))
+            library_ms = timer(sdpa_prefill(qd, kd, vd, window))
+            bnd = fl_bound(S, window)
+            shape = [B, S, H, KV, dh, pattern]
+            _print_line("flash_prefill", shape, tc_err, tc_rel, ms, plain_ms,
+                        bnd, library_ms)
+            print(f"[kernel] flash_prefill {shape}: tensor-core body {ms:.4f}"
+                  f" ms ({ms / library_ms:.2f}x SDPA), CUDA-core body "
+                  f"{cc_ms:.4f} ms")
+            lines.append(("flash_prefill", shape, ms, plain_ms, bnd,
+                          library_ms))
+            lines.append(("flash_prefill cuda_core", shape, cc_ms, plain_ms,
+                          bnd, library_ms))
+            if main_fl is None:
+                main_fl = _row("flash_prefill", "vp_attention.cu",
+                               "src/repro/kernels/vp_attention.py:264", shape,
+                               tc_err, ms, plain_ms, bnd, library_ms)
+                main_fl.update(body="tensor_core", cuda_core_ms=cc_ms)
+    sweep = []
+    for S in FLASH_SWEEP:
+        qd, kd, vd = (randn(B, S, n, dh).to(torch.bfloat16)
+                      for n in (H, KV, KV))
+        err, rel = compare(torch, ops.flash_prefill(qd, kd, vd),
+                           ref.flash_prefill_ref(qd, kd, vd), BF16_TOL,
+                           f"flash_prefill causal S {S}")
+        ms = timer(lambda: ops.flash_prefill(qd, kd, vd))
+        cc_ms = timer(lambda: flash_prefill_cuda(
+            qd, kd, vd, True, None, 0.125, body="cuda_core"))
+        library_ms = timer(sdpa_prefill(qd, kd, vd, None))
+        bnd = fl_bound(S, None)
+        sweep.append(dict(S=S, ms=ms, cuda_core_ms=cc_ms, bound_ms=bnd[0],
+                          bound_by=bnd[1], library_ms=library_ms,
+                          max_abs_err=err))
+        print(f"[kernel] flash_prefill sweep B {B} S {S} causal bf16: "
+              f"tensor-core body {ms:.4f} ms ({ms / library_ms:.2f}x SDPA "
+              f"{library_ms:.4f}), CUDA-core body {cc_ms:.4f}, bound_ms "
+              f"{bnd[0]:.4f} ({bnd[1]}) (rel err {rel:.2e})")
+    record["prefill_sweep"] = sweep
+    return [main_dec, main_fl]
 
 
 def _dequant_matmul_row(torch, peaks, timer, gen, randn, words, vp, lines,
@@ -1064,6 +1253,19 @@ def _dqmm_counts(torch, cfg, M: int):
     return out
 
 
+def _attention_counts(torch, cfg, prefill: bool):
+    """Attention launches of one pass over the layers: prefill on the body
+    `flash_body` picks for the model's dtype (the tensor cores in bf16),
+    decode on the split body."""
+    from repro_torch.kernels.vp_attention import BODY_COUNTER, flash_body
+
+    L = cfg.n_layers
+    if not prefill:
+        return {"vp_decode_attention": L, "vp_dec_split": L}
+    body = flash_body(getattr(torch, cfg.dtype), cfg.head_dim)
+    return {"flash_prefill": L, BODY_COUNTER[body]: L}
+
+
 def _add(*counts):
     out = {}
     for c in counts:
@@ -1084,20 +1286,32 @@ def serve_phase(torch, record, rows):
     L = cfg.n_layers
     head = {"vp_dequant_matmul": 1, "vp_dqmm_skinny": 1}     # lm_head
     prefill = _add(_dqmm_counts(torch, cfg, BATCH * PROMPT), head,
-                   {"vp_quant_packed": 2 * L, "flash_prefill": L})
+                   {"vp_quant_packed": 2 * L}, _attention_counts(torch, cfg, True))
     decode = _add(_dqmm_counts(torch, cfg, BATCH), head,
-                  {"vp_quant_packed": 2 * L, "vp_decode_attention": L})
+                  {"vp_quant_packed": 2 * L}, _attention_counts(torch, cfg, False))
     if prefill.get("vp_dqmm_tc") != 7 * L or decode.get(
-            "vp_dqmm_skinny") != 7 * L + 1:
+            "vp_dqmm_skinny") != 7 * L + 1 or prefill.get(
+            "flash_tc") != L or decode.get("vp_dec_split") != L:
         raise AssertionError(f"planned bodies: prefill {prefill}, decode "
                              f"{decode}")
     expect = _add(prefill, *[decode] * GEN, {"vp_quant_packed": 7 * L + 2})
     out = _serve(torch, quant, expect, {"prefill": prefill,
                                         "decode step": decode},
                  requantizes=False)
+    got = out["launches"]
+    print(f"[serve vp] attention bodies: flash_prefill {got['flash_prefill']}"
+          f" ({got.get('flash_tc', 0)} tensor-core, "
+          f"{got.get('flash_cuda_core', 0)} CUDA-core), vp_decode_attention "
+          f"{got['vp_decode_attention']} ({got.get('vp_dec_split', 0)} split)")
     for row in rows:
         if row["name"] in expect:
-            row["launches"] = out["launches"][row["name"]]
+            row["launches"] = got[row["name"]]
+        if row["name"] == "flash_prefill":
+            row["body_launches"] = {"tensor_core": got.get("flash_tc", 0),
+                                    "cuda_core": got.get("flash_cuda_core",
+                                                         0)}
+        elif row["name"] == "vp_decode_attention":
+            row["body_launches"] = {"split": got.get("vp_dec_split", 0)}
     record["serve"] = out
 
 
@@ -1133,11 +1347,13 @@ def serve_block_phase(torch, record, rows, smi):
             counts = _add(counts, dict.fromkeys(keys, 1))
         return counts
 
-    prefill = _add(matmuls(BATCH * PROMPT),
-                   {"vp_quant_packed": 2 * L, "flash_prefill": L})
-    decode = _add(matmuls(BATCH),
-                  {"vp_quant_packed": 2 * L, "vp_decode_attention": L})
+    prefill = _add(matmuls(BATCH * PROMPT), {"vp_quant_packed": 2 * L},
+                   _attention_counts(torch, cfg, True))
+    decode = _add(matmuls(BATCH), {"vp_quant_packed": 2 * L},
+                  _attention_counts(torch, cfg, False))
     if (prefill.get("vp_bmm_tc") != 7 * L
+            or prefill.get("flash_tc") != L
+            or decode.get("vp_dec_split") != L
             or prefill.get("vp_bmm_skinny") != 1
             or decode.get("vp_bmm_skinny") != 7 * L + 1
             or decode.get("vp_block_quant") != 7 * L + 1):
@@ -1157,7 +1373,9 @@ def serve_block_phase(torch, record, rows, smi):
           f"{got.get('vp_bmm_skinny', 0)}, tensor cores "
           f"{got.get('vp_bmm_tc', 0)}, dp4a {got.get('vp_bmm_dp4a', 0)}; "
           f"vp_block_quant {got.get('vp_block_quant', 0)} calls "
-          f"({got.get('vp_block_amax', 0)} with an amax pass)")
+          f"({got.get('vp_block_amax', 0)} with an amax pass); "
+          f"flash_prefill on the tensor cores {got.get('flash_tc', 0)}, "
+          f"vp_decode_attention split {got.get('vp_dec_split', 0)}")
     for row in rows:
         if row["name"] == "block_vp_matmul":
             row["launches"] = got["block_vp_matmul"]

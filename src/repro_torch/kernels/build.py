@@ -41,6 +41,7 @@ LAUNCHES: Dict[str, int] = collections.Counter()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 
 
 class VPFmtC(ctypes.Structure):
@@ -67,9 +68,8 @@ _SIGNATURES = {
         "vp_dqmm_cc_launch": [_P, _P, _P] + [_I] * 6 + [_P, _P],
     },
     "vp_attention": {
-        "vp_decode_attention_launch":
-            [_P, _P, _P, _P, _P, _P, _P] + [_I] * 8 + [_P, _P],
-        "flash_prefill_launch": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+        "vp_decode_attention_launch": [_P] * 7 + [_I] * 12 + [_F, _P, _P],
+        "flash_prefill_launch": [_P] * 4 + [_I] * 10 + [_F, _P],
     },
     "vp_matmul": {
         "vp_matmul_launch":

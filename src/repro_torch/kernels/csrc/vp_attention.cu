@@ -1,159 +1,656 @@
 // Attention kernels of the serving path: decode over a packed VP KV cache,
-// and flash prefill.
+// and flash prefill.  Both read q in the model's dtype and apply the
+// dh**-0.5 scale themselves, rounded as the plain path rounds it (an f32
+// multiply for decode; for prefill a multiply by the scale in q's dtype,
+// rounded back to q's dtype), so ops.py launches no elementwise kernel
+// around them.
 //
-// vp_decode_attention_kernel replaces
-// repro/kernels/vp_attention.py:vp_decode_attention_pallas.
-//   One block per (batch, kv head) holds all G query rows of the group.
-//   The loop runs only over the valid span [lo, hi) (length, sliding
-//   window, or the rolling ring clamped to the real buffer length), in
-//   tiles of DEC_T positions, so every position it touches is valid and
-//   no mask is needed.  K/V words are dequantized to f32 in shared
-//   memory; the per-position pow2 scales multiply the score columns (k_s)
-//   and the probability columns (v_s), as in the TPU kernel.  Online
-//   softmax in f32; the output is acc / max(l, 1e-30).
-//   Bound: bytes (each valid cache word read once: 2 bytes per element,
-//   ~4 FLOPs per element at G = 2).  With B * KV blocks (32 at batch 4)
-//   the card is mostly idle at short caches; a split over positions is
-//   later work.
+// 1. vp_decode_attention_split_kernel replaces
+//    repro/kernels/vp_attention.py:vp_decode_attention_pallas (and the
+//    port's first decode body, one block per (batch, kv head) walking the
+//    span serially, which it superseded).
+//    Bound: bytes.  Each valid cache word is read once (2 bytes per
+//    element at int16, ~4 FLOPs per element at G = 2), plus its two
+//    per-position scales; at batch 4 and Smax 160 that is ~0.6 MB, under
+//    0.3 us at 3.35 TB/s, so at serving lengths the time is launch and
+//    memory latency, and the bound is reached only for long caches
+//    (16.8 MB at 4096 positions).  The design attacks the latency chain:
+//    - The valid span [lo, hi) (length, sliding window, or the rolling
+//      ring clamped to the buffer) of a (batch, kv head) is cut into runs
+//      of whole warp steps: one run per warp, `warps` warps per block and
+//      `cluster` blocks per thread-block cluster (kernels/vp_attention.py
+//      :plan_decode fixes both from shapes alone; 128 blocks at batch 4,
+//      8 kv heads).  A run outside the span leaves the neutral partial
+//      (m = -1e30, l = 0, acc = 0).
+//    - A warp reads 32 16-byte loads per tensor and step: `lpp` lanes
+//      hold one position's dh words (8 int16 or 16 int8 per lane), so a
+//      step covers 32 / lpp positions, and four steps' loads go out
+//      before the first is used.  Words are decoded in registers through
+//      a 2^-f table in shared memory.
+//    - All G query rows of the GQA group use each decoded word: q.k is
+//      an FMA chain per lane and a shuffle reduction over the position's
+//      lanes; the pow2 scales multiply the score (k_s) and the
+//      probability (v_s), as in the TPU kernel (exact for powers of two).
+//      Each lane group keeps its own online softmax (m, l, acc) in
+//      registers, with one expf per row and position.
+//    - Partials merge in a fixed order: the position slots of a warp by a
+//      shuffle tree, the warps of a block in warp order through shared
+//      memory, the blocks of a cluster in rank order through distributed
+//      shared memory.  No atomics: two launches are bit-identical.
+//    Output acc / max(l, 1e-30) in q's dtype.
 //
-// flash_prefill_kernel replaces
-// repro/kernels/vp_attention.py:flash_prefill_pallas.
-//   One block per (q tile of FQ rows, head, batch); kv head = h / G.
-//   k tiles above the causal diagonal or wholly before the local window
-//   are skipped by the loop bounds; inside a tile, keys past sk and the
-//   causal/local masks are applied.  As in the TPU kernel the
-//   probabilities are cast to v's dtype before the PV product (a bf16
-//   rounding at bf16).  Inputs stay in the model's layout (B, S, H, dh),
-//   so no transpose or padding copy is made.
-//   Bound: operations at long prompts, bytes at short ones; this first
-//   version uses CUDA-core FMAs from shared memory (no tensor cores).
+// 2. flash_prefill_tc_kernel (bf16, dh a multiple of 16 up to 128)
+//    replaces repro/kernels/vp_attention.py:flash_prefill_pallas on the
+//    serving path.  Bound: bytes at the serving prompt (4 x 128 tokens:
+//    ~1.5 MB against ~67 MFLOP, so ~0.5 us either way) and latency in
+//    practice; operations from prompts of a few thousand tokens.  Design:
+//    - One block per (q tile of 64 rows, kv head or pair of its query
+//      heads, batch): four warps of 16 rows per query head, so each K/V
+//      tile of 64 keys is staged once in shared memory for the G heads it
+//      serves (two at a time), by cp.async into two buffers (the next
+//      tile loads while this one is used).
+//    - QK^T and PV on mma.sync m16n8k16 (bf16 in, f32 accumulate), fed by
+//      ldmatrix (.trans for V) from rows padded by 16 bytes (no bank
+//      conflicts).  mma.sync rather than wgmma: at these sizes the tensor
+//      cores are idle either way, and its 16-row warp tiles keep P in
+//      registers as PV's A operand (the accumulator fragment of two score
+//      tiles is the operand fragment of one k step) with no warpgroup
+//      staging; every product fits one warp.
+//    - Numerics of the plain version (ref.flash_prefill_ref): scores f32
+//      from bf16 q and k; online softmax in f32 (exp2f of log2(e)-scaled
+//      scores, within an ulp of expf); p rounded to bf16 before PV, as the
+//      TPU kernel casts p.astype(v.dtype); the row sum l from the f32 p;
+//      output acc / max(l, 1e-30) rounded to bf16.  Against the plain
+//      version the differences are summation order and the point at
+//      which p is rounded (relative to the running, not the final, row
+//      max): bf16 tolerance, one bf16 rounding of the output plus that
+//      of p.
+//    - Tiles above the causal diagonal or wholly before the local window
+//      are skipped by the loop bounds; the diagonal fringe, the window
+//      edge and keys past Sk (zero-filled by cp.async) are masked in the
+//      tile.
+//
+// 3. flash_prefill_cc_kernel: the port's first prefill body, on CUDA-core
+//    FMAs from shared memory, for f32 (whose F32_RTOL check a bf16
+//    product would not hold) and for bf16 with other head dims.  One
+//    block per (q tile of 64 rows, head, batch).  Bound as above; it
+//    stages each K/V tile once per query head.
+#include <cooperative_groups.h>
+
 #include "vp_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// Decode
+// 1. Decode, split over the cache span
 // ---------------------------------------------------------------------------
 
-constexpr int DEC_T = 64;
-constexpr int DEC_THREADS = 128;
+constexpr int DEC_MAX_WARPS = 8;
+constexpr int DEC_MAX_CLUSTER = 8;
+constexpr int DEC_UNROLL = 4;    // warp steps whose loads are in flight
 
-template <typename WT>
-__global__ void __launch_bounds__(DEC_THREADS)
-vp_decode_attention_kernel(const float* __restrict__ q,
-                           const WT* __restrict__ kw,
-                           const WT* __restrict__ vw,
-                           const float* __restrict__ ks,
-                           const float* __restrict__ vs,
-                           const int* __restrict__ lengths,
-                           float* __restrict__ out, int KV, int G, int dh,
-                           int smax, int window, int rolling, VPFmt f) {
-  extern __shared__ float sm[];
-  float* qs = sm;                   // (G, dh) pre-scaled queries
-  float* kt = qs + G * dh;          // (DEC_T, dh + 1) dequantized keys
-  float* vt = kt + DEC_T * (dh + 1);  // (DEC_T, dh) dequantized values
-  float* st = vt + DEC_T * dh;      // (G, DEC_T) scores, then probabilities
-  float* acc = st + G * DEC_T;      // (G, dh)
-  float* mrow = acc + G * dh;       // (G) running max
-  float* lrow = mrow + G;           // (G) running denominator
-  float* arow = lrow + G;           // (G) this tile's correction
+struct DecArgs {
+  const void* q;         // (B, KV, G, dh) f32 or bf16, not scaled
+  const void* kw;        // (B, smax, KV, dh) packed words
+  const void* vw;
+  const float* ks;       // (B, smax) pow2 scales
+  const float* vs;
+  const int* lengths;    // (B,)
+  void* out;             // (B, KV, G, dh) in q's dtype
+  int KV, G, dh, smax, window, rolling;
+  int warps;             // runs per block
+  int lpp;               // lanes per position (a power of two)
+  float scale;           // dh**-0.5 as an f32
+};
 
-  const int b = blockIdx.x / KV, h = blockIdx.x % KV;
-  const int tid = threadIdx.x;
-  const long long qbase = ((long long)b * KV + h) * G * dh;
-  for (int e = tid; e < G * dh; e += DEC_THREADS) {
-    qs[e] = q[qbase + e];
-    acc[e] = 0.f;
-  }
-  for (int g = tid; g < G; g += DEC_THREADS) {
-    mrow[g] = NEG_INF;
-    lrow[g] = 0.f;
-  }
-
-  const int len = lengths[b];
-  int lo = 0, hi = len;
-  if (rolling) {
-    hi = min(len, smax);
-  } else if (window > 0) {
-    lo = max(len - window, 0);
-  }
-  hi = min(hi, smax);
-  __syncthreads();
-
-  for (int t0 = lo; t0 < hi; t0 += DEC_T) {
-    const int nt = min(DEC_T, hi - t0);
-    for (int e = tid; e < nt * dh; e += DEC_THREADS) {
-      const int t = e / dh, d = e % dh;
-      const long long idx = (((long long)b * smax + t0 + t) * KV + h) * dh + d;
-      kt[t * (dh + 1) + d] = vp_dequant((int)kw[idx], f);
-      vt[t * dh + d] = vp_dequant((int)vw[idx], f);
-    }
-    __syncthreads();
-    for (int e = tid; e < G * nt; e += DEC_THREADS) {
-      const int g = e / nt, t = e % nt;
-      float s = 0.f;
-      for (int d = 0; d < dh; ++d)
-        s = fmaf(qs[g * dh + d], kt[t * (dh + 1) + d], s);
-      st[g * DEC_T + t] = s * ks[(long long)b * smax + t0 + t];
-    }
-    __syncthreads();
-    for (int g = tid; g < G; g += DEC_THREADS) {
-      float* row = st + g * DEC_T;
-      float mc = NEG_INF;
-      for (int t = 0; t < nt; ++t) mc = fmaxf(mc, row[t]);
-      const float mp = mrow[g];
-      const float mn = fmaxf(mp, mc);
-      const float alpha = expf(mp - mn);
-      float sum = 0.f;
-      for (int t = 0; t < nt; ++t) {
-        const float p = expf(row[t] - mn);
-        sum += p;
-        row[t] = p * vs[(long long)b * smax + t0 + t];
-      }
-      lrow[g] = alpha * lrow[g] + sum;
-      mrow[g] = mn;
-      arow[g] = alpha;
-    }
-    __syncthreads();
-    for (int e = tid; e < G * dh; e += DEC_THREADS) {
-      const int g = e / dh, d = e % dh;
-      float pv = 0.f;
-      for (int t = 0; t < nt; ++t)
-        pv = fmaf(st[g * DEC_T + t], vt[t * dh + d], pv);
-      acc[e] = acc[e] * arow[g] + pv;
-    }
-    __syncthreads();
-  }
-
-  for (int e = tid; e < G * dh; e += DEC_THREADS) {
-    out[qbase + e] = acc[e] / fmaxf(lrow[e / dh], 1e-30f);
-  }
+// NW elements of q from element e, times the scale in f32.
+template <typename T, int NW>
+__device__ __forceinline__ void load_q(const void* q, long long e,
+                                       float scale, float (&qv)[NW]) {
+  const T* src = static_cast<const T*>(q) + e;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) qv[j] = __fmul_rn(vp_to_float(src[j]), scale);
 }
 
+// Word j of the 16 bytes v, sign-extended (shifts, not a pointer cast:
+// a cast would move v to local memory).
 template <typename WT>
-int launch_decode(const void* q, const void* kw, const void* vw,
-                  const void* ks, const void* vs, const void* lengths,
-                  void* out, int B, int KV, int G, int dh, int smax,
-                  int window, int rolling, const VPFmt& f, cudaStream_t s) {
-  const size_t smem = sizeof(float) *
-      (size_t)(2 * G * dh + DEC_T * (dh + 1) + DEC_T * dh + G * DEC_T + 3 * G);
-  auto kern = vp_decode_attention_kernel<WT>;
+__device__ __forceinline__ int word_at(const uint4& v, int j) {
+  constexpr int NW = 16 / sizeof(WT), PER = NW / 4, BITS = 8 * sizeof(WT);
+  const unsigned c = j < PER ? v.x : j < 2 * PER ? v.y : j < 3 * PER ? v.z : v.w;
+  return (int)(c << (32 - BITS - (j % PER) * BITS)) >> (32 - BITS);
+}
+
+template <typename WT, int GT>
+__global__ void __launch_bounds__(DEC_MAX_WARPS * 32)
+vp_decode_attention_split_kernel(const DecArgs p, const VPFmt f,
+                                 const int q_bf16) {
+  constexpr int NW = 16 / sizeof(WT);   // words per lane: one 16-byte load
+  extern __shared__ float dsm[];
+  float* wacc = dsm;                          // (warps, G, dh) warp partials
+  float* bacc = wacc + p.warps * p.G * p.dh;  // (G, dh) the block's partial
+  __shared__ float tab[VP_MAX_K];
+  __shared__ float wm[DEC_MAX_WARPS][GT], wl[DEC_MAX_WARPS][GT];
+  __shared__ float bm[GT], bl[GT];
+
+  const int b = blockIdx.x / p.KV, h = blockIdx.x % p.KV;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int lpp = p.lpp, pps = 32 / lpp;
+  const int slot = lane / lpp, d0 = (lane % lpp) * NW;
+  const bool has_d = d0 < p.dh;
+  vp_scale_table(tab, f);
+
+  // The valid span, as the plain version and the TPU kernel bound it.
+  const int len = p.lengths[b];
+  int lo = 0, hi = len;
+  if (p.rolling) {
+    hi = min(len, p.smax);
+  } else if (p.window > 0) {
+    lo = max(len - p.window, 0);
+  }
+  hi = min(hi, p.smax);
+  // This warp's run: whole steps of pps positions, in split order.
+  const int n = max(hi - lo, 0);
+  const int runs = gridDim.y * p.warps;
+  const int per = ((n + runs - 1) / runs + pps - 1) / pps * pps;
+  const int run = blockIdx.y * p.warps + warp;
+  const int r_lo = min(lo + run * per, hi);
+  const int r_hi = min(r_lo + per, hi);
+
+  float qv[GT][NW], acc[GT][NW], m[GT], l[GT];
+  const long long qrow = ((long long)b * p.KV + h) * p.G;
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) qv[g][j] = acc[g][j] = 0.f;
+    if (g < p.G && has_d) {
+      const long long e = (qrow + g) * p.dh + d0;
+      if (q_bf16) {
+        load_q<__nv_bfloat16>(p.q, e, p.scale, qv[g]);
+      } else {
+        load_q<float>(p.q, e, p.scale, qv[g]);
+      }
+    }
+  }
+  __syncthreads();   // the 2^-f table
+
+  const long long pos_words = (long long)p.KV * p.dh;
+  const WT* kbase = static_cast<const WT*>(p.kw) +
+                    ((long long)b * p.smax * p.KV + h) * p.dh + d0;
+  const WT* vbase = static_cast<const WT*>(p.vw) +
+                    ((long long)b * p.smax * p.KV + h) * p.dh + d0;
+  const float* ksb = p.ks + (long long)b * p.smax;
+  const float* vsb = p.vs + (long long)b * p.smax;
+
+  for (int t0 = r_lo; t0 < r_hi; t0 += DEC_UNROLL * pps) {
+    uint4 kk[DEC_UNROLL], vv[DEC_UNROLL];
+    float kscale[DEC_UNROLL], vscale[DEC_UNROLL];
+#pragma unroll
+    for (int u = 0; u < DEC_UNROLL; ++u) {
+      const int t = t0 + u * pps + slot;
+      const bool ok = t < r_hi;
+      kk[u] = ok && has_d ? __ldg(reinterpret_cast<const uint4*>(
+                                kbase + t * pos_words))
+                          : make_uint4(0, 0, 0, 0);
+      vv[u] = ok && has_d ? __ldg(reinterpret_cast<const uint4*>(
+                                vbase + t * pos_words))
+                          : make_uint4(0, 0, 0, 0);
+      kscale[u] = ok ? __ldg(ksb + t) : 0.f;
+      vscale[u] = ok ? __ldg(vsb + t) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < DEC_UNROLL; ++u) {
+      const bool ok = t0 + u * pps + slot < r_hi;
+      float kf[NW], vf[NW];
+#pragma unroll
+      for (int j = 0; j < NW; ++j) {
+        const int wk = word_at<WT>(kk[u], j), wv = word_at<WT>(vv[u], j);
+        kf[j] = (float)(wk >> f.E) * vp_scale_lookup(wk & (f.K - 1), tab);
+        vf[j] = (float)(wv >> f.E) * vp_scale_lookup(wv & (f.K - 1), tab);
+      }
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        float s = 0.f;
+#pragma unroll
+        for (int j = 0; j < NW; ++j) s = fmaf(qv[g][j], kf[j], s);
+        for (int o = lpp >> 1; o > 0; o >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, o);
+        s *= kscale[u];
+        if (g < p.G && ok) {
+          // One exp: the larger of (m, s) becomes the new max.
+          const float e = expf(-fabsf(s - m[g]));
+          const bool up = s > m[g];
+          const float alpha = up ? e : 1.f;
+          const float pr = up ? 1.f : e;
+          m[g] = up ? s : m[g];
+          l[g] = l[g] * alpha + pr;
+          const float pv = pr * vscale[u];
+#pragma unroll
+          for (int j = 0; j < NW; ++j)
+            acc[g][j] = fmaf(pv, vf[j], acc[g][j] * alpha);
+        }
+      }
+    }
+  }
+
+  // The warp's position slots, by a shuffle tree (a fixed order).
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    if (g >= p.G) break;   // uniform: the shuffles below stay converged
+    float mw = m[g];
+    for (int o = lpp; o < 32; o <<= 1)
+      mw = fmaxf(mw, __shfl_xor_sync(0xffffffffu, mw, o));
+    const float sc = expf(m[g] - mw);
+    float lw = l[g] * sc;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) acc[g][j] *= sc;
+    for (int o = lpp; o < 32; o <<= 1) {
+      lw += __shfl_xor_sync(0xffffffffu, lw, o);
+#pragma unroll
+      for (int j = 0; j < NW; ++j)
+        acc[g][j] += __shfl_xor_sync(0xffffffffu, acc[g][j], o);
+    }
+    if (slot == 0 && has_d) {
+      float* dst = wacc + (warp * p.G + g) * p.dh + d0;
+#pragma unroll
+      for (int j = 0; j < NW; ++j) dst[j] = acc[g][j];
+    }
+    if (lane == 0) {
+      wm[warp][g] = mw;
+      wl[warp][g] = lw;
+    }
+  }
+  __syncthreads();
+
+  // The block's warps, in warp order.
+  for (int e = threadIdx.x; e < p.G * p.dh; e += blockDim.x) {
+    const int g = e / p.dh;
+    float mb = NEG_INF;
+    for (int w = 0; w < p.warps; ++w) mb = fmaxf(mb, wm[w][g]);
+    float a = 0.f, lb = 0.f;
+    for (int w = 0; w < p.warps; ++w) {
+      const float sc = expf(wm[w][g] - mb);
+      a += wacc[(w * p.G + g) * p.dh + e % p.dh] * sc;
+      lb += wl[w][g] * sc;
+    }
+    bacc[e] = a;
+    if (e % p.dh == 0) {
+      bm[g] = mb;
+      bl[g] = lb;
+    }
+  }
+
+  // The cluster's blocks, in rank order, from each block's shared memory;
+  // block z writes outputs e = z * threads + t (mod cluster * threads).
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = gridDim.y;
+  if (split > 1) cluster.sync();
+  else __syncthreads();
+  const long long obase = qrow * p.dh;
+  for (int e = blockIdx.y * blockDim.x + threadIdx.x; e < p.G * p.dh;
+       e += split * blockDim.x) {
+    const int g = e / p.dh;
+    float mz[DEC_MAX_CLUSTER];
+    float mt = NEG_INF;
+#pragma unroll
+    for (int z = 0; z < DEC_MAX_CLUSTER; ++z) {
+      if (z < split) {
+        mz[z] = cluster.map_shared_rank(bm, z)[g];
+        mt = fmaxf(mt, mz[z]);
+      }
+    }
+    float a = 0.f, lt = 0.f;
+#pragma unroll
+    for (int z = 0; z < DEC_MAX_CLUSTER; ++z) {
+      if (z < split) {
+        const float sc = expf(mz[z] - mt);
+        a += cluster.map_shared_rank(bacc, z)[e] * sc;
+        lt += cluster.map_shared_rank(bl, z)[g] * sc;
+      }
+    }
+    // l >= 1 for a non-empty span (its largest score adds exp(0)); the
+    // fast division keeps the IEEE one's slow-path call (and its register
+    // saves) out of the kernel
+    const float o = __fdividef(a, fmaxf(lt, 1e-30f));
+    if (q_bf16) {
+      static_cast<__nv_bfloat16*>(p.out)[obase + e] = vp_from_float<__nv_bfloat16>(o);
+    } else {
+      static_cast<float*>(p.out)[obase + e] = o;
+    }
+  }
+  if (split > 1) cluster.sync();   // no block leaves while another reads
+}
+
+template <typename WT, int GT>
+int dec_launch(const DecArgs& p, const VPFmt& f, int B, int cluster,
+               int q_bf16, cudaStream_t s) {
+  const auto kern = vp_decode_attention_split_kernel<WT, GT>;
+  const size_t smem = sizeof(float) * (size_t)(p.warps + 1) * p.G * p.dh;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
+    const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kern<<<B * KV, DEC_THREADS, smem, s>>>(
-      (const float*)q, (const WT*)kw, (const WT*)vw, (const float*)ks,
-      (const float*)vs, (const int*)lengths, (float*)out, KV, G, dh, smax,
-      window, rolling, f);
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * p.KV, cluster, 1);
+  cfg.blockDim = dim3(32 * p.warps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cluster;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, p, f, q_bf16);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+template <typename WT>
+int dec_g(const DecArgs& p, const VPFmt& f, int B, int cluster, int q_bf16,
+          cudaStream_t s) {
+  if (p.G <= 1) return dec_launch<WT, 1>(p, f, B, cluster, q_bf16, s);
+  if (p.G <= 2) return dec_launch<WT, 2>(p, f, B, cluster, q_bf16, s);
+  if (p.G <= 4) return dec_launch<WT, 4>(p, f, B, cluster, q_bf16, s);
+  // 8 rows of 16 int8 words would not fit in registers
+  if constexpr (sizeof(WT) > 1) {
+    if (p.G <= 8) return dec_launch<WT, 8>(p, f, B, cluster, q_bf16, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
-// Prefill
+// 2. Prefill on the tensor cores (bf16)
+// ---------------------------------------------------------------------------
+
+constexpr int TC_BQ = 64;        // q rows of a head per block: 4 warps of 16
+constexpr int TC_BK = 64;        // keys per tile
+constexpr int TC_MAX_GH = 2;     // query heads per block
+
+struct FlashArgs {
+  const void* q;     // (B, Sq, H, dh), not scaled
+  const void* k;     // (B, Sk, KV, dh)
+  const void* v;
+  void* out;         // (B, Sq, H, dh)
+  int Sq, Sk, H, KV, dh, causal, window;
+  float scale;       // dh**-0.5 rounded to q's dtype
+};
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  const int n = valid ? 16 : 0;   // 0: zero-fill the 16 bytes
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* smem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* smem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+
+// c (16 x 8 f32) += a (16 x 16 bf16, row) * b (16 x 8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int DH>
+__global__ void __launch_bounds__(TC_MAX_GH * 4 * 32)
+flash_prefill_tc_kernel(const FlashArgs p) {
+  constexpr int LDS = DH + 8;          // row stride in bf16: 16-byte pad
+  constexpr int KT = DH / 16;          // k steps of QK^T
+  constexpr int NS = TC_BK / 8;        // score n-tiles
+  constexpr int NO = DH / 8;           // output n-tiles
+  constexpr int CHUNKS = TC_BK * DH / 8;   // 16-byte chunks of a tile
+  extern __shared__ __align__(16) unsigned char fsm[];
+  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(fsm);  // [2][BK][LDS]
+  __nv_bfloat16* vt = kt + 2 * TC_BK * LDS;                    // [2][BK][LDS]
+
+  const int G = p.H / p.KV, gh = blockDim.x / 128;
+  const int q0 = blockIdx.x * TC_BQ, b = blockIdx.z;
+  const int kvh = blockIdx.y / (G / gh);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = kvh * G + (blockIdx.y % (G / gh)) * gh + warp / 4;
+  const int r0 = q0 + (warp % 4) * 16;     // the warp's first q row
+  const int gr = lane >> 2, tq = lane & 3; // fragment row, column pair
+
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q);
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k);
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v);
+
+  // Keys any row of this block can see.
+  const int q_last = min(q0 + TC_BQ, p.Sq) - 1;
+  int k_begin = 0, k_end = p.Sk;
+  if (p.causal) {
+    k_end = min(p.Sk, q_last + 1);
+    if (p.window > 0) k_begin = max(0, q0 - p.window + 1);
+  }
+
+  auto load_tile = [&](int k0, int buf) {
+    for (int c = threadIdx.x; c < CHUNKS; c += blockDim.x) {
+      const int row = c / (DH / 8), col = (c % (DH / 8)) * 8;
+      const int key = k0 + row;
+      const bool ok = key < p.Sk;
+      const long long src =
+          (((long long)b * p.Sk + (ok ? key : 0)) * p.KV + kvh) * DH + col;
+      const int dst = (buf * TC_BK + row) * LDS + col;
+      cp_async16(kt + dst, kg + src, ok);
+      cp_async16(vt + dst, vg + src, ok);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  if (k_begin < k_end) load_tile(k_begin, 0);
+
+  // q rows, scaled as the plain path scales them: bf16(q * bf16(scale)).
+  unsigned qa[KT][4];
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + gr + (e & 1) * 8;
+      const int col = kk * 16 + tq * 2 + (e >> 1) * 8;
+      float lo = 0.f, hi = 0.f;
+      if (row < p.Sq) {
+        const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
+            q + (((long long)b * p.Sq + row) * p.H + h) * DH + col);
+        lo = __fmul_rn(__low2float(x), p.scale);
+        hi = __fmul_rn(__high2float(x), p.scale);
+      }
+      qa[kk][e] = pack_bf16(lo, hi);
+    }
+  }
+
+  float o[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float mrow[2] = {NEG_INF, NEG_INF}, lrow[2] = {0.f, 0.f};
+
+  int buf = 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += TC_BK, buf ^= 1) {
+    if (k0 + TC_BK < k_end) {
+      load_tile(k0 + TC_BK, buf ^ 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    const __nv_bfloat16* ktb = kt + buf * TC_BK * LDS;
+    const __nv_bfloat16* vtb = vt + buf * TC_BK * LDS;
+
+    // s = q k^T (16 x 64 per warp), f32
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+#pragma unroll
+      for (int j = 0; j < NS; j += 2) {
+        unsigned bf[4];
+        ldsm_x4(bf, ktb + (j * 8 + (lane & 7) + (lane >> 4) * 8) * LDS +
+                        kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[j], qa[kk], bf[0], bf[1]);
+        mma_bf16(s[j + 1], qa[kk], bf[2], bf[3]);
+      }
+    }
+
+    // log2 domain; masks only where the tile can hold a masked pair for
+    // the warp's rows [r0, r0 + 16): keys past Sk, past the first row
+    // (causal), or a window or more before the last row (local)
+    const bool edge = k0 + TC_BK > p.Sk ||
+                      (p.causal && (k0 + TC_BK - 1 > r0 ||
+                                    (p.window > 0 && r0 + 15 - k0 >= p.window)));
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = s[j][e] * LOG2E;
+        if (edge) {
+          const int row = r0 + gr + (e >> 1) * 8;
+          const int key = k0 + j * 8 + tq * 2 + (e & 1);
+          bool ok = key < p.Sk;
+          if (p.causal) {
+            ok = ok && key <= row;
+            if (p.window > 0) ok = ok && row - key < p.window;
+          }
+          v = ok ? v : NEG_INF;
+        }
+        s[j][e] = v;
+        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mn = fmaxf(mrow[r], mx[r]);
+      alpha[r] = exp2f(mrow[r] - mn);
+      mrow[r] = mn;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - mrow[e >> 1]);
+        sum[e >> 1] += s[j][e];        // l from the f32 p
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) lrow[r] = lrow[r] * alpha[r] + sum[r];
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    // o += bf16(p) v: two score tiles are one k step's A fragment
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+      const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int j = 0; j < NO; j += 2) {
+        unsigned bf[4];
+        ldsm_x4_t(bf, vtb + (kk * 16 + (lane & 15)) * LDS + j * 8 +
+                          (lane >> 4) * 8);
+        mma_bf16(o[j], pa, bf[0], bf[1]);
+        mma_bf16(o[j + 1], pa, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();   // the next load overwrites this buffer
+  }
+
+  // l over the four lanes of a row, then out = o / max(l, 1e-30) in bf16
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 1);
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 2);
+    lrow[r] = fmaxf(lrow[r], 1e-30f);
+  }
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + gr + r * 8;
+    if (row >= p.Sq) continue;
+    __nv_bfloat16* dst = out + (((long long)b * p.Sq + row) * p.H + h) * DH;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      *reinterpret_cast<unsigned*>(dst + j * 8 + tq * 2) =
+          pack_bf16(o[j][2 * r] / lrow[r], o[j][2 * r + 1] / lrow[r]);
+    }
+  }
+}
+
+template <int DH>
+int tc_launch(const FlashArgs& p, int B, cudaStream_t s) {
+  const int G = p.H / p.KV;
+  const int gh = G % TC_MAX_GH == 0 ? TC_MAX_GH : 1;
+  const size_t smem = sizeof(__nv_bfloat16) * 4 * TC_BK * (DH + 8);
+  const auto kern = flash_prefill_tc_kernel<DH>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((p.Sq + TC_BQ - 1) / TC_BQ, p.KV * (G / gh), B);
+  kern<<<grid, 128 * gh, smem, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+int tc_dh(const FlashArgs& p, int B, cudaStream_t s) {
+  switch (p.dh) {
+    case 16: return tc_launch<16>(p, B, s);
+    case 32: return tc_launch<32>(p, B, s);
+    case 48: return tc_launch<48>(p, B, s);
+    case 64: return tc_launch<64>(p, B, s);
+    case 80: return tc_launch<80>(p, B, s);
+    case 96: return tc_launch<96>(p, B, s);
+    case 112: return tc_launch<112>(p, B, s);
+    case 128: return tc_launch<128>(p, B, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// 3. Prefill on the CUDA cores
 // ---------------------------------------------------------------------------
 
 constexpr int FQ = 64, FK = 64;
@@ -161,10 +658,9 @@ constexpr int FL_THREADS = 256;
 
 template <typename T>
 __global__ void __launch_bounds__(FL_THREADS)
-flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, int Sq,
-                     int Sk, int H, int KV, int dh, int causal, int window) {
+flash_prefill_cc_kernel(const FlashArgs p) {
   extern __shared__ float sm[];
+  const int dh = p.dh;
   const int ldk = dh + 1;              // pad: score reads walk kt rows
   float* qs = sm;                      // (FQ, dh)
   float* kt = qs + FQ * dh;            // (FK, dh + 1)
@@ -175,14 +671,21 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* lrow = mrow + FQ;             // (FQ)
   float* arow = lrow + FQ;             // (FQ)
 
+  const T* q = static_cast<const T*>(p.q);
+  const T* k = static_cast<const T*>(p.k);
+  const T* v = static_cast<const T*>(p.v);
+  const int Sq = p.Sq, Sk = p.Sk, H = p.H;
   const int q0 = blockIdx.x * FQ, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
+  const int kvh = h / (H / p.KV);
   const int tid = threadIdx.x;
 
   for (int e = tid; e < FQ * dh; e += FL_THREADS) {
     const int r = e / dh, d = e % dh;
     const int qp = q0 + r;
-    qs[e] = qp < Sq ? vp_to_float(q[(((long long)b * Sq + qp) * H + h) * dh + d])
+    // q * scale in q's dtype, as the plain path pre-scales it
+    qs[e] = qp < Sq ? vp_to_float(vp_from_float<T>(__fmul_rn(
+                          vp_to_float(q[(((long long)b * Sq + qp) * H + h) * dh + d]),
+                          p.scale)))
                     : 0.f;
     acc[e] = 0.f;
   }
@@ -194,9 +697,9 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // Keys any row of this tile can see.
   const int q_last = min(q0 + FQ, Sq) - 1;
   int k_begin = 0, k_end = Sk;
-  if (causal) {
+  if (p.causal) {
     k_end = min(Sk, q_last + 1);
-    if (window > 0) k_begin = max(0, q0 - window + 1);
+    if (p.window > 0) k_begin = max(0, q0 - p.window + 1);
   }
   __syncthreads();
 
@@ -204,7 +707,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int nk = min(FK, k_end - k0);
     for (int e = tid; e < nk * dh; e += FL_THREADS) {
       const int c = e / dh, d = e % dh;
-      const long long idx = (((long long)b * Sk + k0 + c) * KV + kvh) * dh + d;
+      const long long idx = (((long long)b * Sk + k0 + c) * p.KV + kvh) * dh + d;
       kt[c * ldk + d] = vp_to_float(k[idx]);
       vt[c * dh + d] = vp_to_float(v[idx]);
     }
@@ -215,9 +718,9 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float s = 0.f;
       for (int d = 0; d < dh; ++d) s = fmaf(qs[r * dh + d], kt[c * ldk + d], s);
       bool valid = true;
-      if (causal) {
+      if (p.causal) {
         valid = kp <= qp;
-        if (window > 0) valid = valid && (qp - kp < window);
+        if (p.window > 0) valid = valid && (qp - kp < p.window);
       }
       st[r * FK + c] = valid ? s : NEG_INF;
     }
@@ -231,9 +734,9 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float alpha = expf(mp - mn);
       float sum = 0.f;
       for (int c = 0; c < nk; ++c) {
-        const float p = expf(row[c] - mn);
-        sum += p;
-        row[c] = vp_to_float(vp_from_float<T>(p));  // p.astype(v.dtype)
+        const float pr = expf(row[c] - mn);
+        sum += pr;
+        row[c] = vp_to_float(vp_from_float<T>(pr));  // p.astype(v.dtype)
       }
       lrow[r] = alpha * lrow[r] + sum;
       mrow[r] = mn;
@@ -249,6 +752,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
   }
 
+  T* out = static_cast<T*>(p.out);
   for (int e = tid; e < FQ * dh; e += FL_THREADS) {
     const int r = e / dh, d = e % dh;
     const int qp = q0 + r;
@@ -260,63 +764,69 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T>
-int launch_flash(const void* q, const void* k, const void* v, void* out,
-                 int B, int Sq, int Sk, int H, int KV, int dh, int causal,
-                 int window, cudaStream_t s) {
+int cc_launch(const FlashArgs& p, int B, cudaStream_t s) {
+  const int dh = p.dh;
   const size_t smem = sizeof(float) *
       (size_t)(FQ * dh + FK * (dh + 1) + FK * dh + FQ * FK + FQ * dh + 3 * FQ);
-  auto kern = flash_prefill_kernel<T>;
+  const auto kern = flash_prefill_cc_kernel<T>;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
+    const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid((Sq + FQ - 1) / FQ, H, B);
-  kern<<<grid, FL_THREADS, smem, s>>>((const T*)q, (const T*)k, (const T*)v,
-                                      (T*)out, Sq, Sk, H, KV, dh, causal,
-                                      window);
+  const dim3 grid((p.Sq + FQ - 1) / FQ, p.H, B);
+  kern<<<grid, FL_THREADS, smem, s>>>(p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q (B, KV, G, dh) f32 pre-scaled; k_w / v_w (B, smax, KV, dh) packed
-// words of w_bytes; k_s / v_s (B, smax) f32; lengths (B,) int32;
-// out (B, KV, G, dh) f32.  window <= 0 means no window.
+// q (B, KV, G, dh) f32 or bf16 (q_bf16), not scaled; k_w / v_w (B, smax,
+// KV, dh) packed words of w_bytes, 16-byte aligned; k_s / v_s (B, smax)
+// f32; lengths (B,) int32; out (B, KV, G, dh) in q's dtype.  window <= 0
+// means no window.  The span splits over `cluster` blocks of `warps` warps
+// with `lpp` lanes per position (kernels/vp_attention.py:plan_decode).
 extern "C" int vp_decode_attention_launch(
     const void* q, const void* kw, const void* vw, const void* ks,
     const void* vs, const void* lengths, void* out, int B, int KV, int G,
-    int dh, int smax, int window, int rolling, int w_bytes, const VPFmt* f,
+    int dh, int smax, int window, int rolling, int w_bytes, int q_bf16,
+    int cluster, int warps, int lpp, float scale, const VPFmt* f,
     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (cluster < 1 || cluster > DEC_MAX_CLUSTER || warps < 1 ||
+      warps > DEC_MAX_WARPS || lpp < 1 || lpp > 32 || (lpp & (lpp - 1)) ||
+      (w_bytes != 1 && w_bytes != 2 && w_bytes != 4) ||
+      dh % (16 / w_bytes) || lpp * (16 / w_bytes) < dh)
+    return (int)cudaErrorInvalidValue;
+  DecArgs p{q,     kw,     vw,   (const float*)ks, (const float*)vs,
+            (const int*)lengths, out, KV, G, dh, smax, window, rolling,
+            warps, lpp, scale};
   switch (w_bytes) {
-    case 1:
-      return launch_decode<int8_t>(q, kw, vw, ks, vs, lengths, out, B, KV, G,
-                                   dh, smax, window, rolling, *f, s);
-    case 2:
-      return launch_decode<int16_t>(q, kw, vw, ks, vs, lengths, out, B, KV, G,
-                                    dh, smax, window, rolling, *f, s);
-    case 4:
-      return launch_decode<int32_t>(q, kw, vw, ks, vs, lengths, out, B, KV, G,
-                                    dh, smax, window, rolling, *f, s);
+    case 1: return dec_g<int8_t>(p, *f, B, cluster, q_bf16, s);
+    case 2: return dec_g<int16_t>(p, *f, B, cluster, q_bf16, s);
+    case 4: return dec_g<int32_t>(p, *f, B, cluster, q_bf16, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// q (B, Sq, H, dh) pre-scaled, k / v (B, Sk, KV, dh), out (B, Sq, H, dh),
-// all of `dtype`.  causal = 0 is the full pattern; window <= 0 means none.
+// q (B, Sq, H, dh) not scaled, k / v (B, Sk, KV, dh), out (B, Sq, H, dh),
+// all of `dtype`; scale is dh**-0.5 rounded to that dtype.  causal = 0 is
+// the full pattern; window <= 0 means none.  body 0: tensor cores (bf16,
+// dh a multiple of 16 up to 128, 16-byte aligned rows), 1: CUDA cores.
 extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, void* out, int B, int Sq,
                                     int Sk, int H, int KV, int dh, int causal,
-                                    int window, int dtype, void* stream) {
+                                    int window, int dtype, int body,
+                                    float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const FlashArgs p{q, k, v, out, Sq, Sk, H, KV, dh, causal, window, scale};
+  if (body == 0) {
+    if (dtype != VP_BF16) return (int)cudaErrorInvalidValue;
+    return tc_dh(p, B, s);
+  }
   switch (dtype) {
-    case VP_F32:
-      return launch_flash<float>(q, k, v, out, B, Sq, Sk, H, KV, dh, causal,
-                                 window, s);
-    case VP_BF16:
-      return launch_flash<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KV, dh,
-                                         causal, window, s);
+    case VP_F32: return cc_launch<float>(p, B, s);
+    case VP_BF16: return cc_launch<__nv_bfloat16>(p, B, s);
   }
   return (int)cudaErrorInvalidValue;
 }

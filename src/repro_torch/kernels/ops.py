@@ -22,6 +22,7 @@ alone.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Iterator, Optional
 
 import torch
@@ -499,10 +500,10 @@ def vp_decode_attention(q, k_w, v_w, k_s, v_s, lengths, fmt: VPFormat,
             rolling=rolling)
     B, _, H, dh = q.shape
     KV = k_w.shape[2]
-    qr = q.reshape(B, KV, H // KV, dh).to(torch.float32) * dh ** -0.5
-    out = vp_decode_attention_cuda(qr, k_w, v_w, k_s, v_s, lengths, fmt,
-                                   window, rolling)
-    return out.reshape(B, 1, H, dh).to(q.dtype)
+    out = vp_decode_attention_cuda(q.reshape(B, KV, H // KV, dh), k_w, v_w,
+                                   k_s, v_s, lengths, fmt, window, rolling,
+                                   scale=dh ** -0.5)
+    return out.reshape(B, 1, H, dh)
 
 
 def flash_prefill(q, k, v, pattern: str = "causal",
@@ -520,8 +521,14 @@ def flash_prefill(q, k, v, pattern: str = "causal",
             f"causal/local prefill requires Sq == Sk, got {Sq} != {Sk}")
     if not uses_kernel(q, k, v):
         return ref.flash_prefill_ref(q, k, v, pattern=pattern, window=window)
-    dh = q.shape[-1]
-    qs = q * torch.tensor(dh ** -0.5, dtype=q.dtype, device=q.device)
     return flash_prefill_cuda(
-        qs, k, v, causal=pattern != "full",
-        window=window if pattern == "local" else None)
+        q, k, v, causal=pattern != "full",
+        window=window if pattern == "local" else None,
+        scale=_scale_in(q.shape[-1], q.dtype))
+
+
+@functools.lru_cache(maxsize=64)
+def _scale_in(dh: int, dtype: torch.dtype) -> float:
+    """dh**-0.5 rounded to `dtype`, the factor the plain path's
+    `q * torch.tensor(dh ** -0.5, dtype=q.dtype)` multiplies by."""
+    return float(torch.tensor(dh ** -0.5, dtype=dtype))

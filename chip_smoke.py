@@ -13,6 +13,17 @@ Run from the root of a checkout.  Phases, each raising on failure:
                over 20 launches (CUDA events, L2 flushed before each),
                the plain version's time, and the library call's time
                where one PyTorch call computes the same function.
+     `vp_quant_packed` on its table body (the exponent index in O(1)) and
+     on the select chain, bit-identical to the plain version and to each
+     other (a weight panel, ties and saturation in int16, int8 and int32
+     words, an unaligned ragged slice, the MIMO y format), and its KV
+     mode (the KV cache's write in one launch: each position's pow2
+     scale, the division, the words) bit-identical to the plain version
+     and to torch's scale and division followed by the table body, at
+     the serve's decode and prefill writes and at rows past the
+     registers, unaligned rows and a format on the select chain; each
+     timed (int16, int8, int32 words; the KV mode at decode and
+     prefill); no local memory in its SASS.
      `vp_dequant_matmul` on the body its planner picks: the skinny body
      at every decode shape (batch 4: w_up, w_down, q/o, k/v, lm_head),
      the tensor-core body at prefill (512, 1024, 1024) and the four
@@ -38,10 +49,16 @@ Run from the root of a checkout.  Phases, each raising on failure:
      bk 256 (each timed, beside torch.matmul on the dequantized
      operands), and at ragged shapes of its own; IGMMA counted in its
      SASS; the bodies timed over M = 1..512 (the planner's threshold).
-     Its activation block-quantizer `vp_block_quant` bit-identical to
-     its plain version (significands, indices, scale) at the decode,
-     prefill and weight-export shapes (lm_head's included) and at the
-     scale's edge cases, timed.  The two dequant kernels behind
+     Its activation block-quantizer `vp_block_quant` on every body (small:
+     one CUDA block or a cluster, at decode; coop: one cooperative launch
+     with a grid-wide barrier, at prefill and the layer weights' export;
+     two-pass: an amax pass first, at the lm_head export) bit-identical
+     to its plain version (significands, indices, scale) at the decode,
+     prefill and weight-export shapes (lm_head's included), at the
+     scale's edge cases on both axes, and for formats off the fast path;
+     each path shape timed on every body that takes it, the small body's
+     cluster swept, the amax pass timed alone; no local memory in its
+     SASS.  The two dequant kernels behind
      `ops.vp_dequant`, bit-identical in f32 and bf16: packed (1024,
      3072) int16 words (timed) and int8 words (checked), and the MIMO
      planes (1.6e6, 64) int8 + uint8.
@@ -68,10 +85,13 @@ Run from the root of a checkout.  Phases, each raising on failure:
                the same run on the plain path, teacher-forced on the
                kernel path's tokens, in bf16 (held to the plain path's
                own rounding floor, or 2e-2 if larger) and in f32.
+     Each KV write is one launch of the quant kernel's KV mode.
      The same in mode vp_block (block 256): every weight matmul through
      `block_vp_matmul` (decode and lm_head on the skinny body, prefill on
      the tensor-core body) on activations block-quantized by the
-     `vp_block_quant` kernel, which also exports the weights; the
+     `vp_block_quant` kernel, once per distinct activation (4 per layer
+     and lm_head's: the small body at decode, coop at prefill), which
+     also exports the weights (coop; two-pass for lm_head); the
      embedding table (not a multiple of 256 rows) as packed VP words; f32
      held to the larger of 2e-3 and the plain path's own floor.  Then the
      public op `ops.vp_dequant` once on each dequant kernel's shapes.
@@ -147,7 +167,10 @@ BF16_TOL = 1e-2            # bf16: one rounding of the output (2^-8 rel)
                            # the backward kernels two roundings of f32 sums
                            # of one product, at most one bf16 ulp (2^-7 of
                            # the value) apart, plus f32 order
-KERNEL_NAMES = {"vp_quant_packed": "vp_quant_packed_kernel",
+KERNEL_NAMES = {"vp_quant_packed": "vp_quant_packed_",      # every body
+                "vp_qp_table": "vp_quant_packed_table_kernel",
+                "vp_qp_chain": "vp_quant_packed_chain_kernel",
+                "vp_qp_kv": "vp_quant_packed_kv_kernel",
                 "vp_dequant_matmul": "vp_dequant_matmul_",   # every body
                 "vp_dqmm_skinny": "vp_dequant_matmul_skinny_kernel",
                 "vp_dqmm_tc": "vp_dequant_matmul_tc_kernel",
@@ -171,7 +194,10 @@ KERNEL_NAMES = {"vp_quant_packed": "vp_quant_packed_kernel",
                 "vp_bmm_skinny": "block_vp_matmul_skinny_kernel",
                 "vp_bmm_tc": "block_vp_matmul_tc_kernel",
                 "vp_bmm_dp4a": "block_vp_matmul_dp4a_kernel",
-                "vp_block_quant": "vp_block_quant_kernel",
+                "vp_block_quant": "vp_block_quant_",         # every body
+                "vp_bq_small": "vp_block_quant_small_kernel",
+                "vp_bq_coop": "vp_block_quant_coop_",
+                "vp_bq_two_pass": "vp_block_quant_2pass_",
                 "vp_block_amax": "vp_block_amax_kernel",
                 "vp_dequant_planes": "vp_dequant_planes_kernel",
                 "vp_dequant_packed": "vp_dequant_packed_kernel"}
@@ -389,8 +415,6 @@ def _print_line(name, shape, err, rel, ms, plain_ms, bnd, library_ms):
 
 def kernel_phase(torch, peaks, record):
     from repro_torch.configs.base import QuantConfig
-    from repro_torch.core.formats import FXPFormat, default_vp_format
-    from repro_torch.kernels import ref
     from repro_torch.kernels.vp_quant import vp_quant_packed_cuda
     from repro_torch.models.layers import canonical_formats
 
@@ -403,34 +427,9 @@ def kernel_phase(torch, peaks, record):
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    # -- vp_quant_packed: bit-exact ------------------------------------------
-    F_ = fxp.F
-    ks = torch.randint(-2048, 2048, (4096,), generator=gen, device="cuda")
-    ties = (ks.to(torch.float64) + 0.5) * 2.0 ** -F_
-    sat = torch.linspace(-8.0, 8.0, 4096, device="cuda", dtype=torch.float64)
-    special = torch.cat([ties, sat]).to(torch.float32)
-    panel = randn(1024, 3072) * 0.3
-    fxp6 = FXPFormat(12, 11)
-    vp6 = default_vp_format(fxp6, 6, 2)          # int8 words
-    for x, f_, v_, what in ((panel, fxp, vp, "panel (1024, 3072) int16"),
-                            (special, fxp, vp, "ties/saturation int16"),
-                            (special, fxp6, vp6, "ties/saturation int8")):
-        got = vp_quant_packed_cuda(x, f_, v_)
-        want = ref.vp_quant_packed_ref(x, f_, v_)
-        if got.dtype != want.dtype or not torch.equal(got, want):
-            n = int((got.to(torch.int32) != want.to(torch.int32)).sum())
-            raise AssertionError(f"vp_quant_packed {what}: {n} words differ")
-    ms = timer(lambda: vp_quant_packed_cuda(panel, fxp, vp))
-    plain_ms = timer(lambda: ref.vp_quant_packed_ref(panel, fxp, vp))
-    n = panel.numel()
-    bnd = bound(peaks, n * (4 + 2), 0, "f32")
-    _print_line("vp_quant_packed", [1024, 3072], 0.0, 0.0, ms, plain_ms,
-                bnd, None)
-    rows.append(_row("vp_quant_packed", "vp_quant.cu",
-                     "src/repro/kernels/vp_quant.py:65", [1024, 3072], 0.0,
-                     ms, plain_ms, bnd, None))
-    print("[kernel] vp_quant_packed: bit-exact on the panel, ties and "
-          "saturation (int16 and int8 words)")
+    # -- vp_quant_packed: its two bodies and the KV mode -----------------------
+    rows.append(_quant_packed_row(torch, peaks, timer, gen, randn, fxp, vp,
+                                  record))
 
     # -- vp_dequant_matmul: its three bodies ------------------------------------
     def words(K, N):
@@ -450,6 +449,150 @@ def kernel_phase(torch, peaks, record):
           "vp_decode_attention (split body), flash_prefill (tensor-core and "
           "CUDA-core bodies)")
     return rows
+
+
+def _quant_packed_row(torch, peaks, timer, gen, randn, fxp, vp, record):
+    """Row 1, `vp_quant_packed`: the table body (the index in O(1)) and
+    the select chain, each bit-identical to the plain version and to each
+    other on a weight panel, ties and saturation in int16, int8 and int32
+    words, an unaligned ragged slice and the MIMO y format; the KV mode
+    bit-identical to the plain version (`_kv_scale`, the division and the
+    quantizer) and to that arithmetic in torch ops followed by the table
+    body, at the serve's decode and prefill writes, in bf16 and f32, with
+    all-zero positions, amax 2^k, 2^k (1 + 2^-7) and near 1e-30; 0 local
+    memory in the library's SASS; each timed."""
+    from repro_torch.core.formats import FXPFormat, VPFormat, default_vp_format
+    from repro_torch.core.packing import storage_dtype
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.vp_quant import (
+        plan_packed, vp_quant_packed_cuda, vp_quant_scaled_cuda)
+    from repro_torch.mimo.equalizer import table1_specs
+    from repro_torch.models.attention import kv_cache_formats
+    from repro_torch.configs.base import QuantConfig
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    local = {op: _sass_counts(build._target("vp_quant"), build._nvcc(), op)
+             for op in ("LDL", "STL")}
+    bad = {op: {k: v for k, v in c.items() if v} for op, c in local.items()}
+    print(f"[kernel] vp_quant SASS: LDL/STL in {len(local['LDL'])} "
+          f"instances: {bad}")
+    if any(bad.values()):
+        raise AssertionError(f"vp_quant: local memory in its SASS {bad}")
+
+    def same(got, want, what):
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            n = int((got.to(torch.float64) != want.to(torch.float64)).sum())
+            raise AssertionError(f"{what}: {n} of {want.numel()} differ")
+
+    ks = torch.randint(-2048, 2048, (4096,), generator=gen, device="cuda")
+    ties = (ks.to(torch.float64) + 0.5) * 2.0 ** -fxp.F
+    sat = torch.linspace(-8.0, 8.0, 4096, device="cuda", dtype=torch.float64)
+    special = torch.cat([ties, sat]).to(f32)
+    panel = randn(1024, 3072) * 0.3
+    fxp8, vp8 = FXPFormat(12, 11), default_vp_format(FXPFormat(12, 11), 6, 2)
+    fxp32, vp32 = FXPFormat(20, 18), VPFormat(16, (18, 14))
+    y = table1_specs()[2]
+    cases = ((panel, fxp, vp, "panel (1024, 3072) int16"),
+             (special, fxp, vp, "ties/saturation int16"),
+             (special, fxp8, vp8, "ties/saturation int8"),
+             (special * 4, fxp32, vp32, "ties/saturation int32"),
+             (special[1:1001], fxp, vp, "unaligned ragged slice"),
+             (randn(777) * 200, y.y_fxp, y.y_vp, "MIMO y format int8"))
+    for x, f_, v_, what in cases:
+        want = ref.vp_quant_packed_ref(x, f_, v_)
+        table = vp_quant_packed_cuda(x, f_, v_, body="table")
+        same(table, want, f"vp_quant_packed table body {what}")
+        same(vp_quant_packed_cuda(x, f_, v_, body="chain"), table,
+             f"vp_quant_packed chain vs table body {what}")
+    print("[kernel] vp_quant_packed: table and chain bodies bit-identical to "
+          "the plain version and to each other: " + "; ".join(
+              c[3] for c in cases))
+
+    # -- the KV mode --------------------------------------------------------------
+    kf, kv = kv_cache_formats(QuantConfig(mode="vp", quantize_kv_cache=True))
+    KVH, dh = 8, 64
+    kv_cases = []
+    # the serve's decode and prefill writes, a short prompt, rows past the
+    # registers' 1024 elements, rows of 21 (unaligned)
+    for shape in ((BATCH, 1, KVH, dh), (BATCH, PROMPT, KVH, dh),
+                  (BATCH, 5, KVH, dh), (BATCH, 3, 16, 128), (3, 5, 3, 7)):
+        for dt in (bf16, f32):
+            S = shape[1]
+            x = (randn(*shape) * 3).to(dt)
+            x[0, 0] = 0                                  # an all-zero position
+            if S > 2:
+                x[0, 1] = 8.0                            # amax 2^3 exactly
+                x[1, 1, 0, 0] = 8.0 * (1 + 2.0 ** -7)    # ... and just above
+                x[2, 1] = (x[2, 1] * 1e-31).to(dt)       # amax near 1e-30
+            w_k, s_k = vp_quant_scaled_cuda(x, kf, kv)
+            w_r, s_r = ref.vp_quant_scaled_ref(x, kf, kv)
+            same(w_k, w_r, f"KV mode words {list(shape)} {dt}")
+            same(s_k, s_r, f"KV mode scales {list(shape)} {dt}")
+            amax = x.to(f32).abs().amax(dim=(-2, -1), keepdim=True)
+            s_t = torch.exp2(torch.ceil(torch.log2(torch.clamp(amax,
+                                                               min=1e-30))))
+            same(s_k, s_t, f"KV mode scales vs torch ops {dt}")
+            same(w_k, vp_quant_packed_cuda(x.to(f32) / s_t, kf, kv),
+                 f"KV mode vs scale + divide + table body {dt}")
+            kv_cases.append((list(shape), dt, x))
+    cf, cv = FXPFormat(12, 2), VPFormat(7, (10, 2))     # the select chain
+    for shape, dt, x in kv_cases[:4]:
+        for w_k, w_r in zip(vp_quant_scaled_cuda(x, cf, cv),
+                            ref.vp_quant_scaled_ref(x, cf, cv)):
+            same(w_k, w_r, f"KV mode on the select chain {shape} {dt}")
+    print(f"[kernel] vp_quant_packed KV mode: words and scales bit-identical "
+          f"to the plain version and to torch's scale + divide + the table "
+          f"body at {sorted({str(c[0]) for c in kv_cases})}, bf16 and f32, "
+          f"with all-zero, 2^3, 2^3 (1 + 2^-7) and ~1e-30 positions; and "
+          f"for a format on the select chain")
+
+    # -- timed ---------------------------------------------------------------------
+    shapes, main = [], None
+    for x, f_, v_, body, what in (
+            (panel, fxp, vp, "table", "int16"),
+            (panel, fxp, vp, "chain", "int16"),
+            (panel, fxp8, vp8, "table", "int8"),
+            (panel, fxp32, vp32, "table", "int32")):
+        ms = timer(lambda: vp_quant_packed_cuda(x, f_, v_, body=body))
+        plain_ms = timer(lambda: ref.vp_quant_packed_ref(x, f_, v_))
+        esz = torch.empty((), dtype=storage_dtype(v_)).element_size()
+        bnd = bound(peaks, x.numel() * (4 + esz), 0, "f32")
+        shape = [*x.shape, f"{what} words", f"{body} body"]
+        _print_line("vp_quant_packed", shape, 0.0, 0.0, ms, plain_ms, bnd,
+                    None)
+        print(f"[kernel]   vp_quant_packed {shape}: grid "
+              f"{plan_packed(x.numel())}, {bnd[0] / ms:.1%} of the bound")
+        shapes.append(dict(shape=shape, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bnd[0], bound_by=bnd[1]))
+        if main is None:
+            main = _row("vp_quant_packed", "vp_quant.cu",
+                        "src/repro/kernels/vp_quant.py:65", shape, 0.0, ms,
+                        plain_ms, bnd, None)
+    # What one PyTorch elementwise kernel that moves the same bytes takes
+    # under this timer (a cast: not the same function, and no library_ms).
+    same_bytes_ms = timer(lambda: panel.to(torch.bfloat16))
+    print(f"[kernel]   vp_quant_packed [1024, 3072]: a cast moving the same "
+          f"bytes (f32 -> bf16, torch) takes {same_bytes_ms:.4f} ms")
+    kv_shapes = []
+    for shape, dt, x in kv_cases:
+        if shape[1:] not in ([1, KVH, dh], [PROMPT, KVH, dh]) or dt != bf16:
+            continue
+        ms = timer(lambda: vp_quant_scaled_cuda(x, kf, kv))
+        plain_ms = timer(lambda: ref.vp_quant_scaled_ref(x, kf, kv))
+        n = x.numel()
+        bnd = bound(peaks, n * (2 + 2) + n // (KVH * dh) * 4, 0, "f32")
+        tag = [*shape, "bf16", "KV mode"]
+        _print_line("vp_quant_packed", tag, 0.0, 0.0, ms, plain_ms, bnd,
+                    None)
+        print(f"[kernel]   vp_quant_packed {tag}: one launch (the plain "
+              f"version takes ~10), {bnd[0] / ms:.1%} of the bound")
+        kv_shapes.append(dict(shape=tag, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bnd[0], bound_by=bnd[1]))
+    main["shapes"], main["kv_mode"] = shapes, kv_shapes
+    main["same_bytes_cast_ms"] = same_bytes_ms
+    record["quant_packed"] = dict(shapes=shapes, kv_mode=kv_shapes,
+                                  same_bytes_cast_ms=same_bytes_ms)
+    return main
 
 
 def _identical(torch, got, want, what):
@@ -1039,27 +1182,58 @@ def _block_matmul_row(torch, peaks, timer, gen, fxp, vp, lines, record):
 
 
 def _block_quant_row(torch, peaks, timer, gen, fxp, vp, record):
-    """The activation block-quantizer (`ops.block_vp_quant`'s kernel)
-    bit-identical to its plain version (significands, indices and scale)
-    at the decode, prefill and export shapes and at the scale's edge
-    cases, and timed at decode, prefill and the `lm_head` export."""
-    from repro_torch.kernels import ref
+    """Row 15, the activation block-quantizer (`ops.block_vp_quant`'s
+    kernel): every body (small in one block and in clusters of 2-8, coop,
+    two-pass) bit-identical to the plain version (significands, indices
+    and scale) at the decode, prefill and export shapes, blocks 256 and
+    64, f32 and bf16 math, and at the scale's edge cases; a format without
+    an index table (the select chain) and one past the fast raw path; 0
+    local memory in its SASS; each path shape timed on the body `plan`
+    picks beside the others, the small body's cluster swept, and the
+    two-pass body's amax pass timed alone against the byte bound."""
+    from repro_torch.core.formats import FXPFormat, VPFormat, default_vp_format
+    from repro_torch.kernels import build, ref
     from repro_torch.kernels.vp_block_quant import (
-        block_vp_quant_cuda, plan_amax)
+        BODIES, block_amax_cuda, block_vp_quant_cuda, plan)
 
     f32, bf16 = torch.float32, torch.bfloat16
+    local = {op: _sass_counts(build._target("vp_block_quant"), build._nvcc(),
+                              op) for op in ("LDL", "STL")}
+    bad = {op: {k: v for k, v in c.items() if v} for op, c in local.items()}
+    print(f"[kernel] vp_block_quant SASS: LDL/STL in {len(local['LDL'])} "
+          f"instances: {bad}")
+    if any(bad.values()):
+        raise AssertionError(f"vp_block_quant: local memory in its SASS {bad}")
 
-    def check(x, block, axis, mdt, what):
-        got = block_vp_quant_cuda(x, fxp, vp, block, axis, mdt == bf16)
-        want = ref.block_vp_quant_ref(x, fxp, vp, block, axis, mdt)
-        for g, w, part in zip(got, want, ("significands", "indices",
-                                          "scale")):
-            if g.dtype != w.dtype or not torch.equal(g, w):
-                n = int((g.float() != w.float()).sum())
-                raise AssertionError(
-                    f"vp_block_quant {what} {part}: {n} of {g.numel()} "
-                    f"differ from the plain version (scale {float(got[2])!r}"
-                    f" vs {float(want[2])!r})")
+    def bodies(R, C, block, axis):
+        """(body, cluster) pairs that can run this tensor: the planner's
+        first."""
+        out = [(plan(R, C, block, axis).body, None)]
+        for body in BODIES:
+            try:
+                plan(R, C, block, axis, body=body)
+            except ValueError:
+                continue
+            if (body, None) not in out:
+                out.append((body, None))
+        if out[0][0] == "small":
+            out += [("small", k) for k in (1, 2, 4, 8)]
+        return out
+
+    def check(x, block, axis, mdt, what, f_=fxp, v_=vp, which=None):
+        for body, cl in which or bodies(*x.shape, block, axis):
+            got = block_vp_quant_cuda(x, f_, v_, block, axis, mdt == bf16,
+                                      body=body, cluster=cl)
+            want = ref.block_vp_quant_ref(x, f_, v_, block, axis, mdt)
+            for g, w, part in zip(got, want, ("significands", "indices",
+                                              "scale")):
+                if g.dtype != w.dtype or not torch.equal(g, w):
+                    n = int((g.float() != w.float()).sum())
+                    raise AssertionError(
+                        f"vp_block_quant {what} {part} ({body} body, cluster "
+                        f"{cl}): {n} of {g.numel()} differ from the plain "
+                        f"version (scale {float(got[2])!r} vs "
+                        f"{float(want[2])!r})")
 
     # -- the path's shapes: activations (f32 math) and weights (their own) --
     cases = []
@@ -1068,13 +1242,17 @@ def _block_quant_row(torch, peaks, timer, gen, fxp, vp, record):
             ((BATCH, 1024), -1, f32, f32),
             ((BATCH * PROMPT, 1024), -1, bf16, f32),
             ((BATCH * PROMPT, 3072), -1, bf16, f32),
+            ((BATCH * PROMPT, 3072), -1, f32, f32),
             ((1024, 3072), 0, bf16, bf16), ((3072, 1024), 0, bf16, bf16),
-            ((1024, 151936), 0, bf16, bf16), ((1024, 3072), 0, f32, f32)):
+            ((1024, 151936), 0, bf16, bf16), ((1024, 3072), 0, f32, f32),
+            ((512, 1000), 0, bf16, bf16)):
         x = (torch.randn((R, C), generator=gen, device="cuda") *
              (0.02 if axis == 0 else 3.0)).to(dt)
         for block in (BLOCK, 64):
+            which = ([(plan(R, C, block, axis).body, None)]
+                     if R * C > 4e6 else None)
             check(x, block, axis, mdt, f"{[R, C]} axis {axis} {dt} "
-                  f"block {block}")
+                  f"block {block}", which=which)
         cases.append(((R, C), axis, dt, mdt, x))
     # -- the scale's edge cases ----------------------------------------------
     big = [2.0 ** k * (1 + 2.0 ** -23) for k in (-20, 5, 20, 60, 100, 126)]
@@ -1095,36 +1273,76 @@ def _block_quant_row(torch, peaks, timer, gen, fxp, vp, record):
         for dt in (f32, bf16):
             for block in (BLOCK, 64):
                 check(x.to(dt), block, -1, dt, f"{what} {dt} block {block}")
-    print(f"[kernel] vp_block_quant: bit-identical to the plain version "
-          f"(significands, indices, scale) at {[c[0] for c in cases]}, "
-          f"blocks {BLOCK} and 64, and at the scale's edge cases "
-          f"{sorted(edges)} (f32 and bf16)")
-    # -- timed: decode and prefill activations, the lm_head export ----------
+                check(x.to(dt).reshape(256, -1), 256, 0, dt,
+                      f"{what} {dt} axis 0")
+    # -- formats off the fast path: the select chain; |raw| past 2^22 --------
+    chain = (FXPFormat(12, 2), VPFormat(7, (10, 2)))      # s_0 = -8
+    wide = (FXPFormat(24, 20), default_vp_format(FXPFormat(24, 20), 7, 2))
+    for (f_, v_), what in ((chain, "select chain"), (wide, "W = 24")):
+        for (R, C), axis, dt, mdt in (((BATCH, 1024), -1, bf16, f32),
+                                      ((BATCH * PROMPT, 1024), -1, f32, f32),
+                                      ((1024, 3072), 0, bf16, bf16)):
+            x = (torch.randn((R, C), generator=gen, device="cuda")
+                 * 3).to(dt)
+            check(x, BLOCK, axis, mdt, f"{what} {[R, C]} axis {axis}", f_,
+                  v_)
+    print(f"[kernel] vp_block_quant: every body bit-identical to the plain "
+          f"version (significands, indices, scale) at "
+          f"{[c[0] for c in cases]}, blocks {BLOCK} and 64, at the scale's "
+          f"edge cases {sorted(edges)} (f32 and bf16, both axes), and for a "
+          f"format on the select chain and one with W = 24")
+
+    # -- timed: the path's shapes on every body that takes them --------------
     main, shapes = None, []
     for (R, C), axis, dt, mdt, x in cases:
-        if (R, C) not in ((BATCH, 1024), (BATCH * PROMPT, 1024),
-                          (1024, 151936)) or dt != bf16:
+        if dt != bf16 or (R, C) in ((3072, 1024), (512, 1000)):
             continue
         bf = mdt == bf16
-        ms = timer(lambda: block_vp_quant_cuda(x, fxp, vp, BLOCK, axis, bf))
-        plain_ms = timer(lambda: ref.block_vp_quant_ref(x, fxp, vp, BLOCK,
-                                                        axis, mdt))
         n = R * C
         nbytes = n * x.element_size() + n + n // BLOCK + 4
         bnd = bound(peaks, nbytes, 0, "f32")
-        shape = [R, C, "axis", axis, str(dt).split(".")[-1]]
-        launches = 1 if plan_amax(n) == 0 else 2
-        _print_line("vp_block_quant", shape, 0.0, 0.0, ms, plain_ms, bnd,
-                    None)
-        print(f"[kernel]   vp_block_quant {shape}: {launches} launch(es), "
-              f"{bnd[0] / ms:.1%} of the bound")
-        shapes.append(dict(shape=shape, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bnd[0], bound_by=bnd[1],
-                           launches_per_call=launches))
-        if main is None:
-            main = _row("vp_block_quant", "vp_block_quant.cu",
-                        "src/repro/core/quantize.py:164", shape, 0.0, ms,
-                        plain_ms, bnd, None)
+        plain_ms = timer(lambda: ref.block_vp_quant_ref(x, fxp, vp, BLOCK,
+                                                        axis, mdt))
+        shape = [R, C, "axis", axis, "bf16"]
+        cast_ms = timer(lambda: x.to(torch.int8))
+        print(f"[kernel]   vp_block_quant {shape}: a cast moving about the "
+              f"same bytes (bf16 -> int8, torch) takes {cast_ms:.4f} ms")
+        shapes.append(dict(shape=shape, body="same-bytes cast", ms=cast_ms))
+        for body, cl in bodies(R, C, BLOCK, axis):
+            if n > 4e6 and body != "two_pass":
+                continue
+            pl = plan(R, C, BLOCK, axis, body=body, cluster=cl)
+            ms = timer(lambda: block_vp_quant_cuda(x, fxp, vp, BLOCK, axis,
+                                                   bf, body=body,
+                                                   cluster=cl))
+            picked = cl is None and body == plan(R, C, BLOCK, axis).body
+            launches = 2 if pl.amax_blocks else 1
+            tag = f"{body} body" + (f", cluster {pl.grid}"
+                                    if body == "small" else "")
+            if picked:
+                _print_line("vp_block_quant", shape, 0.0, 0.0, ms, plain_ms,
+                            bnd, None)
+            print(f"[kernel]   vp_block_quant {shape} {tag}"
+                  f"{' (planned)' if picked else ''}: {ms:.4f} ms in "
+                  f"{launches} launch(es), grid {pl.grid} x {pl.threads}, "
+                  f"{bnd[0] / ms:.1%} of the bound")
+            shapes.append(dict(shape=shape, body=body, grid=pl.grid,
+                               planned=picked, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bnd[0], bound_by=bnd[1],
+                               launches_per_call=launches))
+            if picked and main is None:
+                main = _row("vp_block_quant", "vp_block_quant.cu",
+                            "src/repro/core/quantize.py:164", shape, 0.0, ms,
+                            plain_ms, bnd, None)
+        if n > 4e6:   # the two-pass body's amax pass alone
+            ms = timer(lambda: block_amax_cuda(x, bf))
+            abnd = bound(peaks, n * x.element_size(), 0, "f32")
+            print(f"[kernel]   vp_block_amax {shape} alone: {ms:.4f} ms, "
+                  f"{abnd[0] / ms:.1%} of the byte bound {abnd[0]:.4f}")
+            if abnd[0] / ms < 0.8:
+                print("[kernel]   (below 80 % of the bandwidth)")
+            shapes.append(dict(shape=shape, body="amax pass", ms=ms,
+                               bound_ms=abnd[0], bound_by=abnd[1]))
     main["shapes"] = shapes
     record["block_quant"] = shapes
     return main
@@ -1274,6 +1492,13 @@ def _add(*counts):
     return out
 
 
+def _qp(n: int, body: str):
+    """n `vp_quant_packed` launches on `body` (table, chain or kv)."""
+    from repro_torch.kernels.vp_quant import BODY_COUNTER
+
+    return {"vp_quant_packed": n, BODY_COUNTER[body]: n}
+
+
 def serve_phase(torch, record, rows):
     """Mode vp: packed VP weights through `vp_dequant_matmul`: prefill's
     weight matmuls (M = 4 x 128) on the tensor-core body, every decode
@@ -1286,15 +1511,15 @@ def serve_phase(torch, record, rows):
     L = cfg.n_layers
     head = {"vp_dequant_matmul": 1, "vp_dqmm_skinny": 1}     # lm_head
     prefill = _add(_dqmm_counts(torch, cfg, BATCH * PROMPT), head,
-                   {"vp_quant_packed": 2 * L}, _attention_counts(torch, cfg, True))
+                   _qp(2 * L, "kv"), _attention_counts(torch, cfg, True))
     decode = _add(_dqmm_counts(torch, cfg, BATCH), head,
-                  {"vp_quant_packed": 2 * L}, _attention_counts(torch, cfg, False))
+                  _qp(2 * L, "kv"), _attention_counts(torch, cfg, False))
     if prefill.get("vp_dqmm_tc") != 7 * L or decode.get(
             "vp_dqmm_skinny") != 7 * L + 1 or prefill.get(
             "flash_tc") != L or decode.get("vp_dec_split") != L:
         raise AssertionError(f"planned bodies: prefill {prefill}, decode "
                              f"{decode}")
-    expect = _add(prefill, *[decode] * GEN, {"vp_quant_packed": 7 * L + 2})
+    expect = _add(prefill, *[decode] * GEN, _qp(7 * L + 2, "table"))
     out = _serve(torch, quant, expect, {"prefill": prefill,
                                         "decode step": decode},
                  requantizes=False)
@@ -1326,44 +1551,57 @@ def serve_block_phase(torch, record, rows, smi):
     from repro_torch.configs import registry
     from repro_torch.configs.base import QuantConfig
     from repro_torch.kernels.vp_block_matmul import BODY_COUNTER, block_body
-    from repro_torch.kernels.vp_block_quant import plan_amax
+    from repro_torch.kernels.vp_block_quant import BODY_COUNTER as BQ_BODY
+    from repro_torch.kernels.vp_block_quant import plan
 
     quant = QuantConfig(mode="vp_block", block=BLOCK, quantize_kv_cache=True)
     cfg = registry.get_config(ARCH, quant)
     L = cfg.n_layers
     head = (cfg.d_model, cfg.vocab)
 
+    def quantizes(R, C, axis):
+        """The launches of one `vp_block_quant` call."""
+        p = plan(R, C, BLOCK, axis)
+        out = {"vp_block_quant": 1, BQ_BODY[p.body]: 1}
+        if p.amax_blocks:
+            out["vp_block_amax"] = 1
+        return out
+
     def matmuls(M):
         """Launches of one pass's 7 L + 1 weight matmuls at M tokens
-        (`lm_head` reads the last position only: BATCH rows)."""
+        (`lm_head` reads the last position only: BATCH rows) and of the
+        quantizer on their 4 L + 1 distinct activations (q, k and v share
+        theirs, and gate and up)."""
         counts = {}
         for m, K, N in ([(M, K, N) for K, N in _weight_shapes(cfg)] * L
                         + [(BATCH, *head)]):
-            keys = ["block_vp_matmul", BODY_COUNTER[block_body(m, K, N,
-                                                               BLOCK)],
-                    "vp_block_quant"]
-            if plan_amax(m * K):
-                keys.append("vp_block_amax")
-            counts = _add(counts, dict.fromkeys(keys, 1))
-        return counts
+            counts = _add(counts, {"block_vp_matmul": 1,
+                                   BODY_COUNTER[block_body(m, K, N, BLOCK)]: 1})
+        w = _weight_shapes(cfg)         # inputs of q/k/v, o, gate/up, down
+        acts = [(M, w[i][0]) for i in (0, 3, 4, 6)] * L + [
+            (BATCH, cfg.d_model)]
+        return _add(counts, *[quantizes(m, K, -1) for m, K in acts])
 
-    prefill = _add(matmuls(BATCH * PROMPT), {"vp_quant_packed": 2 * L},
+    prefill = _add(matmuls(BATCH * PROMPT), _qp(2 * L, "kv"),
                    _attention_counts(torch, cfg, True))
-    decode = _add(matmuls(BATCH), {"vp_quant_packed": 2 * L},
+    decode = _add(matmuls(BATCH), _qp(2 * L, "kv"),
                   _attention_counts(torch, cfg, False))
     if (prefill.get("vp_bmm_tc") != 7 * L
             or prefill.get("flash_tc") != L
             or decode.get("vp_dec_split") != L
             or prefill.get("vp_bmm_skinny") != 1
             or decode.get("vp_bmm_skinny") != 7 * L + 1
-            or decode.get("vp_block_quant") != 7 * L + 1):
+            or decode.get("vp_block_quant") != 4 * L + 1
+            or decode.get("vp_bq_small") != 4 * L + 1
+            or prefill.get("vp_bq_coop") != 4 * L
+            or "vp_block_amax" in prefill or "vp_block_amax" in decode):
         raise AssertionError(f"planned bodies: prefill {prefill}, decode "
                              f"{decode}")
     weights = [(K, N) for K, N in _weight_shapes(cfg)] * L + [head]
-    export = {"vp_block_quant": len(weights),
-              "vp_block_amax": sum(plan_amax(K * N) > 0
-                                   for K, N in weights),
-              "vp_quant_packed": 1}                   # the embedding
+    export = _add(*[quantizes(K, N, 0) for K, N in weights],
+                  _qp(1, "table"))                     # the embedding
+    if export.get("vp_block_amax") != 1:
+        raise AssertionError(f"planned export: {export}")
     expect = _add(export, prefill, *[decode] * GEN)
     out = _serve(torch, quant, expect, {"prefill": prefill,
                                         "decode step": decode},
@@ -1373,7 +1611,10 @@ def serve_block_phase(torch, record, rows, smi):
           f"{got.get('vp_bmm_skinny', 0)}, tensor cores "
           f"{got.get('vp_bmm_tc', 0)}, dp4a {got.get('vp_bmm_dp4a', 0)}; "
           f"vp_block_quant {got.get('vp_block_quant', 0)} calls "
-          f"({got.get('vp_block_amax', 0)} with an amax pass); "
+          f"(small {got.get('vp_bq_small', 0)}, coop "
+          f"{got.get('vp_bq_coop', 0)}, two-pass "
+          f"{got.get('vp_bq_two_pass', 0)}; "
+          f"{got.get('vp_block_amax', 0)} with an amax pass); "
           f"flash_prefill on the tensor cores {got.get('flash_tc', 0)}, "
           f"vp_decode_attention split {got.get('vp_dec_split', 0)}")
     for row in rows:
@@ -1384,6 +1625,8 @@ def serve_block_phase(torch, record, rows, smi):
         elif row["name"] == "vp_block_quant":
             row["launches"] = got["vp_block_quant"]
             row["amax_launches"] = got.get("vp_block_amax", 0)
+            row["body_launches"] = {b: got.get(c, 0)
+                                    for b, c in BQ_BODY.items()}
         elif row["name"] in expect:
             row["block_serve_launches"] = got[row["name"]]
     print(f"[serve vp_block] {smi}")
@@ -1968,7 +2211,7 @@ def mimo_phase(torch, record, rows, smi):
     # -------------------------------------------------------------------------
     # the masked mode's 12 G = 1 launches on the tile body, the batched
     # and wideband launches (4 vp_matmul, 3 vp_quant_matmul) on the warp body
-    expect = {"vp_quant_matmul": 2 + 4 + 1, "vp_quant_packed": 2 * 2 + 4,
+    expect = {"vp_quant_matmul": 2 + 4 + 1, **_qp(2 * 2 + 4, "table"),
               "vp_matmul": 2 + 2 + 4 + 4, "vp_quant_planes": 2 * 2 + 4,
               "vp_mm_tile": 4 + 4 + 4, "vp_mm_warp": 4 + 3}
     print(f"[mimo] launches on the MIMO path: {counts}; of which the "
@@ -2043,7 +2286,7 @@ def mimo_phase(torch, record, rows, smi):
          {"vp_quant_matmul": 1, "vp_mm_warp": 1}),
         ("narrowband equalize (unfused)",
          lambda: equalize_vp_kernel(bvp, e.w_beam, e.y_beam, fused=False),
-         {"vp_quant_packed": 2, "vp_matmul": 1, "vp_mm_warp": 1}),
+         {**_qp(2, "table"), "vp_matmul": 1, "vp_mm_warp": 1}),
         (f"wideband equalize (S = {S}, n = {nw})",
          lambda: equalize_wideband(wspecs, wens.w_beam, wens.y_beam),
          {"vp_quant_matmul": 1, "vp_mm_warp": 1})])
@@ -2335,8 +2578,8 @@ def train_kernel_phase(torch, peaks, record):
     num_sms = torch.cuda.get_device_properties(0).multi_processor_count
     splits = sum(plan_tiles(R, C, S, num_sms).split > 1
                  for R, C, S in ((Mq, Kq, Nq), (Kq, Nq, Mq)))
-    want_counts = {"vp_quant_matmul": 1, "vp_mm_tile": 1,
-                   "vp_quant_packed": 2, "vp_matmul_dx": 1, "vp_matmul_dw": 1}
+    want_counts = {"vp_quant_matmul": 1, "vp_mm_tile": 1, **_qp(2, "table"),
+                   "vp_matmul_dx": 1, "vp_matmul_dw": 1}
     if splits:
         want_counts["vp_bwd_splitk_reduce"] = splits
     if qmm_counts != want_counts:
@@ -2429,8 +2672,7 @@ def train_phase(torch, record, rows, smi):
     fwd = _dqmm_counts(torch, cfg, TRAIN_BATCH * TRAIN_SEQ)
     if fwd.get("vp_dqmm_tc") != per_step:
         raise AssertionError(f"planned train forward: {fwd}")
-    step = _add(fwd, {"vp_quant_packed": per_step,
-                      "vp_matmul_dx": per_step})
+    step = _add(fwd, _qp(per_step, "table"), {"vp_matmul_dx": per_step})
     expect = {k: v * TRAIN_STEPS for k, v in step.items()}
     print(f"[train] launches in {TRAIN_STEPS} steps: {counts} "
           f"(per step: {step})")

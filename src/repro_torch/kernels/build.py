@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 VP_MAX_K = 16
+VP_IDX_TAB = 33   # csrc/vp_common.cuh: bit lengths 0..32
 
 # Launches per kernel since the last `reset_launches()`.
 LAUNCHES: Dict[str, int] = collections.Counter()
@@ -54,12 +55,14 @@ class QuantFmtC(ctypes.Structure):
     """`struct QuantFmt` of csrc/vp_common.cuh."""
     _fields_ = [("vp", VPFmtC), ("two_f", ctypes.c_float),
                 ("raw_lo", ctypes.c_float), ("raw_hi", ctypes.c_float),
-                ("shift", _I * VP_MAX_K)]
+                ("shift", _I * VP_MAX_K), ("idx_tab", _I * VP_IDX_TAB)]
 
 
 _SIGNATURES = {
     "vp_quant": {
-        "vp_quant_packed_launch": [_P, _P, _LL, _I, _P, _P],
+        "vp_quant_packed_launch": [_P, _P, _LL, _I, _P] + [_I] * 3 + [_P],
+        "vp_quant_packed_kv_launch": [_P, _P, _P, _I, _I, _I, _I, _P]
+                                     + [_I] * 3 + [_P],
         "vp_quant_planes_launch": [_P, _P, _I, _P, _LL, _P, _P],
     },
     "vp_dequant_matmul": {
@@ -90,7 +93,9 @@ _SIGNATURES = {
         "block_vp_matmul_dp4a_launch": [_P] * 5 + [_I] * 5 + [_P] * 3,
     },
     "vp_block_quant": {
-        "vp_block_quant_launch": [_P] * 6 + [_LL, _LL] + [_I] * 5 + [_P, _P],
+        "vp_block_quant_launch": [_P] * 6 + [_LL, _LL] + [_I] * 11
+                                 + [_P, _P],
+        "vp_block_amax_launch": [_P] * 4 + [_LL, _LL] + [_I] * 3 + [_P],
     },
     "vp_dequant": {
         "vp_dequant_planes_launch": [_P, _P, _P, _LL, _I, _P, _P],
@@ -128,10 +133,17 @@ def vp_fmt_struct(vp: VPFormat) -> VPFmtC:
 
 @functools.lru_cache(maxsize=None)
 def quant_fmt_struct(fxp: FXPFormat, vp: VPFormat) -> QuantFmtC:
+    """The format pair as the kernels take it, with the exponent-index
+    table where the format has one (else zeros: the select chain)."""
+    from .vp_quant import index_table, table_ok   # vp_quant imports build
+
     s = QuantFmtC(vp=vp_fmt_struct(vp), two_f=2.0 ** fxp.F,
                   raw_lo=fxp.raw_min, raw_hi=fxp.raw_max)
     for k, fk in enumerate(vp.f):
         s.shift[k] = fxp.F - fk
+    if table_ok(fxp, vp):
+        for L, i in enumerate(index_table(fxp, vp)):
+            s.idx_tab[L] = i
     return s
 
 

@@ -28,12 +28,20 @@ struct VPFmt {
   float scale[VP_MAX_K];   // 2^-f_k, exact powers of two
 };
 
+// Entries of the exponent-index table: one per bit length 0..32.
+#define VP_IDX_TAB 33
+
 // An FXP(W, F) grid followed by its VP format (the quantizer's input).
 struct QuantFmt {
   VPFmt vp;
   float two_f;             // 2^F
   float raw_lo, raw_hi;    // FXP raw range
   int shift[VP_MAX_K];     // s_k = F - f_k (negative: left shift)
+  // The Fig. 3 cascade's index as a function of the bit length of
+  // raw ^ (raw >> 31) (kernels/vp_quant.py:index_table); all zero for a
+  // format whose index is not such a function, which the wrappers send
+  // to the select chain instead.
+  int idx_tab[VP_IDX_TAB];
 };
 
 // 2^-f_i by a select chain over the format's table (K dependent
@@ -111,6 +119,46 @@ __device__ __forceinline__ void vp_quantize_raw(int raw, const QuantFmt& q,
   i = i_sel;
 }
 
+// The cascade in O(1) (kernels/vp_quant.py:index_table).  Option k fits
+// iff raw >> s_k lies in [-2^(M-1), 2^(M-1) - 1], which for s_k >= 0 (a
+// floor) and for left shifts -(M-1) <= s_k < 0 that cannot wrap is
+// bitlen(raw ^ (raw >> 31)) <= M - 1 + s_k: the first option that fits is
+// a function of that bit length alone.  vp_index_table writes, for each
+// bit length L, (s_i << 8) | i into shared memory (threads of the block
+// in turn; the caller syncs), and vp_quantize_raw_tab reads it with one
+// load: i, then m = vp_shift(raw, s_i) clipped, which is the chain's m
+// where option i fits and its saturating m where none does.
+// q.shift[k] by a select chain (no dynamically indexed parameter memory).
+__device__ __forceinline__ int vp_shift_of(int k, const QuantFmt& q) {
+  int s = q.shift[0];
+#pragma unroll
+  for (int j = 1; j < VP_MAX_K; ++j)
+    if (k == j) s = q.shift[j];
+  return s;
+}
+
+__device__ __forceinline__ void vp_index_table(int* tab, const QuantFmt& q) {
+  for (int L = threadIdx.x; L < VP_IDX_TAB; L += blockDim.x) {
+    int i = 0;
+#pragma unroll
+    for (int j = 0; j < VP_IDX_TAB; ++j)
+      if (L == j) i = q.idx_tab[j];
+    tab[L] = vp_shift_of(i, q) * 256 + i;
+  }
+}
+
+__device__ __forceinline__ int vp_bitlen(int raw) {
+  return 32 - __clz(raw ^ (raw >> 31));
+}
+
+__device__ __forceinline__ void vp_quantize_raw_tab(int raw, const int* tab,
+                                                    int lo, int hi, int& m,
+                                                    int& i) {
+  const int e = tab[vp_bitlen(raw)];
+  i = e & 255;
+  m = min(max(vp_shift(raw, e >> 8), lo), hi);
+}
+
 // float -> (significand m, index i): vp_fxp_raw, then vp_quantize_raw.
 __device__ __forceinline__ void vp_quantize(float x, const QuantFmt& q,
                                             int& m, int& i) {
@@ -136,6 +184,31 @@ template <> __device__ __forceinline__ float vp_from_float<float>(float v) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 vp_from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, like astype
+}
+
+// Eight words (the low bytes of w) in one store of 8 x sizeof(OutT)
+// bytes; p aligned to that.
+__device__ __forceinline__ void vp_store8(int8_t* p, const int (&w)[8]) {
+  uint2 u;
+  u.x = (w[0] & 255) | (w[1] & 255) << 8 | (w[2] & 255) << 16 |
+        (unsigned)w[3] << 24;
+  u.y = (w[4] & 255) | (w[5] & 255) << 8 | (w[6] & 255) << 16 |
+        (unsigned)w[7] << 24;
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ void vp_store8(int16_t* p, const int (&w)[8]) {
+  uint4 u;
+  u.x = (w[0] & 0xFFFF) | (unsigned)w[1] << 16;
+  u.y = (w[2] & 0xFFFF) | (unsigned)w[3] << 16;
+  u.z = (w[4] & 0xFFFF) | (unsigned)w[5] << 16;
+  u.w = (w[6] & 0xFFFF) | (unsigned)w[7] << 16;
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+__device__ __forceinline__ void vp_store8(int32_t* p, const int (&w)[8]) {
+  *reinterpret_cast<int4*>(p) = make_int4(w[0], w[1], w[2], w[3]);
+  *reinterpret_cast<int4*>(p + 4) = make_int4(w[4], w[5], w[6], w[7]);
 }
 
 // Size codes shared with the Python wrappers.

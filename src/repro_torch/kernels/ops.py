@@ -40,7 +40,8 @@ from .vp_bwd_matmul import vp_matmul_dw_cuda, vp_matmul_dx_cuda
 from .vp_dequant import vp_dequant_packed_cuda, vp_dequant_planes_cuda
 from .vp_dequant_matmul import vp_dequant_matmul_cuda
 from .vp_matmul import vp_matmul_cuda
-from .vp_quant import vp_quant_packed_cuda, vp_quant_planes_cuda
+from .vp_quant import (vp_quant_packed_cuda, vp_quant_planes_cuda,
+                       vp_quant_scaled_cuda)
 from .vp_quant_matmul import vp_quant_matmul_cuda
 
 # Set only by `force_backend`.
@@ -97,6 +98,18 @@ def vp_quant(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
     if packed:
         return ref.vp_quant_packed_ref(x, fxp, vp)
     return ref.vp_quant_ref(x, fxp, vp)
+
+
+def vp_quant_scaled(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
+                    group_dims: int = 2):
+    """f32 or bf16 tensor -> (packed VP words of x's shape, f32 scales of
+    shape x.shape[:-group_dims] + (1,) * group_dims): each group of the
+    last `group_dims` dims divided by its pow2 scale exp2(ceil(log2(
+    max(amax|x|, 1e-30)))) in f32, then quantized (the KV cache's write;
+    one launch on the card)."""
+    if uses_kernel(x):
+        return vp_quant_scaled_cuda(x, fxp, vp, group_dims)
+    return ref.vp_quant_scaled_ref(x, fxp, vp, group_dims)
 
 
 def vp_dequant(m: torch.Tensor, i: Optional[torch.Tensor] = None,

@@ -41,6 +41,20 @@ def vp_quant_packed_ref(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat
     return pack_vp(m, i, vp)
 
 
+def vp_quant_scaled_ref(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
+                        group_dims: int = 2
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each group of the last `group_dims` dims over its pow2 scale
+    s = exp2(ceil(log2(max(amax|x|, 1e-30)))) in f32, then packed VP
+    words -> (words of x's shape, s of shape x.shape[:-group_dims] +
+    (1,) * group_dims).  The KV cache's write (`models/attention.py:
+    quantize_kv`); an all-zero group gets 2^-99."""
+    dims = tuple(range(-group_dims, 0))
+    amax = x.to(torch.float32).abs().amax(dim=dims, keepdim=True)
+    s = torch.exp2(torch.ceil(torch.log2(torch.clamp(amax, min=1e-30))))
+    return vp_quant_packed_ref(x.to(torch.float32) / s, fxp, vp), s
+
+
 def vp_dequant_ref(m: torch.Tensor, i: torch.Tensor, vp: VPFormat,
                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(significand, index) -> real values m * 2^-f_i."""

@@ -6,55 +6,162 @@ Replaces what the JAX package leaves to XLA (no Pallas kernel):
 The plain version is `ref.block_vp_quant_ref`; dispatch lives in
 `ops.block_vp_quant`.
 
-`plan_amax` alone decides, before the launch, whether the quantize
-pass's CUDA blocks each take the amax of the whole tensor themselves,
-in one launch (at most FUSED_MAX elements: decode activations), or an
-amax pass runs first (two launches).
-`build.LAUNCHES` counts every call under `vp_block_quant` and the amax
-pass under `vp_block_amax`.  The amax pass finds its last block by a
-counter, one per device, that the kernel leaves at zero: two amax
-passes must not run at once on one device (the path runs on one
+`plan` alone picks, from the shape, the block and the axis, one of three
+bodies and their grid:
+  * "small": axis -1 and at most SMALL_MAX elements (decode activations):
+    one launch of one CUDA block up to SMALL_ONE_BLOCK elements, else of
+    a thread-block cluster of SMALL_CLUSTER blocks (or fewer where the
+    tensor has fewer index blocks);
+  * "coop": a tensor whose blocks all fit on the card at once, COOP_PER_SM
+    per SM (prefill activations, the layer weights' export): one
+    cooperative launch with a grid-wide barrier;
+  * "two_pass": the rest (the `lm_head` export): an amax pass, then the
+    quantize pass.
+Every body reads x once into registers.  The kernel takes axis -1 blocks
+that are a multiple of 4 elements up to THREADS * V * 4, and axis 0
+blocks that are a multiple of 32 rows up to 256; it raises on others.
+
+`build.LAUNCHES` counts every call under `vp_block_quant`, each body
+under `BODY_COUNTER`, and the amax pass under `vp_block_amax`.  The
+coop body's barrier and the amax pass share one pair of words per
+device, which each launch leaves as it found them: two of these
+launches must not run at once on one device (the path runs on one
 stream).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.formats import FXPFormat, VPFormat
 from . import build
+from .vp_quant import SMS, table_ok
 
-FUSED_MAX = 16384      # elements quantized in one launch
+SMALL_MAX = 16384      # elements of the small body
+SMALL_THREADS = 1024   # most threads of a small-body block
+SMALL_ONE_BLOCK = 4096  # the small body in one block up to this many
+SMALL_CLUSTER = 8      # elements, else in a cluster of 8 (PERF.md)
+THREADS = 256          # threads of a coop or two-pass block...
+V = 8                  # ... each holding up to 8 vectors (axis -1)
+VEC = 4                # elements of a vector
+TILE_COLS = 64         # axis 0: columns of a tile (block rows each)
+TILE_TY = 32           # axis 0: threads down a tile
+TILE_ROWS = 8          # axis 0: most rows of a thread
+COOP_PER_SM = 2        # coop blocks on one SM (the kernels' launch bounds)
+COOP_SPREAD = 2        # coop blocks per SM the planner aims for
 AMAX_BLOCKS = 1024     # most CUDA blocks of the amax pass
 AMAX_PER_BLOCK = 2048  # elements per CUDA block of the amax pass
 
-_COUNTERS: Dict[int, torch.Tensor] = {}
+BODIES = ("small", "coop", "two_pass")
+BODY_COUNTER = {"small": "vp_bq_small", "coop": "vp_bq_coop",
+                "two_pass": "vp_bq_two_pass"}
+
+_BARRIERS: Dict[int, torch.Tensor] = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch of the quantizer: `grid` CUDA blocks of `threads` (the
+    small body's grid is one cluster); along the rows `chunk` elements
+    (whole index blocks) per CUDA block in `nv` vectors of 4 per thread;
+    the amax pass's `amax_blocks` (two-pass only, else 0)."""
+    body: str
+    grid: int
+    threads: int
+    nv: int = 1
+    chunk: int = 0
+    amax_blocks: int = 0
 
 
 def plan_amax(n: int) -> int:
-    """CUDA blocks of the amax pass for a tensor of n elements: 0 where
-    the quantize pass takes the amax itself."""
-    if n <= FUSED_MAX:
-        return 0
+    """CUDA blocks of the amax pass for a tensor of n elements."""
     return min(AMAX_BLOCKS, -(-n // AMAX_PER_BLOCK))
 
 
-def _counter(device: torch.device) -> torch.Tensor:
-    c = _COUNTERS.get(device.index)
+def _rows(block: int, per_cta: int, threads: int):
+    """(chunk, nv) for CUDA blocks of `per_cta` index blocks."""
+    chunk = per_cta * block
+    return chunk, -(-chunk // (VEC * threads))
+
+
+def plan(R: int, C: int, block: int, axis: int, sms: int = SMS,
+         cluster: Optional[int] = None, body: Optional[str] = None) -> Plan:
+    """The body and grid for x (R, C) quantized in blocks of `block`
+    along `axis`, from shapes alone.  `body` and `cluster` force a body
+    where it can run this tensor and the small body's cluster
+    (comparisons only).  Raises ValueError for a block the kernel does
+    not take."""
+    axis %= 2
+    n = R * C
+    if cluster is None:
+        cluster = 1 if n <= SMALL_ONE_BLOCK else SMALL_CLUSTER
+    if axis == 0:
+        if block % TILE_TY or block > TILE_TY * TILE_ROWS:
+            raise ValueError(f"axis-0 block {block}: the kernel takes "
+                             f"multiples of {TILE_TY} up to "
+                             f"{TILE_TY * TILE_ROWS}")
+        tiles = R // block * -(-C // TILE_COLS)
+        pick = body or ("coop" if tiles <= COOP_PER_SM * sms else "two_pass")
+        if pick == "small" or (pick == "coop"
+                               and tiles > COOP_PER_SM * sms):
+            raise ValueError(f"body {pick!r} cannot take {tiles} tiles")
+        return Plan(pick, tiles, THREADS,
+                    amax_blocks=plan_amax(n) if pick == "two_pass" else 0)
+    if block % VEC or block > THREADS * V * VEC:
+        raise ValueError(f"axis -1 block {block}: the kernel takes multiples "
+                         f"of {VEC} up to {THREADS * V * VEC}")
+    nb = n // block
+    pick = body or ("small" if n <= SMALL_MAX else None)
+    if pick == "small":
+        if n > SMALL_MAX or not 1 <= cluster <= 8:
+            raise ValueError(f"the small body takes at most {SMALL_MAX} "
+                             f"elements in a cluster of 1-8 blocks")
+        per = -(-nb // cluster)
+        grid = -(-nb // per)
+        threads = min(SMALL_THREADS, 32 * -(-per * block // (32 * VEC)))
+        chunk, nv = _rows(block, per, threads)
+        return Plan("small", grid, threads, nv, chunk)
+    # Spread the tensor over COOP_SPREAD blocks per SM where it can.
+    nv = min(V, max(-(-n // (COOP_SPREAD * sms * THREADS * VEC)),
+                    -(-block // (THREADS * VEC))))
+    per = max(1, THREADS * nv * VEC // block)
+    chunk, nv = _rows(block, per, THREADS)
+    grid = -(-nb // per)
+    if pick is None:
+        pick = "coop" if grid <= COOP_PER_SM * sms else "two_pass"
+    if pick == "coop" and grid > COOP_PER_SM * sms:
+        raise ValueError(f"body 'coop' cannot take {grid} blocks")
+    if pick == "two_pass":
+        per = max(1, THREADS * V * VEC // block)
+        chunk, nv = _rows(block, per, THREADS)
+        return Plan("two_pass", -(-nb // per), THREADS, nv, chunk,
+                    amax_blocks=plan_amax(n))
+    return Plan("coop", grid, THREADS, nv, chunk)
+
+
+def _barrier(device: torch.device) -> torch.Tensor:
+    """[arrivals, generation] of the device's grid-wide barrier and amax
+    pass, zeroed once."""
+    c = _BARRIERS.get(device.index)
     if c is None:
-        c = _COUNTERS[device.index] = torch.zeros(1, dtype=torch.int32,
+        c = _BARRIERS[device.index] = torch.zeros(2, dtype=torch.int32,
                                                   device=device)
     return c
 
 
 def block_vp_quant_cuda(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
-                        block: int, axis: int, bf16_math: bool
+                        block: int, axis: int, bf16_math: bool,
+                        body: Optional[str] = None,
+                        cluster: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (R, C) f32 or bf16 on the card -> (m (R, C) int8, i uint8 with
     `axis` reduced by `block`, s 0-d f32): x / s block-VP quantized, s
-    the pow2 scale; `bf16_math` (a bf16 x) rounds s and x / s to bf16."""
+    the pow2 scale; `bf16_math` (a bf16 x) rounds s and x / s to bf16.
+    `body` and `cluster` force a body and the small body's cluster
+    (comparisons only)."""
     if not x.is_cuda or x.ndim != 2:
         raise ValueError(f"vp_block_quant kernel takes a 2-D CUDA tensor, "
                          f"got {tuple(x.shape)} on {x.device}")
@@ -76,18 +183,42 @@ def block_vp_quant_cuda(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
     s = torch.empty((), dtype=torch.float32, device=dev)
     if x.numel() == 0:
         return m, i, s.fill_(1.0)
-    blocks = plan_amax(x.numel())
-    part = torch.empty(max(blocks, 1), dtype=torch.float32, device=dev)
+    pl = plan(R, C, block, axis,
+              torch.cuda.get_device_properties(dev).multi_processor_count,
+              cluster, body)
+    part = torch.empty(max(pl.grid, pl.amax_blocks), dtype=torch.float32,
+                       device=dev)
     lib = build.library("vp_block_quant")
     q = build.quant_fmt_struct(fxp, vp)
     with torch.cuda.device(dev):
         err = lib.vp_block_quant_launch(
             x.data_ptr(), m.data_ptr(), i.data_ptr(), s.data_ptr(),
-            part.data_ptr(), _counter(dev).data_ptr(), R, C, block,
-            int(axis == 0), xc, int(bf16_math), blocks, ctypes.byref(q),
+            part.data_ptr(), _barrier(dev).data_ptr(), R, C, block,
+            int(axis == 0), xc, int(bf16_math),
+            BODIES.index(pl.body),
+            pl.grid, pl.threads, pl.nv, pl.chunk, pl.amax_blocks, int(table_ok(fxp, vp)), ctypes.byref(q),
             torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "vp_block_quant")
     build.LAUNCHES["vp_block_quant"] += 1
-    if blocks:
+    build.LAUNCHES[BODY_COUNTER[pl.body]] += 1
+    if pl.amax_blocks:
         build.LAUNCHES["vp_block_amax"] += 1
     return m, i, s
+
+
+def block_amax_cuda(x: torch.Tensor, bf16_math: bool) -> torch.Tensor:
+    """The two-pass body's amax pass alone on x (R, C): its scale as a
+    0-d f32 (chip_smoke.py times it; not counted, not on a path)."""
+    x = x.contiguous()
+    s = torch.empty((), dtype=torch.float32, device=x.device)
+    blocks = plan_amax(x.numel())
+    part = torch.empty(blocks, dtype=torch.float32, device=x.device)
+    lib = build.library("vp_block_quant")
+    with torch.cuda.device(x.device):
+        err = lib.vp_block_amax_launch(
+            x.data_ptr(), s.data_ptr(), part.data_ptr(),
+            _barrier(x.device).data_ptr(), x.shape[0], x.shape[1],
+            build.dtype_code(x.dtype, "x"), int(bf16_math), blocks,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "vp_block_amax")
+    return s

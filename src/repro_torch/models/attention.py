@@ -25,7 +25,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.kernels.autotune import _pow2_at_least
-from .layers import qdot, rms_norm, rope
+from .layers import block_activation, qdot, rms_norm, rope
 
 
 def flash_attention(q, k, v, pattern: str = "causal",
@@ -135,21 +135,15 @@ def kv_cache_formats(q: QuantConfig):
     return fxp, default_vp_format(fxp, q.M, q.E)
 
 
-def _kv_scale(x: torch.Tensor) -> torch.Tensor:
-    """Per-position pow2 scale: smallest 2^n >= max|x| over (KV, dh)."""
-    amax = x.to(torch.float32).abs().amax(dim=(-2, -1), keepdim=True)
-    return torch.exp2(torch.ceil(torch.log2(torch.clamp(amax, min=1e-30))))
-
-
 def quantize_kv(x: torch.Tensor, q: QuantConfig):
     """KV block (B, S, KV, dh) -> (packed words, per-position f32 scale
-    (B, S, 1, 1)).  The words go through `ops.vp_quant` (the quant kernel
-    on the card); the reference calls its plain version here, with the
-    same result bit for bit."""
+    (B, S, 1, 1)): each position over its pow2 scale, the smallest 2^n >=
+    max|x| over (KV, dh), then packed VP words, in one launch on the card
+    (`ops.vp_quant_scaled`, the quant kernel's KV mode).  The reference
+    takes `_kv_scale`, the division and the plain quantizer here, with
+    the same result bit for bit."""
     fxp, vp = kv_cache_formats(q)
-    s = _kv_scale(x)
-    xn = x.to(torch.float32) / s
-    return ops.vp_quant(xn, fxp, vp, packed=True), s
+    return ops.vp_quant_scaled(x, fxp, vp, group_dims=2)
 
 
 def _write(buf: torch.Tensor, val: torch.Tensor, at: torch.Tensor) -> None:
@@ -176,9 +170,11 @@ def attn_block(x, params, cfg: ModelConfig, positions, pattern: str,
     B, S = x.shape[:2]
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
-    qp = qdot(x, params["wq"], q_cfg, train).reshape(B, S, H, dh)
-    kp = qdot(x, params["wk"], q_cfg, train).reshape(B, S, KV, dh)
-    vp_ = qdot(x, params["wv"], q_cfg, train).reshape(B, S, KV, dh)
+    xq = block_activation(x, (params["wq"], params["wk"], params["wv"]),
+                          q_cfg)
+    qp = qdot(x, params["wq"], q_cfg, train, xq).reshape(B, S, H, dh)
+    kp = qdot(x, params["wk"], q_cfg, train, xq).reshape(B, S, KV, dh)
+    vp_ = qdot(x, params["wv"], q_cfg, train, xq).reshape(B, S, KV, dh)
     if cfg.qk_norm:
         qp = rms_norm(qp, params["q_norm"])
         kp = rms_norm(kp, params["k_norm"])

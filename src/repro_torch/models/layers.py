@@ -75,15 +75,29 @@ def quantize_weight(w: torch.Tensor, q: QuantConfig) -> Any:
             "scale": s.to(torch.float32)}
 
 
+def block_activation(x: torch.Tensor, wqs, q: QuantConfig):
+    """x's block-VP quantization (a_m, a_i, scale) for `qdot`'s `xq`
+    where every weight of `wqs` is exported block VP (mode vp_block,
+    serving), else None: the projections that share x quantize it once.
+    The kernel is deterministic, so this is what each `qdot` would take
+    itself (the reference's `jit` computes the shared term once too)."""
+    if not all(isinstance(w, dict) and "i_blk" in w for w in wqs):
+        return None
+    fxp, vp = canonical_formats(q)
+    return ops.block_vp_quant(x.reshape(-1, x.shape[-1]), fxp, vp, q.block,
+                              axis=-1, math_dtype=torch.float32)
+
+
 def qdot(x: torch.Tensor, wq: Any, q: QuantConfig,
-         train: bool = False) -> torch.Tensor:
+         train: bool = False, xq=None) -> torch.Tensor:
     """x (..., d_in) @ W (d_in, d_out) under the quantization mode.
 
     `wq` is a float tensor (training, or mode none) or the dict that
     `quantize_weight` exports (serving), dispatched on its keys.  With
     `train` and mode vp or vp_block a float master weight is quantized
     on the fly (QAT, module docstring); its pow2 scale carries no
-    gradient and commutes exactly with the contraction.
+    gradient and commutes exactly with the contraction.  `xq`: x already
+    block-VP quantized (`block_activation`), used by a block-VP weight.
     """
     dtype = x.dtype
     if not isinstance(wq, dict):
@@ -106,8 +120,8 @@ def qdot(x: torch.Tensor, wq: Any, q: QuantConfig,
         out = ops.vp_dequant_matmul(x2, wq["w_packed"], vp, out_dtype=dtype)
         out = out * wq["scale"].to(dtype)
     elif "i_blk" in wq:
-        a_m, a_i, sa = ops.block_vp_quant(x2, fxp, vp, q.block, axis=-1,
-                                          math_dtype=torch.float32)
+        a_m, a_i, sa = xq if xq is not None else ops.block_vp_quant(
+            x2, fxp, vp, q.block, axis=-1, math_dtype=torch.float32)
         out = ops.block_vp_matmul(a_m, a_i, wq["m"], wq["i_blk"], vp, vp,
                                   bk=q.block)
         out = (out * (sa * wq["scale"])).to(dtype)

@@ -47,26 +47,37 @@ Run from the root of a checkout.  Phases, each raising on failure:
      (skinny, tensor cores, dp4a) bit-identical to its plain version in
      f32 and bf16 at every decode and prefill weight shape and lm_head,
      bk 256 (each timed, beside torch.matmul on the dequantized
-     operands), and at ragged shapes of its own; IGMMA counted in its
-     SASS; the bodies timed over M = 1..512 (the planner's threshold).
+     operands), and at ragged shapes of its own and bk 16 (dp4a, the
+     block-16 serve's shapes); IGMMA counted in its SASS; the bodies
+     timed over M = 1..512 (the planner's threshold).
      Its activation block-quantizer `vp_block_quant` on every body (small:
      one CUDA block or a cluster, at decode; coop: one cooperative launch
      with a grid-wide barrier, at prefill and the layer weights' export;
-     two-pass: an amax pass first, at the lm_head export) bit-identical
-     to its plain version (significands, indices, scale) at the decode,
+     two-pass: an amax pass first, at the lm_head export; general: an
+     amax pass, then any block that divides the axis) bit-identical to
+     its plain version (significands, indices, scale) at the decode,
      prefill and weight-export shapes (lm_head's included), at the
-     scale's edge cases on both axes, and for formats off the fast path;
-     each path shape timed on every body that takes it, the small body's
-     cluster swept, the amax pass timed alone; no local memory in its
-     SASS.  The two dequant kernels behind
+     scale's edge cases on both axes, for formats off the fast path, and
+     at blocks 16 and 512 on both axes and ragged blocks (6, 1, a whole
+     row or column) on the general body; each path shape timed on every
+     body that takes it, the general body at the exports at blocks 16 and
+     512, the small body's cluster swept, the amax pass timed alone; no
+     local memory in its SASS.  The two dequant kernels behind
      `ops.vp_dequant`, bit-identical in f32 and bf16: packed (1024,
      3072) int16 words (timed) and int8 words (checked), and the MIMO
      planes (1.6e6, 64) int8 + uint8.
      The MIMO path's kernels (two-plane quantize, VP x VP matmul, fused
      quantize + matmul) likewise, at the equalizer's shapes: G = 100,000
-     realizations of (16, 64) x (64, 2) on the warp body, and the G = 1
-     launches of the masked mode at n = 256, (2048, 64) x (64, 256), on
-     the tile body (`mm_body`).  The tile body bit-identical to the warp
+     realizations of (16, 64) x (64, 2) (vp_matmul on the warp body, the
+     fused kernel on its batch body, `qmm_body`), and the G = 1 launches
+     of the masked mode at n = 256, (2048, 64) x (64, 256), on the tile
+     body (`mm_body`).  The planes kernel's table body, select chain and
+     first design bit-exact (W panel, y operand, a ragged and an
+     unaligned slice) and timed side by side through its C entry; the
+     fused batch body bit-identical to the warp body (with and without
+     masks), to quantize -> vp_matmul and to the G = 1 tile body, timed
+     beside the warp body (C entry) and torch.bmm; no local memory in its
+     SASS.  The tile body bit-identical to the warp
      body (forced through `body=`) in packed, planes, mixed words x
      planes and fused, unmasked and on CSPADE grids that cut across its
      tiles, at the path shape and two ragged ones; fused equal to
@@ -94,6 +105,10 @@ Run from the root of a checkout.  Phases, each raising on failure:
      also exports the weights (coop; two-pass for lm_head); the
      embedding table (not a multiple of 256 rows) as packed VP words; f32
      held to the larger of 2e-3 and the plain path's own floor.  Then the
+     serve CLI (`launch.serve.main`) at `--quant vp_block --block 16`,
+     full depth, batch 4, prompt 16, 2 decode steps: every weight
+     exported by the quantizer's general body, every weight matmul on
+     `block_vp_matmul`'s dp4a body (exact launch counts).  Then the
      public op `ops.vp_dequant` once on each dequant kernel's shapes.
   5. mimo    - the paper's B-VP MIMO equalizer (B = 64 antennas, U = 8
                users, 16-QAM, Sec. III-A): narrowband ensembles of
@@ -105,8 +120,11 @@ Run from the root of a checkout.  Phases, each raising on failure:
                check of the equalize calls (hand kernels only, no library
                GEMM), every kernel-path estimate against the plain path,
                and equalizations per second.  The masked mode's 12 G = 1
-               launches run on the tile body, every batched one on the
-               warp body (per-body counters `vp_mm_tile` / `vp_mm_warp`).
+               launches run on the tile body, the batched vp_matmul ones
+               on the warp body, the batched and wideband fused ones on
+               the batch body (per-body counters `vp_mm_tile` /
+               `vp_mm_warp` / `vp_mm_batch`), the CSPADE calls' planes on
+               the table body (`vp_qpl_table`).
   6. train kernels - the backward kernels `vp_matmul_dx` and
                `vp_matmul_dw` (tensor-core body) against their plain
                versions at the full-width training shapes (M = 8 x 128 =
@@ -181,11 +199,14 @@ KERNEL_NAMES = {"vp_quant_packed": "vp_quant_packed_",      # every body
                 "flash_prefill": "flash_prefill_",           # both bodies
                 "flash_tc": "flash_prefill_tc_kernel",
                 "flash_cuda_core": "flash_prefill_cc_kernel",
-                "vp_quant_planes": "vp_quant_planes_kernel",
+                "vp_quant_planes": "vp_quant_planes_",       # every body
+                "vp_qpl_table": "vp_quant_planes_table_kernel",
+                "vp_qpl_chain": "vp_quant_planes_chain_kernel",
                 "vp_matmul": "_kernel<VPLoad",               # both bodies
-                "vp_quant_matmul": "_kernel<VPQuantLoad",    # both bodies
+                "vp_quant_matmul": "_kernel<VPQuantLoad",    # all 3 bodies
                 "vp_mm_warp": "vp_mm_warp_kernel",
                 "vp_mm_tile": "vp_mm_tile_kernel",
+                "vp_mm_batch": "vp_mm_batch_kernel",
                 "vp_matmul_dx": "vp_matmul_dx_tc_kernel",
                 "vp_matmul_dw": "vp_matmul_dw_tc_kernel",
                 "vp_bwd_splitk_reduce": "vp_bwd_splitk_reduce_kernel",
@@ -198,6 +219,7 @@ KERNEL_NAMES = {"vp_quant_packed": "vp_quant_packed_",      # every body
                 "vp_bq_small": "vp_block_quant_small_kernel",
                 "vp_bq_coop": "vp_block_quant_coop_",
                 "vp_bq_two_pass": "vp_block_quant_2pass_",
+                "vp_bq_general": "vp_block_quant_general_",
                 "vp_block_amax": "vp_block_amax_kernel",
                 "vp_dequant_planes": "vp_dequant_planes_kernel",
                 "vp_dequant_packed": "vp_dequant_packed_kernel"}
@@ -232,6 +254,10 @@ G1_CHECKS = {(2048, 64, 256): (None, (256, 64, 256), (16, 32, 8),
 MM_SWEEP = tuple((1, 2048, n) for n in (2, 8, 32, 64, 256)) + (
     (1, 16, 2), (1, 16, 256), (1, 256, 256), (1024, 16, 2), (8192, 16, 2))
 BLOCK = 256                # vp_block index block (QuantConfig.block)
+# Blocks off the fast quantizer bodies (axis 0 on the general body), and
+# the short vp_block serve at block 16: batch, prompt and decode steps
+GENERAL_BLOCKS = (16, 512)
+BLOCK16_SERVE = (BATCH, 16, 2)
 # block_vp_matmul: decode at batch 4 (w_up/w_gate, w_down, q/o, k/v,
 # lm_head), then prefill (4 x 128 tokens) at the same weights
 BLOCK_SHAPES = ((4, 1024, 3072), (4, 3072, 1024), (4, 1024, 1024),
@@ -313,16 +339,26 @@ def main() -> None:
           f"{len(logs)} compiled, in {build_s:.2f}s")
 
     record = {"device": {"nvidia_smi": smi, "kind": kind},
-              "build_s": build_s}
-    rows = kernel_phase(torch, peaks, record)
-    rows += block_kernel_phase(torch, peaks, record)
-    rows += mimo_kernel_phase(torch, peaks, record)
-    rows += train_kernel_phase(torch, peaks, record)
-    serve_phase(torch, record, rows)
-    serve_block_phase(torch, record, rows, smi)
-    dequant_phase(torch, record, rows)
-    mimo_phase(torch, record, rows, smi)
-    train_phase(torch, record, rows, smi)
+              "build_s": build_s, "phase_s": {}}
+
+    def timed(phase, *a):
+        t = time.perf_counter()
+        out = phase(torch, *a)
+        torch.cuda.synchronize()
+        record["phase_s"][phase.__name__] = s = time.perf_counter() - t
+        print(f"[time] {phase.__name__}: {s:.2f}s")
+        return out
+
+    rows = timed(kernel_phase, peaks, record)
+    rows += timed(block_kernel_phase, peaks, record)
+    rows += timed(mimo_kernel_phase, peaks, record)
+    rows += timed(train_kernel_phase, peaks, record)
+    timed(serve_phase, record, rows)
+    timed(serve_block_phase, record, rows, smi)
+    timed(serve_block16_phase, record, rows, smi)
+    timed(dequant_phase, record, rows)
+    timed(mimo_phase, record, rows, smi)
+    timed(train_phase, record, rows, smi)
 
     # ---- 8. result --------------------------------------------------------
     if args.json_out:
@@ -1097,14 +1133,18 @@ def _block_matmul_row(torch, peaks, timer, gen, fxp, vp, lines, record):
             ((200, 768, 208), BLOCK, "tensor_core"),
             ((3, 256, 131), BLOCK, "dp4a"),         # N % 16 != 0
             ((3, 256, 131), 64, "dp4a"),
-            ((33, 192, 40), 64, "dp4a")):            # bk other than 256
+            ((33, 192, 40), 64, "dp4a"),             # bk other than 256
+            ((BATCH, 1024, 3072), 16, "dp4a"),       # the block-16 serve:
+            ((BATCH, 3072, 1024), 16, "dp4a"),       # decode and prefill
+            ((BATCH * 16, 1024, 1024), 16, "dp4a")):
         if block_body(M, K, N, bk) != body:
             raise AssertionError(f"{[M, K, N]} bk {bk}: planner picks "
                                  f"{block_body(M, K, N, bk)}, not {body}")
         check(_block_operands(torch, gen, M, K, N, fxp, vp, bk), bk, body,
               f"{[M, K, N]} bk {bk}")
-    print("[kernel] block_vp_matmul ragged shapes: each body bit-identical "
-          "to the plain version (f32 and bf16)")
+    print("[kernel] block_vp_matmul ragged shapes and bk 16 at the block-16 "
+          "serve's shapes: each body bit-identical to the plain version (f32 "
+          "and bf16)")
 
     # -- every main-path shape: every body checked and timed -----------------
     main, shapes = None, []
@@ -1273,8 +1313,11 @@ def _block_quant_row(torch, peaks, timer, gen, fxp, vp, record):
         for dt in (f32, bf16):
             for block in (BLOCK, 64):
                 check(x.to(dt), block, -1, dt, f"{what} {dt} block {block}")
-                check(x.to(dt).reshape(256, -1), 256, 0, dt,
-                      f"{what} {dt} axis 0")
+            check(x.to(dt).reshape(256, -1), 256, 0, dt,
+                  f"{what} {dt} axis 0")
+            for block in GENERAL_BLOCKS:
+                check(x.to(dt).reshape(512, -1), block, 0, dt,
+                      f"{what} {dt} axis 0 block {block}")
     # -- formats off the fast path: the select chain; |raw| past 2^22 --------
     chain = (FXPFormat(12, 2), VPFormat(7, (10, 2)))      # s_0 = -8
     wide = (FXPFormat(24, 20), default_vp_format(FXPFormat(24, 20), 7, 2))
@@ -1286,11 +1329,36 @@ def _block_quant_row(torch, peaks, timer, gen, fxp, vp, record):
                  * 3).to(dt)
             check(x, BLOCK, axis, mdt, f"{what} {[R, C]} axis {axis}", f_,
                   v_)
+    # -- blocks off the fast bodies: the general body, on both axes ---------
+    general = []
+    for (R, C), axis, dt, mdt, blocks in (
+            ((BATCH, 1024), -1, bf16, f32, GENERAL_BLOCKS),
+            ((BATCH * PROMPT, 3072), -1, f32, f32, GENERAL_BLOCKS),
+            ((1024, 3072), 0, bf16, bf16, GENERAL_BLOCKS),
+            ((3072, 1024), 0, f32, f32, GENERAL_BLOCKS),
+            ((512, 1000), 0, bf16, bf16, GENERAL_BLOCKS),
+            ((1024, 151936), 0, bf16, bf16, (16,)),   # lm_head at block 16
+            ((151936, 1024), 0, bf16, bf16, (16,)),   # the embedding
+            ((6, 1026), -1, f32, f32, (6, 1, 1026)),
+            ((6, 1026), -1, bf16, bf16, (6, 1, 1026)),   # rows, bf16 math
+            ((96, 1000), 0, bf16, bf16, (6, 1, 96)),
+            ((18, 70), 0, f32, f32, (6, 1, 18))):     # a ragged tile edge
+        x = (torch.randn((R, C), generator=gen, device="cuda") *
+             (0.02 if axis == 0 else 3.0)).to(dt)
+        for block in blocks:
+            which = ([(plan(R, C, block, axis).body, None)]
+                     if R * C > 4e6 else None)
+            check(x, block, axis, mdt, f"{[R, C]} axis {axis} {dt} block "
+                  f"{block}", which=which)
+            general.append(((R, C), axis, dt, mdt, block, x))
     print(f"[kernel] vp_block_quant: every body bit-identical to the plain "
           f"version (significands, indices, scale) at "
           f"{[c[0] for c in cases]}, blocks {BLOCK} and 64, at the scale's "
-          f"edge cases {sorted(edges)} (f32 and bf16, both axes), and for a "
-          f"format on the select chain and one with W = 24")
+          f"edge cases {sorted(edges)} (f32 and bf16, both axes; axis 0 "
+          f"also at blocks {GENERAL_BLOCKS}), for a format on the select "
+          f"chain and one with W = 24; the general body (every other block "
+          f"that divides the axis) at "
+          f"{sorted({(c[0], c[1], c[4]) for c in general})}")
 
     # -- timed: the path's shapes on every body that takes them --------------
     main, shapes = None, []
@@ -1343,6 +1411,24 @@ def _block_quant_row(torch, peaks, timer, gen, fxp, vp, record):
                 print("[kernel]   (below 80 % of the bandwidth)")
             shapes.append(dict(shape=shape, body="amax pass", ms=ms,
                                bound_ms=abnd[0], bound_by=abnd[1]))
+    # -- the general body timed: the weight exports at blocks 16 and 512 ----
+    for (R, C), axis, dt, mdt, block, x in general:
+        if axis != 0 or dt != bf16 or (R, C) not in (
+                (1024, 3072), (1024, 151936), (151936, 1024)):
+            continue
+        n = R * C
+        bnd = bound(peaks, n * x.element_size() + n + n // block + 4, 0,
+                    "f32")
+        ms = timer(lambda: block_vp_quant_cuda(x, fxp, vp, block, axis,
+                                               mdt == bf16))
+        amax_ms = timer(lambda: block_amax_cuda(x, mdt == bf16))
+        shape = [R, C, "axis", axis, "bf16", "block", block]
+        print(f"[kernel]   vp_block_quant {shape} general body (planned): "
+              f"{ms:.4f} ms in 2 launches (amax pass alone {amax_ms:.4f}), "
+              f"{bnd[0] / ms:.1%} of the bound {bnd[0]:.4f}")
+        shapes.append(dict(shape=shape, body="general", planned=True, ms=ms,
+                           amax_ms=amax_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                           launches_per_call=2))
     main["shapes"] = shapes
     record["block_quant"] = shapes
     return main
@@ -1550,42 +1636,14 @@ def serve_block_phase(torch, record, rows, smi):
     kernel."""
     from repro_torch.configs import registry
     from repro_torch.configs.base import QuantConfig
-    from repro_torch.kernels.vp_block_matmul import BODY_COUNTER, block_body
+    from repro_torch.kernels.vp_block_matmul import BODY_COUNTER
     from repro_torch.kernels.vp_block_quant import BODY_COUNTER as BQ_BODY
-    from repro_torch.kernels.vp_block_quant import plan
 
     quant = QuantConfig(mode="vp_block", block=BLOCK, quantize_kv_cache=True)
     cfg = registry.get_config(ARCH, quant)
     L = cfg.n_layers
-    head = (cfg.d_model, cfg.vocab)
-
-    def quantizes(R, C, axis):
-        """The launches of one `vp_block_quant` call."""
-        p = plan(R, C, BLOCK, axis)
-        out = {"vp_block_quant": 1, BQ_BODY[p.body]: 1}
-        if p.amax_blocks:
-            out["vp_block_amax"] = 1
-        return out
-
-    def matmuls(M):
-        """Launches of one pass's 7 L + 1 weight matmuls at M tokens
-        (`lm_head` reads the last position only: BATCH rows) and of the
-        quantizer on their 4 L + 1 distinct activations (q, k and v share
-        theirs, and gate and up)."""
-        counts = {}
-        for m, K, N in ([(M, K, N) for K, N in _weight_shapes(cfg)] * L
-                        + [(BATCH, *head)]):
-            counts = _add(counts, {"block_vp_matmul": 1,
-                                   BODY_COUNTER[block_body(m, K, N, BLOCK)]: 1})
-        w = _weight_shapes(cfg)         # inputs of q/k/v, o, gate/up, down
-        acts = [(M, w[i][0]) for i in (0, 3, 4, 6)] * L + [
-            (BATCH, cfg.d_model)]
-        return _add(counts, *[quantizes(m, K, -1) for m, K in acts])
-
-    prefill = _add(matmuls(BATCH * PROMPT), _qp(2 * L, "kv"),
-                   _attention_counts(torch, cfg, True))
-    decode = _add(matmuls(BATCH), _qp(2 * L, "kv"),
-                  _attention_counts(torch, cfg, False))
+    export, prefill, decode = _block_serve_counts(torch, cfg, BLOCK, BATCH,
+                                                  PROMPT)
     if (prefill.get("vp_bmm_tc") != 7 * L
             or prefill.get("flash_tc") != L
             or decode.get("vp_dec_split") != L
@@ -1597,9 +1655,6 @@ def serve_block_phase(torch, record, rows, smi):
             or "vp_block_amax" in prefill or "vp_block_amax" in decode):
         raise AssertionError(f"planned bodies: prefill {prefill}, decode "
                              f"{decode}")
-    weights = [(K, N) for K, N in _weight_shapes(cfg)] * L + [head]
-    export = _add(*[quantizes(K, N, 0) for K, N in weights],
-                  _qp(1, "table"))                     # the embedding
     if export.get("vp_block_amax") != 1:
         raise AssertionError(f"planned export: {export}")
     expect = _add(export, prefill, *[decode] * GEN)
@@ -1631,6 +1686,141 @@ def serve_block_phase(torch, record, rows, smi):
             row["block_serve_launches"] = got[row["name"]]
     print(f"[serve vp_block] {smi}")
     record["serve_vp_block"] = out
+
+
+def _block_serve_counts(torch, cfg, block: int, batch: int, prompt: int):
+    """The launches of the vp_block serve at index block `block`, batch x
+    prompt tokens: (export, prefill, one decode step).  The export
+    block-quantizes every weight whose contraction dim the block divides
+    (the embedding's vocab rows included) and packs the rest; a pass runs
+    7 L + 1 weight matmuls (`lm_head` reads the last position only: batch
+    rows) on the activations of 4 L + 1 quantizer calls (q, k and v share
+    theirs, and gate and up)."""
+    from repro_torch.kernels.vp_block_matmul import BODY_COUNTER, block_body
+    from repro_torch.kernels.vp_block_quant import BODY_COUNTER as BQ_BODY
+    from repro_torch.kernels.vp_block_quant import plan
+
+    L = cfg.n_layers
+    head = (cfg.d_model, cfg.vocab)
+
+    def quantizes(R, C, axis):
+        """The launches of one `vp_block_quant` call."""
+        p = plan(R, C, block, axis)
+        out = {"vp_block_quant": 1, BQ_BODY[p.body]: 1}
+        if p.amax_blocks:
+            out["vp_block_amax"] = 1
+        return out
+
+    def matmuls(M):
+        counts = {}
+        for m, K, N in ([(M, K, N) for K, N in _weight_shapes(cfg)] * L
+                        + [(batch, *head)]):
+            counts = _add(counts, {"block_vp_matmul": 1,
+                                   BODY_COUNTER[block_body(m, K, N, block)]: 1})
+        w = _weight_shapes(cfg)         # inputs of q/k/v, o, gate/up, down
+        acts = [(M, w[i][0]) for i in (0, 3, 4, 6)] * L + [
+            (batch, cfg.d_model)]
+        return _add(counts, *[quantizes(m, K, -1) for m, K in acts])
+
+    prefill = _add(matmuls(batch * prompt), _qp(2 * L, "kv"),
+                   _attention_counts(torch, cfg, True))
+    decode = _add(matmuls(batch), _qp(2 * L, "kv"),
+                  _attention_counts(torch, cfg, False))
+    weights = list(_weight_shapes(cfg)) * L + [head, (cfg.vocab,
+                                                      cfg.d_model)]
+    export = _add(*[quantizes(K, N, 0) if K % block == 0 else
+                    _qp(1, "table") for K, N in weights])
+    return export, prefill, decode
+
+
+def serve_block16_phase(torch, record, rows, smi):
+    """`--quant vp_block --block 16` through the serve CLI
+    (`launch.serve.main`), full width and short (BLOCK16_SERVE): every
+    weight, the embedding and `lm_head` included, exported by the
+    quantizer's general body (axis 0 at block 16), the activations on its
+    small and coop bodies, every weight matmul on `block_vp_matmul`'s dp4a
+    body (bk 16); the CLI raises on non-finite logits.  Then the export
+    against the plain export, and the logits against the plain path."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.serve import run_static
+    from repro_torch.models.model import init_params, quantize_params
+
+    B, S, steps = BLOCK16_SERVE
+    block = GENERAL_BLOCKS[0]
+    cfg = registry.get_config(ARCH, QuantConfig(
+        mode="vp_block", block=block, quantize_kv_cache=True))
+    L = cfg.n_layers
+    export, prefill, decode = _block_serve_counts(torch, cfg, block, B, S)
+    if (export.get("vp_bq_general") != 7 * L + 2
+            or prefill.get("vp_bmm_dp4a") != 7 * L + 1
+            or decode.get("vp_bmm_dp4a") != 7 * L + 1):
+        raise AssertionError(f"planned block-16 serve: export {export}, "
+                             f"prefill {prefill}, decode {decode}")
+    expect = _add(export, prefill, *[decode] * steps)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    # -- the main path: the serve CLI at block 16 ----------------------------
+    report = serve.main(["--arch", ARCH, "--quant", "vp_block", "--block",
+                         str(block), "--kv-quant", "--batch", str(B),
+                         "--prompt-len", str(S), "--gen", str(steps)])
+    counts = dict(build.LAUNCHES)
+    # -------------------------------------------------------------------------
+    print(f"[serve vp_block 16] {cfg.name} at block {block}, batch {B}, "
+          f"prompt {S}, {steps} decode steps (the full depth, {L} layers): "
+          f"export {report['export_s']:.3f}s, prefill "
+          f"{report['prefill_s']:.4f}s, decode {report['decode_s']:.4f}s; "
+          f"launches {counts}; {smi}")
+    if counts != expect:
+        raise AssertionError(f"block-16 serve launch counts {counts} != "
+                             f"expected {expect}")
+    for row in rows:
+        if row["name"] in ("vp_block_quant", "block_vp_matmul"):
+            row["block16_launches"] = counts[row["name"]]
+
+    # -- the same model against the plain path -------------------------------
+    # The export bit for bit (every weight on the general body), then the
+    # CLI's prompts teacher-forced on the kernel path's tokens, held as in
+    # `_serve` to max(REL_LIMIT, FLOOR_MARGIN x the plain path's floor).
+    raw = init_params(cfg, seed=0, device="cuda")
+    qp = quantize_params(raw, cfg)
+    with ops.force_backend("ref"):
+        want = quantize_params(raw, cfg)
+    del raw
+    got, exp = tree.tree_paths(qp), tree.tree_paths(want)
+    if [k for k, _ in got] != [k for k, _ in exp]:
+        raise AssertionError("block-16 export: the trees differ")
+    for (path, g), (_, w) in zip(got, exp):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"block-16 export {path} differs from the "
+                                 "plain export")
+    leaves = len(got)
+    del want, got, exp
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S)).astype(np.int64)).cuda()
+    tokens, logits = run_static(qp, cfg, prompts, steps)
+    rels, agree = _rel_diffs(torch, logits, _plain_logits(
+        torch, cfg, qp, prompts, tokens))
+    floor, _ = _rel_diffs(torch, _plain_logits(
+        torch, cfg, qp, prompts, tokens, f64_matmul=True,
+        f64_attention=True), _plain_logits(torch, cfg, qp, prompts, tokens))
+    limit = max(REL_LIMIT, FLOOR_MARGIN * max(floor))
+    print(f"[serve vp_block 16] export bit-identical to the plain export "
+          f"({leaves} tensors); bf16 kernel vs plain, teacher-forced: max "
+          f"|logit diff| / max|logit| {max(rels):.3e} over {len(rels)} steps "
+          f"(plain-path floor {max(floor):.3e}; limit {limit:.3e}); "
+          f"greedy-token agreement {agree:.4f}")
+    if max(rels) > limit:
+        raise AssertionError(f"block-16 serve differs from the plain path by "
+                             f"{max(rels):.3e} > {limit:.3e}")
+    record["serve_vp_block16"] = dict(
+        report, launches=counts, bf16_rel_logit_diff=rels,
+        bf16_plain_floor=floor, bf16_limit=limit, bf16_token_agreement=agree)
 
 
 def _serve(torch, quant, expect, passes, requantizes: bool):
@@ -1846,11 +2036,14 @@ def _mimo_operands(torch, gen, G, M, K, N):
 
 
 def mimo_kernel_phase(torch, peaks, record):
+    import ctypes
+
     from repro_torch.core.packing import unpack_vp
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.vp_matmul import vp_matmul_cuda
+    from repro_torch.core.vp_tensor import significand_dtype
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.vp_matmul import qmm_body, vp_matmul_cuda
     from repro_torch.kernels.vp_quant import (
-        vp_quant_packed_cuda, vp_quant_planes_cuda)
+        plan_packed, vp_quant_packed_cuda, vp_quant_planes_cuda)
     from repro_torch.kernels.vp_quant_matmul import vp_quant_matmul_cuda
     from repro_torch.mimo.equalizer import table1_specs
 
@@ -1862,30 +2055,67 @@ def mimo_kernel_phase(torch, peaks, record):
     lines, rows = [], []
     G, (M, K, N) = MIMO_G, MIMO_SHAPE
     a, b = _mimo_operands(torch, gen, G, M, K, N)
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
 
-    # -- vp_quant_planes: bit-exact -------------------------------------------
+    # -- vp_quant_planes: every body bit-exact; timed beside the first design -
+    qlib = build.library("vp_quant")
+
+    def planes_c(x, f_, v_, code, out=None):
+        """The planes launcher on body `code` (1: the select chain, 2: the
+        first design, kept for this comparison), through its C entry, not
+        counted: (m, i), or a launch into `out` for the timer."""
+        m, i = out or (torch.empty(x.shape, dtype=significand_dtype(v_.M),
+                                   device="cuda"),
+                       torch.empty(x.shape, dtype=torch.uint8, device="cuda"))
+        blocks, threads = plan_packed(x.numel(), num_sms)
+        build.check(qlib, qlib.vp_quant_planes_launch(
+            x.data_ptr(), m.data_ptr(), m.element_size(), i.data_ptr(),
+            x.numel(), ctypes.byref(build.quant_fmt_struct(f_, v_)), code,
+            blocks, threads, stream), "vp_quant_planes")
+        return m, i
+
     planes = {}
-    for x, f_, v_, what in ((a, wf, wv, "W"), (b, yf, yv, "y")):
-        got = vp_quant_planes_cuda(x, f_, v_)
+    flat = a.reshape(-1)
+    for x, f_, v_, what in ((a, wf, wv, "W"), (b, yf, yv, "y"),
+                            (flat[:-5], wf, wv, "W ragged"),
+                            (flat[3:-5], wf, wv, "W unaligned")):
         want = ref.vp_quant_ref(x, f_, v_)
-        for g_, w_, part in zip(got, want, ("significand", "index")):
-            if g_.dtype != w_.dtype or not torch.equal(g_, w_):
-                n = int((g_.to(torch.int32) != w_.to(torch.int32)).sum())
-                raise AssertionError(f"vp_quant_planes {what} {part}: {n} "
-                                     "values differ")
-        planes[what] = got
+        for body, got in (("table", vp_quant_planes_cuda(x, f_, v_)),
+                          ("chain", planes_c(x, f_, v_, 1)),
+                          ("first design", planes_c(x, f_, v_, 2))):
+            for g_, w_, part in zip(got, want, ("significand", "index")):
+                if g_.dtype != w_.dtype or not torch.equal(g_, w_):
+                    n = int((g_.to(torch.int32) != w_.to(torch.int32)).sum())
+                    raise AssertionError(f"vp_quant_planes {what} {body} "
+                                         f"body {part}: {n} values differ")
+            if body == "table" and what in ("W", "y"):
+                planes[what] = got
+    del flat
     panel = a.reshape(G * M, K)
     ms = timer(lambda: vp_quant_planes_cuda(panel, wf, wv))
+    out = (torch.empty(panel.shape, dtype=torch.int8, device="cuda"),
+           torch.empty(panel.shape, dtype=torch.uint8, device="cuda"))
+    chain_ms = timer(lambda: planes_c(panel, wf, wv, 1, out))
+    first_ms = timer(lambda: planes_c(panel, wf, wv, 2, out))
+    del out
     plain_ms = timer(lambda: ref.vp_quant_ref(panel, wf, wv))
     bnd = bound(peaks, panel.numel() * (4 + 1 + 1), 0, "f32")
     shape = list(panel.shape)
     _print_line("vp_quant_planes", shape, 0.0, 0.0, ms, plain_ms, bnd, None)
+    print(f"[kernel] vp_quant_planes {shape}: table body {ms:.4f} ms "
+          f"({bnd[0] / ms:.1%} of the bound; aim <= 0.25, at least "
+          f"{2 * bnd[0]:.4f}), select chain {chain_ms:.4f} ms, first design "
+          f"{first_ms:.4f} ms ({bnd[0] / first_ms:.1%})")
     lines.append(("vp_quant_planes", shape, ms, plain_ms, bnd, None))
-    rows.append(_row("vp_quant_planes", "vp_quant.cu",
-                     "src/repro/kernels/vp_quant.py:40", shape, 0.0, ms,
-                     plain_ms, bnd, None))
-    print(f"[kernel] vp_quant_planes: bit-exact on the W panel {shape} and "
-          f"the y operand {[G, K, N]}, ties and saturation included")
+    rows.append(dict(_row("vp_quant_planes", "vp_quant.cu",
+                          "src/repro/kernels/vp_quant.py:40", shape, 0.0, ms,
+                          plain_ms, bnd, None), body="table",
+                     chain_ms=chain_ms, first_design_ms=first_ms))
+    print(f"[kernel] vp_quant_planes: table, chain and first-design bodies "
+          f"bit-exact on the W panel {shape} (also a ragged and an unaligned "
+          f"slice of it) and the y operand {[G, K, N]}, ties and saturation "
+          f"included")
 
     # -- vp_matmul / vp_quant_matmul at G = 100,000 ---------------------------
     words = {"W": vp_quant_packed_cuda(a, wf, wv),
@@ -1904,6 +2134,9 @@ def mimo_kernel_phase(torch, peaks, record):
     b_act = (torch.rand((G, 1, 1), generator=gen, device="cuda") < 0.5).int()
     mask_bytes = 4 * (a_act.numel() + b_act.numel())
     flops = 2 * G * M * K * N
+    if qmm_body(G, M, K, N) != "batch":
+        raise AssertionError(f"qmm_body picks {qmm_body(G, M, K, N)} at the "
+                             "MIMO shape")
     fused = vp_quant_matmul_cuda(a, b, wf, wv, yf, yv)
     cases = {
         "planes": (lambda: vp_matmul_cuda(*planes["W"], *planes["y"], wv, yv),
@@ -1945,6 +2178,19 @@ def mimo_kernel_phase(torch, peaks, record):
     print("[kernel] vp_quant_matmul: bit-identical to vp_quant -> vp_matmul "
           "on the card (planes and packed words)")
 
+    # -- vp_quant_matmul: the batch body against the warp and tile bodies ---
+    local = {op: sum(v for k, v in _sass_counts(
+        build._target("vp_quant_matmul"), build._nvcc(), op).items()
+        if "vp_mm_batch_kernel" in k) for op in ("LDL", "STL")}
+    print(f"[kernel] vp_mm_batch_kernel SASS: local loads / stores {local}")
+    if any(local.values()):
+        raise AssertionError(f"the batch body spills to local memory: {local}")
+    for gi in (0, 1, 63, G - 1):      # ties and saturation in the first 64
+        one = vp_quant_matmul_cuda(a[gi:gi + 1], b[gi:gi + 1], wf, wv, yf, yv,
+                                   body="tile")
+        if not torch.equal(one, fused[gi:gi + 1]):
+            raise AssertionError(f"batch body differs from the G = 1 tile "
+                                 f"body at realization {gi}")
     main_fu = None
     for case, masks in (("", ()), ("masks", (a_act, b_act, tiles))):
         def kern():
@@ -1956,6 +2202,10 @@ def mimo_kernel_phase(torch, peaks, record):
         out = kern()
         err, rel = compare(torch, out, plain(), MIMO_RTOL,
                            f"vp_quant_matmul {case}")
+        if not torch.equal(out, vp_quant_matmul_cuda(
+                a, b, wf, wv, yf, yv, *masks, body="warp")):
+            raise AssertionError(f"batch body differs from the warp body "
+                                 f"({case or 'no masks'})")
         if masks and not torch.equal(out, cases["planes+masks"][0]()):
             raise AssertionError("masked fused kernel differs from quant -> "
                                  "masked vp_matmul on the card")
@@ -1969,9 +2219,40 @@ def mimo_kernel_phase(torch, peaks, record):
         lines.append(("vp_quant_matmul", shape, ms, plain_ms, bnd,
                       library_ms))
         if main_fu is None:
-            main_fu = _row("vp_quant_matmul", "vp_quant_matmul.cu",
-                           "src/repro/kernels/vp_quant_matmul.py:106", shape,
-                           err, ms, plain_ms, bnd, library_ms)
+            main_fu = dict(_row("vp_quant_matmul", "vp_quant_matmul.cu",
+                                "src/repro/kernels/vp_quant_matmul.py:106",
+                                shape, err, ms, plain_ms, bnd, library_ms),
+                           body="batch")
+    # The batch body beside the warp body (the first design), through the
+    # C entry (not counted), unmasked.
+    mlib = build.library("vp_quant_matmul")
+    qa, qb = build.quant_fmt_struct(wf, wv), build.quant_fmt_struct(yf, yv)
+    out = torch.empty((G, M, N), dtype=torch.float32, device="cuda")
+
+    def fused_c(code):
+        return mlib.vp_quant_matmul_launch(
+            a.data_ptr(), ctypes.byref(qa), b.data_ptr(), ctypes.byref(qb),
+            out.data_ptr(), None, None, G, M, K, N, 0, 0, 0, code, 1, 1,
+            stream)
+
+    variants = {}
+    for what, code in (("warp body", 0), ("batch body", 2)):
+        build.check(mlib, fused_c(code), f"vp_quant_matmul {what}")
+        if not torch.equal(out, fused):
+            raise AssertionError(f"vp_quant_matmul {what} differs from the "
+                                 "planned body")
+        variants[what] = timer(lambda: fused_c(code))
+    del out
+    ms = main_fu["ms"]
+    print(f"[kernel] vp_quant_matmul {[G, M, K, N]}: batch body {ms:.4f} ms "
+          f"({main_fu['bound_ms'] / ms:.1%} of the bound "
+          f"{main_fu['bound_ms']:.4f}; aim <= {2 * main_fu['bound_ms']:.4f})"
+          f"; " + ", ".join(f"{k} {v:.4f} ms" for k, v in variants.items())
+          + f"; torch.bmm {library_ms:.4f} ms ({library_ms / ms:.2f}x the "
+          f"batch body, {library_ms / variants['warp body']:.2f}x the warp "
+          f"body); bit-identical to the warp body, to quantize -> vp_matmul "
+          f"(with and without masks) and to the G = 1 tile body")
+    main_fu.update(warp_ms=variants["warp body"])
     rows.append(main_fu)
     del a_deq, b_deq, planes, words, fused
 
@@ -2036,7 +2317,7 @@ def _g1_kernels(torch, peaks, timer, gen, bvp, lines, record):
     shape timed on the planner's body and on each body, beside torch.mm;
     both bodies swept over MM_SWEEP.  Returns the two kernels' rows."""
     from repro_torch.kernels import build
-    from repro_torch.kernels.vp_matmul import mm_body
+    from repro_torch.kernels.vp_matmul import mm_body, qmm_body
 
     K = MIMO_SHAPE[1]
     Mm, Nm = MASKED_N * 8, MASKED_N
@@ -2129,11 +2410,14 @@ def _g1_kernels(torch, peaks, timer, gen, bvp, lines, record):
         fns, _, _ = _mm_layouts(torch, gen, bvp, G, M, K, N, None)
         t = {f"{layout} {body}": timer(lambda: fns[layout](body))
              for layout in ("packed", "fused") for body in ("warp", "tile")}
+        if qmm_body(G, M, K, N) == "batch":
+            t["fused batch"] = timer(lambda: fns["fused"]("batch"))
         sweep.append(dict(G=G, M=M, K=K, N=N, planner=mm_body(G, M, K, N),
-                          **t))
+                          fused_planner=qmm_body(G, M, K, N), **t))
         print(f"[sweep] vp_mm {[G, M, K, N]}: "
               + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
-              + f" ms; mm_body picks {mm_body(G, M, K, N)}")
+              + f" ms; mm_body picks {mm_body(G, M, K, N)}, qmm_body "
+              f"{qmm_body(G, M, K, N)}")
     record["g1_bodies"] = dict(checked=checked, local_memory=local,
                                times=times, sweep=sweep)
     return rows
@@ -2210,10 +2494,13 @@ def mimo_phase(torch, record, rows, smi):
     counts = dict(build.LAUNCHES)
     # -------------------------------------------------------------------------
     # the masked mode's 12 G = 1 launches on the tile body, the batched
-    # and wideband launches (4 vp_matmul, 3 vp_quant_matmul) on the warp body
+    # vp_matmul launches (4) on the warp body, the batched and wideband
+    # vp_quant_matmul launches (3) on the batch body; every planes launch
+    # (the CSPADE calls') on the table body
     expect = {"vp_quant_matmul": 2 + 4 + 1, **_qp(2 * 2 + 4, "table"),
               "vp_matmul": 2 + 2 + 4 + 4, "vp_quant_planes": 2 * 2 + 4,
-              "vp_mm_tile": 4 + 4 + 4, "vp_mm_warp": 4 + 3}
+              "vp_qpl_table": 2 * 2 + 4, "vp_mm_tile": 4 + 4 + 4,
+              "vp_mm_warp": 4, "vp_mm_batch": 3}
     print(f"[mimo] launches on the MIMO path: {counts}; of which the "
           f"masked mode's G = 1 launches: {masked_launches}")
     if counts != expect:
@@ -2222,16 +2509,21 @@ def mimo_phase(torch, record, rows, smi):
             masked_launches:
         raise AssertionError(f"masked mode's G = 1 launches "
                              f"{masked_launches}: not all 12 on the tile body")
-    if wide_launches != {"vp_quant_matmul": 1, "vp_mm_warp": 1}:
+    if wide_launches != {"vp_quant_matmul": 1, "vp_mm_batch": 1}:
         raise AssertionError(f"wideband band took {wide_launches}, not one "
-                             "fused launch")
+                             "fused launch on the batch body")
     for row in rows:     # G = 1 launches to the unbatched kernels' rows
         name = row["name"]
         if name == "vp_quant_planes":
             row["launches"] = counts[name]
+            row["body_launches"] = {"table": counts.get("vp_qpl_table", 0),
+                                    "chain": counts.get("vp_qpl_chain", 0)}
         elif name in ("vp_matmul", "vp_quant_matmul"):
             g1 = masked_launches.get(name, 0)
             row["launches"] = g1 if row.get("g1") else counts[name] - g1
+            if name == "vp_quant_matmul" and not row.get("g1"):
+                row["body_launches"] = {"batch": counts.get("vp_mm_batch",
+                                                            0)}
         elif name in counts:
             row["mimo_launches"] = counts[name]
 
@@ -2283,13 +2575,13 @@ def mimo_phase(torch, record, rows, smi):
     names, seen = _profile_kernels(torch, [
         ("narrowband equalize (fused, n = 100000)",
          lambda: equalize_vp_kernel(bvp, e.w_beam, e.y_beam),
-         {"vp_quant_matmul": 1, "vp_mm_warp": 1}),
+         {"vp_quant_matmul": 1, "vp_mm_batch": 1}),
         ("narrowband equalize (unfused)",
          lambda: equalize_vp_kernel(bvp, e.w_beam, e.y_beam, fused=False),
          {**_qp(2, "table"), "vp_matmul": 1, "vp_mm_warp": 1}),
         (f"wideband equalize (S = {S}, n = {nw})",
          lambda: equalize_wideband(wspecs, wens.w_beam, wens.y_beam),
-         {"vp_quant_matmul": 1, "vp_mm_warp": 1})])
+         {"vp_quant_matmul": 1, "vp_mm_batch": 1})])
     library = sorted({nm for nm in names if LIBRARY_KERNELS.search(nm)
                       and not any(v in nm for v in KERNEL_NAMES.values())})
     print(f"[profile] equalize calls: hand kernels {seen}")

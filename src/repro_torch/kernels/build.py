@@ -63,7 +63,8 @@ _SIGNATURES = {
         "vp_quant_packed_launch": [_P, _P, _LL, _I, _P] + [_I] * 3 + [_P],
         "vp_quant_packed_kv_launch": [_P, _P, _P, _I, _I, _I, _I, _P]
                                      + [_I] * 3 + [_P],
-        "vp_quant_planes_launch": [_P, _P, _I, _P, _LL, _P, _P],
+        "vp_quant_planes_launch": [_P, _P, _I, _P, _LL, _P] + [_I] * 3
+                                  + [_P],
     },
     "vp_dequant_matmul": {
         "vp_dqmm_skinny_launch": [_P] * 3 + [_I] * 9 + [_P, _P],
@@ -79,7 +80,7 @@ _SIGNATURES = {
             [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P] + [_I] * 8 + [_P],
     },
     "vp_quant_matmul": {
-        "vp_quant_matmul_launch": [_P] * 7 + [_I] * 8 + [_P],
+        "vp_quant_matmul_launch": [_P] * 7 + [_I] * 10 + [_P],
     },
     "vp_bwd_matmul": {
         "vp_matmul_dx_cc_launch": [_P, _P, _P] + [_I] * 6 + [_P, _P],

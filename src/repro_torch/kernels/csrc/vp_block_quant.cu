@@ -54,6 +54,19 @@
 //       last block turns the partial maxima into s), then the same bodies
 //       with s read back from memory; its column body keeps x as loaded
 //       (half the registers of raw integers) so four blocks share an SM.
+//   general (every other block that divides the axis: axis -1 blocks
+//       that are not a multiple of 4 or above 8192 elements, axis 0
+//       blocks that are not a multiple of 32 or above 256 rows, as
+//       `--block 16` and `--block 512` export): the amax pass, then a
+//       body that reads x twice (the second time from cache) instead of
+//       holding it.  Along the rows a group of g = min(32, 2^ceil(log2
+//       block)) lanes takes an index block, strides over it and folds its
+//       largest key by a shuffle tree; along the columns a CUDA block
+//       takes a tile of `block` rows x 256 (or, for blocks above 64 rows,
+//       64) columns, each thread 8 columns of every 8th (32nd) row in
+//       16-byte loads, folded in registers and then in shared memory.
+//       Off the path's shapes at block 256; its time at blocks 16 and 512
+//       is in PERF.md.
 //
 // Along the rows (axis -1) a thread holds vectors of 4 consecutive
 // elements, a CUDA block whole index blocks; a block's largest key is
@@ -599,6 +612,168 @@ vp_block_quant_2pass_cols_kernel(const BqArgs p) {
   cols_body<XT, LOADED, TABLE>(p);
 }
 
+// The general bodies: any block that divides the axis, with s from the
+// amax pass.  x is read twice (the second time from cache); every
+// element runs the same arithmetic as in the other bodies.
+constexpr int BQ_GMAX = BQ_T / BQ_TX * BQ_CV;   // axis 0: widest tile (256)
+
+template <typename XT, bool TABLE, bool FAST>
+__device__ __forceinline__ void general_rows(const BqArgs& p, const Elem& el,
+                                             const int* tab,
+                                             const int* shift) {
+  const XT* x = static_cast<const XT*>(p.x);
+  const int lane = threadIdx.x & 31, lo = p.q.vp.m_lo, hi = p.q.vp.m_hi;
+  int g = 1;                           // lanes per index block
+  while (g < p.block && g < 32) g <<= 1;
+  const int per = 32 / g;              // index blocks per warp and step
+  const long long nb = p.R * p.C / p.block;
+  const long long step = (long long)gridDim.x * (BQ_T / 32) * per;
+  // b0 is uniform over the warp, so every lane takes every shuffle.
+  for (long long b0 = ((long long)blockIdx.x * (BQ_T / 32) +
+                       (threadIdx.x >> 5)) * per;
+       b0 < nb; b0 += step) {
+    const long long b = b0 + lane / g, e0 = b * p.block;
+    const int j = lane % g;
+    const bool ok = b < nb;
+    int key = 0;
+    if (ok)
+      for (int k = j; k < p.block; k += g)
+        key = max(key, key_of<TABLE>(
+                           el.raw<FAST>(vp_to_float(x[e0 + k]), p.q), p.q));
+    for (int o = g >> 1; o > 0; o >>= 1)
+      key = max(key, __shfl_xor_sync(0xffffffffu, key, o));
+    if (ok) {
+      const int e = entry<TABLE>(key, tab, shift);
+      if (j == 0) p.idx[b] = (uint8_t)(e & 255);
+      for (int k = j; k < p.block; k += g)
+        p.m[e0 + k] = (int8_t)min(
+            max(vp_shift(el.raw<FAST>(vp_to_float(x[e0 + k]), p.q), e >> 8),
+                lo),
+            hi);
+    }
+  }
+}
+
+// One row of a general column tile: its 8 columns' keys (index table)
+// folded into im, or its significands at the columns' shifts sh stored.
+template <typename XT, bool FAST>
+__device__ __forceinline__ void general_keys(const BqArgs& p, const Elem& el,
+                                             long long r, long long c,
+                                             bool vec, int (&im)[BQ_CV]) {
+  Cols8<XT> w;
+  float v[BQ_CV];
+  load8<XT>(p, r, c, vec, w);
+  unpack8(w, v);
+#pragma unroll
+  for (int k = 0; k < BQ_CV; ++k)
+    im[k] = max(im[k], key_of<true>(el.raw<FAST>(v[k], p.q), p.q));
+}
+
+template <typename XT, bool FAST>
+__device__ __forceinline__ void general_store(const BqArgs& p, const Elem& el,
+                                              long long r, long long c,
+                                              bool vec,
+                                              const int (&sh)[BQ_CV]) {
+  Cols8<XT> w;
+  float v[BQ_CV];
+  int mv[BQ_CV];
+  load8<XT>(p, r, c, vec, w);
+  unpack8(w, v);
+#pragma unroll
+  for (int k = 0; k < BQ_CV; ++k)
+    mv[k] = min(max(vp_shift(el.raw<FAST>(v[k], p.q), sh[k]), p.q.vp.m_lo),
+                p.q.vp.m_hi);
+  int8_t* out = p.m + r * p.C + c;
+  if (vec && c + BQ_CV <= p.C) {
+    vp_store8(out, mv);
+  } else {
+#pragma unroll
+    for (int k = 0; k < BQ_CV; ++k)
+      if (c + k < p.C) out[k] = (int8_t)mv[k];
+  }
+}
+
+// Axis 0: tile blockIdx.x of `block` rows x 8 * (256 / gy) columns
+// (tiles along the columns first); a thread takes 8 columns (16-byte
+// loads of bf16, two of f32; element by element at a ragged or unaligned
+// edge) of every gy-th row, gy = p.nv threads down the tile (8 or 32).
+// Each column's largest key: the thread's rows in registers, then the gy
+// threads in shared memory.  With the select chain (a format without the
+// index table, on no path) a thread takes its 8 columns one at a time:
+// eight chains a row spill registers.
+template <typename XT, bool TABLE, bool FAST>
+__device__ __forceinline__ void general_cols(const BqArgs& p, const Elem& el,
+                                             const int* tab,
+                                             const int* shift) {
+  __shared__ int red[BQ_T * BQ_CV];   // [gy][columns of the tile]
+  __shared__ int colsh[BQ_GMAX];
+  const int gy = p.nv, gx = BQ_T / gy, width = gx * BQ_CV;
+  const int tx = threadIdx.x % gx, ty = threadIdx.x / gx;
+  const long long ncb = (p.C + width - 1) / width;
+  const long long tr = blockIdx.x / ncb, c0 = blockIdx.x % ncb * width;
+  const long long r0 = tr * p.block, c = c0 + BQ_CV * tx;
+  const bool vec = p.aligned && p.C % BQ_CV == 0;
+  int* mine = red + ty * width + BQ_CV * tx;
+  if constexpr (TABLE) {
+    int im[BQ_CV];
+#pragma unroll
+    for (int k = 0; k < BQ_CV; ++k) im[k] = 0;
+    if (c < p.C)
+      for (int r = ty; r < p.block; r += gy)
+        general_keys<XT, FAST>(p, el, r0 + r, c, vec, im);
+#pragma unroll
+    for (int k = 0; k < BQ_CV; ++k) mine[k] = im[k];
+  } else {
+#pragma unroll 1
+    for (int k = 0; k < BQ_CV; ++k) {
+      int key = 0;
+      if (c + k < p.C)
+        for (int r = ty; r < p.block; r += gy)
+          key = max(key, key_of<TABLE>(
+                             el.raw<FAST>(load_x(p, (r0 + r) * p.C + c + k),
+                                          p.q),
+                             p.q));
+      mine[k] = key;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < width) {
+    const int t = threadIdx.x;
+    int mx = 0;
+    for (int w = 0; w < gy; ++w) mx = max(mx, red[w * width + t]);
+    const int e = entry<TABLE>(mx, tab, shift);
+    colsh[t] = e >> 8;
+    if (c0 + t < p.C) p.idx[tr * p.C + c0 + t] = (uint8_t)(e & 255);
+  }
+  __syncthreads();
+  if (c >= p.C) return;
+  int sh[BQ_CV];
+#pragma unroll
+  for (int k = 0; k < BQ_CV; ++k) sh[k] = colsh[BQ_CV * tx + k];
+  for (int r = ty; r < p.block; r += gy)
+    general_store<XT, FAST>(p, el, r0 + r, c, vec, sh);
+}
+
+template <typename XT, bool TABLE, bool AXIS0>
+__global__ void __launch_bounds__(BQ_T)
+vp_block_quant_general_kernel(const BqArgs p) {
+  __shared__ int shift[VP_MAX_K];
+  __shared__ int tab[VP_IDX_TAB];
+  load_tables(p, shift, tab);
+  const Elem el(find_scale<LOADED>(p, 0.f), p);   // syncs: tables
+  if constexpr (AXIS0) {
+    if (el.fast)
+      general_cols<XT, TABLE, true>(p, el, tab, shift);
+    else
+      general_cols<XT, TABLE, false>(p, el, tab, shift);
+  } else {
+    if (el.fast)
+      general_rows<XT, TABLE, true>(p, el, tab, shift);
+    else
+      general_rows<XT, TABLE, false>(p, el, tab, shift);
+  }
+}
+
 // max |x| over elements [first, n) step `stride` (16-byte vectors where
 // x is aligned, then the tail).
 __device__ __forceinline__ float amax_from(const BqArgs& p, long long first,
@@ -688,12 +863,20 @@ int quant_launch(const BqArgs& p, int axis0, int body, int grid, int threads,
                              : (const void*)vp_block_quant_coop_rows_kernel<XT, TABLE>;
     err = cudaLaunchCooperativeKernel(kern, dim3(grid), dim3(threads), args,
                                       0, st);
-  } else {
+  } else if (body == 2) {
     if (threads != BQ_T) return (int)cudaErrorInvalidValue;
     if (axis0)
       vp_block_quant_2pass_cols_kernel<XT, TABLE><<<grid, threads, 0, st>>>(p);
     else
       vp_block_quant_2pass_rows_kernel<XT, TABLE><<<grid, threads, 0, st>>>(p);
+  } else {   // general
+    if (threads != BQ_T) return (int)cudaErrorInvalidValue;
+    if (axis0)
+      vp_block_quant_general_kernel<XT, TABLE, true>
+          <<<grid, threads, 0, st>>>(p);
+    else
+      vp_block_quant_general_kernel<XT, TABLE, false>
+          <<<grid, threads, 0, st>>>(p);
   }
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
@@ -704,9 +887,13 @@ int quant_launch(const BqArgs& p, int axis0, int body, int grid, int threads,
 // (R, C / block)) uint8 and *s, all contiguous; bf16_math rounds the
 // scale and x / s to bf16.  body (kernels/vp_block_quant.py:plan): 0
 // small (axis -1; one cluster of `grid` = `cluster` blocks), 1 coop
-// (every block resident), 2 two-pass (amax_blocks blocks of the amax
-// pass first).  Axis -1 bodies take `chunk` elements (whole blocks) per
-// CUDA block in nv vectors of 4 per thread.  part holds max(grid,
+// (every block resident), 2 two-pass, 3 general (both with amax_blocks
+// blocks of the amax pass first).  The fast axis -1 bodies take `chunk`
+// elements (whole blocks) per CUDA block in nv vectors of 4 per thread;
+// the general body any block that divides the axis (chunk unread; along
+// the rows a grid-stride loop, nv unread; along the columns one CUDA block
+// per tile of block rows x 8 * (256 / nv) columns, nv = 8 or 32 threads
+// down each tile).  part holds max(grid,
 // amax_blocks) floats, bar two zeroed uints that the kernels leave
 // zeroed.  table: the index by q->idx_tab.  Returns the CUDA error of the
 // launches.
@@ -722,17 +909,25 @@ extern "C" int vp_block_quant_launch(const void* x, void* m, void* idx,
   const int vmax = body == 0 ? BQ_SMALL_V : BQ_V;
   if (block <= 0 || R < 0 || C < 0 || dim % block ||
       (x_dtype != VP_F32 && x_dtype != VP_BF16) || q->vp.K > VP_MAX_K ||
-      q->vp.m_lo < -128 || q->vp.m_hi > 127 || body < 0 || body > 2 ||
+      q->vp.m_lo < -128 || q->vp.m_hi > 127 || body < 0 || body > 3 ||
       grid < 1 || threads < 32 || threads % 32 || amax_blocks < 0 ||
-      (body == 2) != (amax_blocks > 0))
+      (body >= 2) != (amax_blocks > 0))
     return (int)cudaErrorInvalidValue;
-  if (axis0 ? (block % BQ_TY || block / BQ_TY > BQ_ROWS ||
-               (long long)grid != R / block * ((C + BQ_COLS - 1) / BQ_COLS))
-            : (block % BQ_VEC || chunk % block || nv < 1 || nv > vmax ||
-               chunk > (long long)threads * nv * BQ_VEC ||
-               chunk / block > BQ_SLOTS ||
-               (long long)grid * chunk < R * C))
+  if (body == 3) {
+    const long long width = axis0 && (nv == 8 || nv == 32)
+                                ? BQ_T / nv * BQ_CV : 0;
+    if (axis0 && (width == 0 ||
+                  (long long)grid != R / block * ((C + width - 1) / width)))
+      return (int)cudaErrorInvalidValue;
+  } else if (axis0 ? (block % BQ_TY || block / BQ_TY > BQ_ROWS ||
+                      (long long)grid !=
+                          R / block * ((C + BQ_COLS - 1) / BQ_COLS))
+                   : (block % BQ_VEC || chunk % block || nv < 1 ||
+                      nv > vmax || chunk > (long long)threads * nv * BQ_VEC ||
+                      chunk / block > BQ_SLOTS ||
+                      (long long)grid * chunk < R * C)) {
     return (int)cudaErrorInvalidValue;
+  }
   if (R * C == 0) return 0;
   BqArgs p;
   p.x = x;
@@ -753,7 +948,7 @@ extern "C" int vp_block_quant_launch(const void* x, void* m, void* idx,
   p.chunk = chunk;
   p.q = *q;
   cudaStream_t st = (cudaStream_t)stream;
-  if (body == 2) {
+  if (body >= 2) {
     vp_block_amax_kernel<<<amax_blocks, AMAX_T, 0, st>>>(p);
     const int err = (int)cudaGetLastError();
     if (err) return err;

@@ -244,14 +244,30 @@ enum VPDtype { VP_F32 = 0, VP_BF16 = 1 };
 // value of every raw FXP integer too, built while the chunk's loads are
 // in flight.
 //
+// The batch body (vp_mm_batch_kernel), for many small products whose
+// float operands are quantized on load (vp_quant_matmul's batched
+// launches: the MIMO engine's G = 100,000 and the wideband 65,536 x (16,
+// 64) x (64, 2)): a persistent grid in which each warp takes one product
+// at a time, one output per lane.  The warp body spent ~160 integer
+// instructions on the Fig. 3 select chain for every element it staged
+// and read with 4-byte loads; here each block builds its tables once
+// (the scales, the index table, and the value of every raw FXP integer
+// for a grid of at most VP_MB_LUT_MAX values: the y operand's 512, the W
+// operand's 4096, which measured faster than the index table for W),
+// each element is converted once in O(1) (one FXP rounding and a table
+// load, or the index table's few steps), and a warp reads a product's A
+// and B with 16-byte loads into registers one product ahead, so the next
+// product's bytes are in flight while the current one is converted and
+// summed.
+//
 // The loaders are the only difference between the kernels (words or
 // planes -> dequant; floats -> quantize -> dequant), and every converted
 // value is an exact m * 2^-f, so the fused kernel is bit for bit the
 // quantize kernel followed by the plane or word matmul.
 //
-// The sum of one output is the same in both bodies: acc starts at +0
+// The sum of one output is the same in all three bodies: acc starts at +0
 // and runs acc = fmaf(a, b, acc) over k = 0 .. K-1 in order, skipping
-// the k-ranges that CSPADE mutes.  So the two bodies are bit-identical
+// the k-ranges that CSPADE mutes.  So the bodies are bit-identical
 // at every shape, mask grid and layout.  The tile body pads ragged M, N
 // and K with zeros and, where a micro-tile holds loud and muted outputs
 // of one k-range, multiplies the muted ones by +0: fmaf(0, b, acc) is
@@ -285,7 +301,7 @@ constexpr int VP_TM_AST = VP_TM_BM + 4;
 constexpr int VP_TM_BST = VP_TM_BN + 4;
 
 // Which body a launch runs; the codes are shared with the Python wrappers.
-enum VPMMBody { VP_MM_WARP = 0, VP_MM_TILE = 1 };
+enum VPMMBody { VP_MM_WARP = 0, VP_MM_TILE = 1, VP_MM_BATCH = 2 };
 
 // Real value of element `idx` of a VP operand stored as packed words
 // (i == nullptr) or as a significand plane plus a uint8 index plane.
@@ -371,6 +387,27 @@ struct VPQuantLoad {
   }
   __device__ __forceinline__ float operator()(long long idx) const {
     return value(fetch(idx), 0);
+  }
+  // The batch body's reads and tables: four elements' raw bits in one
+  // 16-byte load (x 16-byte aligned, v counting float4s), streamed past
+  // L1; the scales and the index table (vp_index_table; zeros for a
+  // format without one); and the table of values with the index from it
+  // where `itab` is set, else by the chain.  Where the format has the
+  // table (kernels/vp_quant.py:table_ok) these are the numbers
+  // `lut_entry` gives.
+  __device__ __forceinline__ uint4 fetch4(long long v) const {
+    return __ldcs(reinterpret_cast<const uint4*>(x) + v);
+  }
+  __device__ __forceinline__ void tables(float* stab, int* itab) const {
+    vp_scale_table(stab, q.vp);
+    vp_index_table(itab, q);
+  }
+  __device__ __forceinline__ float lut_value(int j, const int* itab,
+                                             const float* stab) const {
+    if (itab == nullptr) return lut_entry(j, stab);
+    int m, i;
+    vp_quantize_raw_tab((int)q.raw_lo + j, itab, q.vp.m_lo, q.vp.m_hi, m, i);
+    return (float)m * vp_scale_lookup(i, stab);
   }
 };
 
@@ -764,6 +801,210 @@ int vp_mm_launch(const LoadA& load_a, const LoadB& load_b, void* out,
       &cfg, vp_mm_tile_kernel<LoadA, LoadB>, load_a, load_b, (float*)out,
       a_act, b_act, g);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The batch body.  A product's operands must fit one warp's staging:
+// M N <= 32 outputs (one per lane), K a multiple of 4 (every row of A and
+// column of B in whole float4s), M K <= 32 * VP_MB_AV * 4 and K N <= 128
+// (one load round of 16 bytes per lane), and the converted A rows and B
+// columns, (M + N) (K + 4) floats, within VP_MB_WARP_FLOATS; a, b 16-byte
+// aligned.  kernels/vp_matmul.py:qmm_body sends other shapes to the warp
+// body.  Each warp's area holds A row-major with row stride K + 4 and B
+// transposed (column n at row M + n, same stride), so the float4 reads
+// of a k-quad (lanes of one output row share an A address, lanes of one
+// column a B address) and the float4 stores of a converted A quad are
+// free of bank conflicts at (16, 64) x (64, 2).
+constexpr int VP_MB_THREADS = 256;     // threads of a block
+constexpr int VP_MB_WARPS = VP_MB_THREADS / 32;
+constexpr int VP_MB_AV = 8;            // float4 of A a lane loads per product
+constexpr int VP_MB_WARP_FLOATS = 1280;  // a warp's converted operands
+constexpr int VP_MB_LUT_MAX = 4096;    // largest FXP grid tabulated by value
+
+struct VPMBRaw {        // one product's raw bits, as loaded
+  uint4 a[VP_MB_AV];
+  uint4 b;
+};
+
+// Four elements' values from the operand's value table `lut`.
+template <class Load>
+__device__ __forceinline__ float4 vp_mb_value4(const Load& load, uint4 u,
+                                               const float* lut) {
+  return make_float4(lut[load.lut_index((int)u.x)],
+                     lut[load.lut_index((int)u.y)],
+                     lut[load.lut_index((int)u.z)],
+                     lut[load.lut_index((int)u.w)]);
+}
+
+// Product gi's raw bits (zeros past the batch or the operands).
+template <class LoadA, class LoadB>
+__device__ __forceinline__ void vp_mb_fetch(const LoadA& load_a,
+                                            const LoadB& load_b,
+                                            const VPMMGeom& g, long long gi,
+                                            VPMBRaw& r) {
+  const int lane = threadIdx.x & 31;
+  const int na4 = g.M * g.K / 4, nb4 = g.K * g.N / 4;
+  const bool in = gi < g.G;
+#pragma unroll
+  for (int j = 0; j < VP_MB_AV; ++j) {
+    const int v = lane + 32 * j;
+    r.a[j] = in && v < na4 ? load_a.fetch4(gi * na4 + v)
+                           : make_uint4(0, 0, 0, 0);
+  }
+  r.b = in && lane < nb4 ? load_b.fetch4(gi * nb4 + lane)
+                         : make_uint4(0, 0, 0, 0);
+}
+
+// Convert product gi's raw bits into the warp's area `ws` (a_off: where
+// each of the lane's A float4s goes, -1 for none; b_off: each of its four
+// B elements), then sum each output in k order (skipping the k-ranges
+// CSPADE mutes) and store it.
+template <class LoadA, class LoadB>
+__device__ __forceinline__ void vp_mb_product(
+    const LoadA& load_a, const LoadB& load_b, const VPMMGeom& g,
+    long long gi, const VPMBRaw& r, float* ws, const int (&a_off)[VP_MB_AV],
+    const int (&b_off)[4], const float* a_lut, const float* b_lut,
+    float* __restrict__ out, const int* __restrict__ a_act,
+    const int* __restrict__ b_act) {
+  if (gi >= g.G) return;   // uniform over the warp
+  const int lane = threadIdx.x & 31, kp = g.K + 4;
+#pragma unroll
+  for (int j = 0; j < VP_MB_AV; ++j)
+    if (a_off[j] >= 0)
+      *reinterpret_cast<float4*>(ws + a_off[j]) =
+          vp_mb_value4(load_a, r.a[j], a_lut);
+  if (b_off[0] >= 0) {
+    const float4 v = vp_mb_value4(load_b, r.b, b_lut);
+    ws[b_off[0]] = v.x;
+    ws[b_off[1]] = v.y;
+    ws[b_off[2]] = v.z;
+    ws[b_off[3]] = v.w;
+  }
+  __syncwarp();
+  if (lane < g.M * g.N) {
+    const int m = lane / g.N, n = lane - m * g.N;
+    const float* ar = ws + m * kp;
+    const float* bc = ws + (g.M + n) * kp;
+    float acc = 0.f;
+    if (a_act == nullptr) {
+      for (int k = 0; k < g.K; k += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(ar + k);
+        const float4 b = *reinterpret_cast<const float4*>(bc + k);
+        acc = fmaf(a.x, b.x, acc);
+        acc = fmaf(a.y, b.y, acc);
+        acc = fmaf(a.z, b.z, acc);
+        acc = fmaf(a.w, b.w, acc);
+      }
+    } else {
+      const int nkt = g.K / g.bk, nbn = g.N / g.bn;
+      const int* a_row = a_act + (gi * (g.M / g.bm) + m / g.bm) * nkt;
+      const int* b_col = b_act + gi * nkt * nbn + n / g.bn;
+      for (int kt = 0; kt < nkt; ++kt) {
+        if ((a_row[kt] | b_col[(long long)kt * nbn]) == 0) continue;
+        for (int k = kt * g.bk; k < (kt + 1) * g.bk; ++k)
+          acc = fmaf(ar[k], bc[k], acc);
+      }
+    }
+    out[(gi * g.M + m) * g.N + n] = acc;
+  }
+  __syncwarp();   // the area is free for the next product
+}
+
+// Dynamic shared memory: the warps' areas, then the value tables of A (na
+// floats) and B (nb); a_table / b_table: the index table is valid (the
+// value tables are then built from it, else by the chain).
+template <class LoadA, class LoadB>
+__global__ void __launch_bounds__(VP_MB_THREADS, 2)
+vp_mm_batch_kernel(LoadA load_a, LoadB load_b, float* __restrict__ out,
+                   const int* __restrict__ a_act,
+                   const int* __restrict__ b_act, VPMMGeom g, int na, int nb,
+                   int a_table, int b_table) {
+  extern __shared__ __align__(16) float vp_mb_smem[];
+  __shared__ float a_stab[VP_MAX_K], b_stab[VP_MAX_K];
+  __shared__ int a_itab[VP_IDX_TAB], b_itab[VP_IDX_TAB];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* ws = vp_mb_smem + warp * VP_MB_WARP_FLOATS;
+  float* a_lut = vp_mb_smem + VP_MB_WARPS * VP_MB_WARP_FLOATS;
+  float* b_lut = a_lut + na;
+  const long long nw = (long long)gridDim.x * VP_MB_WARPS;
+  long long gi = (long long)blockIdx.x * VP_MB_WARPS + warp;
+  VPMBRaw r0, r1;
+  vp_mb_fetch(load_a, load_b, g, gi, r0);   // in flight while the tables
+  load_a.tables(a_stab, a_itab);            // are built
+  load_b.tables(b_stab, b_itab);
+  __syncthreads();
+  for (int j = threadIdx.x; j < na; j += VP_MB_THREADS)
+    a_lut[j] = load_a.lut_value(j, a_table ? a_itab : nullptr, a_stab);
+  for (int j = threadIdx.x; j < nb; j += VP_MB_THREADS)
+    b_lut[j] = load_b.lut_value(j, b_table ? b_itab : nullptr, b_stab);
+  __syncthreads();
+  // Where this lane's loads go in the area: the same for every product.
+  const int kp = g.K + 4, k4 = g.K / 4, na4 = g.M * g.K / 4;
+  int a_off[VP_MB_AV], b_off[4];
+#pragma unroll
+  for (int j = 0; j < VP_MB_AV; ++j) {
+    const int v = lane + 32 * j;
+    a_off[j] = v < na4 ? (v / k4) * kp + 4 * (v % k4) : -1;
+  }
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int e = 4 * lane + t, k = e / g.N, n = e - k * g.N;
+    b_off[t] = 4 * lane < g.K * g.N ? (g.M + n) * kp + k : -1;
+  }
+  // Two products per step, each one's loads issued before the other is
+  // converted: r0 and r1 take turns.
+  for (; gi < g.G; gi += 2 * nw) {
+    vp_mb_fetch(load_a, load_b, g, gi + nw, r1);
+    vp_mb_product(load_a, load_b, g, gi, r0, ws, a_off, b_off, a_lut, b_lut,
+                  out, a_act, b_act);
+    vp_mb_fetch(load_a, load_b, g, gi + 2 * nw, r0);
+    vp_mb_product(load_a, load_b, g, gi + nw, r1, ws, a_off, b_off, a_lut,
+                  b_lut, out, a_act, b_act);
+  }
+}
+
+// Launch the batch body: na / nb the sizes of the operands' FXP grids,
+// each tabulated by value (at most VP_MB_LUT_MAX), a_table / b_table
+// whether their index tables are valid (the value tables are then built
+// from them, else by the chain).  Refuses (cudaErrorInvalidValue) a shape,
+// mask grid or grid size it does not take; the caller checks the
+// alignment.
+template <class LoadA, class LoadB>
+int vp_mm_batch_launch(const LoadA& load_a, const LoadB& load_b, void* out,
+                       const int* a_act, const int* b_act, int G, int M,
+                       int K, int N, int bm, int bk, int bn, int na, int nb,
+                       int a_table, int b_table, cudaStream_t stream) {
+  VPMMGeom g{G, M, K, N, bm, bk, bn, 0, 0};
+  if ((a_act == nullptr) != (b_act == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (a_act && (bm <= 0 || bk <= 0 || bn <= 0 || M % bm || K % bk || N % bn))
+    return (int)cudaErrorInvalidValue;
+  if (M < 1 || N < 1 || K < 4 || K % 4 || M * N > 32 ||
+      M * K > 32 * 4 * VP_MB_AV || K * N > 32 * 4 ||
+      (M + N) * (K + 4) > VP_MB_WARP_FLOATS || na < 1 || nb < 1 ||
+      na > VP_MB_LUT_MAX || nb > VP_MB_LUT_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (G < 1) return 0;
+  const auto kern = vp_mm_batch_kernel<LoadA, LoadB>;
+  const int smem =
+      (VP_MB_WARPS * VP_MB_WARP_FLOATS + na + nb) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        VP_MB_THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  long long blocks = ((long long)g.G + VP_MB_WARPS - 1) / VP_MB_WARPS;
+  if (blocks > (long long)per_sm * sms) blocks = (long long)per_sm * sms;
+  kern<<<(unsigned)blocks, VP_MB_THREADS, smem, stream>>>(
+      load_a, load_b, static_cast<float*>(out), a_act, b_act, g, na, nb,
+      a_table, b_table);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* vp_error_string(int err) {

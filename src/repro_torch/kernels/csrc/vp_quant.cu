@@ -30,8 +30,17 @@
 // shuffle tree, then the words.  An all-zero row gets 2^-99, as the plain
 // version does.
 //
-// Planes: one thread per element, a grid-stride loop (row 5 of PERF.md,
-// not redesigned yet).
+// Planes (vp_quant_planes_{table,chain}_kernel): the packed bodies'
+// loop with two outputs, an int8/int16/int32 significand plane and a
+// uint8 index plane.  Bound: bytes, 4 read and 2-5 written per element.
+// The first design (vp_quant_planes_kernel, one element per thread, the
+// select chain, 1-byte stores) was issue-bound at 3.1x its byte bound
+// (PERF.md row 5); it stays reachable only through the launcher's body
+// code 2, so chip_smoke.py can time it beside the redesign.  Each thread
+// step takes 8 elements in two 16-byte loads, the index from the table
+// in shared memory (the chain for formats without one), and stores 8
+// significands in one 8-32-byte store and 8 indices in one 8-byte store,
+// with a scalar tail for a ragged or unaligned tensor.
 #include "vp_common.cuh"
 
 namespace {
@@ -310,6 +319,68 @@ extern "C" int vp_quant_packed_kv_launch(const void* x, void* w, void* scale,
   return (int)cudaErrorInvalidValue;
 }
 
+template <bool TABLE>
+__device__ __forceinline__ void quant_mi(float v, const QuantFmt& q,
+                                         const int* tab, int& m, int& i) {
+  if constexpr (TABLE)
+    vp_quantize_raw_tab(vp_fxp_raw(v, q), tab, q.vp.m_lo, q.vp.m_hi, m, i);
+  else
+    vp_quantize(v, q, m, i);
+}
+
+// x: n f32; m: n significands; i: n indices.  vec: x 16-byte aligned, m
+// and i aligned to their 8-element stores.
+template <bool TABLE, typename MT>
+__device__ __forceinline__ void quant_planes(const float* __restrict__ x,
+                                             MT* __restrict__ m,
+                                             uint8_t* __restrict__ i,
+                                             long long n, int vec,
+                                             const QuantFmt& q) {
+  __shared__ int tab[VP_IDX_TAB];
+  if constexpr (TABLE) {
+    vp_index_table(tab, q);
+    __syncthreads();
+  }
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long nv = vec ? n / QP_VEC : 0;
+  for (long long g = t0; g < nv; g += stride) {
+    float v[QP_VEC];
+    int mv[QP_VEC], iv[QP_VEC];
+    load8(x + g * QP_VEC, v);
+#pragma unroll
+    for (int k = 0; k < QP_VEC; ++k)
+      quant_mi<TABLE>(v[k], q, tab, mv[k], iv[k]);
+    vp_store8(m + g * QP_VEC, mv);
+    vp_store8(reinterpret_cast<int8_t*>(i + g * QP_VEC), iv);
+  }
+  for (long long e = nv * QP_VEC + t0; e < n; e += stride) {   // the tail
+    int mv, iv;
+    quant_mi<TABLE>(x[e], q, tab, mv, iv);
+    m[e] = (MT)mv;
+    i[e] = (uint8_t)iv;
+  }
+}
+
+template <typename MT>
+__global__ void vp_quant_planes_table_kernel(const float* __restrict__ x,
+                                             MT* __restrict__ m,
+                                             uint8_t* __restrict__ i,
+                                             long long n, int vec,
+                                             const QuantFmt q) {
+  quant_planes<true>(x, m, i, n, vec, q);
+}
+
+template <typename MT>
+__global__ void vp_quant_planes_chain_kernel(const float* __restrict__ x,
+                                             MT* __restrict__ m,
+                                             uint8_t* __restrict__ i,
+                                             long long n, int vec,
+                                             const QuantFmt q) {
+  quant_planes<false>(x, m, i, n, vec, q);
+}
+
+// The first design, one element per thread (kept for comparison only).
 template <typename MT>
 __global__ void vp_quant_planes_kernel(const float* __restrict__ x,
                                        MT* __restrict__ m,
@@ -325,33 +396,52 @@ __global__ void vp_quant_planes_kernel(const float* __restrict__ x,
   }
 }
 
+template <typename MT>
+int planes_launch(const float* x, void* m, uint8_t* i, long long n,
+                  const QuantFmt& q, int body, int blocks, int threads,
+                  cudaStream_t s) {
+  MT* mo = static_cast<MT*>(m);
+  const int vec = (uintptr_t)x % 16 == 0 &&
+                  (uintptr_t)m % (QP_VEC * sizeof(MT)) == 0 &&
+                  (uintptr_t)i % QP_VEC == 0;
+  if (body == 0) {
+    vp_quant_planes_table_kernel<MT><<<blocks, threads, 0, s>>>(x, mo, i, n,
+                                                                vec, q);
+  } else if (body == 1) {
+    vp_quant_planes_chain_kernel<MT><<<blocks, threads, 0, s>>>(x, mo, i, n,
+                                                                vec, q);
+  } else {   // the first design's own grid
+    long long b = (n + 255) / 256;
+    b = b > 132 * 16 ? 132 * 16 : b;
+    vp_quant_planes_kernel<MT><<<(int)b, 256, 0, s>>>(x, mo, i, n, q);
+  }
+  return (int)cudaGetLastError();
+}
+
 // x: n contiguous f32; m: n significands of `m_bytes` bytes each; i: n
-// uint8 indices.  Returns the CUDA error of the launch (0 on success).
+// uint8 indices.  body: 0 the table body (q->idx_tab filled), 1 the
+// select chain, both on blocks x threads; 2 the first design (its own
+// grid; comparisons only).  Returns the CUDA error of the launch.
 extern "C" int vp_quant_planes_launch(const void* x, void* m, int m_bytes,
                                       void* i, long long n,
-                                      const QuantFmt* q, void* stream) {
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  if (blocks < 1) blocks = 1;
+                                      const QuantFmt* q, int body,
+                                      int blocks, int threads,
+                                      void* stream) {
+  if (!valid_launch(blocks, threads) || body < 0 || body > 2)
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const float* xf = (const float*)x;
   uint8_t* iu = (uint8_t*)i;
   switch (m_bytes) {
     case 1:
-      vp_quant_planes_kernel<int8_t><<<(int)blocks, threads, 0, s>>>(
-          xf, (int8_t*)m, iu, n, *q);
-      break;
+      return planes_launch<int8_t>(xf, m, iu, n, *q, body, blocks, threads, s);
     case 2:
-      vp_quant_planes_kernel<int16_t><<<(int)blocks, threads, 0, s>>>(
-          xf, (int16_t*)m, iu, n, *q);
-      break;
+      return planes_launch<int16_t>(xf, m, iu, n, *q, body, blocks, threads,
+                                    s);
     case 4:
-      vp_quant_planes_kernel<int32_t><<<(int)blocks, threads, 0, s>>>(
-          xf, (int32_t*)m, iu, n, *q);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+      return planes_launch<int32_t>(xf, m, iu, n, *q, body, blocks, threads,
+                                    s);
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }

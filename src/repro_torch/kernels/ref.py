@@ -96,22 +96,25 @@ def block_vp_matmul_ref(a_m: torch.Tensor, a_i: torch.Tensor,
     Pallas body and the CUDA kernel do).  Each tile's integer product is
     taken in f64, exact while the int32 contract holds (and `torch.mm`
     has no integer path on the card); every scale is a power of two, so
-    each term is exact and only the f32 additions round.
+    each term is exact and only the f32 additions round.  The terms of
+    all k-tiles are taken in one batched product; only the additions
+    run tile by tile.
     """
     M, K = a_m.shape
     N = b_m.shape[1]
+    nk = K // bk
     lut_a = torch.tensor([2.0 ** (-f) for f in a_fmt.f],
                          dtype=torch.float32, device=a_m.device)
     lut_b = torch.tensor([2.0 ** (-f) for f in b_fmt.f],
                          dtype=torch.float32, device=a_m.device)
+    at = a_m.double().reshape(M, nk, bk).transpose(0, 1)     # (nk, M, bk)
+    bt = b_m.double().reshape(nk, bk, N)
+    sa = lut_a[a_i.long()].t()[:, :, None]                    # (nk, M, 1)
+    sb = lut_b[b_i.long()][:, None, :]                        # (nk, 1, N)
+    terms = torch.bmm(at, bt).float() * sa * sb
     out = torch.zeros((M, N), dtype=torch.float32, device=a_m.device)
-    for t in range(K // bk):
-        at = a_m[:, t * bk:(t + 1) * bk].double()
-        bt = b_m[t * bk:(t + 1) * bk, :].double()
-        acc = (at @ bt).float()
-        sa = lut_a[a_i[:, t].long()]
-        sb = lut_b[b_i[t, :].long()]
-        out = out + acc * sa[:, None] * sb[None, :]
+    for t in range(nk):
+        out = out + terms[t]
     return out.to(out_dtype)
 
 

@@ -6,7 +6,7 @@ Replaces what the JAX package leaves to XLA (no Pallas kernel):
 The plain version is `ref.block_vp_quant_ref`; dispatch lives in
 `ops.block_vp_quant`.
 
-`plan` alone picks, from the shape, the block and the axis, one of three
+`plan` alone picks, from the shape, the block and the axis, one of four
 bodies and their grid:
   * "small": axis -1 and at most SMALL_MAX elements (decode activations):
     one launch of one CUDA block up to SMALL_ONE_BLOCK elements, else of
@@ -16,13 +16,19 @@ bodies and their grid:
     per SM (prefill activations, the layer weights' export): one
     cooperative launch with a grid-wide barrier;
   * "two_pass": the rest (the `lm_head` export): an amax pass, then the
-    quantize pass.
-Every body reads x once into registers.  The kernel takes axis -1 blocks
-that are a multiple of 4 elements up to THREADS * V * 4, and axis 0
-blocks that are a multiple of 32 rows up to 256; it raises on others.
+    quantize pass;
+  * "general": every block that divides the axis and that the three
+    above do not take (`fast_block`: axis -1 blocks that are not a
+    multiple of VEC or above THREADS * V * VEC elements, axis 0 blocks
+    that are not a multiple of TILE_TY or above TILE_TY * TILE_ROWS
+    rows): an amax pass, then a body that reads x twice.
+The first three read x once into registers.  `plan` raises only for a
+block that does not divide the axis (or a body forced where it cannot
+run).
 
 `build.LAUNCHES` counts every call under `vp_block_quant`, each body
-under `BODY_COUNTER`, and the amax pass under `vp_block_amax`.  The
+under `BODY_COUNTER`, and the amax pass (two-pass and general bodies)
+under `vp_block_amax`.  The
 coop body's barrier and the amax pass share one pair of words per
 device, which each launch leaves as it found them: two of these
 launches must not run at once on one device (the path runs on one
@@ -54,10 +60,13 @@ COOP_PER_SM = 2        # coop blocks on one SM (the kernels' launch bounds)
 COOP_SPREAD = 2        # coop blocks per SM the planner aims for
 AMAX_BLOCKS = 1024     # most CUDA blocks of the amax pass
 AMAX_PER_BLOCK = 2048  # elements per CUDA block of the amax pass
+GENERAL_SMALL = 64     # general body, axis 0: blocks of at most this many
+GENERAL_TY = (8, 32)   # rows take 8 threads down a tile, larger ones 32
+GENERAL_PER_SM = 16    # general body, axis -1: most CUDA blocks per SM
 
-BODIES = ("small", "coop", "two_pass")
+BODIES = ("small", "coop", "two_pass", "general")   # launcher codes 0-3
 BODY_COUNTER = {"small": "vp_bq_small", "coop": "vp_bq_coop",
-                "two_pass": "vp_bq_two_pass"}
+                "two_pass": "vp_bq_two_pass", "general": "vp_bq_general"}
 
 _BARRIERS: Dict[int, torch.Tensor] = {}
 
@@ -66,8 +75,10 @@ _BARRIERS: Dict[int, torch.Tensor] = {}
 class Plan:
     """One launch of the quantizer: `grid` CUDA blocks of `threads` (the
     small body's grid is one cluster); along the rows `chunk` elements
-    (whole index blocks) per CUDA block in `nv` vectors of 4 per thread;
-    the amax pass's `amax_blocks` (two-pass only, else 0)."""
+    (whole index blocks) per CUDA block in `nv` vectors of 4 per thread
+    (the general body: neither), along the columns on the general body
+    `nv` threads down a tile (`general_tile`); the amax pass's
+    `amax_blocks` (two-pass and general bodies, else 0)."""
     body: str
     grid: int
     threads: int
@@ -87,22 +98,56 @@ def _rows(block: int, per_cta: int, threads: int):
     return chunk, -(-chunk // (VEC * threads))
 
 
+def fast_block(block: int, axis: int) -> bool:
+    """Whether the small, coop and two-pass bodies take this block."""
+    if axis % 2 == 0:
+        return block % TILE_TY == 0 and block <= TILE_TY * TILE_ROWS
+    return block % VEC == 0 and block <= THREADS * V * VEC
+
+
+def general_tile(block: int) -> Tuple[int, int]:
+    """(threads down, columns across) a tile of the general body along
+    the columns: 8 columns per thread, all THREADS threads."""
+    ty = GENERAL_TY[block > GENERAL_SMALL]
+    return ty, THREADS // ty * 8
+
+
+def _general(R: int, C: int, block: int, axis: int, sms: int) -> Plan:
+    """The general body: along the columns one CUDA block per tile of
+    `block` rows x `general_tile` columns (its threads down the tile as
+    `nv`); along the rows warps whose groups of g lanes take an index
+    block each, in a grid-stride loop."""
+    n = R * C
+    if axis == 0:
+        ty, width = general_tile(block)
+        return Plan("general", R // block * -(-C // width), THREADS, nv=ty,
+                    amax_blocks=plan_amax(n))
+    g = min(32, 1 << (block - 1).bit_length())
+    per_cta = THREADS // 32 * (32 // g)
+    grid = min(-(-(n // block) // per_cta), GENERAL_PER_SM * sms)
+    return Plan("general", grid, THREADS, amax_blocks=plan_amax(n))
+
+
 def plan(R: int, C: int, block: int, axis: int, sms: int = SMS,
          cluster: Optional[int] = None, body: Optional[str] = None) -> Plan:
     """The body and grid for x (R, C) quantized in blocks of `block`
     along `axis`, from shapes alone.  `body` and `cluster` force a body
     where it can run this tensor and the small body's cluster
-    (comparisons only).  Raises ValueError for a block the kernel does
-    not take."""
+    (comparisons only).  Raises ValueError for a block that does not
+    divide the axis, or a forced body that cannot run the tensor."""
     axis %= 2
     n = R * C
+    if block < 1 or (R, C)[axis] % block:
+        raise ValueError(f"block {block} does not divide axis {axis} of "
+                         f"{(R, C)}")
+    if body == "general" or (body is None and not fast_block(block, axis)):
+        return _general(R, C, block, axis, sms)
+    if not fast_block(block, axis):
+        raise ValueError(f"body {body!r} cannot take axis-{axis} block "
+                         f"{block}: only the general body does")
     if cluster is None:
         cluster = 1 if n <= SMALL_ONE_BLOCK else SMALL_CLUSTER
     if axis == 0:
-        if block % TILE_TY or block > TILE_TY * TILE_ROWS:
-            raise ValueError(f"axis-0 block {block}: the kernel takes "
-                             f"multiples of {TILE_TY} up to "
-                             f"{TILE_TY * TILE_ROWS}")
         tiles = R // block * -(-C // TILE_COLS)
         pick = body or ("coop" if tiles <= COOP_PER_SM * sms else "two_pass")
         if pick == "small" or (pick == "coop"
@@ -110,9 +155,6 @@ def plan(R: int, C: int, block: int, axis: int, sms: int = SMS,
             raise ValueError(f"body {pick!r} cannot take {tiles} tiles")
         return Plan(pick, tiles, THREADS,
                     amax_blocks=plan_amax(n) if pick == "two_pass" else 0)
-    if block % VEC or block > THREADS * V * VEC:
-        raise ValueError(f"axis -1 block {block}: the kernel takes multiples "
-                         f"of {VEC} up to {THREADS * V * VEC}")
     nb = n // block
     pick = body or ("small" if n <= SMALL_MAX else None)
     if pick == "small":
@@ -172,7 +214,7 @@ def block_vp_quant_cuda(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
         raise ValueError(f"{vp}: the kernel stores int8 significands")
     axis = axis % 2
     R, C = x.shape
-    if (R, C)[axis] % block:
+    if block < 1 or (R, C)[axis] % block:
         raise ValueError(f"axis size {(R, C)[axis]} not divisible by block "
                          f"{block}")
     x = x.contiguous()

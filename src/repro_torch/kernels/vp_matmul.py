@@ -6,14 +6,18 @@ its G = 1 launch, `vp_matmul_pallas`.  The plain versions are
 twins; dispatch lives in `ops.vp_matmul` and `ops.vp_matmul_batched`.
 
 Two CUDA bodies (csrc/vp_common.cuh), and `mm_body` alone picks one
-from the shape before the launch, for this kernel and the fused one
-(`vp_quant_matmul.py`): the warp body (one warp per 32 outputs) for many
-small products, the tile body (a 64 x 64 output tile per block, 4 x 4
-outputs per thread) for large ones.  Both run each output's sum in the
-same order, so the choice never changes a bit of the result.  A failed
-build or launch raises; no body stands in for another.  `build.LAUNCHES`
-counts every launch under `vp_matmul` (or `vp_quant_matmul`) and also
-under its body's counter, `vp_mm_warp` or `vp_mm_tile`.
+from the shape before the launch: the warp body (one warp per 32
+outputs) for many small products, the tile body (a 64 x 64 output tile
+per block, 4 x 4 outputs per thread) for large ones.  The fused kernel
+(`vp_quant_matmul.py`) has a third, the batch body (a persistent grid,
+one warp per product, each operand element converted once in O(1)),
+and `qmm_body` sends its batched launches there where the products fit
+(`batch_fits`), the rest where `mm_body` does.  All run each output's
+sum in the same order, so the choice never changes a bit of the result.
+A failed build or launch raises; no body stands in for another.
+`build.LAUNCHES` counts every launch under `vp_matmul` (or
+`vp_quant_matmul`) and also under its body's counter, `vp_mm_warp`,
+`vp_mm_tile` or `vp_mm_batch`.
 """
 from __future__ import annotations
 
@@ -33,7 +37,18 @@ from . import build
 # batched ones (G = 1024 and 8192 of (16, 64) x (64, 2)).
 TILE_MAX_G = 1
 BODY_CODES = {"warp": 0, "tile": 1}     # VPMMBody of csrc/vp_common.cuh
-BODY_COUNTER = {"warp": "vp_mm_warp", "tile": "vp_mm_tile"}
+QMM_BODY_CODES = {**BODY_CODES, "batch": 2}   # the fused kernel's bodies
+BODY_COUNTER = {"warp": "vp_mm_warp", "tile": "vp_mm_tile",
+                "batch": "vp_mm_batch"}
+# The batch body (csrc/vp_common.cuh, VP_MB_*): a product's M x N outputs
+# on one warp's lanes, A read in at most 8 and B in one 16-byte load per
+# lane, the converted A rows and B columns ((M + N)(K + 4) floats) in
+# one warp's area; and the largest FXP grid it tabulates by value.
+BATCH_OUT = 32
+BATCH_A = 1024
+BATCH_B = 128
+BATCH_WARP_FLOATS = 1280
+BATCH_LUT_MAX = 4096
 
 
 def mm_body(G: int, M: int, K: int, N: int) -> str:
@@ -44,10 +59,28 @@ def mm_body(G: int, M: int, K: int, N: int) -> str:
     return "tile" if G <= TILE_MAX_G else "warp"
 
 
-def check_body(body: Optional[str]) -> None:
+def batch_fits(M: int, K: int, N: int) -> bool:
+    """Whether the batch body takes products of (M, K) x (K, N)."""
+    return (M * N <= BATCH_OUT and K % 4 == 0 and M * K <= BATCH_A
+            and K * N <= BATCH_B and (M + N) * (K + 4) <= BATCH_WARP_FLOATS)
+
+
+def qmm_body(G: int, M: int, K: int, N: int, aligned: bool = True,
+             tables: bool = True) -> str:
+    """The fused kernel's body for (G, M, K) x (G, K, N): "batch" for a
+    batched launch (`mm_body` says "warp") whose products fit the batch
+    body, with 16-byte aligned operands whose formats it converts in
+    O(1) (`tables`: `vp_quant_matmul.batch_converts`); else `mm_body`'s."""
+    body = mm_body(G, M, K, N)
+    if body == "warp" and aligned and tables and batch_fits(M, K, N):
+        return "batch"
+    return body
+
+
+def check_body(body: Optional[str], codes=BODY_CODES) -> None:
     """Raise unless `body` is None (the planner's) or a body's name."""
-    if body is not None and body not in BODY_CODES:
-        raise ValueError(f"unknown body {body!r}; one of {sorted(BODY_CODES)}")
+    if body is not None and body not in codes:
+        raise ValueError(f"unknown body {body!r}; one of {sorted(codes)}")
 
 
 def body_code(body: Optional[str], G: int, M: int, K: int, N: int):

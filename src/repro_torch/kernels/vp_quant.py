@@ -5,14 +5,16 @@ Replace `repro/kernels/vp_quant.py:vp_quant_packed_pallas` and
 `ref.vp_quant_scaled_ref` and `ref.vp_quant_ref`; dispatch lives in
 `ops.vp_quant` and `ops.vp_quant_scaled`.
 
-The packed kernel has two bodies, picked by `packed_body` from the
-format alone: the table body, which takes the Fig. 3 cascade's exponent
-index in O(1) from `index_table`, for every format whose index is a
-function of the raw value's bit length (`table_ok`: every format a path
-of the repo uses), and the select chain for the rest.  `plan_packed`
-sizes the grid from the element count; `plan_kv` the KV mode's (one
-warp per row).  `build.LAUNCHES` counts every packed launch under
-`vp_quant_packed` and each body under `BODY_COUNTER`.
+The packed and the planes kernels each have two bodies, picked by
+`packed_body` from the format alone: the table body, which takes the
+Fig. 3 cascade's exponent index in O(1) from `index_table`, for every
+format whose index is a function of the raw value's bit length
+(`table_ok`: every format a path of the repo uses), and the select chain
+for the rest.  `plan_packed` sizes both kernels' grid from the element
+count; `plan_kv` the KV mode's (one warp per row).  `build.LAUNCHES`
+counts every packed launch under `vp_quant_packed` and each body under
+`BODY_COUNTER`, every planes launch under `vp_quant_planes` and each
+body under `PLANES_COUNTER`.
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ SMS = 132                    # the H100 SXM's SMs: the grid's yardstick
 
 BODY_COUNTER = {"table": "vp_qp_table", "chain": "vp_qp_chain",
                 "kv": "vp_qp_kv"}
+PLANES_COUNTER = {"table": "vp_qpl_table", "chain": "vp_qpl_chain"}
+PLANES_CODES = {"table": 0, "chain": 1}   # csrc/vp_quant.cu (2: first design)
 
 
 def _shifts(fxp: FXPFormat, vp: VPFormat):
@@ -73,13 +77,15 @@ def index_table(fxp: FXPFormat, vp: VPFormat) -> Tuple[int, ...]:
 
 
 def packed_body(fxp: FXPFormat, vp: VPFormat) -> str:
-    """The packed kernel's body for a format: "table" or "chain"."""
+    """The packed and planes kernels' body for a format: "table" or
+    "chain"."""
     return "table" if table_ok(fxp, vp) else "chain"
 
 
 def plan_packed(n: int, sms: int = SMS) -> Tuple[int, int]:
-    """(blocks, threads) of the packed bodies for n elements: one step of
-    8 elements per thread in 256-thread blocks (thousands of blocks at
+    """(blocks, threads) of the packed and planes bodies for n elements:
+    grid-stride steps of 8 elements per thread (n // 8 of them, then a
+    tail of n % 8 elements), in 256-thread blocks (thousands of blocks at
     the export and QAT shapes), or 64-thread blocks where fewer than one
     full wave of 256-thread blocks would run (decode and MIMO shapes: one
     wave of small blocks), at most 16 blocks per SM (a grid-stride loop
@@ -171,19 +177,24 @@ def vp_quant_scaled_cuda(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
 def vp_quant_planes_cuda(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """f32 CUDA tensor (any shape) -> (significand plane of
-    `significand_dtype(vp.M)`, uint8 index plane), both of x's shape."""
+    `significand_dtype(vp.M)`, uint8 index plane), both of x's shape, on
+    the body `packed_body` picks."""
     x = _check_input(x, "vp_quant_planes")
     m = torch.empty(x.shape, dtype=significand_dtype(vp.M), device=x.device)
     i = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
     if x.numel() == 0:
         return m, i
+    body = packed_body(fxp, vp)
+    blocks, threads = plan_packed(x.numel(), torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
     lib = build.library("vp_quant")
     fmt = build.quant_fmt_struct(fxp, vp)
     with torch.cuda.device(x.device):
         err = lib.vp_quant_planes_launch(
             x.data_ptr(), m.data_ptr(), m.element_size(), i.data_ptr(),
-            x.numel(), ctypes.byref(fmt),
-            torch.cuda.current_stream().cuda_stream)
+            x.numel(), ctypes.byref(fmt), PLANES_CODES[body], blocks,
+            threads, torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "vp_quant_planes")
     build.LAUNCHES["vp_quant_planes"] += 1
+    build.LAUNCHES[PLANES_COUNTER[body]] += 1
     return m, i

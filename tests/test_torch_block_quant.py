@@ -4,7 +4,8 @@ the `block_vp_matmul` bodies.
 
   (a) `ops.block_vp_quant` is bit for bit the reference's
       `block_vp_quantize(x / _pow2_scale(x))` (significands, indices and
-      scale) at axis -1 and 0, blocks 64 and 256, on heavy-tailed data,
+      scale) at axis -1 and 0, blocks 16, 64, 256 and 512 (on the card
+      axis 0 at 16 and 512 takes the general body), on heavy-tailed data,
       an all-zero tensor, a zero block, values that saturate FXP and an
       amax just above 2^k;
   (b) `block_body` picks the skinny body at every decode shape and for
@@ -79,7 +80,7 @@ def _data(case, shape, rng):
 
 @pytest.mark.parametrize("case", ["heavy", "zero", "zero_block", "saturate",
                                   "above_2^-3", "above_2^2", "above_2^4"])
-@pytest.mark.parametrize("block", [64, 256])
+@pytest.mark.parametrize("block", [16, 64, 256, 512])
 @pytest.mark.parametrize("axis", [-1, 0])
 def test_block_vp_quant_matches_reference(axis, block, case):
     shape = (6, 512) if axis == -1 else (512, 24)

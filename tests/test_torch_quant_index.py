@@ -45,7 +45,7 @@ from repro_torch.core.formats import FXPFormat, VPFormat, default_vp_format
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.vp_block_quant import (
-    COOP_PER_SM, SMALL_MAX, THREADS, VEC, plan)
+    COOP_PER_SM, SMALL_MAX, THREADS, VEC, fast_block, general_tile, plan)
 from repro_torch.kernels.vp_quant import (
     IDX_TAB, index_table, packed_body, plan_packed, table_ok)
 from repro_torch.models import attention as tattn
@@ -240,10 +240,117 @@ def test_block_quant_plan_invariants(seed):
 
 
 def test_block_quant_plan_refuses_blocks_it_does_not_take():
+    """The blocks the fast bodies refuse plan onto the general body; the
+    only blocks refused are those that do not divide the axis."""
+    assert plan(4, 1026, 6, -1, SMS).body == "general"   # not a multiple of 4
+    assert plan(512, 64, 512, 0, SMS).body == "general"  # above 256 rows
     with pytest.raises(ValueError):
-        plan(4, 1026, 6, -1, SMS)         # not a multiple of 4
+        plan(4, 1026, 4, -1, SMS)         # 4 does not divide 1026
     with pytest.raises(ValueError):
-        plan(512, 64, 512, 0, SMS)        # axis-0 blocks up to 256 rows
+        plan(512, 64, 96, 0, SMS)         # 96 does not divide 512
+    with pytest.raises(ValueError):
+        plan(512, 64, 512, 0, SMS, body="coop")   # a fast body, forced
+
+
+# Every block that divides the axis plans, on the general body exactly
+# where the fast bodies refuse it (axis -1: not a multiple of VEC or
+# above THREADS * V * VEC; axis 0: not a multiple of 32 or above 256).
+GENERAL_BLOCKS = (1, 4, 6, 16, 48, 96, 256, 512, 8192, 16384)
+
+
+@pytest.mark.parametrize("block", GENERAL_BLOCKS)
+@pytest.mark.parametrize("axis", [-1, 0])
+def test_block_quant_plan_takes_every_dividing_block(axis, block):
+    R, C = (6, 3 * 16384) if axis == -1 else (3 * 16384, 24)
+    p = plan(R, C, block, axis, SMS)
+    fast = (block % VEC == 0 and block <= THREADS * 8 * VEC if axis == -1
+            else block % 32 == 0 and block <= 256)
+    assert fast_block(block, axis) == fast
+    assert (p.body == "general") == (not fast)
+    if p.body == "general":
+        assert p.amax_blocks > 0 and p.threads == THREADS
+        if axis == 0:
+            ty, width = general_tile(block)
+            assert p.nv == ty and ty * width == THREADS * 8
+            assert p.grid == R // block * -(-C // width)
+        else:
+            g = min(32, 1 << (block - 1).bit_length())
+            assert p.grid == min(-(-R * C // block // (8 * (32 // g))),
+                                 16 * SMS)
+    assert plan(R, C, block, axis, SMS, body="general").body == "general"
+    if block > 1:                      # a block that does not divide
+        with pytest.raises(ValueError):
+            plan(R + 1, C, block, 0, SMS) if axis == 0 else \
+                plan(R, C + 1, block, -1, SMS)
+
+
+def _general_rows_cover(R, C, block, grid):
+    """The general body along the rows, mirrored: (index block, element)
+    pairs each lane visits, as csrc/vp_block_quant.cu:general_rows walks
+    them (warps of THREADS / 32 per CUDA block, groups of g lanes)."""
+    g = 1
+    while g < block and g < 32:
+        g <<= 1
+    per, nb = 32 // g, R * C // block
+    step = grid * (THREADS // 32) * per
+    seen = np.zeros(R * C, np.int64)
+    blocks = np.zeros(nb, np.int64)
+    for cta in range(grid):
+        for warp in range(THREADS // 32):
+            b0 = (cta * (THREADS // 32) + warp) * per
+            while b0 < nb:
+                for lane in range(32):
+                    b, j = b0 + lane // g, lane % g
+                    if b < nb:
+                        if j == 0:
+                            blocks[b] += 1
+                        for k in range(j, block, g):
+                            seen[b * block + k] += 1
+                b0 += step
+    return seen, blocks
+
+
+def _general_cols_cover(R, C, block, grid, ty_n):
+    """The general body along the columns, mirrored: a CUDA block per
+    tile of `block` rows x `width` columns, each thread 8 columns of
+    every ty_n-th row; the first `width` threads write the indices."""
+    tx_n = THREADS // ty_n
+    width = tx_n * 8
+    ncb = -(-C // width)
+    seen = np.zeros((R, C), np.int64)
+    idx = np.zeros((R // block, C), np.int64)
+    for cta in range(grid):
+        tr, c0 = cta // ncb, cta % ncb * width
+        for t in range(THREADS):
+            if t < width and c0 + t < C:
+                idx[tr, c0 + t] += 1
+            tx, ty = t % tx_n, t // tx_n
+            c = c0 + 8 * tx
+            for r in range(ty, block, ty_n):
+                for k in range(8):
+                    if c + k < C:
+                        seen[tr * block + r, c + k] += 1
+    return seen, idx
+
+
+@pytest.mark.parametrize("R,C,block", [(3, 42, 6), (5, 64, 16), (2, 96, 48),
+                                       (4, 1026, 1), (2, 600, 600)],
+                         ids=str)
+def test_general_rows_visit_each_element_once(R, C, block):
+    p = plan(R, C, block, -1, SMS, body="general")
+    seen, blocks = _general_rows_cover(R, C, block, p.grid)
+    assert (seen == 1).all() and (blocks == 1).all()
+
+
+@pytest.mark.parametrize("R,C,block", [(48, 24, 16), (512, 40, 512),
+                                       (18, 70, 6), (7, 33, 1),
+                                       (160, 300, 80), (32, 600, 16)],
+                         ids=str)
+def test_general_cols_visit_each_element_once(R, C, block):
+    p = plan(R, C, block, 0, SMS)
+    assert p.body == "general"
+    seen, idx = _general_cols_cover(R, C, block, p.grid, p.nv)
+    assert (seen == 1).all() and (idx == 1).all()
 
 
 # -- (e) the vp_block layers -----------------------------------------------------

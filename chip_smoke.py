@@ -64,20 +64,27 @@ Run from the root of a checkout.  Phases, each raising on failure:
      512, the small body's cluster swept, the amax pass timed alone; no
      local memory in its SASS.  The two dequant kernels behind
      `ops.vp_dequant`, bit-identical in f32 and bf16: packed (1024,
-     3072) int16 words (timed) and int8 words (checked), and the MIMO
-     planes (1.6e6, 64) int8 + uint8.
+     3072) int16 words (timed beside `words.to(dtype)`, a cast over the
+     same bytes) and int8 words, and ragged slices of both at offsets
+     that leave the words and the output unaligned; and the MIMO planes
+     (1.6e6, 64) int8 + uint8.
      The MIMO path's kernels (two-plane quantize, VP x VP matmul, fused
      quantize + matmul) likewise, at the equalizer's shapes: G = 100,000
-     realizations of (16, 64) x (64, 2) (vp_matmul on the warp body, the
-     fused kernel on its batch body, `qmm_body`), and the G = 1 launches
-     of the masked mode at n = 256, (2048, 64) x (64, 256), on the tile
-     body (`mm_body`).  The planes kernel's table body, select chain and
-     first design bit-exact (W panel, y operand, a ragged and an
-     unaligned slice) and timed side by side through its C entry; the
-     fused batch body bit-identical to the warp body (with and without
-     masks), to quantize -> vp_matmul and to the G = 1 tile body, timed
-     beside the warp body (C entry) and torch.bmm; no local memory in its
-     SASS.  The tile body bit-identical to the warp
+     realizations of (16, 64) x (64, 2) (vp_matmul in int16 x int8 words
+     and in int8 planes, with and without CSPADE masks, on its batch body,
+     `vmm_body`; the fused kernel on its batch body, `qmm_body`), and the
+     G = 1 launches of the masked mode at n = 256, (2048, 64) x (64,
+     256), on the tile body (`mm_body`).  The planes kernel's table body,
+     select chain and first design bit-exact (W panel, y operand, a
+     ragged and an unaligned slice) and timed side by side through its C
+     entry; vp_matmul's batch body bit-identical to the warp body in all
+     three layouts and to the fused kernel, each timed beside the warp
+     body; an unaligned slice and a mixed words x planes launch planned
+     onto the warp body and refused by the batch body; the fused batch
+     body bit-identical to the warp body (with and without masks), to
+     quantize -> vp_matmul and to the G = 1 tile body, timed beside the
+     warp body (C entry) and torch.bmm; no local memory in any batch
+     body's SASS.  The tile body bit-identical to the warp
      body (forced through `body=`) in packed, planes, mixed words x
      planes and fused, unmasked and on CSPADE grids that cut across its
      tiles, at the path shape and two ragged ones; fused equal to
@@ -120,10 +127,10 @@ Run from the root of a checkout.  Phases, each raising on failure:
                check of the equalize calls (hand kernels only, no library
                GEMM), every kernel-path estimate against the plain path,
                and equalizations per second.  The masked mode's 12 G = 1
-               launches run on the tile body, the batched vp_matmul ones
-               on the warp body, the batched and wideband fused ones on
-               the batch body (per-body counters `vp_mm_tile` /
-               `vp_mm_warp` / `vp_mm_batch`), the CSPADE calls' planes on
+               launches run on the tile body; the batched vp_matmul ones
+               and the batched and wideband fused ones on the batch body,
+               none on the warp body (per-body counters `vp_mm_tile` /
+               `vp_mm_warp` / `vp_mm_batch`); the CSPADE calls' planes on
                the table body (`vp_qpl_table`).
   6. train kernels - the backward kernels `vp_matmul_dx` and
                `vp_matmul_dw` (tensor-core body) against their plain
@@ -226,6 +233,7 @@ KERNEL_NAMES = {"vp_quant_packed": "vp_quant_packed_",      # every body
 MIMO_G = 100_000           # realizations (paper Sec. III-A)
 MIMO_SHAPE = (16, 64, 2)   # (2U, B) x (B, 2) per realization
 MASKED_N = 256             # masked mode: (n U, B) x (B, n)
+WORDS_LAYOUT = (("words", 2), ("words", 1))   # W int16 x y int8 words
 WIDEBAND = (64, 1024)      # subcarriers x realizations
 MIMO_RTOL = 1e-5           # kernel vs plain estimates, f32 sums
 CLI_N = 4096               # realizations per ensemble of the CLI run
@@ -1467,7 +1475,7 @@ def block_kernel_phase(torch, peaks, record):
     words = vp_quant_packed_cuda(
         (torch.randn((R, C), generator=gen, device="cuda") * 0.3).clamp(
             -0.99, 0.99), fxp, vp)
-    main_pk = None
+    main_pk, casts = None, {}
     for dt, esz in ((torch.float32, 4), (torch.bfloat16, 2)):
         def kern():
             return vp_dequant_packed_cuda(words, vp, dt)
@@ -1477,25 +1485,42 @@ def block_kernel_phase(torch, peaks, record):
 
         identical(kern(), plain(), f"vp_dequant_packed {dt}")
         ms, plain_ms = timer(kern), timer(plain)
+        # a yardstick, not the function: a cast moves the same bytes
+        casts[str(dt)] = cast_ms = timer(lambda: words.to(dt))
         bnd = bound(peaks, R * C * (2 + esz), 0, "f32")
         shape = [R, C, "int16", str(dt).split(".")[-1]]
         _print_line("vp_dequant_packed", shape, 0.0, 0.0, ms, plain_ms, bnd,
                     None)
+        print(f"[kernel] vp_dequant_packed {shape}: {ms:.4f} ms "
+              f"({bnd[0] / ms:.1%} of the bound {bnd[0]:.4f}; aim <= "
+              f"{2 * bnd[0]:.4f}); words.to({dt}) {cast_ms:.4f} ms")
         lines.append(("vp_dequant_packed", shape, ms, plain_ms, bnd, None,
                       None))
         if main_pk is None:
             main_pk = _row("vp_dequant_packed", "vp_dequant.cu",
                            "src/repro/kernels/vp_dequant.py:52", shape, 0.0,
                            ms, plain_ms, bnd, None)
+    main_pk["cast_ms"] = casts
     fxp6 = FXPFormat(12, 11)
     vp6 = default_vp_format(fxp6, 6, 2)          # int8 words
     words6 = vp_quant_packed_cuda(
         (torch.randn((R, C), generator=gen, device="cuda") * 0.3).clamp(
             -0.99, 0.99), fxp6, vp6)
-    for dt in (torch.float32, torch.bfloat16):
-        identical(vp_dequant_packed_cuda(words6, vp6, dt),
-                  ref.vp_dequant_packed_ref(words6, vp6, dt),
-                  f"vp_dequant_packed int8 words {dt}")
+    # whole tensors, then ragged and unaligned slices: the head (up to 15
+    # words before the first 16-byte boundary), the vector steps and the
+    # tail, and stores one by one where out + head is not aligned
+    flat16, flat8 = words.reshape(-1), words6.reshape(-1)
+    pieces = [(words6, vp6, "int8 words")]
+    for lo, n in ((0, 1), (0, 7), (0, 1003), (1, 5), (3, 100_003),
+                  (7, 4099), (5, 8 * 4096 + 3)):
+        pieces.append((flat16[lo:lo + n], vp, f"int16 words [{lo}:+{n}]"))
+    for lo, n in ((0, 15), (1, 17), (9, 100_001), (15, 16 * 4096 + 5)):
+        pieces.append((flat8[lo:lo + n], vp6, f"int8 words [{lo}:+{n}]"))
+    for w_, v_, what in pieces:
+        for dt in (torch.float32, torch.bfloat16):
+            identical(vp_dequant_packed_cuda(w_, v_, dt),
+                      ref.vp_dequant_packed_ref(w_, v_, dt),
+                      f"vp_dequant_packed {what} {dt}")
     wv, wf = table1_specs()[2].w_vp, table1_specs()[2].w_fxp
     R, C = DEQUANT_PLANES
     m, i = vp_quant_planes_cuda(
@@ -1513,9 +1538,10 @@ def block_kernel_phase(torch, peaks, record):
     rows += [_row("vp_dequant_planes", "vp_dequant.cu",
                   "src/repro/kernels/vp_dequant.py:31", shape, 0.0, ms,
                   plain_ms, bnd, None), main_pk]
-    print("[kernel] vp_dequant_packed (int16 and int8 words; f32, bf16) and "
-          "vp_dequant_planes (int8; f32, bf16): bit-identical to their plain "
-          "versions")
+    print(f"[kernel] vp_dequant_packed (int16 and int8 words, whole and "
+          f"{len(pieces) - 1} ragged or unaligned slices; f32, bf16) and "
+          f"vp_dequant_planes (int8; f32, bf16): bit-identical to their "
+          f"plain versions")
     record["block_kernel_lines"] = [
         dict(name=n, shape=s, ms=m_, plain_ms=p, bound_ms=b[0],
              bound_by=b[1], library_ms=lib, library_f32_ms=lib32)
@@ -2041,7 +2067,8 @@ def mimo_kernel_phase(torch, peaks, record):
     from repro_torch.core.packing import unpack_vp
     from repro_torch.core.vp_tensor import significand_dtype
     from repro_torch.kernels import build, ref
-    from repro_torch.kernels.vp_matmul import qmm_body, vp_matmul_cuda
+    from repro_torch.kernels.vp_matmul import (
+        layout_of, qmm_body, vmm_body, vp_matmul_cuda)
     from repro_torch.kernels.vp_quant import (
         plan_packed, vp_quant_packed_cuda, vp_quant_planes_cuda)
     from repro_torch.kernels.vp_quant_matmul import vp_quant_matmul_cuda
@@ -2139,50 +2166,119 @@ def mimo_kernel_phase(torch, peaks, record):
                              "MIMO shape")
     fused = vp_quant_matmul_cuda(a, b, wf, wv, yf, yv)
     cases = {
-        "planes": (lambda: vp_matmul_cuda(*planes["W"], *planes["y"], wv, yv),
+        "planes": (lambda body=None: vp_matmul_cuda(
+                       *planes["W"], *planes["y"], wv, yv, body=body),
                    lambda: ref.vp_matmul_batched_ref(
                        *planes["W"], *planes["y"], wv, yv),
                    G * (M * K * 2 + K * N * 2 + M * N * 4)),
-        "packed": (lambda: vp_matmul_cuda(words["W"], None, words["y"], None,
-                                          wv, yv),
+        "packed": (lambda body=None: vp_matmul_cuda(
+                       words["W"], None, words["y"], None, wv, yv, body=body),
                    lambda: ref.vp_matmul_batched_packed_ref(
                        words["W"], words["y"], wv, yv),
                    G * (M * K * 2 + K * N + M * N * 4)),
         "planes+masks": (
-            lambda: vp_matmul_cuda(*planes["W"], *planes["y"], wv, yv,
-                                   a_act, b_act, tiles),
+            lambda body=None: vp_matmul_cuda(
+                *planes["W"], *planes["y"], wv, yv, a_act, b_act, tiles,
+                body=body),
             lambda: ref.vp_matmul_batched_ref(
                 *planes["W"], *planes["y"], wv, yv, a_act, b_act, tiles),
             G * (M * K * 2 + K * N * 2 + M * N * 4) + mask_bytes),
     }
     library_ms = timer(lambda: torch.bmm(a_deq, b_deq))
-    main_mm = None
+    main_mm, mm_times = None, {}
     for case, (kern, plain, nbytes) in cases.items():
+        operands = ((words["W"], None), (words["y"], None)) \
+            if case == "packed" else (planes["W"], planes["y"])
+        body = vmm_body(G, M, K, N, tuple(layout_of(*x) for x in operands),
+                        True)
+        if body != "batch":
+            raise AssertionError(f"vmm_body picks {body} for vp_matmul "
+                                 f"{case} at the MIMO shape")
         out = kern()
         err, rel = compare(torch, out, plain(), MIMO_RTOL,
                            f"vp_matmul {case}")
         if case != "planes+masks" and not torch.equal(out, fused):
             raise AssertionError(f"fused kernel differs from quant -> "
                                  f"vp_matmul ({case}) on the card")
-        ms, plain_ms = timer(kern), timer(plain)
+        if not torch.equal(out, kern("warp")):
+            raise AssertionError(f"vp_matmul {case}: the batch body differs "
+                                 "from the warp body")
+        ms, warp_ms = timer(kern), timer(lambda: kern("warp"))
+        plain_ms = timer(plain)
         bnd = bound(peaks, nbytes, flops, "f32")
         shape = [G, M, K, N, case]
         _print_line("vp_matmul", shape, err, rel, ms, plain_ms, bnd,
                     library_ms)
+        print(f"[kernel] vp_matmul {shape}: batch body {ms:.4f} ms "
+              f"({bnd[0] / ms:.1%} of the bound {bnd[0]:.4f}; aim <= "
+              f"{2 * bnd[0]:.4f}), warp body {warp_ms:.4f} ms "
+              f"({bnd[0] / warp_ms:.1%}); torch.bmm {library_ms:.4f} ms; "
+              f"bit-identical to the warp body")
         lines.append(("vp_matmul", shape, ms, plain_ms, bnd, library_ms))
+        mm_times[case] = dict(batch_ms=ms, warp_ms=warp_ms, bound_ms=bnd[0])
         if case == "packed":
-            main_mm = _row("vp_matmul", "vp_matmul.cu",
-                           "src/repro/kernels/vp_matmul.py:82", shape, err,
-                           ms, plain_ms, bnd, library_ms)
+            main_mm = dict(_row("vp_matmul", "vp_matmul.cu",
+                                "src/repro/kernels/vp_matmul.py:82", shape,
+                                err, ms, plain_ms, bnd, library_ms),
+                           body="batch", warp_ms=warp_ms)
     rows.append(main_mm)
+    record["vp_matmul_batch"] = mm_times
     print("[kernel] vp_quant_matmul: bit-identical to vp_quant -> vp_matmul "
           "on the card (planes and packed words)")
 
+    # -- launches the batch body refuses: the planner keeps them on the warp
+    # body, and forcing the batch body raises --------------------------------
+    g8 = 64
+    shifted = words["W"].reshape(-1)[1:1 + g8 * M * K]   # 2 bytes past
+    refused = {   # (operands, the batch body's result on the same values)
+        "unaligned W slice": (
+            ((shifted.view(g8, M, K), None), (words["y"][:g8], None)),
+            vp_matmul_cuda(shifted.clone().view(g8, M, K), None,
+                           words["y"][:g8], None, wv, yv, body="batch")),
+        "mixed words x planes": (
+            ((words["W"][:g8], None), tuple(p[:g8] for p in planes["y"])),
+            fused[:g8]),
+    }
+    for what, ((wa, wb), want) in refused.items():
+        layout = (layout_of(*wa), layout_of(*wb))
+        aligned = all(t.data_ptr() % 16 == 0 for t in (*wa, *wb)
+                      if t is not None)
+        body = vmm_body(g8, M, K, N, layout, aligned)
+        if body != "warp":
+            raise AssertionError(f"vmm_body picks {body} for the {what}")
+        before = dict(build.LAUNCHES)
+        got = vp_matmul_cuda(*wa, *wb, wv, yv)
+        if _delta(before, build.LAUNCHES).get("vp_mm_warp") != 1:
+            raise AssertionError(f"the {what} did not run on the warp body")
+        if not torch.equal(got, want):
+            raise AssertionError(f"vp_matmul {what}: the warp body differs "
+                                 "from the batch body on the same values")
+        try:
+            vp_matmul_cuda(*wa, *wb, wv, yv, body="batch")
+        except RuntimeError as e:
+            if "invalid argument" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"the batch body took the {what}")
+    torch.cuda.synchronize()
+    print(f"[kernel] vp_matmul: {sorted(refused)} planned onto the warp body "
+          "(equal to the batch body on the same values); the batch body "
+          "refuses both")
+
     # -- vp_quant_matmul: the batch body against the warp and tile bodies ---
-    local = {op: sum(v for k, v in _sass_counts(
-        build._target("vp_quant_matmul"), build._nvcc(), op).items()
-        if "vp_mm_batch_kernel" in k) for op in ("LDL", "STL")}
-    print(f"[kernel] vp_mm_batch_kernel SASS: local loads / stores {local}")
+    local = {}
+    for lib in ("vp_quant_matmul", "vp_matmul"):
+        for op in ("LDL", "STL"):
+            got = {k: v for k, v in _sass_counts(
+                build._target(lib), build._nvcc(), op).items()
+                if "vp_mm_batch_kernel" in k}
+            if len(got) != (1 if lib == "vp_quant_matmul" else 2):
+                raise AssertionError(f"{lib}: batch kernels in the SASS "
+                                     f"{sorted(got)}")
+            local[f"{lib} {op}"] = sum(got.values())
+    print(f"[kernel] vp_mm_batch_kernel SASS (vp_quant_matmul's instance, "
+          f"vp_matmul's words and planes instances): local loads / stores "
+          f"{local}")
     if any(local.values()):
         raise AssertionError(f"the batch body spills to local memory: {local}")
     for gi in (0, 1, 63, G - 1):      # ties and saturation in the first 64
@@ -2317,7 +2413,7 @@ def _g1_kernels(torch, peaks, timer, gen, bvp, lines, record):
     shape timed on the planner's body and on each body, beside torch.mm;
     both bodies swept over MM_SWEEP.  Returns the two kernels' rows."""
     from repro_torch.kernels import build
-    from repro_torch.kernels.vp_matmul import mm_body, qmm_body
+    from repro_torch.kernels.vp_matmul import mm_body, qmm_body, vmm_body
 
     K = MIMO_SHAPE[1]
     Mm, Nm = MASKED_N * 8, MASKED_N
@@ -2412,11 +2508,14 @@ def _g1_kernels(torch, peaks, timer, gen, bvp, lines, record):
              for layout in ("packed", "fused") for body in ("warp", "tile")}
         if qmm_body(G, M, K, N) == "batch":
             t["fused batch"] = timer(lambda: fns["fused"]("batch"))
-        sweep.append(dict(G=G, M=M, K=K, N=N, planner=mm_body(G, M, K, N),
+        planner = vmm_body(G, M, K, N, WORDS_LAYOUT, True)
+        if planner == "batch":
+            t["packed batch"] = timer(lambda: fns["packed"]("batch"))
+        sweep.append(dict(G=G, M=M, K=K, N=N, planner=planner,
                           fused_planner=qmm_body(G, M, K, N), **t))
         print(f"[sweep] vp_mm {[G, M, K, N]}: "
               + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
-              + f" ms; mm_body picks {mm_body(G, M, K, N)}, qmm_body "
+              + f" ms; vmm_body (packed) picks {planner}, qmm_body "
               f"{qmm_body(G, M, K, N)}")
     record["g1_bodies"] = dict(checked=checked, local_memory=local,
                                times=times, sweep=sweep)
@@ -2493,14 +2592,15 @@ def mimo_phase(torch, record, rows, smi):
     wide_launches = _delta(before, build.LAUNCHES)
     counts = dict(build.LAUNCHES)
     # -------------------------------------------------------------------------
-    # the masked mode's 12 G = 1 launches on the tile body, the batched
-    # vp_matmul launches (4) on the warp body, the batched and wideband
-    # vp_quant_matmul launches (3) on the batch body; every planes launch
-    # (the CSPADE calls') on the table body
+    # the masked mode's 12 G = 1 launches on the tile body; the batched
+    # vp_matmul launches (4: unfused words, CSPADE planes with masks) and
+    # the batched and wideband vp_quant_matmul launches (3) on the batch
+    # body, none on the warp body; every planes launch (the CSPADE calls')
+    # on the table body
     expect = {"vp_quant_matmul": 2 + 4 + 1, **_qp(2 * 2 + 4, "table"),
               "vp_matmul": 2 + 2 + 4 + 4, "vp_quant_planes": 2 * 2 + 4,
               "vp_qpl_table": 2 * 2 + 4, "vp_mm_tile": 4 + 4 + 4,
-              "vp_mm_warp": 4, "vp_mm_batch": 3}
+              "vp_mm_batch": 4 + 3}
     print(f"[mimo] launches on the MIMO path: {counts}; of which the "
           f"masked mode's G = 1 launches: {masked_launches}")
     if counts != expect:
@@ -2521,9 +2621,8 @@ def mimo_phase(torch, record, rows, smi):
         elif name in ("vp_matmul", "vp_quant_matmul"):
             g1 = masked_launches.get(name, 0)
             row["launches"] = g1 if row.get("g1") else counts[name] - g1
-            if name == "vp_quant_matmul" and not row.get("g1"):
-                row["body_launches"] = {"batch": counts.get("vp_mm_batch",
-                                                            0)}
+            if not row.get("g1"):    # both batched rows: the batch body
+                row["body_launches"] = {"batch": row["launches"]}
         elif name in counts:
             row["mimo_launches"] = counts[name]
 
@@ -2578,7 +2677,7 @@ def mimo_phase(torch, record, rows, smi):
          {"vp_quant_matmul": 1, "vp_mm_batch": 1}),
         ("narrowband equalize (unfused)",
          lambda: equalize_vp_kernel(bvp, e.w_beam, e.y_beam, fused=False),
-         {**_qp(2, "table"), "vp_matmul": 1, "vp_mm_warp": 1}),
+         {**_qp(2, "table"), "vp_matmul": 1, "vp_mm_batch": 1}),
         (f"wideband equalize (S = {S}, n = {nw})",
          lambda: equalize_wideband(wspecs, wens.w_beam, wens.y_beam),
          {"vp_quant_matmul": 1, "vp_mm_batch": 1})])

@@ -100,7 +100,8 @@ _SIGNATURES = {
     },
     "vp_dequant": {
         "vp_dequant_planes_launch": [_P, _P, _P, _LL, _I, _P, _P],
-        "vp_dequant_packed_launch": [_P, _I, _P, _LL, _I, _P, _P],
+        "vp_dequant_packed_launch": [_P, _I, _P, _LL, _I, _P] + [_I] * 3
+                                    + [_P],
     },
 }
 SOURCES = tuple(_SIGNATURES)

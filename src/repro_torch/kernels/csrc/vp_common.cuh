@@ -244,21 +244,23 @@ enum VPDtype { VP_F32 = 0, VP_BF16 = 1 };
 // value of every raw FXP integer too, built while the chunk's loads are
 // in flight.
 //
-// The batch body (vp_mm_batch_kernel), for many small products whose
-// float operands are quantized on load (vp_quant_matmul's batched
-// launches: the MIMO engine's G = 100,000 and the wideband 65,536 x (16,
-// 64) x (64, 2)): a persistent grid in which each warp takes one product
-// at a time, one output per lane.  The warp body spent ~160 integer
-// instructions on the Fig. 3 select chain for every element it staged
-// and read with 4-byte loads; here each block builds its tables once
-// (the scales, the index table, and the value of every raw FXP integer
-// for a grid of at most VP_MB_LUT_MAX values: the y operand's 512, the W
-// operand's 4096, which measured faster than the index table for W),
-// each element is converted once in O(1) (one FXP rounding and a table
-// load, or the index table's few steps), and a warp reads a product's A
-// and B with 16-byte loads into registers one product ahead, so the next
-// product's bytes are in flight while the current one is converted and
-// summed.
+// The batch body (vp_mm_batch_kernel), for many small products: the
+// batched launches of vp_quant_matmul (float operands quantized on load)
+// and of vp_matmul in the MIMO engine's stored layouts (int16 x int8
+// words, int8 planes), at G = 100,000 and the wideband 65,536 x (16, 64)
+// x (64, 2).  A persistent grid in which each warp takes one product at a
+// time, one output per lane.  The warp body read each element with a 1-,
+// 2- or 4-byte load and spent ~160 integer instructions on the Fig. 3
+// select chain (or ~20 on the dequant one) per element; here each block
+// builds its tables once (the scales; for float operands also the index
+// table and the value of every raw FXP integer of a grid of at most
+// VP_MB_LUT_MAX values: the y operand's 512, the W operand's 4096, which
+// measured faster than the index table for W), each element is
+// converted once in O(1) (a scale lookup, or one FXP rounding and a
+// value lookup), and a warp reads a product's A and B in 16-byte chunks
+// ahead of the one it converts: float operands into registers one
+// product ahead, stored ones by cp.async.bulk into a ring of stages in
+// shared memory, up to three products ahead.
 //
 // The loaders are the only difference between the kernels (words or
 // planes -> dequant; floats -> quantize -> dequant), and every converted
@@ -389,13 +391,14 @@ struct VPQuantLoad {
     return value(fetch(idx), 0);
   }
   // The batch body's reads and tables: four elements' raw bits in one
-  // 16-byte load (x 16-byte aligned, v counting float4s), streamed past
+  // 16-byte chunk (x 16-byte aligned, v counting float4s), streamed past
   // L1; the scales and the index table (vp_index_table; zeros for a
-  // format without one); and the table of values with the index from it
-  // where `itab` is set, else by the chain.  Where the format has the
-  // table (kernels/vp_quant.py:table_ok) these are the numbers
-  // `lut_entry` gives.
-  __device__ __forceinline__ uint4 fetch4(long long v) const {
+  // format without one); the table of values with the index from it
+  // where `itab` is set, else by the chain (where the format has the
+  // table, kernels/vp_quant.py:table_ok, these are the numbers
+  // `lut_entry` gives); and a chunk's values looked up in that table.
+  static constexpr int kPer = 4;
+  __device__ __forceinline__ uint4 chunk(long long v) const {
     return __ldcs(reinterpret_cast<const uint4*>(x) + v);
   }
   __device__ __forceinline__ void tables(float* stab, int* itab) const {
@@ -408,6 +411,91 @@ struct VPQuantLoad {
     int m, i;
     vp_quantize_raw_tab((int)q.raw_lo + j, itab, q.vp.m_lo, q.vp.m_hi, m, i);
     return (float)m * vp_scale_lookup(i, stab);
+  }
+  __device__ __forceinline__ void values(uint4 u, uint4, const float*,
+                                         const float* lut,
+                                         float (&v)[kPer]) const {
+    v[0] = lut[lut_index((int)u.x)];
+    v[1] = lut[lut_index((int)u.y)];
+    v[2] = lut[lut_index((int)u.z)];
+    v[3] = lut[lut_index((int)u.w)];
+  }
+};
+
+// The batch body's loaders of stored VP operands.  A product's bytes
+// are contiguous in each plane (`plane(0)`, and `plane(1)` for a second,
+// index plane: kAux), which the body copies into shared memory whole, and
+// a loader converts a 16-byte chunk of kPer elements (and its index
+// chunk) in O(1) an element from the block's table of the format's scales
+// (`tables` builds it: vp_scale_table): the numbers VPLoad::value(v, aux,
+// tab) gives, so the batch body sums what the warp body sums.  No table
+// of values (kLut): an int16 word may hold any of 65,536 values, and the
+// scale table serves every format.
+//
+// Packed words of type WT (int8: 16 a chunk, int16: 8): m = w >> E
+// (arithmetic: sign-extended), i = w & (K - 1) < K.
+template <typename WT>
+struct VPLoadWords {
+  const WT* w;
+  VPFmt f;
+  static constexpr int kPer = 16 / (int)sizeof(WT);
+  static constexpr bool kAux = false;
+  static constexpr bool kLut = false;
+  __device__ __forceinline__ const VPFmt& fmt() const { return f; }
+  __device__ __forceinline__ const void* plane(int) const { return w; }
+  __device__ __forceinline__ void tables(float* stab, int*) const {
+    vp_scale_table(stab, f);
+  }
+  // Word t of a 32-bit lane of the chunk (little-endian), sign-extended.
+  __device__ __forceinline__ static int word(uint32_t x, int t) {
+    constexpr int B = 8 * (int)sizeof(WT), SH = 32 - B;
+    return (int)(x << (SH - B * t)) >> SH;
+  }
+  __device__ __forceinline__ void values(uint4 u, uint4, const float* stab,
+                                         const float*,
+                                         float (&v)[kPer]) const {
+    const uint32_t x[4] = {u.x, u.y, u.z, u.w};
+    constexpr int PW = kPer / 4;   // words per 32 bits
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int t = 0; t < PW; ++t) {
+        const int wv = word(x[q], t);
+        v[q * PW + t] = (float)(wv >> f.E) * stab[wv & (f.K - 1)];
+      }
+  }
+};
+
+// An int8 significand plane beside a uint8 index plane, 16 elements a
+// chunk of each: m * 2^-f_i, an index past the table taking scale[0] as
+// the select chain gives it (vp_scale_lookup).
+struct VPLoadPlanes {
+  const int8_t* m;
+  const uint8_t* i;
+  VPFmt f;
+  static constexpr int kPer = 16;
+  static constexpr bool kAux = true;
+  static constexpr bool kLut = false;
+  __device__ __forceinline__ const VPFmt& fmt() const { return f; }
+  __device__ __forceinline__ const void* plane(int p) const {
+    return p == 0 ? (const void*)m : (const void*)i;
+  }
+  __device__ __forceinline__ void tables(float* stab, int*) const {
+    vp_scale_table(stab, f);
+  }
+  __device__ __forceinline__ void values(uint4 u, uint4 x, const float* stab,
+                                         const float*,
+                                         float (&v)[kPer]) const {
+    const uint32_t um[4] = {u.x, u.y, u.z, u.w};
+    const uint32_t ui[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int mv = (int)(um[q] << (24 - 8 * t)) >> 24;
+        const int iv = (int)((ui[q] >> (8 * t)) & 255u);
+        v[q * 4 + t] = (float)mv * vp_scale_lookup(iv, stab);
+      }
   }
 };
 
@@ -804,81 +892,119 @@ int vp_mm_launch(const LoadA& load_a, const LoadB& load_b, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// The batch body.  A product's operands must fit one warp's staging:
-// M N <= 32 outputs (one per lane), K a multiple of 4 (every row of A and
-// column of B in whole float4s), M K <= 32 * VP_MB_AV * 4 and K N <= 128
-// (one load round of 16 bytes per lane), and the converted A rows and B
-// columns, (M + N) (K + 4) floats, within VP_MB_WARP_FLOATS; a, b 16-byte
-// aligned.  kernels/vp_matmul.py:qmm_body sends other shapes to the warp
-// body.  Each warp's area holds A row-major with row stride K + 4 and B
-// transposed (column n at row M + n, same stride), so the float4 reads
-// of a k-quad (lanes of one output row share an A address, lanes of one
-// column a B address) and the float4 stores of a converted A quad are
-// free of bank conflicts at (16, 64) x (64, 2).
+// The batch body.  A product's operands must fit one warp's staging: M N
+// <= 32 outputs (one per lane); K a multiple of 4 and of A's chunk
+// (LoadA::kPer elements, so every row of A is whole chunks) and K N a
+// multiple of B's; M K <= VP_MB_A_MAX and K N <= VP_MB_B_MAX (one load
+// round of 16 bytes per lane: up to 8 chunks of f32 A a lane, 4 of int16
+// words, 2 of int8 significands plus 2 of indices, and one chunk of B
+// (plus its index chunk) on each of the first K N / kPer lanes); and the
+// converted A rows and B columns, (M + N) (K + 4) floats, within
+// VP_MB_WARP_FLOATS; every plane 16-byte aligned.  kernels/vp_matmul.py
+// (batch_fits, qmm_body, vmm_body) sends other shapes to the warp body.
+// Each warp's area holds A row-major with row stride K + 4 and B
+// transposed (column n at row M + n, same stride): a chunk of A lands as
+// kPer / 4 float4 stores at the slot vp_mb_slots gives it, a chunk of B
+// element by element down its columns, and the float4 reads of a k-quad
+// in the sum (lanes of one output row share an A address, lanes of one
+// column a B address) are free of bank conflicts at (16, 64) x (64, 2).
 constexpr int VP_MB_THREADS = 256;     // threads of a block
 constexpr int VP_MB_WARPS = VP_MB_THREADS / 32;
-constexpr int VP_MB_AV = 8;            // float4 of A a lane loads per product
+constexpr int VP_MB_A_MAX = 1024;      // elements of A a product
+constexpr int VP_MB_B_MAX = 128;       // elements of B a product
 constexpr int VP_MB_WARP_FLOATS = 1280;  // a warp's converted operands
 constexpr int VP_MB_LUT_MAX = 4096;    // largest FXP grid tabulated by value
 
-struct VPMBRaw {        // one product's raw bits, as loaded
-  uint4 a[VP_MB_AV];
-  uint4 b;
+// One product's raw chunks, as a lane holds them.
+template <class LoadA, class LoadB>
+struct VPMBRaw {
+  static constexpr int NA = VP_MB_A_MAX / (32 * LoadA::kPer);
+  uint4 a[NA];
+  uint4 ax[LoadA::kAux ? NA : 1];
+  uint4 b, bx;
 };
 
-// Four elements' values from the operand's value table `lut`.
-template <class Load>
-__device__ __forceinline__ float4 vp_mb_value4(const Load& load, uint4 u,
-                                               const float* lut) {
-  return make_float4(lut[load.lut_index((int)u.x)],
-                     lut[load.lut_index((int)u.y)],
-                     lut[load.lut_index((int)u.z)],
-                     lut[load.lut_index((int)u.w)]);
+// Where a lane's chunks land in the warp's area, the same for every
+// product: A chunk j at a[j] (-1: none), the first element of its B
+// chunk at (k, n) = (bk, bn) (bk -1: none).
+template <int NA>
+struct VPMBSlots {
+  int a[NA];
+  int bk, bn;
+};
+
+template <class LoadA, class LoadB, int NA>
+__device__ __forceinline__ void vp_mb_slots(const VPMMGeom& g,
+                                            VPMBSlots<NA>& s) {
+  const int lane = threadIdx.x & 31, kp = g.K + 4;
+  const int nca = g.M * g.K / LoadA::kPer, ncb = g.K * g.N / LoadB::kPer;
+#pragma unroll
+  for (int j = 0; j < NA; ++j) {
+    const int v = lane + 32 * j, e = v * LoadA::kPer;
+    s.a[j] = v < nca ? (e / g.K) * kp + e % g.K : -1;
+  }
+  const int e = lane * LoadB::kPer;
+  s.bk = lane < ncb ? e / g.N : -1;
+  s.bn = e % g.N;
 }
 
-// Product gi's raw bits (zeros past the batch or the operands).
+// Product gi's raw chunks, loaded into registers (the fused kernel's
+// f32 operands; zeros past the batch or the operands).
 template <class LoadA, class LoadB>
 __device__ __forceinline__ void vp_mb_fetch(const LoadA& load_a,
                                             const LoadB& load_b,
                                             const VPMMGeom& g, long long gi,
-                                            VPMBRaw& r) {
+                                            VPMBRaw<LoadA, LoadB>& r) {
+  static_assert(!LoadA::kAux && !LoadB::kAux, "index planes take the ring");
   const int lane = threadIdx.x & 31;
-  const int na4 = g.M * g.K / 4, nb4 = g.K * g.N / 4;
+  const int nca = g.M * g.K / LoadA::kPer, ncb = g.K * g.N / LoadB::kPer;
   const bool in = gi < g.G;
+  const uint4 z = make_uint4(0, 0, 0, 0);
 #pragma unroll
-  for (int j = 0; j < VP_MB_AV; ++j) {
+  for (int j = 0; j < VPMBRaw<LoadA, LoadB>::NA; ++j) {
     const int v = lane + 32 * j;
-    r.a[j] = in && v < na4 ? load_a.fetch4(gi * na4 + v)
-                           : make_uint4(0, 0, 0, 0);
+    r.a[j] = in && v < nca ? load_a.chunk(gi * nca + v) : z;
   }
-  r.b = in && lane < nb4 ? load_b.fetch4(gi * nb4 + lane)
-                         : make_uint4(0, 0, 0, 0);
+  r.ax[0] = r.bx = z;
+  r.b = in && lane < ncb ? load_b.chunk(gi * ncb + lane) : z;
 }
 
-// Convert product gi's raw bits into the warp's area `ws` (a_off: where
-// each of the lane's A float4s goes, -1 for none; b_off: each of its four
-// B elements), then sum each output in k order (skipping the k-ranges
-// CSPADE mutes) and store it.
+// Convert product gi's raw chunks into the warp's area `ws` at the
+// lane's slots (scales from a_stab / b_stab, or values from a_lut /
+// b_lut: the loader's), then sum each output in k order (skipping the
+// k-ranges CSPADE mutes) and store it.
 template <class LoadA, class LoadB>
 __device__ __forceinline__ void vp_mb_product(
     const LoadA& load_a, const LoadB& load_b, const VPMMGeom& g,
-    long long gi, const VPMBRaw& r, float* ws, const int (&a_off)[VP_MB_AV],
-    const int (&b_off)[4], const float* a_lut, const float* b_lut,
+    long long gi, const VPMBRaw<LoadA, LoadB>& r, float* ws,
+    const VPMBSlots<VPMBRaw<LoadA, LoadB>::NA>& s, const float* a_stab,
+    const float* b_stab, const float* a_lut, const float* b_lut,
     float* __restrict__ out, const int* __restrict__ a_act,
     const int* __restrict__ b_act) {
   if (gi >= g.G) return;   // uniform over the warp
   const int lane = threadIdx.x & 31, kp = g.K + 4;
 #pragma unroll
-  for (int j = 0; j < VP_MB_AV; ++j)
-    if (a_off[j] >= 0)
-      *reinterpret_cast<float4*>(ws + a_off[j]) =
-          vp_mb_value4(load_a, r.a[j], a_lut);
-  if (b_off[0] >= 0) {
-    const float4 v = vp_mb_value4(load_b, r.b, b_lut);
-    ws[b_off[0]] = v.x;
-    ws[b_off[1]] = v.y;
-    ws[b_off[2]] = v.z;
-    ws[b_off[3]] = v.w;
+  for (int j = 0; j < VPMBRaw<LoadA, LoadB>::NA; ++j)
+    if (s.a[j] >= 0) {
+      float v[LoadA::kPer];
+      load_a.values(r.a[j], r.ax[LoadA::kAux ? j : 0], a_stab, a_lut, v);
+#pragma unroll
+      for (int q = 0; q < LoadA::kPer / 4; ++q)
+        *reinterpret_cast<float4*>(ws + s.a[j] + 4 * q) =
+            make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    }
+  if (s.bk >= 0) {
+    float v[LoadB::kPer];
+    load_b.values(r.b, r.bx, b_stab, b_lut, v);
+    int k = s.bk, n = s.bn;
+#pragma unroll
+    for (int t = 0; t < LoadB::kPer; ++t) {
+      ws[(g.M + n) * kp + k] = v[t];
+      if (++n == g.N) {
+        n = 0;
+        ++k;
+      }
+    }
   }
   __syncwarp();
   if (lane < g.M * g.N) {
@@ -886,39 +1012,128 @@ __device__ __forceinline__ void vp_mb_product(
     const float* ar = ws + m * kp;
     const float* bc = ws + (g.M + n) * kp;
     float acc = 0.f;
-    if (a_act == nullptr) {
-      for (int k = 0; k < g.K; k += 4) {
-        const float4 a = *reinterpret_cast<const float4*>(ar + k);
-        const float4 b = *reinterpret_cast<const float4*>(bc + k);
-        acc = fmaf(a.x, b.x, acc);
-        acc = fmaf(a.y, b.y, acc);
-        acc = fmaf(a.z, b.z, acc);
-        acc = fmaf(a.w, b.w, acc);
+    // k in [k, k_end) in order, four at a time where both are multiples
+    // of 4 (the rows are 16-byte aligned): the same fmaf chain.
+    const auto range = [&](int k, int k_end) {
+      if (((k | k_end) & 3) == 0) {
+        for (; k < k_end; k += 4) {
+          const float4 a = *reinterpret_cast<const float4*>(ar + k);
+          const float4 b = *reinterpret_cast<const float4*>(bc + k);
+          acc = fmaf(a.x, b.x, acc);
+          acc = fmaf(a.y, b.y, acc);
+          acc = fmaf(a.z, b.z, acc);
+          acc = fmaf(a.w, b.w, acc);
+        }
+      } else {
+        for (; k < k_end; ++k) acc = fmaf(ar[k], bc[k], acc);
       }
+    };
+    if (a_act == nullptr) {
+      range(0, g.K);
     } else {
       const int nkt = g.K / g.bk, nbn = g.N / g.bn;
       const int* a_row = a_act + (gi * (g.M / g.bm) + m / g.bm) * nkt;
       const int* b_col = b_act + gi * nkt * nbn + n / g.bn;
-      for (int kt = 0; kt < nkt; ++kt) {
-        if ((a_row[kt] | b_col[(long long)kt * nbn]) == 0) continue;
-        for (int k = kt * g.bk; k < (kt + 1) * g.bk; ++k)
-          acc = fmaf(ar[k], bc[k], acc);
-      }
+      for (int kt = 0; kt < nkt; ++kt)
+        if ((a_row[kt] | b_col[(long long)kt * nbn]) != 0)
+          range(kt * g.bk, (kt + 1) * g.bk);
     }
     out[(gi * g.M + m) * g.N + n] = acc;
   }
   __syncwarp();   // the area is free for the next product
 }
 
+// The stored operands' route (VPLoadWords, VPLoadPlanes): one lane of
+// each warp copies whole products with cp.async.bulk into the warp's ring
+// of VP_MB_STAGES stages in shared memory, each completing an mbarrier;
+// the lanes wait for a product's stage, read its chunks, hand the stage
+// back to the copy of the product VP_MB_STAGES ahead, and convert.  Up to
+// three products a warp in flight, 110 KB an SM at (16, 64) x (64, 2);
+// it measured 6 % faster than two products ahead in registers (PERF.md
+// row 9).  The fused kernel's f32 operands (4736 bytes a product) stay on
+// registers, one product ahead.
+constexpr int VP_MB_STAGES = 3;
+constexpr int VP_MB_STAGE_BYTES = 2304;   // A 2048 + B 256 at most
+
+__device__ __forceinline__ void vp_bulk_copy(uint32_t dst, const void* src,
+                                             int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Lane 0: product gi's planes into the stage at dst, completing bar.
+template <class LoadA, class LoadB>
+__device__ __forceinline__ void vp_mb_issue(const LoadA& load_a,
+                                            const LoadB& load_b,
+                                            const VPMMGeom& g, long long gi,
+                                            uint32_t dst, uint32_t bar) {
+  const int sa = g.M * g.K / LoadA::kPer * 16;
+  const int sb = g.K * g.N / LoadB::kPer * 16;
+  const int total = sa * (LoadA::kAux ? 2 : 1) + sb * (LoadB::kAux ? 2 : 1);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(bar), "r"(total) : "memory");
+  vp_bulk_copy(dst, (const char*)load_a.plane(0) + gi * sa, sa, bar);
+  uint32_t o = sa;
+  if constexpr (LoadA::kAux) {
+    vp_bulk_copy(dst + o, (const char*)load_a.plane(1) + gi * sa, sa,
+                 bar);
+    o += sa;
+  }
+  vp_bulk_copy(dst + o, (const char*)load_b.plane(0) + gi * sb, sb,
+               bar);
+  if constexpr (LoadB::kAux)
+    vp_bulk_copy(dst + o + sb, (const char*)load_b.plane(1) + gi * sb,
+                 sb, bar);
+}
+
+__device__ __forceinline__ void vp_mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+        "%2; selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// A product's chunks from its stage, as vp_mb_fetch lays them out.
+template <class LoadA, class LoadB>
+__device__ __forceinline__ void vp_mb_read(const uint4* st, const VPMMGeom& g,
+                                           VPMBRaw<LoadA, LoadB>& r) {
+  const int lane = threadIdx.x & 31;
+  const int nca = g.M * g.K / LoadA::kPer, ncb = g.K * g.N / LoadB::kPer;
+  const uint4 z = make_uint4(0, 0, 0, 0);
+#pragma unroll
+  for (int j = 0; j < VPMBRaw<LoadA, LoadB>::NA; ++j) {
+    const int v = lane + 32 * j;
+    r.a[j] = v < nca ? st[v] : z;
+    r.ax[LoadA::kAux ? j : 0] = LoadA::kAux && v < nca ? st[nca + v] : z;
+  }
+  const int o = nca * (LoadA::kAux ? 2 : 1);
+  r.b = lane < ncb ? st[o + lane] : z;
+  r.bx = LoadB::kAux && lane < ncb ? st[o + ncb + lane] : z;
+}
+
+// Whether the loaders' products take the ring (stored VP operands) or
+// registers (the fused kernel's f32 operands, with their value tables).
+template <class LoadA, class LoadB>
+__host__ __device__ constexpr bool vp_mb_ring() {
+  return !LoadA::kLut && !LoadB::kLut;
+}
+
 // Dynamic shared memory: the warps' areas, then the value tables of A (na
-// floats) and B (nb); a_table / b_table: the index table is valid (the
-// value tables are then built from it, else by the chain).
+// floats) and B (nb), then (the ring) each warp's stages; a_table /
+// b_table: the index table is valid (the value tables are then built
+// from it, else by the chain).
 template <class LoadA, class LoadB>
 __global__ void __launch_bounds__(VP_MB_THREADS, 2)
 vp_mm_batch_kernel(LoadA load_a, LoadB load_b, float* __restrict__ out,
                    const int* __restrict__ a_act,
                    const int* __restrict__ b_act, VPMMGeom g, int na, int nb,
                    int a_table, int b_table) {
+  using Raw = VPMBRaw<LoadA, LoadB>;
+  constexpr bool kRing = vp_mb_ring<LoadA, LoadB>();
   extern __shared__ __align__(16) float vp_mb_smem[];
   __shared__ float a_stab[VP_MAX_K], b_stab[VP_MAX_K];
   __shared__ int a_itab[VP_IDX_TAB], b_itab[VP_IDX_TAB];
@@ -928,66 +1143,104 @@ vp_mm_batch_kernel(LoadA load_a, LoadB load_b, float* __restrict__ out,
   float* b_lut = a_lut + na;
   const long long nw = (long long)gridDim.x * VP_MB_WARPS;
   long long gi = (long long)blockIdx.x * VP_MB_WARPS + warp;
-  VPMBRaw r0, r1;
-  vp_mb_fetch(load_a, load_b, g, gi, r0);   // in flight while the tables
-  load_a.tables(a_stab, a_itab);            // are built
+  Raw r0, r1;
+  __shared__ __align__(8) uint64_t bars[VP_MB_WARPS][VP_MB_STAGES];
+  const char* stages = reinterpret_cast<const char*>(b_lut + nb) +
+                       warp * VP_MB_STAGES * VP_MB_STAGE_BYTES;
+  const uint32_t ring = (uint32_t)__cvta_generic_to_shared(stages);
+  const uint32_t bar0 = (uint32_t)__cvta_generic_to_shared(&bars[warp][0]);
+  if constexpr (kRing) {
+    if (lane == 0) {
+      for (int s = 0; s < VP_MB_STAGES; ++s)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                     ::"r"(bar0 + 8 * s) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      for (int s = 0; s < VP_MB_STAGES; ++s)
+        if (gi + s * nw < g.G)
+          vp_mb_issue(load_a, load_b, g, gi + s * nw,
+                      ring + s * VP_MB_STAGE_BYTES, bar0 + 8 * s);
+    }
+    __syncwarp();
+  }
+  if constexpr (!kRing)
+    vp_mb_fetch(load_a, load_b, g, gi, r0);   // in flight while the tables
+  load_a.tables(a_stab, a_itab);              // are built
   load_b.tables(b_stab, b_itab);
   __syncthreads();
-  for (int j = threadIdx.x; j < na; j += VP_MB_THREADS)
-    a_lut[j] = load_a.lut_value(j, a_table ? a_itab : nullptr, a_stab);
-  for (int j = threadIdx.x; j < nb; j += VP_MB_THREADS)
-    b_lut[j] = load_b.lut_value(j, b_table ? b_itab : nullptr, b_stab);
+  if constexpr (LoadA::kLut)
+    for (int j = threadIdx.x; j < na; j += VP_MB_THREADS)
+      a_lut[j] = load_a.lut_value(j, a_table ? a_itab : nullptr, a_stab);
+  if constexpr (LoadB::kLut)
+    for (int j = threadIdx.x; j < nb; j += VP_MB_THREADS)
+      b_lut[j] = load_b.lut_value(j, b_table ? b_itab : nullptr, b_stab);
   __syncthreads();
-  // Where this lane's loads go in the area: the same for every product.
-  const int kp = g.K + 4, k4 = g.K / 4, na4 = g.M * g.K / 4;
-  int a_off[VP_MB_AV], b_off[4];
-#pragma unroll
-  for (int j = 0; j < VP_MB_AV; ++j) {
-    const int v = lane + 32 * j;
-    a_off[j] = v < na4 ? (v / k4) * kp + 4 * (v % k4) : -1;
-  }
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const int e = 4 * lane + t, k = e / g.N, n = e - k * g.N;
-    b_off[t] = 4 * lane < g.K * g.N ? (g.M + n) * kp + k : -1;
-  }
-  // Two products per step, each one's loads issued before the other is
-  // converted: r0 and r1 take turns.
-  for (; gi < g.G; gi += 2 * nw) {
-    vp_mb_fetch(load_a, load_b, g, gi + nw, r1);
-    vp_mb_product(load_a, load_b, g, gi, r0, ws, a_off, b_off, a_lut, b_lut,
-                  out, a_act, b_act);
-    vp_mb_fetch(load_a, load_b, g, gi + 2 * nw, r0);
-    vp_mb_product(load_a, load_b, g, gi + nw, r1, ws, a_off, b_off, a_lut,
+  VPMBSlots<Raw::NA> sl;
+  vp_mb_slots<LoadA, LoadB>(g, sl);
+  const auto product = [&](long long i, const Raw& r) {
+    vp_mb_product(load_a, load_b, g, i, r, ws, sl, a_stab, b_stab, a_lut,
                   b_lut, out, a_act, b_act);
+  };
+  if constexpr (kRing) {
+    int s = 0;
+    uint32_t ph = 0;
+    for (; gi < g.G; gi += nw) {
+      vp_mbar_wait(bar0 + 8 * s, ph);
+      vp_mb_read<LoadA, LoadB>(reinterpret_cast<const uint4*>(
+                                   stages + s * VP_MB_STAGE_BYTES), g, r0);
+      __syncwarp();   // every lane has read the stage: refill it
+      if (lane == 0 && gi + VP_MB_STAGES * nw < g.G) {
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        vp_mb_issue(load_a, load_b, g, gi + VP_MB_STAGES * nw,
+                    ring + s * VP_MB_STAGE_BYTES, bar0 + 8 * s);
+      }
+      product(gi, r0);
+      if (++s == VP_MB_STAGES) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+  } else {
+    // Two products per step, each one's loads issued before the other is
+    // converted: r0 and r1 take turns.
+    for (; gi < g.G; gi += 2 * nw) {
+      vp_mb_fetch(load_a, load_b, g, gi + nw, r1);
+      product(gi, r0);
+      vp_mb_fetch(load_a, load_b, g, gi + 2 * nw, r0);
+      product(gi + nw, r1);
+    }
   }
 }
 
-// Launch the batch body: na / nb the sizes of the operands' FXP grids,
-// each tabulated by value (at most VP_MB_LUT_MAX), a_table / b_table
-// whether their index tables are valid (the value tables are then built
-// from them, else by the chain).  Refuses (cudaErrorInvalidValue) a shape,
-// mask grid or grid size it does not take; the caller checks the
-// alignment.
+// Launch the batch body: na / nb the sizes of the operands' FXP grids
+// where the loader tabulates values (kLut: each at most VP_MB_LUT_MAX;
+// else 0), a_table / b_table whether their index tables are valid (the
+// value tables are then built from them, else by the chain).  Refuses
+// (cudaErrorInvalidValue) a shape, mask grid or grid size it does not
+// take; the caller checks the alignment and the layout.
 template <class LoadA, class LoadB>
 int vp_mm_batch_launch(const LoadA& load_a, const LoadB& load_b, void* out,
                        const int* a_act, const int* b_act, int G, int M,
                        int K, int N, int bm, int bk, int bn, int na, int nb,
                        int a_table, int b_table, cudaStream_t stream) {
+  constexpr bool kRing = vp_mb_ring<LoadA, LoadB>();
   VPMMGeom g{G, M, K, N, bm, bk, bn, 0, 0};
   if ((a_act == nullptr) != (b_act == nullptr))
     return (int)cudaErrorInvalidValue;
   if (a_act && (bm <= 0 || bk <= 0 || bn <= 0 || M % bm || K % bk || N % bn))
     return (int)cudaErrorInvalidValue;
-  if (M < 1 || N < 1 || K < 4 || K % 4 || M * N > 32 ||
-      M * K > 32 * 4 * VP_MB_AV || K * N > 32 * 4 ||
-      (M + N) * (K + 4) > VP_MB_WARP_FLOATS || na < 1 || nb < 1 ||
-      na > VP_MB_LUT_MAX || nb > VP_MB_LUT_MAX)
+  if (M < 1 || N < 1 || K < 4 || K % 4 || K % LoadA::kPer ||
+      (K * N) % LoadB::kPer || M * N > 32 || M * K > VP_MB_A_MAX ||
+      K * N > VP_MB_B_MAX || (M + N) * (K + 4) > VP_MB_WARP_FLOATS)
+    return (int)cudaErrorInvalidValue;
+  if (LoadA::kLut ? (na < 1 || na > VP_MB_LUT_MAX) : na != 0)
+    return (int)cudaErrorInvalidValue;
+  if (LoadB::kLut ? (nb < 1 || nb > VP_MB_LUT_MAX) : nb != 0)
     return (int)cudaErrorInvalidValue;
   if (G < 1) return 0;
   const auto kern = vp_mm_batch_kernel<LoadA, LoadB>;
   const int smem =
-      (VP_MB_WARPS * VP_MB_WARP_FLOATS + na + nb) * (int)sizeof(float);
+      (VP_MB_WARPS * VP_MB_WARP_FLOATS + na + nb) * (int)sizeof(float) +
+      (kRing ? VP_MB_WARPS * VP_MB_STAGES * VP_MB_STAGE_BYTES : 0);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int dev = 0, sms = 0, per_sm = 0;

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core.formats import FXPFormat, VPFormat
 from . import build
-from .vp_matmul import (BATCH_LUT_MAX, BODY_COUNTER, QMM_BODY_CODES,
+from .vp_matmul import (BATCH_LUT_MAX, BODY_CODES, BODY_COUNTER,
                         check_body, mask_args, qmm_body)
 from .vp_quant import table_ok
 
@@ -40,7 +40,7 @@ def vp_quant_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
     operands VP-quantized in the kernel; masks as in `vp_matmul_cuda`.
     The body is `qmm_body`'s, or `body` ("warp", "tile" or "batch")
     where a caller measures one."""
-    check_body(body, QMM_BODY_CODES)
+    check_body(body)
     if not (a.is_cuda and b.device == a.device):
         raise ValueError("vp_quant_matmul kernel takes CUDA tensors on one "
                          "device")
@@ -65,7 +65,7 @@ def vp_quant_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
         err = lib.vp_quant_matmul_launch(
             a.data_ptr(), ctypes.byref(qa), b.data_ptr(), ctypes.byref(qb),
             out.data_ptr(), pa, pb, G, M, K, N, bm, bk, bn,
-            QMM_BODY_CODES[body], int(table_ok(a_fxp, a_vp)),
+            BODY_CODES[body], int(table_ok(a_fxp, a_vp)),
             int(table_ok(b_fxp, b_vp)),
             torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, f"vp_quant_matmul ({body} body)")

@@ -117,6 +117,30 @@ Run from the root of a checkout.  Phases, each raising on failure:
      exported by the quantizer's general body, every weight matmul on
      `block_vp_matmul`'s dp4a body (exact launch counts).  Then the
      public op `ops.vp_dequant` once on each dequant kernel's shapes.
+  4b. engine - the paged continuous-batching engine (`repro_torch.serving`)
+               on the same model, bf16, packed VP weights and KV cache:
+               8 ragged requests (prompts 64-128, budgets 16-32, numpy
+               seed 0) through 4 slots of pages of 16 (capacity 160),
+               run-ahead 4, then 1, with the same tokens; every decode
+               step one CUDA graph replay per (bucket, steps).  (a) each
+               graph's first replay bit-identical to the eager step
+               (tokens, logits, pools, lengths); (b) every request's
+               logits against the plain path teacher-forced on its
+               tokens, bf16 held to max(2e-2, 1.5 x the plain path's f64
+               floor), f32 at 4 layers to 2e-3; (c) short runs with
+               chunked prefill 32, the planes KV layout, vp_block at 256
+               (one slot) and sampling, each held the same way against
+               the plain path of its config (chunked prefill for the
+               chunked run) and showing its kernels on the engine's path
+               (the kernels that ran: the wrappers' counts less the
+               captures plus the replays), and those kernels at the
+               engine's shapes bit-identical to their plain versions;
+               (d) a profile of one prefill unit and of one decode replay
+               (hand kernels only, no library GEMM or attention kernel);
+               (e) decode ms per step per bucket and kept tokens/s with
+               graphs (median of 3 waves) beside the engine without
+               graphs and the static path (median of 3) in the same
+               call.
   5. mimo    - the paper's B-VP MIMO equalizer (B = 64 antennas, U = 8
                users, 16-QAM, Sec. III-A): narrowband ensembles of
                n = 100,000 channels at 2 dB and 20 dB equalized through
@@ -166,6 +190,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
@@ -277,6 +302,17 @@ DEQUANT_PACKED = (1024, 3072)        # int16 words of one weight panel
 DEQUANT_PLANES = (1_600_000, 64)     # the MIMO W planes (row 5's shape)
 DEC_SHAPE = (4, 160, 8, 2, 64)       # decode: B, Smax, KV, G, dh of serve
 DEC_SWEEP = (160, 1024, 4096)        # decode valid lengths at B = 4
+# The engine phase: ragged requests (prompt and budget ranges, numpy seed
+# 0) through slots of pages up to the serve's Smax; run-ahead 4, then 1;
+# chunked prefill's chunk; repeats of the timed waves; the f32 run's depth
+ENGINE_REQS, ENGINE_PROMPT, ENGINE_GEN = 8, (64, 128), (16, 32)
+ENGINE_SLOTS, ENGINE_PAGE, ENGINE_CAP = 4, 16, PROMPT + GEN
+ENGINE_LOOKAHEAD, ENGINE_CHUNK, ENGINE_REPEATS = (4, 1), 32, 3
+ENGINE_F32_LAYERS = 4
+ENGINE_FLOOR_REQS = 2      # requests whose plain-path floor is measured
+_ENGINE_ROWS = ("vp_quant_packed", "vp_dequant_matmul", "vp_decode_attention",
+                "flash_prefill", "vp_quant_planes", "vp_dequant_planes",
+                "vp_dequant_packed", "block_vp_matmul", "vp_block_quant")
 FLASH_SWEEP = (128, 512, 2048)       # causal bf16 prompts at B = 4
 WINDOW = "chip_smoke.window"        # profiler range around the profiled call
 LIBRARY_KERNELS = re.compile(
@@ -357,16 +393,18 @@ def main() -> None:
         print(f"[time] {phase.__name__}: {s:.2f}s")
         return out
 
-    rows = timed(kernel_phase, peaks, record)
-    rows += timed(block_kernel_phase, peaks, record)
-    rows += timed(mimo_kernel_phase, peaks, record)
-    rows += timed(train_kernel_phase, peaks, record)
-    timed(serve_phase, record, rows)
-    timed(serve_block_phase, record, rows, smi)
-    timed(serve_block16_phase, record, rows, smi)
-    timed(dequant_phase, record, rows)
-    timed(mimo_phase, record, rows, smi)
-    timed(train_phase, record, rows, smi)
+    rows = []
+    for phase, *extra in (
+            (kernel_phase, peaks, record), (block_kernel_phase, peaks, record),
+            (mimo_kernel_phase, peaks, record),
+            (train_kernel_phase, peaks, record), (serve_phase, record, rows),
+            (serve_block_phase, record, rows, smi),
+            (serve_block16_phase, record, rows, smi),
+            (engine_phase, record, rows, smi), (dequant_phase, record, rows),
+            (mimo_phase, record, rows, smi), (train_phase, record, rows, smi)):
+        out = timed(phase, *extra)
+        if phase.__name__.endswith("kernel_phase"):
+            rows += out
 
     # ---- 8. result --------------------------------------------------------
     if args.json_out:
@@ -734,7 +772,7 @@ def _attention_rows(torch, peaks, timer, gen, randn, words, vp, lines,
 
     k_w, v_w, k_s, v_s = cache(smax)
     q = randn(B, 1, H, dh)
-    plan = plan_decode(B, KV, smax, G, dh)
+    plan = plan_decode(KV, smax, G, dh)
     print(f"[kernel] vp_decode_attention split: {plan} ({B * KV * plan.cluster}"
           f" blocks of {plan.warps} warps)")
     cases = {"full": ([160, 150, 129, 100], None, False),
@@ -794,10 +832,10 @@ def _attention_rows(torch, peaks, timer, gen, randn, words, vp, lines,
         library_ms = timer(sdpa_decode(q, *ck, lengths, None, False))
         bnd = dec_bound([L] * B, L, None, False)
         sweep.append(dict(length=L, plan=dataclasses.asdict(
-            plan_decode(B, KV, L, G, dh)), ms=ms, bound_ms=bnd[0],
+            plan_decode(KV, L, G, dh)), ms=ms, bound_ms=bnd[0],
             library_ms=library_ms, max_abs_err=err))
         print(f"[kernel] vp_decode_attention sweep B {B} length {L} "
-              f"{plan_decode(B, KV, L, G, dh)}: ms {ms:.4f} bound_ms "
+              f"{plan_decode(KV, L, G, dh)}: ms {ms:.4f} bound_ms "
               f"{bnd[0]:.4f} ({ms / bnd[0]:.1f}x) library_ms (SDPA) "
               f"{library_ms:.4f} (rel err {rel:.2e})")
     record["decode_sweep"] = sweep
@@ -1987,6 +2025,466 @@ def _serve(torch, quant, expect, passes, requantizes: bool):
         bf16_token_agreement=agree, f32_rel_logit_diff=rels32,
         f32_plain_floor=floor32, f32_limit=limit32,
         f32_token_agreement=agree32)
+
+
+# ---------------------------------------------------------------------------
+# 4b. the continuous-batching engine
+# ---------------------------------------------------------------------------
+
+def _engine_requests(cfg, n: int):
+    """n requests from numpy seed 0: (prompt of ENGINE_PROMPT tokens,
+    ragged, generation budget in ENGINE_GEN, ragged)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(ENGINE_PROMPT[0], ENGINE_PROMPT[1] + 1, n)
+    gens = rng.integers(ENGINE_GEN[0], ENGINE_GEN[1] + 1, n)
+    return [([int(t) for t in rng.integers(0, cfg.vocab, int(s))], int(g))
+            for s, g in zip(lens, gens)]
+
+
+def _engine(cfg, params, **kw):
+    from repro_torch.serving import ServingEngine, VirtualClock
+
+    kw.setdefault("max_slots", ENGINE_SLOTS)
+    kw.setdefault("capacity", ENGINE_CAP)
+    kw.setdefault("page_size", ENGINE_PAGE)
+    return ServingEngine(params, cfg, clock=VirtualClock(), check_graphs=True,
+                         check_finite=True, on_nonfinite="raise", **kw)
+
+
+def _engine_wave(torch, eng, reqs, logits=None):
+    """Submit `reqs` at time 0 and serve them -> (records, wall s,
+    [(decode call wall s, steps, (bucket, steps))], kernels that ran).
+
+    `logits` (a dict) collects each request's logits, by rid: the
+    prefill's, then every decode step's (the engine's finite screen sees
+    them; run-ahead past the budget included).  The kernels that ran are
+    the wrappers' counts less the launches recorded into graphs plus
+    those of every replay (`ModelRunner`)."""
+    from repro_torch.kernels import build
+
+    runner = eng.runner
+    screen, decode = eng._screen, runner.decode_batch
+    calls = []
+
+    def spy_screen(phase, run, lg):
+        if logits is not None and phase in ("prefill", "decode"):
+            logits.setdefault(run.req.rid, []).append(lg.reshape(
+                -1, lg.shape[-1]))
+        return screen(phase, run, lg)
+
+    def spy_decode(params, slot_tokens, key, steps=1, **kw):
+        t = time.perf_counter()
+        out = decode(params, slot_tokens, key, steps, **kw)
+        bucket = min(1 << (len(slot_tokens) - 1).bit_length(),
+                     eng.kv.max_slots)
+        calls.append((time.perf_counter() - t, steps, (bucket, steps)))
+        return out
+
+    eng._screen, runner.decode_batch = spy_screen, spy_decode
+    launches = collections.Counter(build.LAUNCHES)
+    captured = collections.Counter(runner.captured)
+    replayed = collections.Counter(runner.replayed)
+    try:
+        rids = [eng.submit(prompt, gen, 0.0).rid for prompt, gen in reqs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recs = [r for r in eng.run() if r["rid"] in rids]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del eng._screen, runner.decode_batch
+    ran = (collections.Counter(build.LAUNCHES) - launches) \
+        - (runner.captured - captured) + (runner.replayed - replayed)
+    bad = [r["rid"] for r, (_, gen) in zip(recs, reqs)
+           if r["outcome"] != "ok" or len(r["tokens"]) != gen]
+    if len(recs) != len(reqs) or bad:
+        raise AssertionError(f"engine requests {bad} did not complete")
+    return recs, wall, calls, dict(ran)
+
+
+def _decode_rates(recs, calls):
+    """Decode time per step of each (bucket, steps) and over the wave, and
+    decode tokens/s counting only the tokens kept (each request's tokens
+    after its prefill's; run-ahead past a budget is dropped)."""
+    dec_s = sum(c[0] for c in calls)
+    per = collections.defaultdict(lambda: [0.0, 0])
+    for wall, steps, bucket in calls:
+        per[bucket][0] += wall
+        per[bucket][1] += steps
+    return dict(
+        decode_s=dec_s, decode_calls=len(calls),
+        decode_ms_per_step=dec_s / sum(c[1] for c in calls) * 1e3,
+        bucket_ms_per_step={f"{b}x{n}": t / k * 1e3
+                            for (b, n), (t, k) in sorted(per.items())},
+        decode_tok_s=sum(len(r["tokens"]) - 1 for r in recs) / dec_s)
+
+
+def _check_graph_log(runner, tag):
+    """Every captured bucket held its first replay bit-identical to the
+    eager step (`check_graphs`); print the buckets."""
+    log = runner.graph_log
+    if not log or not all(e["identical"] for e in log):
+        raise AssertionError(f"{tag}: graph checks {log}")
+    print(f"{tag} {len(log)} decode graphs, each replay bit-identical "
+          f"(tokens, logits, pools, lengths) to the eager step: buckets (slots, "
+          f"steps) {[e['bucket'] for e in log]}; hand kernels per replay "
+          + "; ".join(f"{e['bucket']}: " + str(sum(
+              v for k, v in e["launches"].items() if k in _ENGINE_ROWS))
+              for e in log))
+
+
+def _engine_plain(torch, cfg, params, reqs, recs, logits, floor=0,
+                  chunk=None, f64_attention=False):
+    """Per request, max|engine logit - plain logit| / max|plain logit| over
+    its steps, the plain path (`_plain_logits` at B = 1, max_len =
+    ENGINE_CAP, the prompt whole or in chunks of `chunk`) teacher-forced
+    on the engine's tokens -> (rels, floors): for the first `floor`
+    requests also the plain path's own floor, the same run with its
+    matmuls (and with `f64_attention` its attention, where the path
+    requantizes activations) summed in f64 against the f32-summed one."""
+    import numpy as np
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    rels, floors = [], []
+    for i, ((prompt, _), rec) in enumerate(zip(reqs, recs)):
+        toks = rec["tokens"]
+        args = (torch, cfg, params, torch.tensor([prompt], device="cuda"),
+                torch.tensor([toks[:-1]], dtype=torch.int32, device="cuda"))
+        want = torch.cat(_plain_logits(*args, max_len=ENGINE_CAP,
+                                       chunk=chunk))
+        got = torch.from_numpy(np.concatenate(
+            logits[rec["rid"]])[:len(toks)]).cuda()
+        rels.append(rel(got, want))
+        if i < floor:
+            floors.append(rel(torch.cat(_plain_logits(
+                *args, f64_matmul=True, f64_attention=f64_attention,
+                max_len=ENGINE_CAP, chunk=chunk)), want))
+    return rels, floors
+
+
+def _engine_shapes(torch, cfg, block_cfg, block_params, prompt_len):
+    """The side runs' kernels at the shapes the engine gives them, each
+    bit-identical to its plain version on the same inputs (bf16, numpy
+    seed 0): the planes KV write of a prompt and of a decode step at
+    buckets 1 and 2 (`vp_quant_planes`), the planes cache read at those
+    buckets (`vp_dequant_planes`), a chunked prefill's read of the packed
+    history (`vp_dequant_packed`), and the vp_block linear
+    (`vp_block_quant`, then `block_vp_matmul`) of every layer-0 weight
+    and lm_head at buckets 1 and 2."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import (dequantize_kv,
+                                              dequantize_kv_packed,
+                                              quantize_kv)
+    from repro_torch.models.layers import qdot
+
+    rng = np.random.default_rng(0)
+    KV, dh, dt = cfg.n_kv_heads, cfg.head_dim, torch.bfloat16
+    q, qb = cfg.quant, block_cfg.quant
+    planes = dc.replace(q, kv_layout="planes")
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to("cuda", dt)
+
+    cases = [(f"planes write {(1, prompt_len, KV, dh)}",
+              lambda x: quantize_kv(x, planes, "planes"),
+              randn(1, prompt_len, KV, dh))]
+    for Bp in (1, 2):
+        with ops.force_backend("ref"):
+            mis = quantize_kv(randn(Bp, ENGINE_CAP, KV, dh), planes, "planes")
+        cases += [(f"planes write {(Bp, 1, KV, dh)}",
+                   lambda x: quantize_kv(x, planes, "planes"),
+                   randn(Bp, 1, KV, dh)),
+                  (f"planes read {(Bp, ENGINE_CAP, KV, dh)}",
+                   lambda t: dequantize_kv(*t, planes, dt), mis)]
+    with ops.force_backend("ref"):
+        ws = quantize_kv(randn(1, ENGINE_CAP, KV, dh), q)
+    cases.append((f"packed history read {(1, ENGINE_CAP, KV, dh)}",
+                  lambda t: dequantize_kv_packed(*t, q, dt), ws))
+    layer = block_params["layers"][0]
+    weights = {**{k: w for k, w in layer["attn"].items()
+                  if isinstance(w, dict)},
+               **layer["mlp"], "lm_head": block_params["lm_head"]}
+    for name, w in weights.items():
+        if "i_blk" not in w:
+            continue
+        for M in (1, 2):
+            cases.append((f"vp_block {name} at M {M}",
+                          lambda x, w=w: qdot(x, w, qb),
+                          randn(M, w["m"].shape[0])))
+    for what, fn, x in cases:
+        got = fn(x)
+        with ops.force_backend("ref"):
+            want = fn(x)
+        got, want = ((t,) if torch.is_tensor(t) else t for t in (got, want))
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"[engine] {what}: kernel differs from its "
+                                 "plain version")
+    return [c[0] for c in cases]
+
+
+def _engine_counts(ran):
+    return {k: ran.get(k, 0) for k in _ENGINE_ROWS if ran.get(k, 0)}
+
+
+def engine_phase(torch, record, rows, smi):
+    """The paged continuous-batching engine (`repro_torch.serving`) on
+    full-width qwen3-0.6b, bf16, packed VP weights and KV cache:
+    ENGINE_REQS ragged requests (numpy seed 0) through ENGINE_SLOTS slots
+    of ENGINE_PAGE-position pages, capacity ENGINE_CAP, every decode step
+    one CUDA graph replay per (bucket, steps), run-ahead 4 then 1, which
+    must give the same tokens (a row's bits do not depend on its bucket).
+
+    (a) each captured bucket's first replay bit-identical to the eager
+    step on the same inputs and state; (b) every request's logits against
+    the plain path teacher-forced on its tokens (bf16: max(REL_LIMIT,
+    FLOOR_MARGIN x the plain path's f64-summed floor); f32 at
+    ENGINE_F32_LAYERS layers: F32_REL_LIMIT); (c) short runs with
+    chunked prefill, the planes KV layout, vp_block at block 256 (one
+    slot: its per-tensor activation scale couples co-batched requests)
+    and sampling, each showing its kernels on the engine's path and held
+    as in (b) against the plain path of its config, and those kernels at
+    the engine's shapes bit-identical to their plain versions
+    (`_engine_shapes`); (d) a profile of one decode replay (hand kernels
+    only) and of one prefill unit; (e) decode ms per step, per bucket
+    and over the wave, and kept tokens/s, graphs against the static path
+    and the engine without graphs, medians of ENGINE_REPEATS."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.launch.serve import run_static
+    from repro_torch.models.model import init_params, quantize_params
+
+    tag = "[engine]"
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        laps[what] = now - t_lap[0]
+        t_lap[0] = now
+        print(f"[time] engine {what}: {laps[what]:.2f}s")
+
+    quant = QuantConfig(mode="vp", quantize_kv_cache=True)
+    cfg = registry.get_config(ARCH, quant)
+    params = quantize_params(init_params(cfg, seed=0, device="cuda"), cfg)
+    reqs = _engine_requests(cfg, ENGINE_REQS)
+    print(f"{tag} {cfg.name}, {cfg.dtype}, packed VP weights and KV cache; "
+          f"{ENGINE_REQS} requests, prompts {[len(p) for p, _ in reqs]}, "
+          f"budgets {[g for _, g in reqs]}; {ENGINE_SLOTS} slots, pages of "
+          f"{ENGINE_PAGE}, capacity {ENGINE_CAP}; {smi}")
+
+    # -- the main path: run-ahead 4, then 1 ----------------------------------
+    ran_all = collections.Counter()
+    logits = {}
+    eng = _engine(cfg, params, decode_lookahead=ENGINE_LOOKAHEAD[0])
+    recs, wall, calls, ran = _engine_wave(torch, eng, reqs, logits)
+    ran_all.update(ran)
+    _check_graph_log(eng.runner, f"{tag} run-ahead {ENGINE_LOOKAHEAD[0]}:")
+    print(f"{tag} run-ahead {ENGINE_LOOKAHEAD[0]}: {wall:.3f}s (graphs "
+          f"captured and checked on the way), {len(calls)} decode calls, "
+          f"{eng.runner.replays} replays; kernels that ran "
+          f"{_engine_counts(ran)}")
+    eng1 = _engine(cfg, params, decode_lookahead=ENGINE_LOOKAHEAD[1])
+    recs1, wall1, calls1, ran1 = _engine_wave(torch, eng1, reqs)
+    ran_all.update(ran1)
+    _check_graph_log(eng1.runner, f"{tag} run-ahead {ENGINE_LOOKAHEAD[1]}:")
+    differ = [r0["rid"] for r0, r1 in zip(recs, recs1)
+              if r0["tokens"] != r1["tokens"]]
+    print(f"{tag} run-ahead {ENGINE_LOOKAHEAD[1]}: {wall1:.3f}s, "
+          f"{len(calls1)} decode calls; tokens "
+          + (f"differ from run-ahead {ENGINE_LOOKAHEAD[0]} in requests "
+             f"{differ}" if differ else
+             f"identical to run-ahead {ENGINE_LOOKAHEAD[0]}"))
+    if differ:
+        raise AssertionError(f"{tag} run-ahead changed the tokens of "
+                             f"requests {differ}")
+    for name in ("vp_dequant_matmul", "flash_prefill", "vp_decode_attention",
+                 "vp_quant_packed"):
+        if not ran.get(name):
+            raise AssertionError(f"{tag} {name} did not run: {ran}")
+
+    lap("runs at run-ahead 4 and 1")
+
+    # -- (b) every request against the plain path ---------------------------
+    rels, floor = _engine_plain(torch, cfg, params, reqs, recs, logits,
+                                floor=ENGINE_FLOOR_REQS)
+    limit = max(REL_LIMIT, FLOOR_MARGIN * max(floor))
+    print(f"{tag} bf16 engine vs plain, per request (teacher-forced): "
+          + " ".join(f"{r:.2e}" for r in rels) + f"; plain-path floor "
+          f"{max(floor):.3e} (first {ENGINE_FLOOR_REQS} requests); limit "
+          f"{limit:.3e}")
+    if max(rels) > limit:
+        raise AssertionError(f"{tag} engine logits differ from the plain "
+                             f"path by {max(rels):.3e} > {limit:.3e}")
+    cfg32 = dc.replace(cfg, dtype="float32", n_layers=ENGINE_F32_LAYERS)
+    p32 = quantize_params(init_params(cfg32, seed=0, device="cuda"), cfg32)
+    reqs32 = reqs[:ENGINE_SLOTS]
+    lg32 = {}
+    eng32 = _engine(cfg32, p32, decode_lookahead=ENGINE_LOOKAHEAD[0])
+    recs32, _, _, ran32 = _engine_wave(torch, eng32, reqs32, lg32)
+    ran_all.update(ran32)
+    _check_graph_log(eng32.runner, f"{tag} f32, {ENGINE_F32_LAYERS} layers:")
+    rels32, _ = _engine_plain(torch, cfg32, p32, reqs32, recs32, lg32)
+    print(f"{tag} f32 ({ENGINE_F32_LAYERS} layers) engine vs plain, per "
+          "request: " + " ".join(f"{r:.2e}" for r in rels32)
+          + f"; limit {F32_REL_LIMIT:g}")
+    if max(rels32) > F32_REL_LIMIT:
+        raise AssertionError(f"{tag} f32 engine logits differ from the plain "
+                             f"path by {max(rels32):.3e}")
+    del p32, eng32, lg32
+    lap("plain-path checks (bf16, f32)")
+
+    # -- (c) chunked prefill, planes KV, vp_block, sampling -------------------
+    short = [(p, 4) for p, _ in reqs[:2]]
+    side = {}
+    for what, q, kw, want in (
+            (f"chunked prefill {ENGINE_CHUNK}", quant,
+             dict(prefill_chunk=ENGINE_CHUNK), ("vp_dequant_packed",)),
+            ("planes KV", dc.replace(quant, kv_layout="planes"), {},
+             ("vp_quant_planes", "vp_dequant_planes")),
+            (f"vp_block {BLOCK} at one slot", QuantConfig(
+                mode="vp_block", block=BLOCK, quantize_kv_cache=True),
+             dict(max_slots=1), ("block_vp_matmul", "vp_block_quant")),
+            ("sampling at temperature 0.8 (noise drawn into each graph's "
+             "input)", quant, dict(temperature=0.8), ())):
+        c = registry.get_config(ARCH, q)
+        own = q.mode != quant.mode    # the KV layout leaves the weights
+        p = quantize_params(init_params(c, seed=0, device="cuda"), c) \
+            if own else params
+        e = _engine(c, p, decode_lookahead=ENGINE_LOOKAHEAD[0], **kw)
+        lg = {}
+        recs_s, w, _, r = _engine_wave(torch, e, short, lg)
+        ran_all.update(r)
+        _check_graph_log(e.runner, f"{tag} {what}:")
+        missing = [k for k in want if not r.get(k)]
+        if missing:
+            raise AssertionError(f"{tag} {what}: {missing} did not run")
+        # the vp_block path's own floor, as the serve phase measures it;
+        # the others share (b)'s weights and limit
+        rels_s, floor_s = _engine_plain(torch, c, p, short, recs_s, lg,
+                                        floor=int(own),
+                                        chunk=kw.get("prefill_chunk"),
+                                        f64_attention=own)
+        limit_s = max(REL_LIMIT, FLOOR_MARGIN * max(floor_s)) \
+            if floor_s else limit
+        print(f"{tag} {what}: 2 requests x 4 tokens in {w:.3f}s; kernels "
+              f"that ran {_engine_counts(r)}; vs plain, per request: "
+              + " ".join(f"{x:.2e}" for x in rels_s) + f" (limit "
+              f"{limit_s:.3e}" + (f", plain-path floor {floor_s[0]:.3e})"
+                                  if floor_s else ")"))
+        if max(rels_s) > limit_s:
+            raise AssertionError(f"{tag} {what}: logits differ from the "
+                                 f"plain path by {max(rels_s):.3e} > "
+                                 f"{limit_s:.3e}")
+        side[what] = dict(kernels=_engine_counts(r), rel_logit_diff=rels_s,
+                          plain_floor=floor_s, limit=limit_s)
+        if "block" in what:
+            block_cfg, block_params = c, p
+        del p, e
+    shapes = _engine_shapes(torch, cfg, block_cfg, block_params,
+                            len(short[0][0]))
+    del block_params
+    print(f"{tag} at the engine's shapes, bit-identical to the plain "
+          f"versions: {'; '.join(shapes)}")
+    lap("chunked, planes, vp_block and sampling runs")
+
+    # -- (e) decode per step, graphs against eager and the static path -------
+    eng.check_finite = False      # no logits copied to the host
+    waves = []
+    for _ in range(ENGINE_REPEATS):
+        recs_w, w, calls_w, _ = _engine_wave(torch, eng, reqs)
+        waves.append(dict(_decode_rates(recs_w, calls_w), wall_s=w,
+                          tok_s=sum(len(r["tokens"]) for r in recs_w) / w))
+    graphs, eng.runner.use_graphs = eng.runner.use_graphs, False
+    recs_e, w_e, calls_e, _ = _engine_wave(torch, eng, reqs)
+    eng.runner.use_graphs = graphs
+    eager = dict(_decode_rates(recs_e, calls_e), wall_s=w_e)
+    full = f"{ENGINE_SLOTS}x{ENGINE_LOOKAHEAD[0]}"   # the full bucket
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (BATCH, PROMPT)).astype(np.int64)).cuda()
+    static = []
+    for _ in range(ENGINE_REPEATS):
+        rep = {}
+        run_static(params, cfg, prompts, GEN, rep)
+        static.append(dict(decode_ms_per_step=rep["decode_s"] / GEN * 1e3,
+                           tok_s=rep["tokens_per_s"]))
+
+    lap("timed waves and the static path")
+
+    def med(xs, k):
+        return statistics.median(x[k] for x in xs)
+
+    for w in waves:
+        w["full_bucket_ms_per_step"] = w["bucket_ms_per_step"][full]
+    print(f"{tag} graphs, {ENGINE_REPEATS} waves of {ENGINE_REQS} requests: "
+          f"decode at bucket {full} {med(waves, 'full_bucket_ms_per_step'):.3f}"
+          " ms/step (median; " + ", ".join(
+              f"{w['full_bucket_ms_per_step']:.3f}" for w in waves)
+          + "), per bucket " + str(waves[0]["bucket_ms_per_step"])
+          + f" (first wave); {med(waves, 'decode_ms_per_step'):.3f} ms/step "
+          f"over the wave, {med(waves, 'decode_tok_s'):.1f} decode tok/s "
+          f"(tokens kept), {med(waves, 'tok_s'):.1f} tok/s end to end "
+          f"(prefill included, wave wall {med(waves, 'wall_s'):.3f}s)")
+    print(f"{tag} without graphs, one wave: decode at bucket {full} "
+          f"{eager['bucket_ms_per_step'][full]:.3f} ms/step, per bucket "
+          f"{eager['bucket_ms_per_step']}, {eager['decode_tok_s']:.1f} decode "
+          "tok/s (tokens kept)")
+    print(f"{tag} static path, batch {BATCH} x prompt {PROMPT}, {GEN} "
+          f"steps: decode {med(static, 'decode_ms_per_step'):.3f} ms/step "
+          "(median; " + ", ".join(f"{s['decode_ms_per_step']:.3f}"
+                                  for s in static)
+          + f"), {med(static, 'tok_s'):.1f} tok/s; {smi}")
+
+    # -- (d) profiles: one decode replay, one prefill unit --------------------
+    # Four requests fill the four slots; the first step is a prefill unit
+    # alone, and once all four have prefilled a step is one decode replay.
+    for prompt, gen in reqs[:ENGINE_SLOTS]:
+        eng.submit(prompt, ENGINE_GEN[1], 0.0)
+    sched = eng.scheduler
+    sched.admit(eng.clock.now())
+    _, pf_kernels = _profile(torch, "engine prefill unit",
+                             lambda: eng._prefill_unit(sched.next_prefill()))
+    while sched.next_prefill() is not None:
+        eng.step()
+    bucket = (ENGINE_SLOTS, eng._lookahead(sched.decoding()))
+    want = dict(eng.runner._graphs[bucket].launches)
+    names, seen = _profile_kernels(torch, [("engine decode replay", eng.step,
+                                            want)])
+    library = sorted({n for n in names if LIBRARY_KERNELS.search(n)
+                      and not any(v in n for v in KERNEL_NAMES.values())})
+    if library:
+        raise AssertionError(f"{tag} library kernels in a decode replay: "
+                             f"{library}")
+    print(f"{tag} one decode replay at bucket {bucket}: {len(names)} device "
+          f"kernels, hand kernels {({k: v for k, v in seen.items() if v})}; "
+          "no library GEMM or attention kernel")
+    eng.run()
+    eng.kv.check_conservation()
+    lap("profiles")
+
+    for row in rows:
+        if ran_all.get(row["name"]):
+            row["engine_launches"] = ran_all[row["name"]]
+    record["engine"] = dict(
+        requests=[(len(p), g) for p, g in reqs], launches=dict(ran_all),
+        graphs=[dict(e, bucket=list(e["bucket"]))
+                for e in eng.runner.graph_log],
+        lookahead_tokens_differ=differ, bf16_rel_logit_diff=rels,
+        bf16_plain_floor=floor, bf16_limit=limit, f32_rel_logit_diff=rels32,
+        short_runs=side, engine_shapes=shapes, waves=waves, eager_wave=eager, static=static,
+        decode_replay_kernels=len(names), profiled=seen,
+        prefill_unit_kernels=len(pf_kernels), laps=laps)
 
 
 def dequant_phase(torch, record, rows):
@@ -3314,11 +3812,13 @@ def _f64_attention(torch):
 
 
 def _plain_logits(torch, cfg, params, prompts, tokens, f64_matmul=False,
-                  f64_attention=False):
+                  f64_attention=False, max_len=PROMPT + GEN, chunk=None):
     """Logits of prefill + one decode step per column of `tokens` on the
-    plain path (teacher-forced).  `f64_matmul` sums the plain matmuls in
-    f64 instead of f32, and `f64_attention` the plain attention, to
-    measure the path's own rounding floor."""
+    plain path (teacher-forced), over a cache of `max_len` positions; the
+    prompt whole, or in `chunk`-token chunked prefills (each attending to
+    the quantized history).  `f64_matmul` sums the plain matmuls in f64
+    instead of f32, and `f64_attention` the plain attention, to measure
+    the path's own rounding floor."""
     from repro_torch.kernels import ops
     from repro_torch.models.model import decode_step, init_cache, prefill
 
@@ -3328,8 +3828,13 @@ def _plain_logits(torch, cfg, params, prompts, tokens, f64_matmul=False,
             stack.enter_context(_f64_matmuls(torch))
         if f64_attention:
             stack.enter_context(_f64_attention(torch))
-        caches = init_cache(cfg, BATCH, PROMPT + GEN)
-        lg, caches = prefill(params, prompts, caches, cfg)
+        caches = init_cache(cfg, prompts.shape[0], max_len)
+        if chunk:
+            for lo in range(0, prompts.shape[1], chunk):
+                lg, caches = prefill(params, prompts[:, lo:lo + chunk],
+                                     caches, cfg, chunked=True)
+        else:
+            lg, caches = prefill(params, prompts, caches, cfg)
         out = [lg]
         for i in range(tokens.shape[1]):
             lg, caches = decode_step(params, tokens[:, i:i + 1], caches, cfg)

@@ -7,5 +7,6 @@ FXP grid, FXP->VP conversion, packed words, fake quantization),
 `kernels` (plain PyTorch versions in `ref.py`, hand-written CUDA kernels
 under `csrc/`, dispatch in `ops.py`), `models` (dense transformer),
 `mimo` (the paper's beamspace LMMSE equalizer, narrowband and wideband
-OFDM) and `launch` (the static serving and MIMO CLIs).
+OFDM), `serving` (the paged continuous-batching engine) and `launch`
+(the serving, training and MIMO CLIs).
 """

@@ -33,12 +33,19 @@ class QuantConfig:
     E: int = 2
     W: int = 12                      # FXP proxy grid width
     block: int = 256                 # vp_block index granularity
-    quantize_kv_cache: bool = False  # packed VP KV cache
+    quantize_kv_cache: bool = False  # VP-quantized KV cache
+    kv_layout: str = "packed"        # its storage: "packed" words (read by
+                                     # the decode-attention kernel) or
+                                     # "planes" (int8 significands and
+                                     # bit-packed indices, dequantized
+                                     # whole before plain attention)
     qat_mode: str = "fake"
 
     def __post_init__(self):
         if self.mode not in ("none", "fxp", "vp", "vp_block"):
             raise ValueError(f"unsupported quant mode {self.mode!r}")
+        if self.kv_layout not in ("packed", "planes"):
+            raise ValueError(f"unsupported KV layout {self.kv_layout!r}")
         if self.qat_mode not in ("fake", "packed"):
             raise ValueError(f"unsupported qat mode {self.qat_mode!r}")
 

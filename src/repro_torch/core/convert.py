@@ -7,6 +7,7 @@ the significand saturates at the last (coarsest) option.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -45,9 +46,17 @@ def fxp2vp(raw: torch.Tensor, fxp: FXPFormat, vp: VPFormat
     return m, i
 
 
+@functools.lru_cache(maxsize=None)
+def scale_table(vp: VPFormat, dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    """2^(-f_k) for every option k of `vp`, made once per dtype and
+    device: a CUDA graph can read it, where a copy from the host would
+    not capture."""
+    return torch.tensor([2.0 ** (-fk) for fk in vp.f], dtype=dtype,
+                        device=device)
+
+
 def vp_to_float(m: torch.Tensor, i: torch.Tensor, vp: VPFormat,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Exact real value of VP numbers: m * 2^(-f_i) (eq. 1)."""
-    scales = torch.tensor([2.0 ** (-fk) for fk in vp.f], dtype=dtype,
-                          device=m.device)
-    return m.to(dtype) * scales[i.long()]
+    return m.to(dtype) * scale_table(vp, dtype, m.device)[i.long()]

@@ -12,6 +12,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .convert import scale_table
 from .formats import VPFormat
 
 # Widest format served by the whole-word dequant table (4096 entries).
@@ -59,16 +60,20 @@ def _dequant_lut_np(fmt: VPFormat) -> np.ndarray:
         np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _dequant_lut(fmt: VPFormat, device: torch.device) -> torch.Tensor:
+    """The word table on `device`, copied there once (a CUDA graph reads
+    it; a copy from the host would not capture)."""
+    return torch.as_tensor(_dequant_lut_np(fmt), device=device)
+
+
 def dequant_words(w: torch.Tensor, fmt: VPFormat,
                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Packed words -> real values: one table gather for formats up to
     12 information bits in f32, else unpack and scale (both exact)."""
     bits = fmt.M + fmt.E
     if bits <= WORD_LUT_MAX_BITS and dtype == torch.float32:
-        lut = torch.as_tensor(_dequant_lut_np(fmt), device=w.device)
         u = w.to(torch.int32) & ((1 << bits) - 1)
-        return lut[u.long()]
+        return _dequant_lut(fmt, w.device)[u.long()]
     m, i = unpack_vp(w, fmt)
-    scales = torch.tensor([2.0 ** (-fk) for fk in fmt.f], dtype=dtype,
-                          device=w.device)
-    return m.to(dtype) * scales[i.long()]
+    return m.to(dtype) * scale_table(fmt, dtype, w.device)[i.long()]

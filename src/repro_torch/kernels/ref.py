@@ -49,10 +49,17 @@ def vp_quant_scaled_ref(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
     words -> (words of x's shape, s of shape x.shape[:-group_dims] +
     (1,) * group_dims).  The KV cache's write (`models/attention.py:
     quantize_kv`); an all-zero group gets 2^-99."""
+    s = kv_scale(x, group_dims)
+    return vp_quant_packed_ref(x.to(torch.float32) / s, fxp, vp), s
+
+
+def kv_scale(x: torch.Tensor, group_dims: int = 2) -> torch.Tensor:
+    """The pow2 scale of each group of the last `group_dims` dims,
+    exp2(ceil(log2(max(amax|x|, 1e-30)))) in f32, shaped
+    x.shape[:-group_dims] + (1,) * group_dims."""
     dims = tuple(range(-group_dims, 0))
     amax = x.to(torch.float32).abs().amax(dim=dims, keepdim=True)
-    s = torch.exp2(torch.ceil(torch.log2(torch.clamp(amax, min=1e-30))))
-    return vp_quant_packed_ref(x.to(torch.float32) / s, fxp, vp), s
+    return torch.exp2(torch.ceil(torch.log2(torch.clamp(amax, min=1e-30))))
 
 
 def vp_dequant_ref(m: torch.Tensor, i: torch.Tensor, vp: VPFormat,

@@ -8,7 +8,9 @@ dtype, and apply dh**-0.5 as the plain path does.
 
 Decode has one body, split over the cache span: `plan_decode` fixes the
 split (blocks of a cluster, warps of a block, lanes per position) from
-shapes alone, and `decode_runs` lists the positions each run reads.
+the shapes of one row alone, not the batch, so a row's bits do not
+depend on the rows decoded beside it (the serving engine's buckets), and
+`decode_runs` lists the positions each run reads.
 Prefill has two, and `flash_body` alone picks one from q's dtype and the
 head dim before the launch: the tensor-core body (`mma.sync`) for bf16
 with dh a multiple of 16 up to 128, the CUDA-core body otherwise.  A
@@ -66,15 +68,17 @@ class DecodePlan:
 
 
 @functools.lru_cache(maxsize=1024)
-def plan_decode(B: int, KV: int, smax: int, G: int, dh: int,
+def plan_decode(KV: int, smax: int, G: int, dh: int,
                 w_bytes: int = 2) -> DecodePlan:
-    """The split for q (B, KV, G, dh) over a cache of smax positions of
-    `w_bytes` words.  Runs of at least DEC_MIN_STEPS warp steps, as many
-    as the buffer holds up to DEC_WARPS warps in all; at least
-    DEC_BLOCKS / (B KV) blocks per cluster where the buffer allows, at
-    most DEC_MAX_CLUSTER.  Raises for shapes the body does not take: dh
-    not a multiple of the words in 16 bytes, or more than 32 of those
-    per position, or G over DEC_MAX_G (the registers of a lane)."""
+    """The split for one row of q (KV, G, dh) over a cache of smax
+    positions of `w_bytes` words.  Runs of at least DEC_MIN_STEPS warp
+    steps, as many as the buffer holds up to DEC_WARPS warps per row; at
+    least DEC_BLOCKS / KV blocks per cluster where the buffer allows, at
+    most DEC_MAX_CLUSTER.  The batch does not enter: the runs fix the
+    order of the sums, and a row gives the same bits in every batch.
+    Raises for shapes the body does not take: dh not a multiple of the
+    words in 16 bytes, or more than 32 of those per position, or G over
+    DEC_MAX_G (the registers of a lane)."""
     if w_bytes not in DEC_MAX_G:
         raise ValueError(f"packed words of {w_bytes} bytes")
     nw = 16 // w_bytes
@@ -86,9 +90,9 @@ def plan_decode(B: int, KV: int, smax: int, G: int, dh: int,
     lpp = 1 << (dh // nw - 1).bit_length()
     step = 32 // lpp
     cap = max(1, _cdiv(smax, DEC_MIN_STEPS * step))   # runs the buffer fills
-    want = min(cap, max(1, _cdiv(DEC_WARPS, B * KV)))
+    want = min(cap, max(1, _cdiv(DEC_WARPS, KV)))
     cluster = min(DEC_MAX_CLUSTER, cap,
-                  max(_cdiv(DEC_BLOCKS, B * KV), _cdiv(want, DEC_MAX_WARPS)))
+                  max(_cdiv(DEC_BLOCKS, KV), _cdiv(want, DEC_MAX_WARPS)))
     warps = min(DEC_MAX_WARPS, max(1, _cdiv(want, cluster)))
     return DecodePlan(cluster, warps, lpp)
 
@@ -137,7 +141,7 @@ def vp_decode_attention_cuda(q, k_w, v_w, k_s, v_s, lengths, fmt: VPFormat,
                          f"{tuple(k_s.shape)} do not match the cache "
                          f"{tuple(k_w.shape)}")
     q_bf16 = build.dtype_code(q.dtype, "q")
-    plan = plan_decode(B, KV, smax, G, dh, k_w.element_size())
+    plan = plan_decode(KV, smax, G, dh, k_w.element_size())
     q, k_w, v_w = q.contiguous(), k_w.contiguous(), v_w.contiguous()
     if k_w.data_ptr() % 16 or v_w.data_ptr() % 16:
         raise ValueError("vp_decode_attention kernel reads 16-byte aligned "

@@ -1,8 +1,13 @@
-"""Static serving CLI of the port (counterpart of the static path of
-`repro.launch.serve`): prefill one batch, then decode greedily.
+"""Serving CLI of the port (counterpart of `repro.launch.serve`): the
+static path prefills one batch, then decodes; `--engine` serves the
+requests through the paged continuous-batching engine instead.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --quant vp --kv-quant --batch 4 --prompt-len 128 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+        --quant vp --kv-quant --engine --batch 8 --max-slots 4 \\
+        --page-size 16 --prompt-len 128 --gen 32 --ragged-gen \\
+        --lookahead 4
 
 Runs on the card by default and raises when CUDA is absent; `--device
 cpu` runs the plain PyTorch versions of the kernels.  Weights are random
@@ -12,7 +17,13 @@ through the `vp_dequant_matmul` kernel; with `--quant vp_block` (index
 block `--block`) it block-quantizes its activations and runs the int8
 `block_vp_matmul` kernel; `--quant fxp` serves int8 fixed-point weights.
 `--kv-quant` keeps the KV cache as packed words read by the
-`vp_decode_attention` kernel.
+`vp_decode_attention` kernel (`--kv-layout planes`: int8 significands and
+packed indices, dequantized by the planes kernel before plain attention).
+`--temperature` samples (Gumbel-max, noise from a torch generator seeded
+with `--seed`) where 0 decodes greedily.  The engine runs on a virtual
+clock charged with each step's measured wall time; on the card each
+decode bucket is one CUDA graph.  `--tune-decode`, `--M`, `--E` and
+`--layout` of the reference are not ported yet.
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ from repro_torch.models.model import (
     decode_step, init_cache, init_params, prefill, quantize_params,
     resolve_device,
 )
+from repro_torch.serving.runner import gumbel_noise, sample
 
 
 def _require_finite(logits: torch.Tensor, what: str) -> None:
@@ -45,8 +57,10 @@ def _sync(device: torch.device) -> None:
 
 
 def run_static(params, cfg, prompts: torch.Tensor, gen: int,
-               report: Optional[dict] = None):
-    """Prefill `prompts` (B, S), then `gen` greedy decode steps.
+               report: Optional[dict] = None, temperature: float = 0.0,
+               generator: Optional[torch.Generator] = None):
+    """Prefill `prompts` (B, S), then `gen` decode steps: greedy, or
+    sampled at `temperature` > 0 with noise from `generator`.
 
     Returns (tokens (B, gen), logits of every step [(B, V)] with the
     prefill's first).  Fills `report` with the timings when given.
@@ -61,14 +75,20 @@ def run_static(params, cfg, prompts: torch.Tensor, gen: int,
     prefill_s = time.perf_counter() - t0
     _require_finite(logits, "prefill")
     all_logits = [logits]
-    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+
+    def draw(lg):
+        noise = (gumbel_noise(generator, lg.shape, device)
+                 if temperature > 0 else None)
+        return sample(lg, noise, temperature)
+
+    tok = draw(logits)
     out_tokens: List[torch.Tensor] = []
     t0 = time.perf_counter()
     for _ in range(gen):
         out_tokens.append(tok)
         logits, caches = decode_step(params, tok, caches, cfg)
         all_logits.append(logits)
-        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        tok = draw(logits)
     _sync(device)
     decode_s = time.perf_counter() - t0
     _require_finite(logits, "decode")
@@ -76,6 +96,86 @@ def run_static(params, cfg, prompts: torch.Tensor, gen: int,
         report.update(prefill_s=prefill_s, decode_s=decode_s,
                       tokens_per_s=B * gen / max(decode_s, 1e-12))
     return torch.cat(out_tokens, dim=1), all_logits
+
+
+def _percentile(xs, p: float) -> float:
+    """Nearest-rank percentile of a small latency list."""
+    ys = sorted(xs)
+    i = min(len(ys) - 1, max(0, int(round(p / 100 * (len(ys) - 1)))))
+    return ys[i]
+
+
+def _ragged_gens(gen: int, n: int) -> List[int]:
+    """Deterministic ragged generation lengths in [gen/2, gen]."""
+    span = max(1, gen // 2)
+    return [max(1, gen - (i * 7) % (span + 1)) for i in range(n)]
+
+
+def _run_engine(args, params, cfg, report: dict) -> None:
+    """Serve --batch requests through the paged continuous-batching
+    engine (virtual clock charged with each step's measured time)."""
+    from repro_torch.serving import SLO_CLASSES, ServingEngine, VirtualClock
+
+    n_req = args.batch
+    gens = (_ragged_gens(args.gen, n_req) if args.ragged_gen
+            else [args.gen] * n_req)
+    arrivals = [i * args.arrival_gap for i in range(n_req)]
+    ps = args.page_size
+    capacity = -(-(args.prompt_len + max(gens)) // ps) * ps
+    max_slots = args.max_slots or min(n_req, 4)
+    engine = ServingEngine(
+        params, cfg, max_slots=max_slots, capacity=capacity, page_size=ps,
+        prefill_chunk=args.prefill_chunk, temperature=args.temperature,
+        seed=args.seed, decode_lookahead=args.lookahead,
+        clock=VirtualClock(), check_finite=args.smoke,
+        hbm_budget_bytes=args.hbm_budget or None,
+        policy=args.policy, preempt=args.preempt,
+        max_queue=args.max_queue or None,
+        on_nonfinite=args.on_nonfinite, degrade=args.degrade)
+    slo = SLO_CLASSES[args.slo] if args.slo != "none" else None
+    rng = np.random.default_rng(args.seed)
+    for i in range(n_req):
+        prompt = rng.integers(0, cfg.vocab, args.prompt_len)
+        engine.submit(
+            [int(t) for t in prompt], gens[i], arrivals[i],
+            deadline=(arrivals[i] + args.deadline) if args.deadline else None,
+            slo=slo)
+    recs = engine.run()
+    done = [r for r in recs if r["outcome"] in ("ok", "retried", "degraded")]
+    total_tokens = sum(len(r["tokens"]) for r in done)
+    ends = [r["finish_time"] for r in done if r["finish_time"] is not None]
+    makespan = (max(ends) - min(r["arrival_time"] for r in recs)) \
+        if ends else 0.0
+    lats = [r["finish_time"] - r["arrival_time"] for r in done
+            if r["finish_time"] is not None]
+    tok_s = total_tokens / max(makespan, 1e-9)
+    outcomes: dict = {}
+    for r in recs:
+        outcomes[r["outcome"]] = outcomes.get(r["outcome"], 0) + 1
+    report.update({
+        "mode": "engine", "n_requests": n_req, "max_slots": max_slots,
+        "page_size": ps, "capacity": capacity,
+        "prefill_chunk": args.prefill_chunk,
+        "decode_lookahead": args.lookahead,
+        "hbm_cache_bytes": engine.kv.hbm_bytes(),
+        "total_tokens": total_tokens, "makespan_s": makespan,
+        "tokens_per_s": tok_s,
+        "p50_latency_s": _percentile(lats, 50) if lats else None,
+        "p99_latency_s": _percentile(lats, 99) if lats else None,
+        "policy": args.policy, "outcomes": outcomes,
+        "slo_met": sum(1 for r in recs if r.get("slo_met")),
+        "stats": dict(engine.stats),
+        "decode_graphs": len(engine.runner.graph_log),
+        "tokens": [r["tokens"] for r in recs],
+    })
+    print(f"[engine] {n_req} requests x {max_slots} slots "
+          f"(pages of {ps}): {total_tokens} tokens in {makespan:.4f}s "
+          f"({tok_s:.1f} tok/s, p50 {report['p50_latency_s']}s, "
+          f"p99 {report['p99_latency_s']}s); "
+          f"{report['decode_graphs']} decode graphs captured")
+    if set(outcomes) - {"ok"}:
+        print(f"[engine] outcomes: {outcomes}")
+    print("[sample tokens]", [r["tokens"][:8] for r in recs[:4]])
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -91,23 +191,78 @@ def main(argv: Optional[List[str]] = None) -> dict:
                          "contraction dim it does not divide falls back to "
                          "per-element packed VP")
     ap.add_argument("--kv-quant", action="store_true")
-    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--kv-layout", default="packed",
+                    choices=["packed", "planes"],
+                    help="VP KV-cache storage: packed kernel words "
+                         "(default) or two planes dequantized whole")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--batch", type=int, default=4,
+                    help="batch size; with --engine the number of requests")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", default=None, metavar="FILE",
                     help="write a serving report to FILE")
     ap.add_argument("--device", default="cuda")
+    # Continuous-batching engine mode
+    ap.add_argument("--engine", action="store_true",
+                    help="serve --batch requests through the paged "
+                         "continuous-batching engine instead of one "
+                         "static batch")
+    ap.add_argument("--max-slots", type=int, default=0,
+                    help="concurrent requests resident in the paged "
+                         "cache (default min(batch, 4))")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="cache positions per page")
+    ap.add_argument("--lookahead", type=int, default=1,
+                    help="fused decode run-ahead: this many tokens per "
+                         "decode step (one gather and one scatter over the "
+                         "steps; tokens identical to --lookahead 1)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="split prompt prefill into chunks of this many "
+                         "tokens interleaved with decode steps")
+    ap.add_argument("--ragged-gen", action="store_true",
+                    help="engine: vary per-request generation lengths")
+    ap.add_argument("--arrival-gap", type=float, default=0.0,
+                    help="engine: stagger request arrivals by this many "
+                         "virtual seconds")
+    ap.add_argument("--hbm-budget", type=int, default=0,
+                    help="engine: device byte budget sizing the page pool "
+                         "(0 = fully committed)")
+    ap.add_argument("--policy", default="fifo", choices=["fifo", "edf"],
+                    help="engine admission: FIFO head-of-line or "
+                         "earliest-deadline-first")
+    ap.add_argument("--preempt", action="store_true",
+                    help="EDF: allow preemption-by-eviction of later-"
+                         "deadline running requests")
+    ap.add_argument("--slo", default="none",
+                    choices=["none", "interactive", "standard", "batch"],
+                    help="attach this SLO class to every request")
+    ap.add_argument("--deadline", type=float, default=0.0,
+                    help="per-request completion deadline, seconds after "
+                         "arrival (0 = none)")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bounded submit queue: arrivals beyond this many "
+                         "waiting requests are shed (0 = unbounded)")
+    ap.add_argument("--on-nonfinite", default="raise",
+                    choices=["raise", "quarantine"],
+                    help="smoke finite-check action: hard stop (default) "
+                         "or per-request quarantine")
+    ap.add_argument("--degrade", action="store_true",
+                    help="re-run repeatedly-quarantined requests on the "
+                         "static plain path instead of dropping them")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     quant = QuantConfig(mode=args.quant, block=args.block,
-                        quantize_kv_cache=args.kv_quant)
+                        quantize_kv_cache=args.kv_quant,
+                        kv_layout=args.kv_layout)
     cfg = (registry.get_smoke_config(args.arch, quant) if args.smoke
            else registry.get_config(args.arch, quant))
     params = init_params(cfg, seed=args.seed, device=device)
     report = {"arch": args.arch, "quant": args.quant, "block": args.block,
-              "kv_quant": args.kv_quant, "smoke": args.smoke,
+              "kv_quant": args.kv_quant, "kv_layout": args.kv_layout,
+              "temperature": args.temperature, "smoke": args.smoke,
               "batch": args.batch, "prompt_len": args.prompt_len,
               "gen": args.gen, "device": str(device)}
     if args.quant != "none":
@@ -119,16 +274,23 @@ def main(argv: Optional[List[str]] = None) -> dict:
     print(f"[serve] {cfg.name} on {device}: weights "
           f"{report['weight_bytes'] / 1e6:.2f} MB ({args.quant})")
 
-    rng = np.random.default_rng(args.seed)
-    prompts = torch.from_numpy(rng.integers(
-        0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int64)
-    ).to(device)
-    tokens, _ = run_static(params, cfg, prompts, args.gen, report)
-    print(f"[prefill] {args.batch}x{args.prompt_len} in "
-          f"{report['prefill_s']:.4f}s")
-    print(f"[decode] {args.gen} steps x batch {args.batch}: "
-          f"{report['decode_s']:.4f}s ({report['tokens_per_s']:.1f} tok/s)")
-    print("[sample tokens]", tokens[:, :12].tolist())
+    if args.engine:
+        _run_engine(args, params, cfg, report)
+    else:
+        rng = np.random.default_rng(args.seed)
+        prompts = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int64)
+        ).to(device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(args.seed)
+        tokens, _ = run_static(params, cfg, prompts, args.gen, report,
+                               args.temperature, gen)
+        print(f"[prefill] {args.batch}x{args.prompt_len} in "
+              f"{report['prefill_s']:.4f}s")
+        print(f"[decode] {args.gen} steps x batch {args.batch}: "
+              f"{report['decode_s']:.4f}s "
+              f"({report['tokens_per_s']:.1f} tok/s)")
+        print("[sample tokens]", tokens[:, :12].tolist())
     if args.json:
         with open(args.json, "w") as f:
             json.dump(report, f, indent=1)

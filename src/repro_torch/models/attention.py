@@ -1,9 +1,12 @@
-"""Attention block with a packed VP (or float) KV cache (port of the
+"""Attention block with a VP (packed or planes) or float KV cache (port of the
 serving and training branches of `repro.models.attention`).
 
 Prefill runs `ops.flash_prefill` (the flash kernel on the card) and writes
 the prompt's K/V into the cache; decode appends one position and runs
-`ops.vp_decode_attention` on the packed words.  Training runs
+`ops.vp_decode_attention` on the packed words.  The two-plane KV layout
+("planes") and a float cache are dequantized whole and attended in
+plain PyTorch, as in the reference; so is a chunk of a chunked prefill,
+against the dequantized history.  Training runs
 `flash_attention_walk`, the reference's own training path (module
 docstring of `repro.models.attention`): the reference defines no
 gradient for its flash kernel, so its training graph walks the chunk
@@ -21,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, QuantConfig
 from repro_torch.core.formats import FXPFormat, default_vp_format
+from repro_torch.core.vp_tensor import pack_indices, unpack_indices
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.ref import NEG_INF
@@ -135,15 +139,53 @@ def kv_cache_formats(q: QuantConfig):
     return fxp, default_vp_format(fxp, q.M, q.E)
 
 
-def quantize_kv(x: torch.Tensor, q: QuantConfig):
-    """KV block (B, S, KV, dh) -> (packed words, per-position f32 scale
-    (B, S, 1, 1)): each position over its pow2 scale, the smallest 2^n >=
-    max|x| over (KV, dh), then packed VP words, in one launch on the card
-    (`ops.vp_quant_scaled`, the quant kernel's KV mode).  The reference
+def quantize_kv(x: torch.Tensor, q: QuantConfig, layout: str = "packed"):
+    """KV block (B, S, KV, dh) -> VP storage and a per-position f32 scale
+    (B, S, 1, 1), the smallest 2^n >= max|x| over (KV, dh).
+
+    layout "packed": (words, scale), each position over its scale and
+    quantized to packed VP words in one launch on the card
+    (`ops.vp_quant_scaled`, the quant kernel's KV mode); the reference
     takes `_kv_scale`, the division and the plain quantizer here, with
-    the same result bit for bit."""
+    the same result bit for bit.
+    layout "planes": (significands, indices, scale): the scale and the
+    division in plain f32 (`ref.kv_scale`, bit for bit the reference's
+    `_kv_scale`), the planes from `ops.vp_quant` (the planes kernel on
+    the card), the E-bit indices packed 8 // E to a byte where dh allows.
+    """
     fxp, vp = kv_cache_formats(q)
-    return ops.vp_quant_scaled(x, fxp, vp, group_dims=2)
+    if layout == "packed":
+        return ops.vp_quant_scaled(x, fxp, vp, group_dims=2)
+    s = kref.kv_scale(x)
+    m, i = ops.vp_quant(x.to(torch.float32) / s, fxp, vp, packed=False)
+    if vp.E and x.shape[-1] % (8 // vp.E) == 0:
+        i = pack_indices(i, vp.E)
+    return m, i, s
+
+
+def dequantize_kv(m, i, s, q: QuantConfig, dtype):
+    """Planes cache -> reals in `dtype`: the indices unpacked, then
+    `ops.vp_dequant` (the planes kernel on the card) times the scale."""
+    _, vp = kv_cache_formats(q)
+    if i.shape[-1] != m.shape[-1]:
+        i = unpack_indices(i, vp.E, m.shape[-1])
+    return (ops.vp_dequant(m, i, vp) * s).to(dtype)
+
+
+def dequantize_kv_packed(w, s, q: QuantConfig, dtype):
+    """Packed-word cache -> reals in `dtype`: `ops.vp_dequant` of the
+    words (the packed dequant kernel on the card) times the scale."""
+    _, vp = kv_cache_formats(q)
+    return (ops.vp_dequant(w, None, vp) * s).to(dtype)
+
+
+def _layout(cache: dict) -> str:
+    if "k_w" in cache:
+        return "packed"
+    return "planes" if "k_m" in cache else "float"
+
+
+_KEY_BUF = {"packed": "k_w", "planes": "k_m", "float": "k"}
 
 
 def _write(buf: torch.Tensor, val: torch.Tensor, at: torch.Tensor) -> None:
@@ -154,17 +196,77 @@ def _write(buf: torch.Tensor, val: torch.Tensor, at: torch.Tensor) -> None:
     buf[rows, cols] = val.to(buf.dtype)
 
 
+def _store(cache: dict, layout: str, k, v, q: QuantConfig, at) -> None:
+    """Quantize K and V into the cache's layout and write them at `at`."""
+    if layout == "packed":
+        w_k, s_k = quantize_kv(k, q)
+        w_v, s_v = quantize_kv(v, q)
+        vals = {"k_w": w_k, "k_s": s_k, "v_w": w_v, "v_s": s_v}
+    elif layout == "planes":
+        m_k, i_k, s_k = quantize_kv(k, q, "planes")
+        m_v, i_v, s_v = quantize_kv(v, q, "planes")
+        vals = {"k_m": m_k, "k_i": i_k, "k_s": s_k,
+                "v_m": m_v, "v_i": i_v, "v_s": s_v}
+    else:
+        vals = {"k": k, "v": v}
+    for name, val in vals.items():
+        _write(cache[name], val, at)
+
+
+def _dequantized(cache: dict, layout: str, q: QuantConfig, dtype):
+    """The whole cache's K and V as reals in `dtype`."""
+    if layout == "packed":
+        return (dequantize_kv_packed(cache["k_w"], cache["k_s"], q, dtype),
+                dequantize_kv_packed(cache["v_w"], cache["v_s"], q, dtype))
+    if layout == "planes":
+        return (dequantize_kv(cache["k_m"], cache["k_i"], cache["k_s"], q,
+                              dtype),
+                dequantize_kv(cache["v_m"], cache["v_i"], cache["v_s"], q,
+                              dtype))
+    return cache["k"].to(dtype), cache["v"].to(dtype)
+
+
+def _chunked_prefill_attention(qp, k_all, v_all, offset, hist_len: int):
+    """Causal attention of a prompt chunk against the cache history and
+    itself, in plain f32 (as the reference's is plain jnp).
+
+    qp (B, S, H, dh) are the chunk's queries; k_all / v_all (B, hist_len
+    + S, KV, dh) the dequantized history followed by the chunk's own K/V.
+    offset (B,) is the valid history span: history position t
+    contributes iff t < offset, chunk position c iff c <= s.  Everything
+    else is masked to NEG_INF, so unwritten cache slots cannot leak.
+    """
+    B, S, H, dh = qp.shape
+    KV = k_all.shape[2]
+    qr = qp.reshape(B, S, KV, H // KV, dh).to(torch.float32) * dh ** -0.5
+    scores = torch.einsum("bskgd,btkd->bkgst", qr, k_all.to(torch.float32))
+    t = torch.arange(k_all.shape[1], device=qp.device)[None, None, :]
+    s_idx = torch.arange(S, device=qp.device)[None, :, None]
+    mask = (t < offset.to(torch.int64)[:, None, None]) | (
+        (t >= hist_len) & (t - hist_len <= s_idx))          # (B, S, T)
+    scores = torch.where(mask[:, None, None], scores, NEG_INF)
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgst,btkd->bskgd", p / torch.clamp(l, min=1e-30),
+                       v_all.to(torch.float32))
+    return out.reshape(B, S, H, dh).to(qp.dtype)
+
+
 def attn_block(x, params, cfg: ModelConfig, positions, pattern: str,
                window: Optional[int], cache: Optional[dict] = None,
-               train: bool = False):
+               train: bool = False, chunked: bool = False):
     """Self-attention block -> (out, cache).
 
-    cache: {"k_w", "k_s", "v_w", "v_s", "len"} packed VP words, or
-    {"k", "v", "len"} floats; None runs attention without a cache.
-    A multi-token `x` with a cache is a prefill into an empty cache (its
-    K/V go to slots [0, S), slots past S stay as they were and are never
-    read); one token is a decode step.  `train` (no cache) makes every
-    projection a QAT `qdot` and runs `flash_attention_walk`.
+    cache: {"k_w", "k_s", "v_w", "v_s", "len"} packed VP words, {"k_m",
+    "k_i", "k_s", "v_m", "v_i", "v_s", "len"} VP planes, or {"k", "v",
+    "len"} floats; None runs attention without a cache.  A multi-token
+    `x` with a cache is a prefill into an empty cache (its K/V go to
+    slots [0, S), slots past S stay as they were and are never read),
+    or with `chunked` a prompt chunk appended at offset `len`: it attends
+    to the valid history (dequantized whole, once per chunk) and itself,
+    full-causal caches only.  One token is a decode step.  `train` (no
+    cache) makes every projection a QAT `qdot` and runs
+    `flash_attention_walk`.
     """
     q_cfg = cfg.quant
     B, S = x.shape[:2]
@@ -181,7 +283,7 @@ def attn_block(x, params, cfg: ModelConfig, positions, pattern: str,
     qp = rope(qp, positions, cfg.rope_theta)
     kp = rope(kp, positions, cfg.rope_theta)
 
-    packed = cache is not None and "k_w" in cache
+    layout = None if cache is None else _layout(cache)
     if train:
         if cache is not None:
             raise ValueError("training attention takes no KV cache")
@@ -189,8 +291,21 @@ def attn_block(x, params, cfg: ModelConfig, positions, pattern: str,
                                    window=window)
     elif cache is None:
         out = flash_attention(qp, kp, vp_, pattern=pattern, window=window)
+    elif S > 1 and chunked:
+        if window is not None:
+            raise NotImplementedError(
+                "chunked prefill over rolling/windowed caches is not "
+                "implemented; use whole-prompt prefill")
+        smax = cache[_KEY_BUF[layout]].shape[1]
+        idx = cache["len"]
+        k_hist, v_hist = _dequantized(cache, layout, q_cfg, kp.dtype)
+        k_all = torch.cat([k_hist, kp.to(k_hist.dtype)], dim=1)
+        v_all = torch.cat([v_hist, vp_.to(v_hist.dtype)], dim=1)
+        out = _chunked_prefill_attention(qp, k_all, v_all, idx, smax)
+        _store(cache, layout, kp, vp_, q_cfg, idx)
+        cache = {**cache, "len": idx + S}
     elif S > 1:
-        smax = cache["k_w" if packed else "k"].shape[1]
+        smax = cache[_KEY_BUF[layout]].shape[1]
         out = flash_attention(qp, kp, vp_, pattern=pattern, window=window)
         kw, vw = kp, vp_
         if S > smax:
@@ -198,40 +313,24 @@ def attn_block(x, params, cfg: ModelConfig, positions, pattern: str,
             # holding the position p with p % smax == j.
             kw = torch.roll(kp[:, -smax:], S % smax, dims=1)
             vw = torch.roll(vp_[:, -smax:], S % smax, dims=1)
-        zero = torch.zeros_like(cache["len"])
-        if packed:
-            w_k, s_k = quantize_kv(kw, q_cfg)
-            w_v, s_v = quantize_kv(vw, q_cfg)
-            _write(cache["k_w"], w_k, zero)
-            _write(cache["k_s"], s_k, zero)
-            _write(cache["v_w"], w_v, zero)
-            _write(cache["v_s"], s_v, zero)
-        else:
-            _write(cache["k"], kw, zero)
-            _write(cache["v"], vw, zero)
+        _store(cache, layout, kw, vw, q_cfg, torch.zeros_like(cache["len"]))
         cache = {**cache, "len": cache["len"] + S}
     else:
-        smax = cache["k_w" if packed else "k"].shape[1]
+        smax = cache[_KEY_BUF[layout]].shape[1]
         rolling = window is not None and smax <= window
         idx = cache["len"]
         widx = idx % smax if rolling else idx
         new_len = idx + 1
-        if packed:
-            w_k, s_k = quantize_kv(kp, q_cfg)
-            w_v, s_v = quantize_kv(vp_, q_cfg)
-            _write(cache["k_w"], w_k, widx)
-            _write(cache["k_s"], s_k, widx)
-            _write(cache["v_w"], w_v, widx)
-            _write(cache["v_s"], s_v, widx)
+        _store(cache, layout, kp, vp_, q_cfg, widx)
+        if layout == "packed":
             _, vp_fmt = kv_cache_formats(q_cfg)
             out = ops.vp_decode_attention(
                 qp, cache["k_w"], cache["v_w"], cache["k_s"], cache["v_s"],
                 new_len, vp_fmt, window=window, rolling=rolling)
         else:
-            _write(cache["k"], kp, widx)
-            _write(cache["v"], vp_, widx)
+            k_full, v_full = _dequantized(cache, layout, q_cfg, kp.dtype)
             out = kref.decode_attention_ref(
-                qp, cache["k"], cache["v"], new_len, window, rolling=rolling)
+                qp, k_full, v_full, new_len, window, rolling=rolling)
         cache = {**cache, "len": new_len}
 
     out = out.reshape(B, S, H * dh)

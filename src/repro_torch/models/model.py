@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.packing import storage_dtype
+from repro_torch.core.vp_tensor import significand_dtype
 from .attention import attn_block, kv_cache_formats
 from .layers import embed_lookup, qdot, quantize_weight, rms_norm
 from .mlp import swiglu
@@ -125,33 +126,46 @@ def quantize_params(params: Dict[str, Any], cfg: ModelConfig
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int,
                device="cuda") -> List[dict]:
-    """Per-layer decode caches: packed VP words + per-position f32 scales
-    with `quantize_kv_cache`, else float K/V in the model dtype."""
+    """Per-layer decode caches.  With `quantize_kv_cache`: packed VP
+    words + per-position f32 scales (kv_layout "packed"), or
+    significands (int8 for M <= 8), uint8 indices packed 8 // E to a byte where dh allows,
+    and the scales ("planes"); else float K/V in the model dtype.
+    device="meta" gives the shapes without allocating."""
     _check_family(cfg)
     dev = resolve_device(device)
     KV, dh = cfg.n_kv_heads, cfg.head_dim
     _, window = layer_pattern(cfg)
     buf = min(max_len, window) if window else max_len
+
+    def zeros(tail, dtype):
+        return torch.zeros((B, buf) + tail, dtype=dtype, device=dev)
+
     caches = []
     for _ in range(cfg.n_layers):
         ln = torch.zeros((B,), dtype=torch.int32, device=dev)
-        if cfg.quant.quantize_kv_cache:
-            _, vp = kv_cache_formats(cfg.quant)
+        if not cfg.quant.quantize_kv_cache:
+            dtype = model_dtype(cfg)
+            caches.append(dict(k=zeros((KV, dh), dtype),
+                               v=zeros((KV, dh), dtype), len=ln))
+            continue
+        _, vp = kv_cache_formats(cfg.quant)
+        if cfg.quant.kv_layout == "packed":
             wdt = storage_dtype(vp)
             caches.append(dict(
-                k_w=torch.zeros((B, buf, KV, dh), dtype=wdt, device=dev),
-                k_s=torch.zeros((B, buf, 1, 1), dtype=torch.float32,
-                                device=dev),
-                v_w=torch.zeros((B, buf, KV, dh), dtype=wdt, device=dev),
-                v_s=torch.zeros((B, buf, 1, 1), dtype=torch.float32,
-                                device=dev),
+                k_w=zeros((KV, dh), wdt), k_s=zeros((1, 1), torch.float32),
+                v_w=zeros((KV, dh), wdt), v_s=zeros((1, 1), torch.float32),
                 len=ln))
-        else:
-            dtype = model_dtype(cfg)
-            caches.append(dict(
-                k=torch.zeros((B, buf, KV, dh), dtype=dtype, device=dev),
-                v=torch.zeros((B, buf, KV, dh), dtype=dtype, device=dev),
-                len=ln))
+            continue
+        per = 8 // vp.E if vp.E else 1
+        dh_i = dh // per if (vp.E and dh % per == 0) else dh
+        mdt = significand_dtype(vp.M)
+        caches.append(dict(
+            k_m=zeros((KV, dh), mdt),
+            k_i=zeros((KV, dh_i), torch.uint8),
+            k_s=zeros((1, 1), torch.float32),
+            v_m=zeros((KV, dh), mdt),
+            v_i=zeros((KV, dh_i), torch.uint8),
+            v_s=zeros((1, 1), torch.float32), len=ln))
     return caches
 
 
@@ -177,13 +191,15 @@ def _unbind(node) -> List[Any]:
 
 
 def _backbone(layers, x, cfg: ModelConfig, positions,
-              caches: Optional[List[dict]] = None, train: bool = False):
+              caches: Optional[List[dict]] = None, train: bool = False,
+              chunked: bool = False):
     pattern, window = layer_pattern(cfg)
     new_caches = []
     for i, p in enumerate(layers):
         cache = None if caches is None else caches[i]
         h, cache = attn_block(rms_norm(x, p["ln1"]), p["attn"], cfg,
-                              positions, pattern, window, cache, train)
+                              positions, pattern, window, cache, train,
+                              chunked)
         x = x + h
         x = x + swiglu(rms_norm(x, p["ln2"]), p["mlp"], cfg.quant, train)
         new_caches.append(cache)
@@ -240,15 +256,23 @@ def loss_fn(params, batch, cfg: ModelConfig, train: bool = True):
 
 
 @torch.no_grad()
-def prefill(params, tokens: torch.Tensor, caches, cfg: ModelConfig):
+def prefill(params, tokens: torch.Tensor, caches, cfg: ModelConfig,
+            chunked: bool = False):
     """One causal pass over the prompt (B, S) into empty caches ->
-    (last-position logits (B, V) f32, filled caches)."""
+    (last-position logits (B, V) f32, filled caches).
+
+    chunked: `tokens` is a prompt CHUNK continuing already-prefilled
+    caches (continuous batching): positions are offset by the cache
+    length and attention appends at that offset."""
     _check_family(cfg)
     B, S = tokens.shape
     x = embed_lookup(tokens, params["embed"], cfg.quant).to(model_dtype(cfg))
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
-    x, caches = _backbone(params["layers"], x, cfg, positions, caches)
+    if chunked:
+        positions = caches[0]["len"][:, None] + positions
+    x, caches = _backbone(params["layers"], x, cfg, positions, caches,
+                          chunked=chunked)
     x = rms_norm(x, params["final_norm"])
     logits = qdot(x[:, -1], params["lm_head"], cfg.quant)
     return logits.to(torch.float32), caches

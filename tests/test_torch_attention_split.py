@@ -3,8 +3,9 @@
   (a) `plan_decode` / `decode_runs`: the runs of the split decode body
       cover every valid cache position exactly once, in split order, in
       whole warp steps (lengths 0, 1, = smax and past it, windows wider
-      than the span, the rolling ring's wrap; B = 1 and B = 4), and the
-      plan of the serving shape gives >= 128 blocks.
+      than the span, the rolling ring's wrap; KV = 1 and KV = 4), and the
+      plan of the serving shape gives >= 128 blocks at batch 4.  The plan
+      takes no batch, so a row's bits do not depend on its batch.
   (b) `flash_body` picks the tensor-core body for bf16 with dh a
       multiple of 16 up to 128, the CUDA-core body for f32 or other dh.
   (c) A plain-PyTorch mirror of the split decode body's arithmetic (one
@@ -57,12 +58,12 @@ def _valid(length, smax, window, rolling):
     return pos[ok]
 
 
-@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("KV", [1, 4])
 @pytest.mark.parametrize("smax,window,rolling", [
     (160, None, False), (160, 64, False), (160, 400, False),
     (160, 160, True), (24, None, False), (2048, None, False)])
-def test_decode_runs_cover_the_span_once(B, smax, window, rolling):
-    plan = plan_decode(B, 8, smax, 2, 64)
+def test_decode_runs_cover_the_span_once(KV, smax, window, rolling):
+    plan = plan_decode(KV, smax, 2, 64)
     for length in (0, 1, 2, 5, smax - 1, smax, smax + 1, 2 * smax + 3):
         runs = decode_runs(plan, length, smax, window, rolling)
         assert len(runs) == plan.runs
@@ -78,8 +79,8 @@ def test_decode_runs_cover_the_span_once(B, smax, window, rolling):
     (4, 8, 1024, 2, 64, 2), (2, 2, 24, 2, 16, 2), (4, 8, 160, 4, 64, 1),
     (4, 8, 160, 8, 128, 4), (3, 5, 7, 3, 40, 2)], ids=str)
 def test_plan_decode_bounds(shape):
-    B, KV, smax, G, dh, w_bytes = shape
-    plan = plan_decode(B, KV, smax, G, dh, w_bytes)
+    _, KV, smax, G, dh, w_bytes = shape   # the batch does not enter
+    plan = plan_decode(KV, smax, G, dh, w_bytes)
     assert 1 <= plan.cluster <= DEC_MAX_CLUSTER
     assert 1 <= plan.warps <= DEC_MAX_WARPS
     assert plan.lpp & (plan.lpp - 1) == 0
@@ -90,16 +91,16 @@ def test_plan_decode_bounds(shape):
 
 
 def test_plan_decode_fills_the_card_at_serving_shapes():
-    plan = plan_decode(4, 8, 160, 2, 64)   # batch 4, prompt 128 + 32 steps
-    assert 4 * 8 * plan.cluster >= 128
-    assert plan == DecodePlan(cluster=4, warps=5, lpp=8)
+    plan = plan_decode(8, 160, 2, 64)   # prompt 128 + 32 steps
+    assert 4 * 8 * plan.cluster >= 128  # batch 4: 256 blocks
+    assert plan == DecodePlan(cluster=8, warps=3, lpp=8)
 
 
 @pytest.mark.parametrize("bad", [
     dict(dh=36), dict(dh=512), dict(G=9), dict(G=8, w_bytes=1),
     dict(w_bytes=3)], ids=str)
 def test_plan_decode_refuses_shapes_it_does_not_take(bad):
-    args = dict(B=4, KV=8, smax=160, G=2, dh=64, w_bytes=2) | bad
+    args = dict(KV=8, smax=160, G=2, dh=64, w_bytes=2) | bad
     with pytest.raises(ValueError):
         plan_decode(**args)
 
@@ -199,7 +200,7 @@ def test_split_decode_mirror_against_references(case, runs):
     args = (q, k_w, v_w, k_s, v_s, lengths)
     kw = dict(window=c["window"], rolling=c["rolling"])
     # lanes per position from the plan of this head dim, runs forced
-    lpp = plan_decode(B, KV, smax, H // KV, dh).lpp
+    lpp = plan_decode(KV, smax, H // KV, dh).lpp
     plan = DecodePlan(cluster=runs[0], warps=runs[1], lpp=lpp)
     got = split_decode_mirror(*map(torch.from_numpy, args), TVP,
                               plan=plan, **kw).numpy()

@@ -141,6 +141,41 @@ Run from the root of a checkout.  Phases, each raising on failure:
                graphs (median of 3 waves) beside the engine without
                graphs and the static path (median of 3) in the same
                call.
+  4c. dense  - the rest of the dense path (`dense_phase`), bf16, random
+               weights from seed 0, each run's logits teacher-forced
+               against its plain path at the serve limits: qwen2-0.5b
+               (QKV bias, G = 7) at full width and depth through the
+               serve CLI, `--quant vp --kv-quant`, batch 4 x 128, 32
+               steps (exact launch counts, a profile of one prefill and
+               one decode step; the CLI run's own logits are the ones
+               held), the same in f32, then short CLI runs (batch 4,
+               prompt 16, 2 steps) at `--quant vp_block` (only w_down
+               tiles at 256), `--layout planes` (the planes quantizer at
+               export, the planes dequant on every weight) and `--M 6
+               --E 2 --kv-quant` (int8 weight and KV words, decode
+               attention at G = 7 split over two slices);
+               gemma3-27b at full width over 7 layers (5 local + 1
+               global, then a local tail), batch 2 x 1152 (past the
+               1024 window), 16 steps, prefill on the CUDA-core body at
+               dh 168, then through the engine with global layers paged
+               and local layers on dense rings (3 requests of 1040-1152
+               tokens, 2 slots, run-ahead 4 and 1 with the same tokens,
+               each graph's first replay bit-identical to its eager
+               step); stablelm-12b at full width over 4 layers, batch 4
+               x 128, 8 steps (prefill on the CUDA-core body at dh 160).
+               After each run its kernels at its own shapes against
+               their plain versions (`_dense_shapes`): the packed matmul
+               of every layer-0 weight at decode and prefill M and of
+               lm_head within BF16_TOL; vp_block and planes matmuls, the
+               KV write in int8 and int16 words and the planes export
+               bit for bit.  Then the kernels at these shapes, timed as
+               in phase 3 beside bound, plain version and SDPA: decode
+               attention at G = 7 (int8: the G slices bit-identical to G
+               4 and G 3 launches; int16), at dh 168 on a rolling ring of
+               1024 (int8 on 8-byte lanes; int16) and at dh 160; the
+               CUDA-core
+               prefill at dh 168 (causal, local 1024) and dh 160; the
+               planes dequant at qwen2's w_down panel, bit for bit.
   5. mimo    - the paper's B-VP MIMO equalizer (B = 64 antennas, U = 8
                users, 16-QAM, Sec. III-A): narrowband ensembles of
                n = 100,000 channels at 2 dB and 20 dB equalized through
@@ -314,6 +349,15 @@ _ENGINE_ROWS = ("vp_quant_packed", "vp_dequant_matmul", "vp_decode_attention",
                 "flash_prefill", "vp_quant_planes", "vp_dequant_planes",
                 "vp_dequant_packed", "block_vp_matmul", "vp_block_quant")
 FLASH_SWEEP = (128, 512, 2048)       # causal bf16 prompts at B = 4
+# The dense phase: gemma3 at 7 layers (one period of 5 local + 1 global,
+# then a local tail; the 62-layer words alone would be ~59 GB beside ~59
+# GB of bf16 masters) serving (batch, prompt past the 1024 window,
+# steps), then through the engine (requests, prompt range, budget range;
+# slots, capacity); stablelm at 4 layers of 40 (the run's time)
+GEMMA_LAYERS, GEMMA_SERVE = 7, (2, 1152, 16)
+GEMMA_ENGINE_REQS = (3, (1040, 1152), (8, 16))
+GEMMA_ENGINE_SLOTS, GEMMA_ENGINE_CAP = 2, 1184
+STABLELM_LAYERS, STABLELM_SERVE = 4, (4, 128, 8)
 WINDOW = "chip_smoke.window"        # profiler range around the profiled call
 LIBRARY_KERNELS = re.compile(
     r"gemm|cublas|cutlass|xmma|sm90_|sm80_|ampere_|flash_fwd|fmha|"
@@ -400,7 +444,9 @@ def main() -> None:
             (train_kernel_phase, peaks, record), (serve_phase, record, rows),
             (serve_block_phase, record, rows, smi),
             (serve_block16_phase, record, rows, smi),
-            (engine_phase, record, rows, smi), (dequant_phase, record, rows),
+            (engine_phase, record, rows, smi),
+            (dense_phase, record, rows, smi, peaks),
+            (dequant_phase, record, rows),
             (mimo_phase, record, rows, smi), (train_phase, record, rows, smi)):
         out = timed(phase, *extra)
         if phase.__name__.endswith("kernel_phase"):
@@ -714,14 +760,16 @@ def _attention_rows(torch, peaks, timer, gen, randn, words, vp, lines,
             for op in ("LDL", "STL", "HMMA")}
     inst = {}
     for sym in sass["HMMA"]:
-        m = (re.search(r"split_kernelI([ais])Li(\d+)E", sym)
+        m = (re.search(r"split_kernelI([ais])Li(\d+)ELi(8)E", sym)
+             or re.search(r"split_kernelI([ais])Li(\d+)E", sym)
              or re.search(r"(tc)_kernelILi(\d+)E", sym)
              or re.search(r"(cc)_kernelI(f|13__nv_bfloat16)E", sym))
         if m:
             name = {"a": "decode int8 G<=", "s": "decode int16 G<=",
                     "i": "decode int32 G<=", "tc": "prefill tc dh ",
                     "cc": "prefill cc "}[m[1]] + m[2].replace(
-                        "13__nv_", "")
+                        "13__nv_", "") + (" 8-byte" if m.re.groups == 3
+                                          else "")
             inst[name] = {op: sass[op][sym] for op in sass}
     print("[kernel] vp_attention SASS (LDL, STL, HMMA): " + "; ".join(
         f"{k} {v['LDL']}/{v['STL']}/{v['HMMA']}" for k, v in inst.items()))
@@ -2136,10 +2184,10 @@ def _check_graph_log(runner, tag):
 
 
 def _engine_plain(torch, cfg, params, reqs, recs, logits, floor=0,
-                  chunk=None, f64_attention=False):
+                  chunk=None, f64_attention=False, max_len=ENGINE_CAP):
     """Per request, max|engine logit - plain logit| / max|plain logit| over
-    its steps, the plain path (`_plain_logits` at B = 1, max_len =
-    ENGINE_CAP, the prompt whole or in chunks of `chunk`) teacher-forced
+    its steps, the plain path (`_plain_logits` at B = 1, `max_len` (the
+    engine's capacity), the prompt whole or in chunks of `chunk`) teacher-forced
     on the engine's tokens -> (rels, floors): for the first `floor`
     requests also the plain path's own floor, the same run with its
     matmuls (and with `f64_attention` its attention, where the path
@@ -2154,15 +2202,14 @@ def _engine_plain(torch, cfg, params, reqs, recs, logits, floor=0,
         toks = rec["tokens"]
         args = (torch, cfg, params, torch.tensor([prompt], device="cuda"),
                 torch.tensor([toks[:-1]], dtype=torch.int32, device="cuda"))
-        want = torch.cat(_plain_logits(*args, max_len=ENGINE_CAP,
-                                       chunk=chunk))
+        want = torch.cat(_plain_logits(*args, max_len=max_len, chunk=chunk))
         got = torch.from_numpy(np.concatenate(
             logits[rec["rid"]])[:len(toks)]).cuda()
         rels.append(rel(got, want))
         if i < floor:
             floors.append(rel(torch.cat(_plain_logits(
                 *args, f64_matmul=True, f64_attention=f64_attention,
-                max_len=ENGINE_CAP, chunk=chunk)), want))
+                max_len=max_len, chunk=chunk)), want))
     return rels, floors
 
 
@@ -2485,6 +2532,634 @@ def engine_phase(torch, record, rows, smi):
         short_runs=side, engine_shapes=shapes, waves=waves, eager_wave=eager, static=static,
         decode_replay_kernels=len(names), profiled=seen,
         prefill_unit_kernels=len(pf_kernels), laps=laps)
+
+
+# ---------------------------------------------------------------------------
+# 4c. the rest of the dense path: qwen2, gemma3, stablelm
+# ---------------------------------------------------------------------------
+
+def _dense_cfg(arch, quant, layers=None):
+    from repro_torch.configs import registry
+
+    cfg = registry.get_config(arch, quant)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def _dense_check(torch, tag, cfg, params, prompts, tokens, logits,
+                 requantizes=False):
+    """The kernel path's logits against the plain path teacher-forced on
+    its tokens, held as `_serve` holds them: bf16 to max(REL_LIMIT,
+    FLOOR_MARGIN x the plain path's f64-summed floor), f32 to
+    F32_REL_LIMIT (or that margin over the f32 floor where the path
+    requantizes activations).  `requantizes` also sums the floor run's
+    attention in f64: the vp_block path, and the planes weights, whose
+    plain matmul (a torch matmul on both paths) `_f64_matmuls` does not
+    reach."""
+    max_len = prompts.shape[1] + tokens.shape[1]
+    plain = _plain_logits(torch, cfg, params, prompts, tokens,
+                          max_len=max_len)
+    rels, agree = _rel_diffs(torch, logits, plain)
+    floor, _ = _rel_diffs(torch, _plain_logits(
+        torch, cfg, params, prompts, tokens, f64_matmul=True,
+        f64_attention=requantizes, max_len=max_len), plain)
+    if cfg.dtype == "bfloat16":
+        limit = max(REL_LIMIT, FLOOR_MARGIN * max(floor))
+    else:
+        limit = max(F32_REL_LIMIT, FLOOR_MARGIN * max(floor)) \
+            if requantizes else F32_REL_LIMIT
+    print(f"{tag} {cfg.dtype} kernel vs plain, teacher-forced, per step: "
+          + " ".join(f"{r:.2e}" for r in rels) + f"; max {max(rels):.3e}, "
+          f"plain-path floor {max(floor):.3e}, limit {limit:.3e}, "
+          f"greedy-token agreement {agree:.4f}")
+    if max(rels) > limit:
+        raise AssertionError(f"{tag} {cfg.dtype} kernel path differs from "
+                             f"the plain path by {max(rels):.3e} > "
+                             f"{limit:.3e}")
+    return dict(rel_logit_diff=rels, plain_floor=floor, limit=limit,
+                token_agreement=agree)
+
+
+def _dense_static(torch, tag, cfg, B, S, steps, layout="packed",
+                  requantizes=False):
+    """Serve `cfg` on the static path: random weights from seed 0,
+    export, prefill B x S prompt tokens (numpy seed 0), `steps` greedy
+    decode steps; launch counts, timings and peak memory of that run,
+    then its logits against the plain path (`_dense_check`)."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import run_static
+    from repro_torch.models.layers import weight_bytes
+    from repro_torch.models.model import init_params, quantize_params
+
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S)).astype(np.int64)).cuda()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    # -- the main path: export, prefill, decode --------------------------------
+    t0 = time.perf_counter()
+    qp = quantize_params(init_params(cfg, seed=0, device="cuda"), cfg,
+                         layout=layout)
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    report = {}
+    tokens, logits = run_static(qp, cfg, prompts, steps, report)
+    counts = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    # -------------------------------------------------------------------------
+    print(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}, {layout} weights "
+          f"{weight_bytes(qp) / 1e9:.3f} GB; init + export {export_s:.3f}s, "
+          f"prefill {B}x{S} {report['prefill_s']:.4f}s, decode {steps} steps "
+          f"{report['decode_s']:.4f}s ({report['decode_s'] / steps * 1e3:.3f}"
+          f" ms/step, {report['tokens_per_s']:.1f} tok/s), peak memory "
+          f"{peak / 1e9:.3f} GB")
+    print(f"{tag} launches: {counts}")
+    for lg in logits:
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{tag} non-finite logits")
+    check = _dense_check(torch, tag, cfg, qp, prompts, tokens, logits,
+                         requantizes)
+    return dict(report, export_s=export_s, peak_bytes=peak,
+                weight_bytes=weight_bytes(qp), launches=counts,
+                **check), qp
+
+
+def _dense_cli(torch, tag, argv, requantizes=False, passes=None):
+    """One run of the serve CLI (`launch.serve.main`): its launch counts,
+    report and peak memory, and its own model, prompts, tokens and
+    logits (taken from the `run_static` call the CLI makes), those
+    logits against the plain path.  With `passes` ({"prefill": counts,
+    "decode step": counts}), a profile of one prefill and one decode step
+    of that model first (hand kernels only, those counts of each; no
+    library GEMM or attention kernel).  Returns (result, the CLI's
+    exported params, its config)."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+
+    run, seen = serve.run_static, {}
+
+    def held(params, cfg, prompts, gen, *args, **kw):
+        tokens, logits = run(params, cfg, prompts, gen, *args, **kw)
+        seen.update(params=params, cfg=cfg, prompts=prompts, tokens=tokens,
+                    logits=logits)
+        return tokens, logits
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    serve.run_static = held
+    try:
+        # -- the main path: the serve CLI -----------------------------------
+        report = serve.main(argv)
+        counts = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        # -------------------------------------------------------------------
+    finally:
+        serve.run_static = run
+    qp, cfg, prompts, tokens, logits = (seen[k] for k in (
+        "params", "cfg", "prompts", "tokens", "logits"))
+    B, S, steps = report["batch"], report["prompt_len"], report["gen"]
+    print(f"{tag} serve {' '.join(argv)}: export {report['export_s']:.3f}s, "
+          f"prefill {B}x{S} {report['prefill_s']:.4f}s, decode {steps} steps "
+          f"{report['decode_s']:.4f}s ({report['decode_s'] / steps * 1e3:.3f}"
+          f" ms/step, {report['tokens_per_s']:.1f} tok/s), weights "
+          f"{report['weight_bytes'] / 1e9:.3f} GB, peak memory "
+          f"{peak / 1e9:.3f} GB")
+    print(f"{tag} launches: {counts}")
+    if tokens.tolist() != report["tokens"]:
+        raise AssertionError(f"{tag} the report's tokens are not the run's")
+    profiled = None
+    if passes is not None:
+        from repro_torch.models.model import decode_step, init_cache, prefill
+
+        empty, caches = init_cache(cfg, B, S + steps), {}
+
+        def prefill_once():
+            caches["after"] = prefill(qp, prompts, empty, cfg)[1]
+
+        names, profiled = _profile_kernels(torch, [
+            ("prefill", prefill_once, passes["prefill"]),
+            ("decode step", lambda: decode_step(qp, tokens[:, :1],
+                                                caches["after"], cfg),
+             passes["decode step"])])
+        library = sorted({n for n in names if LIBRARY_KERNELS.search(n)
+                          and not any(v in n for v in KERNEL_NAMES.values())})
+        if library:
+            raise AssertionError(f"{tag} library kernels on the path: "
+                                 f"{library}")
+        print(f"{tag} profiled: {len(names)} device kernels in one prefill "
+              f"+ one decode step, hand kernels {profiled}; no library GEMM "
+              "or attention kernel")
+    check = _dense_check(torch, tag, cfg, qp, prompts, tokens, logits,
+                         requantizes)
+    return dict(report, peak_bytes=peak, launches=counts, profiled=profiled,
+                **check), qp, cfg
+
+
+def _dense_shapes(torch, tag, cfg, params, B, S, record):
+    """The kernels of one dense run at the shapes its config gives them,
+    each against its plain version on the same inputs (bf16, numpy seed
+    0): `qdot` of the run's own layer-0 weights at decode M = B and
+    prefill M = B * S, and of its lm_head at M = B (packed words:
+    `vp_dequant_matmul` within BF16_TOL; planes: the planes dequant, then
+    the same torch matmul; vp_block: `vp_block_quant`, then
+    `block_vp_matmul`; these two bit for bit); the KV write
+    (`vp_quant_scaled`) of a decode step (B, 1, KV, dh) and of the prompt
+    (B, S, KV, dh) in int16 (M 7) and int8 (M 6) words, bit for bit; with
+    planes weights, the planes export (`vp_quant_planes`) of every
+    distinct layer-0 weight shape and lm_head's, bit for bit."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import quantize_kv
+    from repro_torch.models.layers import qdot, quantize_weight
+
+    rng = np.random.default_rng(0)
+    q, dt = cfg.quant, torch.bfloat16
+    KV, dh = cfg.n_kv_heads, cfg.head_dim
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to("cuda", dt)
+
+    layer = params["layers"][0]
+    weights = {**{k: w for k, w in layer["attn"].items()
+                  if isinstance(w, dict)},
+               **layer["mlp"], "lm_head": params["lm_head"]}
+    cases = []   # (what, fn, input, exact)
+    for name, w in weights.items():
+        kind = ("block" if "i_blk" in w else "planes" if "i_packed" in w
+                else "packed")
+        d_in = w["m" if kind != "packed" else "w_packed"].shape[0]
+        for M in sorted({B} if name == "lm_head" else {B, B * S}):
+            cases.append((f"{kind} {name} ({d_in} in) at M {M}",
+                          lambda x, w=w: qdot(x, w, q), randn(M, d_in),
+                          kind != "packed"))
+    for M in (7, 6):
+        qm = dc.replace(q, M=M, E=2)
+        for shape in ((B, 1, KV, dh), (B, S, KV, dh)):
+            cases.append((f"KV write {shape} M {M}",
+                          lambda x, qm=qm: quantize_kv(x, qm), randn(*shape),
+                          True))
+    if any("i_packed" in w for w in weights.values()):
+        shapes = {tuple(w["m"].shape) for w in weights.values()}
+        for shape in sorted(shapes):
+            cases.append((f"planes export {shape}",
+                          lambda x: quantize_weight(x, q, "planes"),
+                          randn(*shape), True))
+    worst = 0.0
+    for what, fn, x, exact in cases:
+        got = fn(x)
+        with ops.force_backend("ref"):
+            want = fn(x)
+        if exact:
+            got, want = ((t,) if torch.is_tensor(t) else
+                         tuple(t.values()) if isinstance(t, dict) else t
+                         for t in (got, want))
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{tag} {what}: kernel differs from its "
+                                     "plain version")
+        else:
+            worst = max(worst, compare(torch, got, want, BF16_TOL,
+                                       f"{tag} {what}")[1])
+        del got, want
+    n_tol = sum(1 for c in cases if not c[3])
+    print(f"{tag} shapes: {len(cases) - n_tol} bit-identical to their plain "
+          f"versions, {n_tol} packed matmuls within BF16_TOL (max rel "
+          f"{worst:.3e}): " + "; ".join(c[0] for c in cases))
+    record.setdefault("dense_shapes", {})[tag] = dict(
+        cases=[c[0] for c in cases], packed_max_rel=worst)
+
+
+def _exact(tag, counts, expect):
+    if counts != expect:
+        raise AssertionError(f"{tag} launch counts {counts} != expected "
+                             f"{expect}")
+
+
+def _need(tag, counts, want):
+    """Each kernel (counter) of `want` ran at least that many times."""
+    short = {k: (counts.get(k, 0), n) for k, n in want.items()
+             if counts.get(k, 0) < n}
+    if short:
+        raise AssertionError(f"{tag} kernels that ran fewer times than the "
+                             f"path needs (ran, need): {short}")
+
+
+def _dense_kernel_rows(torch, peaks, record, rows):
+    """The kernels at the new configs' shapes, timed as phase 3 times
+    them (median of 20, L2 flushed) beside their bound, their plain
+    version and SDPA, each held against its plain version: decode
+    attention at qwen2's (B 4, smax 160, KV 2, G 7, dh 64) in int8 words
+    (G split over 2 slices: bit-identical to the rows launched as G 4 and
+    G 3) and int16, gemma3's local ring (B 2, smax 1024 rolling, KV 16, G
+    2, dh 168) in int8 (8-byte lanes) and int16, stablelm's (B 4, smax
+    160, KV 8, G 4, dh 160); the CUDA-core prefill at gemma3's (B 2, S
+    1152, H 32, KV 16, dh 168) causal and local 1024 and stablelm's (B 4,
+    S 128, H 32, KV 8, dh 160); the planes dequant at qwen2's w_down
+    panel (4864, 896), bit for bit."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.formats import FXPFormat, default_vp_format
+    from repro_torch.core.packing import dequant_words
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.vp_attention import flash_body, plan_decode
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    timer = Timer(torch)
+    fxp = FXPFormat(12, 11)
+    fmts = {2: default_vp_format(fxp, 7, 2), 1: default_vp_format(fxp, 6, 2)}
+    by_name = {r["name"]: r for r in rows}
+    out = []
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def add(name, entry):
+        by_name[name].setdefault("dense_shapes", []).append(entry)
+        out.append(dict(entry, name=name))
+
+    # -- decode attention ---------------------------------------------------
+    scales = torch.tensor([2.0 ** -3, 2.0 ** -2, 0.5, 1.0, 2.0],
+                          device="cuda")
+    for B, smax, KV, G, dh, lens, window, rolling, w_bytes in (
+            (4, 160, 2, 7, 64, [160, 150, 129, 100], None, False, 1),
+            (4, 160, 2, 7, 64, [160, 150, 129, 100], None, False, 2),
+            (2, 1024, 16, 2, 168, [1168, 1100], 1024, True, 1),
+            (2, 1024, 16, 2, 168, [1168, 1100], 1024, True, 2),
+            (4, 160, 8, 4, 160, [160, 150, 129, 100], None, False, 2)):
+        vp, H = fmts[w_bytes], KV * G
+        k_w, v_w = (ops.vp_quant((randn(B, smax, KV, dh) * 0.3).clamp(
+            -0.99, 0.99), fxp, vp, packed=True) for _ in range(2))
+        k_s, v_s = (scales[torch.randint(0, 5, (B, smax, 1, 1), generator=gen,
+                                         device="cuda")] for _ in range(2))
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = randn(B, 1, H, dh)
+        args = (k_w, v_w, k_s, v_s, lengths, vp, window, rolling)
+        plan = plan_decode(KV, smax, G, dh, w_bytes)
+        what = f"vp_decode_attention {[B, smax, KV, G, dh]} int{8 * w_bytes}"
+        got = ops.vp_decode_attention(q, *args)
+        err, rel = compare(torch, got, ref.vp_decode_attention_ref(q, *args),
+                           F32_RTOL, what)
+        qb = q.to(torch.bfloat16)
+        compare(torch, ops.vp_decode_attention(qb, *args),
+                ref.vp_decode_attention_ref(qb, *args), BF16_TOL,
+                f"{what} bf16")
+        _identical(torch, ops.vp_decode_attention(q, *args), got,
+                   f"{what}, two launches")
+        if plan.slices > 1:   # each row's bits, sliced or launched alone
+            rows4 = q.reshape(B, 1, KV, G, dh)
+            parts = []
+            for lo, hi in ((0, 4), (4, G)):
+                sub = rows4[:, :, :, lo:hi].reshape(B, 1, KV * (hi - lo), dh)
+                parts.append(ops.vp_decode_attention(
+                    sub.contiguous(), *args).reshape(B, 1, KV, hi - lo, dh))
+            _identical(torch, torch.cat(parts, 3).reshape(B, 1, H, dh), got,
+                       f"{what}: the G slices against G 4 and G 3 launches")
+        ms = timer(lambda: ops.vp_decode_attention(q, *args))
+        plain_ms = timer(lambda: ref.vp_decode_attention_ref(q, *args))
+        kd, vd = ((dequant_words(w, vp, torch.float32) * s)
+                  .repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+                  for w, s in ((k_w, k_s), (v_w, v_s)))
+        pos = torch.arange(smax, device="cuda")[None, :]
+        ln = lengths.to(torch.int64)[:, None]
+        mask = (pos < (ln.clamp(max=smax) if rolling else ln))[:, None, None]
+        qt = q.transpose(1, 2)
+        library_ms = timer(lambda: F.scaled_dot_product_attention(
+            qt, kd, vd, attn_mask=mask))
+        valid = sum(min(n, smax) for n in lens)
+        bnd = bound(peaks, valid * KV * dh * w_bytes * 2 + valid * 2 * 4
+                    + 2 * B * H * dh * 4, 4 * valid * KV * G * dh, "f32")
+        shape = [B, smax, KV, G, dh, f"int{8 * w_bytes}",
+                 "rolling" if rolling else "full"]
+        _print_line("vp_decode_attention", shape, err, rel, ms, plain_ms, bnd,
+                    library_ms)
+        print(f"[dense kernel] {what}: {plan}")
+        add("vp_decode_attention", dict(
+            shape=shape, plan=dataclasses.asdict(plan), ms=ms,
+            plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+            library_ms=library_ms, max_abs_err=err))
+
+    # -- the CUDA-core prefill body at dh 168 and 160 -------------------------
+    for B, S, H, KV, dh, window in ((2, 1152, 32, 16, 168, None),
+                                    (2, 1152, 32, 16, 168, 1024),
+                                    (4, 128, 32, 8, 160, None)):
+        G = H // KV
+        if flash_body(torch.bfloat16, dh) != "cuda_core":
+            raise AssertionError(f"dh {dh} not planned on the CUDA cores")
+        qd, kd, vd = (randn(B, S, n, dh, dtype=torch.bfloat16)
+                      for n in (H, KV, KV))
+        pattern = "local" if window else "causal"
+        what = f"flash_prefill {[B, S, H, KV, dh, pattern]}"
+        got = ops.flash_prefill(qd, kd, vd, pattern, window)
+        err, rel = compare(torch, got, ref.flash_prefill_ref(
+            qd, kd, vd, pattern, window), BF16_TOL, what)
+        _identical(torch, ops.flash_prefill(qd, kd, vd, pattern, window), got,
+                   f"{what}, two launches")
+        ms = timer(lambda: ops.flash_prefill(qd, kd, vd, pattern, window))
+        plain_ms = timer(lambda: ref.flash_prefill_ref(qd, kd, vd, pattern,
+                                                       window))
+        qt = qd.transpose(1, 2)
+        kt, vt = (t.repeat_interleave(G, dim=2).transpose(1, 2)
+                  for t in (kd, vd))
+        qpos = torch.arange(S, device="cuda")[:, None]
+        kpos = torch.arange(S, device="cuda")[None, :]
+        band = kpos <= qpos
+        if window:
+            band &= qpos - kpos < window
+            library_ms = timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band))
+        else:
+            library_ms = timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True))
+        bnd = bound(peaks, 2 * (2 * B * S * H * dh + 2 * B * S * KV * dh),
+                    4 * B * H * dh * int(band.sum()), "bf16")
+        shape = [B, S, H, KV, dh, pattern]
+        _print_line("flash_prefill", shape, err, rel, ms, plain_ms, bnd,
+                    library_ms)
+        print(f"[dense kernel] {what}: CUDA-core body {ms:.4f} ms, "
+              f"{ms / library_ms:.2f}x SDPA")
+        add("flash_prefill", dict(shape=shape, body="cuda_core", ms=ms,
+                                  plain_ms=plain_ms, bound_ms=bnd[0],
+                                  bound_by=bnd[1], library_ms=library_ms,
+                                  max_abs_err=err))
+
+    # -- the planes dequant at a weight panel ----------------------------------
+    K, N = 4864, 896
+    m, i = ops.vp_quant((randn(K, N) * 0.3).clamp(-0.99, 0.99), fxp,
+                        fmts[2])
+    for dtype in (torch.float32, torch.bfloat16):
+        got = ops.vp_dequant(m, i, fmts[2], dtype)
+        _identical(torch, got, ref.vp_dequant_ref(m, i, fmts[2], dtype),
+                   f"vp_dequant planes {(K, N)} {dtype}")
+    ms = timer(lambda: ops.vp_dequant(m, i, fmts[2], torch.bfloat16))
+    plain_ms = timer(lambda: ref.vp_dequant_ref(m, i, fmts[2],
+                                                torch.bfloat16))
+    bnd = bound(peaks, K * N * (1 + 1 + 2), 0, "bf16")
+    shape = [K, N, "int8 + uint8 -> bf16"]
+    _print_line("vp_dequant_planes", shape, 0.0, 0.0, ms, plain_ms, bnd, None)
+    add("vp_dequant_planes", dict(shape=shape, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bnd[0], bound_by=bnd[1],
+                                  library_ms=None, max_abs_err=0.0))
+    record["dense_kernels"] = out
+
+
+def dense_phase(torch, record, rows, smi, peaks):
+    """The rest of the dense path in bf16, random weights from seed 0,
+    each run's logits teacher-forced against its plain path at the serve
+    limits (bf16: max(REL_LIMIT, FLOOR_MARGIN x the plain path's f64
+    floor); f32: F32_REL_LIMIT):
+
+    - qwen2-0.5b (QKV bias, G = 7) at full width and depth through the
+      serve CLI: `--quant vp --kv-quant`, batch 4, prompt 128, 32 steps
+      (exact launch counts), and f32 the same way; then short CLI runs
+      (batch 4, prompt 16, 2 steps): `--quant vp_block` (only w_down
+      tiles at 256: 24 block weights, 146 packed), `--layout planes` (the
+      planes quantizer at export, the planes dequant on every weight) and
+      `--M 6 --E 2 --kv-quant` (int8 weight and KV words; decode
+      attention at G = 7 on the G-split body);
+    - gemma3-27b at full width over 7 layers (one period of 5 local + 1
+      global, then a local tail: both scanned groups): batch 2, prompt
+      1152 (past the 1024-token window: the band mask in prefill, the
+      ring in decode), 16 steps; prefill on the CUDA-core body at dh 168;
+      then the engine with global layers paged and local layers on dense
+      rings, run-ahead 4 and 1 (the same tokens), every graph's first
+      replay bit-identical to its eager step, logits against plain;
+    - stablelm-12b at full width over 4 layers: batch 4, prompt 128, 8
+      steps, prefill on the CUDA-core body at dh 160;
+    - after each bf16 run but the engine's, its kernels at its own shapes
+      against their plain versions (`_dense_shapes`);
+    - the kernels at these shapes, timed (`_dense_kernel_rows`)."""
+    from repro_torch import tree
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.models.model import layer_plan
+
+    tag = "[dense]"
+    laps, t_lap = {}, [time.perf_counter()]
+    launches = collections.Counter()
+
+    def lap(what):
+        now = time.perf_counter()
+        laps[what] = now - t_lap[0]
+        t_lap[0] = now
+        print(f"[time] dense {what}: {laps[what]:.2f}s")
+
+    out = {}
+    vp_kv = QuantConfig(mode="vp", quantize_kv_cache=True)
+
+    # -- qwen2-0.5b, full width and depth, through the CLI ----------------------
+    arch = "qwen2-0.5b"
+    cfg = _dense_cfg(arch, vp_kv)
+    L = cfg.n_layers
+    if (cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, cfg.qkv_bias) != (
+            7, 64, True):
+        raise AssertionError(f"{arch}: {cfg}")
+    head = {"vp_dequant_matmul": 1, "vp_dqmm_skinny": 1}
+    prefill = _add(_dqmm_counts(torch, cfg, BATCH * PROMPT), head,
+                   _qp(2 * L, "kv"), _attention_counts(torch, cfg, True))
+    decode = _add(_dqmm_counts(torch, cfg, BATCH), head, _qp(2 * L, "kv"),
+                  _attention_counts(torch, cfg, False))
+    expect = _add(prefill, *[decode] * GEN, _qp(7 * L + 2, "table"))
+    argv = ["--arch", arch, "--quant", "vp", "--kv-quant", "--batch",
+            str(BATCH), "--prompt-len", str(PROMPT), "--gen", str(GEN)]
+    res, qp, _ = _dense_cli(torch, f"{tag} {arch}", argv,
+                            passes={"prefill": prefill, "decode step": decode})
+    _exact(f"{tag} {arch}", res["launches"], expect)
+    launches.update(res["launches"])
+    out[arch] = res
+    _dense_shapes(torch, f"{tag} {arch}", cfg, qp, BATCH, PROMPT, record)
+    del qp
+    lap(f"{arch} vp, full depth")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    out[f"{arch} f32"], _ = _dense_static(torch, f"{tag} {arch} f32", cfg32,
+                                          BATCH, PROMPT, GEN)
+    launches.update(out[f"{arch} f32"]["launches"])
+    lap(f"{arch} f32")
+
+    short = ["--batch", str(BATCH), "--prompt-len", "16", "--gen", "2"]
+    for what, extra, need, requant in (
+            ("vp_block", ["--quant", "vp_block", "--kv-quant"],
+             {"block_vp_matmul": 3 * L, "vp_block_quant": 3 * L + L,
+              "vp_dequant_matmul": 3 * 6 * L + 3}, True),
+            ("planes", ["--quant", "vp", "--kv-quant", "--layout", "planes"],
+             {"vp_quant_planes": 7 * L + 2,
+              "vp_dequant_planes": 3 * (7 * L + 1) + 3}, True),
+            ("M6 E2", ["--quant", "vp", "--kv-quant", "--M", "6", "--E", "2"],
+             {"vp_decode_attention": 2 * L,
+              "vp_dequant_matmul": 3 * (7 * L + 1)}, False)):
+        res, qp, c = _dense_cli(torch, f"{tag} {arch} {what}",
+                                ["--arch", arch, *extra, *short], requant)
+        _need(f"{tag} {arch} {what}", res["launches"], need)
+        if what == "vp_block":
+            kinds = collections.Counter(
+                {"i_blk": "block", "w_packed": "packed"}[path.rsplit("/")[-1]]
+                for path, _ in tree.tree_paths(qp)
+                if path.endswith(("/i_blk", "/w_packed")))
+            print(f"{tag} {arch} vp_block at {BLOCK}: {dict(kinds)} weights")
+            if kinds != {"block": L, "packed": 6 * L + 2}:
+                raise AssertionError(f"{tag} vp_block weights {kinds}")
+        if what == "M6 E2":
+            w = qp["layers"][0]["attn"]["wq"]["w_packed"]
+            if w.dtype != torch.int8:
+                raise AssertionError(f"{tag} M6 E2 words are {w.dtype}")
+        launches.update(res["launches"])
+        out[f"{arch} {what}"] = res
+        _dense_shapes(torch, f"{tag} {arch} {what}", c, qp, BATCH, 16, record)
+        del qp
+    lap(f"{arch} short runs (vp_block, planes, M6 E2)")
+
+    # -- gemma3-27b at full width, 7 layers ------------------------------------
+    arch = "gemma3-27b"
+    cfg = _dense_cfg(arch, vp_kv, layers=GEMMA_LAYERS)
+    pats = [s.pattern for s in layer_plan(cfg)]
+    if pats != ["local"] * 5 + ["global", "local"] or cfg.head_dim != 168:
+        raise AssertionError(f"{arch}: layers {pats}, dh {cfg.head_dim}")
+    B, S, steps = GEMMA_SERVE
+    res, qp = _dense_static(torch, f"{tag} {arch} ({GEMMA_LAYERS} layers)",
+                            cfg, B, S, steps)
+    _need(f"{tag} {arch}", res["launches"], {
+        "flash_cuda_core": GEMMA_LAYERS, "vp_dec_split": GEMMA_LAYERS * steps,
+        "vp_dequant_matmul": (7 * GEMMA_LAYERS + 1) * (steps + 1)})
+    launches.update(res["launches"])
+    out[arch] = res
+    _dense_shapes(torch, f"{tag} {arch}", cfg, qp, B, S, record)
+    lap(f"{arch} static")
+    out[f"{arch} engine"] = _dense_engine(torch, tag, cfg, qp, launches)
+    del qp
+    lap(f"{arch} engine")
+
+    # -- stablelm-12b at full width, 4 layers -----------------------------------
+    arch = "stablelm-12b"
+    cfg = _dense_cfg(arch, vp_kv, layers=STABLELM_LAYERS)
+    B, S, steps = STABLELM_SERVE
+    res, qp = _dense_static(torch, f"{tag} {arch} ({STABLELM_LAYERS} layers)",
+                            cfg, B, S, steps)
+    _need(f"{tag} {arch}", res["launches"], {
+        "flash_cuda_core": STABLELM_LAYERS,
+        "vp_dec_split": STABLELM_LAYERS * steps})
+    launches.update(res["launches"])
+    out[arch] = res
+    _dense_shapes(torch, f"{tag} {arch}", cfg, qp, B, S, record)
+    del qp
+    lap(f"{arch} static")
+
+    _dense_kernel_rows(torch, peaks, record, rows)
+    lap("kernel rows")
+    for row in rows:
+        if launches.get(row["name"]):
+            row["dense_launches"] = launches[row["name"]]
+    record["dense"] = dict(out, launches=dict(launches), laps=laps)
+    print(f"{tag} launches over the phase's runs: {dict(launches)}; {smi}")
+
+
+def _dense_engine(torch, tag, cfg, params, launches):
+    """gemma3 through the engine: GEMMA_ENGINE_REQS requests (numpy seed
+    0), global layers PAGED, local layers DENSE rings; run-ahead 4, then
+    1 (the same tokens); each graph's first replay bit-identical to its
+    eager step; every request's logits against the plain path."""
+    import numpy as np
+
+    from repro_torch.serving.page_cache import DENSE, PAGED
+
+    n, (lo, hi), (g_lo, g_hi) = GEMMA_ENGINE_REQS
+    rng = np.random.default_rng(0)
+    reqs = [([int(t) for t in rng.integers(0, cfg.vocab, int(s))], int(g))
+            for s, g in zip(rng.integers(lo, hi + 1, n),
+                            rng.integers(g_lo, g_hi + 1, n))]
+    kw = dict(max_slots=GEMMA_ENGINE_SLOTS, capacity=GEMMA_ENGINE_CAP,
+              page_size=ENGINE_PAGE)
+    logits, recs, waves = {}, [], []
+    for ahead in ENGINE_LOOKAHEAD:
+        eng = _engine(cfg, params, decode_lookahead=ahead, **kw)
+        kinds = sorted({(s.pattern, s.kind, s.buf_len) for s in eng.kv.specs})
+        if kinds != [("global", PAGED, GEMMA_ENGINE_CAP),
+                     ("local", DENSE, cfg.local_window)]:
+            raise AssertionError(f"{tag} engine cache plan {kinds}")
+        torch.cuda.reset_peak_memory_stats()
+        r, wall, calls, ran = _engine_wave(
+            torch, eng, reqs, logits if ahead == ENGINE_LOOKAHEAD[0] else None)
+        peak = torch.cuda.max_memory_allocated()
+        _check_graph_log(eng.runner, f"{tag} gemma3 engine, run-ahead {ahead}:")
+        launches.update(ran)
+        recs.append(r)
+        waves.append(dict(_decode_rates(r, calls), wall_s=wall,
+                          peak_bytes=peak, kernels=_engine_counts(ran)))
+        print(f"{tag} gemma3 engine, run-ahead {ahead}: {len(reqs)} requests "
+              f"(prompts {[len(p) for p, _ in reqs]}, budgets "
+              f"{[g for _, g in reqs]}) in {wall:.3f}s, "
+              f"{waves[-1]['decode_ms_per_step']:.3f} ms per decode step "
+              f"(graph captures and checks included), prefill and host "
+              f"{wall - waves[-1]['decode_s']:.3f}s, peak memory "
+              f"{peak / 1e9:.3f} GB; cache plan {kinds}; kernels that ran "
+              f"{_engine_counts(ran)}")
+        _need(f"{tag} gemma3 engine", ran, {"vp_decode_attention": 1,
+                                            "flash_prefill": 1})
+        del eng
+    differ = [a["rid"] for a, b in zip(*recs) if a["tokens"] != b["tokens"]]
+    if differ:
+        raise AssertionError(f"{tag} gemma3 engine: run-ahead changed the "
+                             f"tokens of requests {differ}")
+    rels, floor = _engine_plain(torch, cfg, params, reqs, recs[0], logits,
+                                floor=1, max_len=GEMMA_ENGINE_CAP)
+    limit = max(REL_LIMIT, FLOOR_MARGIN * max(floor))
+    print(f"{tag} gemma3 engine: tokens identical at run-ahead "
+          f"{ENGINE_LOOKAHEAD}; bf16 vs plain per request "
+          + " ".join(f"{x:.2e}" for x in rels) + f" (floor {floor[0]:.3e}, "
+          f"limit {limit:.3e})")
+    if max(rels) > limit:
+        raise AssertionError(f"{tag} gemma3 engine logits differ from the "
+                             f"plain path by {max(rels):.3e} > {limit:.3e}")
+    return dict(requests=[(len(p), g) for p, g in reqs], waves=waves,
+                rel_logit_diff=rels, plain_floor=floor, limit=limit)
 
 
 def dequant_phase(torch, record, rows):

@@ -131,6 +131,32 @@ def check_scale_exponents(fmt: VPFormat) -> List[str]:
         biased = 127 - fv
         if not F32_MIN_BIASED_EXP <= biased <= F32_MAX_BIASED_EXP:
             problems.append(
-                f"{fmt!r}: scale 2^-{fv} has biased f32 exponent {biased}, "
-                f"outside [{F32_MIN_BIASED_EXP}, {F32_MAX_BIASED_EXP}]")
+                f"{fmt!r}: scale 2^-{fv} has biased f32 exponent "
+                f"{biased}, outside the normal range "
+                f"[{F32_MIN_BIASED_EXP}, {F32_MAX_BIASED_EXP}] — the "
+                f"dequant scale degenerates to "
+                f"{'zero/denormal' if biased < 1 else 'inf'}")
+    return problems
+
+
+def check_quantize_shifts(fxp: FXPFormat, vp: VPFormat) -> List[str]:
+    """Violations of "the Fig. 3 cascade's shifts cannot wrap int32"
+    (empty: safe).
+
+    For exponent option k the cascade computes m_k = raw << (f_k - F)
+    when f_k > F; raw carries up to W signed bits, so the shifted value
+    needs W + f_k - F bits, and an int32 left shift wraps beyond 32: the
+    range test then sees a wrapped value and can select a corrupt
+    (m, i).
+    """
+    problems: List[str] = []
+    raw_bits = significand_interval(fxp).signed_bits
+    for fv in vp.f:
+        s = fxp.F - fv
+        if s < 0 and raw_bits + (-s) > 32:
+            problems.append(
+                f"{fxp!r} -> {vp!r}: option f={fv} left-shifts the "
+                f"{raw_bits}-bit raw value by {-s} bits "
+                f"({raw_bits - s} > 32) — int32 shift wraparound inside "
+                f"the quantize cascade's range test")
     return problems

@@ -1,9 +1,10 @@
 """Fail-fast kernel contracts at op entry (port of the checks of
-`repro.analysis.contracts` that `ops.block_vp_matmul` and
-`ops.vp_dequant` run).
+`repro.analysis.contracts` that the quantize ops, `ops.block_vp_matmul`
+and `ops.vp_dequant` run).
 
-A CUDA int32 accumulator wraps silently, and a dequant scale outside the
-f32 normal range degrades silently, so these raise `VPContractError`
+A CUDA int32 accumulator or the quantize cascade's int32 shift wraps
+silently, and a dequant scale outside the f32 normal range degrades
+silently, so these raise `VPContractError`
 with the analyzer's explanation where the reference raises, on every
 device.  Each check is cached on its hashable arguments.
 """
@@ -32,6 +33,20 @@ def require_format_serviceable(fmt: Format, what: str = "kernel op") -> bool:
         if problems:
             raise VPContractError(f"static contract violation in {what}:\n  "
                                   + "\n  ".join(problems))
+    return True
+
+
+@functools.lru_cache(maxsize=None)
+def require_quant_safe(fxp: FXPFormat, vp: VPFormat,
+                       what: str = "vp_quant") -> bool:
+    """No int32 shift wraparound inside the Fig. 3 cascade's range tests,
+    and the dequant-side contract of `vp` (quantize ops emit words or
+    planes that something will dequantize)."""
+    require_format_serviceable(vp, what)
+    problems = bitwidth.check_quantize_shifts(fxp, vp)
+    if problems:
+        raise VPContractError(f"static contract violation in {what}:\n  "
+                              + "\n  ".join(problems))
     return True
 
 

@@ -61,11 +61,16 @@ class ModelConfig:
     d_ff: int
     vocab: int
     d_head: Optional[int] = None
+    qkv_bias: bool = False
     qk_norm: bool = False
     rope_theta: float = 1e4
-    sliding_window: Optional[int] = None
+    # Attention pattern
+    sliding_window: Optional[int] = None      # SWA on every layer
+    local_global_period: int = 0              # gemma3: every Nth layer global
+    local_window: int = 1024                  # local-attention window
     dtype: str = "bfloat16"
     quant: QuantConfig = QuantConfig()
+    remat: str = "none"              # none | full | dots (act checkpointing)
     loss_chunk: int = 1024           # chunked cross-entropy seq block
 
     @property

@@ -1,4 +1,5 @@
-"""Architecture registry of the port: the configs it serves so far.
+"""Architecture registry of the port: the dense configs it serves (the
+reference's other families come with their slices).
 
 `get_config` returns the full-width config (the card's target);
 `get_smoke_config` the reduced one the CPU tests use.
@@ -9,10 +10,13 @@ import dataclasses
 from typing import Optional
 
 from .base import ModelConfig, QuantConfig
-from . import qwen3_0_6b
+from . import gemma3_27b, qwen2_0_5b, qwen3_0_6b, stablelm_12b
 
 _MODULES = {
+    "qwen2-0.5b": qwen2_0_5b,
     "qwen3-0.6b": qwen3_0_6b,
+    "stablelm-12b": stablelm_12b,
+    "gemma3-27b": gemma3_27b,
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -1,4 +1,5 @@
-"""FXP -> VP conversion (port of `repro.core.convert.fxp2vp`).
+"""FXP <-> VP conversion (port of `repro.core.convert.fxp2vp` and
+`vp2fxp`).
 
 For each exponent option k the FXP raw value is shifted by
 s_k = F - f_k; the first k whose shifted value fits in M signed bits
@@ -44,6 +45,20 @@ def fxp2vp(raw: torch.Tensor, fxp: FXPFormat, vp: VPFormat
     m = torch.where(valid_any, m_sel, m_last).to(torch.int32)
     i = torch.where(valid_any, i_sel, vp.K - 1).to(torch.int32)
     return m, i
+
+
+def vp2fxp(m: torch.Tensor, i: torch.Tensor, vp: VPFormat, fxp: FXPFormat
+           ) -> torch.Tensor:
+    """VP(M, f) (significand, index) -> raw FXP(W, F) int32 values
+    (Sec. II-E): m shifted left by F - f_k (right, truncating, when
+    F < f_k) for the index k of each element, then clipped to the FXP
+    range."""
+    m = m.to(torch.int32)
+    i = i.to(torch.int32)
+    out = torch.zeros_like(m)
+    for k in range(vp.K):
+        out = torch.where(i == k, _shift(m, vp.f[k] - fxp.F), out)
+    return torch.clamp(out, fxp.raw_min, fxp.raw_max).to(torch.int32)
 
 
 @functools.lru_cache(maxsize=None)

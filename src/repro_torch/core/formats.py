@@ -123,3 +123,18 @@ def default_vp_format(fxp: FXPFormat, M: int, E: int) -> VPFormat:
             f.append(f[-1] - 1)
         f = sorted(set(f), reverse=True)
     return VPFormat(M, tuple(f[:K]))
+
+
+def product_format(a: VPFormat, b: VPFormat) -> VPFormat:
+    """Exponent list and significand width of a VP x VP product (Sec.
+    II-B): the pairwise sums f_a + f_b in index-concatenation order
+    ((i_a << E_b) | i_b), built offline; M records the multiplier's width
+    M_a + M_b - 1 (the one product (-2^(Ma-1)) * (-2^(Mb-1)) needs one
+    bit more, and `vp_math.vp_mul` keeps it exact in int32).  The list is
+    sorted only within each i_a block, and only VP2FXP consumes it, so
+    the descending check is bypassed by direct construction, as in the
+    reference."""
+    fmt = object.__new__(VPFormat)
+    object.__setattr__(fmt, "M", a.M + b.M - 1)
+    object.__setattr__(fmt, "f", tuple(fa + fb for fa in a.f for fb in b.f))
+    return fmt

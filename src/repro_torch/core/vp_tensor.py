@@ -1,10 +1,14 @@
-"""Storage helpers of the two-plane VP layout (port of the helpers of
-`repro.core.vp_tensor`; the `VPTensor` container is not ported yet):
-the significand plane's type, and the bit packing of the index plane
-that the planes KV cache stores."""
+"""The two-plane VP layout (port of `repro.core.vp_tensor`): the
+`VPTensor` container, the significand plane's type, and the bit packing
+of the index plane that the planes weight and KV layouts store."""
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+
+from .convert import scale_table
+from .formats import FXPFormat, VPFormat
 
 
 def significand_dtype(M: int) -> torch.dtype:
@@ -14,6 +18,39 @@ def significand_dtype(M: int) -> torch.dtype:
     if M <= 16:
         return torch.int16
     return torch.int32
+
+
+@dataclasses.dataclass(frozen=True)
+class VPTensor:
+    """A VP-quantized tensor: significand plane `m`
+    (`significand_dtype(fmt.M)`), unpacked uint8 index plane `i`, its
+    format, and the FXP grid it was quantized from.  A plain container,
+    not a pytree: nothing on the serving path takes it."""
+
+    m: torch.Tensor
+    i: torch.Tensor
+    fmt: VPFormat
+    fxp: FXPFormat
+
+    @property
+    def shape(self):
+        return self.m.shape
+
+    @property
+    def storage_bits_per_element(self) -> int:
+        """The significand's container lanes (8, 16 or 32 bits) plus the
+        E-bit index, packed 2^E states to an element."""
+        sig = torch.empty((), dtype=significand_dtype(self.fmt.M))
+        return sig.element_size() * 8 + self.fmt.E
+
+    def to_float(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """m * 2^-f_i, exact in f32."""
+        table = scale_table(self.fmt, dtype, self.m.device)
+        return self.m.to(dtype) * table[self.i.long()]
+
+    def __repr__(self) -> str:
+        return (f"VPTensor(shape={tuple(self.m.shape)}, fmt={self.fmt}, "
+                f"fxp={self.fxp})")
 
 
 def pack_indices(i: torch.Tensor, E: int) -> torch.Tensor:

@@ -72,7 +72,7 @@ _SIGNATURES = {
         "vp_dqmm_cc_launch": [_P, _P, _P] + [_I] * 6 + [_P, _P],
     },
     "vp_attention": {
-        "vp_decode_attention_launch": [_P] * 7 + [_I] * 12 + [_F, _P, _P],
+        "vp_decode_attention_launch": [_P] * 7 + [_I] * 14 + [_F, _P, _P],
         "flash_prefill_launch": [_P] * 4 + [_I] * 10 + [_F, _P],
     },
     "vp_matmul": {

@@ -26,13 +26,21 @@
 //      hold one position's dh words (8 int16 or 16 int8 per lane), so a
 //      step covers 32 / lpp positions, and four steps' loads go out
 //      before the first is used.  Words are decoded in registers through
-//      a 2^-f table in shared memory.
+//      a 2^-f table in shared memory.  Int8 rows of dh = 8 mod 16 (168
+//      bytes at gemma3's dh) are only 8-byte aligned: there a lane loads
+//      8 bytes (NB = 8), int16's 8 words a lane.
 //    - All G query rows of the GQA group use each decoded word: q.k is
 //      an FMA chain per lane and a shuffle reduction over the position's
 //      lanes; the pow2 scales multiply the score (k_s) and the
 //      probability (v_s), as in the TPU kernel (exact for powers of two).
 //      Each lane group keeps its own online softmax (m, l, acc) in
-//      registers, with one expf per row and position.
+//      registers, with one expf per row and position.  Where G rows would
+//      not fit a lane's registers (G > 4 at 16 int8 words a lane, qwen2's
+//      G = 7; G > 8 at 8 words), a grid axis splits them into slices of
+//      `gs` rows, one block per slice: a row's sums depend only on its
+//      own q and on the runs, so every row keeps the bits it has in an
+//      unsplit launch.  (Slices, not 8-byte lanes, at G = 7: twice the
+//      blocks where KV is 2, and the faster of the two on the card.)
 //    - Partials merge in a fixed order: the position slots of a warp by a
 //      shuffle tree, the warps of a block in warp order through shared
 //      memory, the blocks of a cluster in rank order through distributed
@@ -103,6 +111,7 @@ struct DecArgs {
   const int* lengths;    // (B,)
   void* out;             // (B, KV, G, dh) in q's dtype
   int KV, G, dh, smax, window, rolling;
+  int gs;                // query rows per block (blockIdx.z: the slice)
   int warps;             // runs per block
   int lpp;               // lanes per position (a power of two)
   float scale;           // dh**-0.5 as an f32
@@ -117,23 +126,39 @@ __device__ __forceinline__ void load_q(const void* q, long long e,
   for (int j = 0; j < NW; ++j) qv[j] = __fmul_rn(vp_to_float(src[j]), scale);
 }
 
-// Word j of the 16 bytes v, sign-extended (shifts, not a pointer cast:
-// a cast would move v to local memory).
+// A lane's NB bytes of a cache row at src: one 16-byte load, or one
+// 8-byte load into .x and .y.
+template <int NB>
+__device__ __forceinline__ uint4 load_words(const void* src, bool ok) {
+  if constexpr (NB == 8) {
+    const uint2 a = ok ? __ldg(reinterpret_cast<const uint2*>(src))
+                       : make_uint2(0, 0);
+    return make_uint4(a.x, a.y, 0u, 0u);
+  } else {
+    return ok ? __ldg(reinterpret_cast<const uint4*>(src))
+              : make_uint4(0, 0, 0, 0);
+  }
+}
+
+// Word j of the bytes v, sign-extended (shifts, not a pointer cast: a
+// cast would move v to local memory).
 template <typename WT>
 __device__ __forceinline__ int word_at(const uint4& v, int j) {
-  constexpr int NW = 16 / sizeof(WT), PER = NW / 4, BITS = 8 * sizeof(WT);
+  constexpr int PER = 4 / sizeof(WT), BITS = 8 * sizeof(WT);
   const unsigned c = j < PER ? v.x : j < 2 * PER ? v.y : j < 3 * PER ? v.z : v.w;
   return (int)(c << (32 - BITS - (j % PER) * BITS)) >> (32 - BITS);
 }
 
-template <typename WT, int GT>
+template <typename WT, int GT, int NB>
 __global__ void __launch_bounds__(DEC_MAX_WARPS * 32)
 vp_decode_attention_split_kernel(const DecArgs p, const VPFmt f,
                                  const int q_bf16) {
-  constexpr int NW = 16 / sizeof(WT);   // words per lane: one 16-byte load
+  constexpr int NW = NB / sizeof(WT);   // words per lane: NB bytes
   extern __shared__ float dsm[];
+  // This block's slice of the query rows: [g0, g0 + G).
+  const int g0 = blockIdx.z * p.gs, G = min(p.gs, p.G - g0);
   float* wacc = dsm;                          // (warps, G, dh) warp partials
-  float* bacc = wacc + p.warps * p.G * p.dh;  // (G, dh) the block's partial
+  float* bacc = wacc + p.warps * G * p.dh;    // (G, dh) the block's partial
   __shared__ float tab[VP_MAX_K];
   __shared__ float wm[DEC_MAX_WARPS][GT], wl[DEC_MAX_WARPS][GT];
   __shared__ float bm[GT], bl[GT];
@@ -163,14 +188,14 @@ vp_decode_attention_split_kernel(const DecArgs p, const VPFmt f,
   const int r_hi = min(r_lo + per, hi);
 
   float qv[GT][NW], acc[GT][NW], m[GT], l[GT];
-  const long long qrow = ((long long)b * p.KV + h) * p.G;
+  const long long qrow = ((long long)b * p.KV + h) * p.G + g0;
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
     m[g] = NEG_INF;
     l[g] = 0.f;
 #pragma unroll
     for (int j = 0; j < NW; ++j) qv[g][j] = acc[g][j] = 0.f;
-    if (g < p.G && has_d) {
+    if (g < G && has_d) {
       const long long e = (qrow + g) * p.dh + d0;
       if (q_bf16) {
         load_q<__nv_bfloat16>(p.q, e, p.scale, qv[g]);
@@ -196,12 +221,8 @@ vp_decode_attention_split_kernel(const DecArgs p, const VPFmt f,
     for (int u = 0; u < DEC_UNROLL; ++u) {
       const int t = t0 + u * pps + slot;
       const bool ok = t < r_hi;
-      kk[u] = ok && has_d ? __ldg(reinterpret_cast<const uint4*>(
-                                kbase + t * pos_words))
-                          : make_uint4(0, 0, 0, 0);
-      vv[u] = ok && has_d ? __ldg(reinterpret_cast<const uint4*>(
-                                vbase + t * pos_words))
-                          : make_uint4(0, 0, 0, 0);
+      kk[u] = load_words<NB>(kbase + t * pos_words, ok && has_d);
+      vv[u] = load_words<NB>(vbase + t * pos_words, ok && has_d);
       kscale[u] = ok ? __ldg(ksb + t) : 0.f;
       vscale[u] = ok ? __ldg(vsb + t) : 0.f;
     }
@@ -223,7 +244,7 @@ vp_decode_attention_split_kernel(const DecArgs p, const VPFmt f,
         for (int o = lpp >> 1; o > 0; o >>= 1)
           s += __shfl_xor_sync(0xffffffffu, s, o);
         s *= kscale[u];
-        if (g < p.G && ok) {
+        if (g < G && ok) {
           // One exp: the larger of (m, s) becomes the new max.
           const float e = expf(-fabsf(s - m[g]));
           const bool up = s > m[g];
@@ -243,7 +264,7 @@ vp_decode_attention_split_kernel(const DecArgs p, const VPFmt f,
   // The warp's position slots, by a shuffle tree (a fixed order).
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
-    if (g >= p.G) break;   // uniform: the shuffles below stay converged
+    if (g >= G) break;   // uniform: the shuffles below stay converged
     float mw = m[g];
     for (int o = lpp; o < 32; o <<= 1)
       mw = fmaxf(mw, __shfl_xor_sync(0xffffffffu, mw, o));
@@ -258,7 +279,7 @@ vp_decode_attention_split_kernel(const DecArgs p, const VPFmt f,
         acc[g][j] += __shfl_xor_sync(0xffffffffu, acc[g][j], o);
     }
     if (slot == 0 && has_d) {
-      float* dst = wacc + (warp * p.G + g) * p.dh + d0;
+      float* dst = wacc + (warp * G + g) * p.dh + d0;
 #pragma unroll
       for (int j = 0; j < NW; ++j) dst[j] = acc[g][j];
     }
@@ -270,14 +291,14 @@ vp_decode_attention_split_kernel(const DecArgs p, const VPFmt f,
   __syncthreads();
 
   // The block's warps, in warp order.
-  for (int e = threadIdx.x; e < p.G * p.dh; e += blockDim.x) {
+  for (int e = threadIdx.x; e < G * p.dh; e += blockDim.x) {
     const int g = e / p.dh;
     float mb = NEG_INF;
     for (int w = 0; w < p.warps; ++w) mb = fmaxf(mb, wm[w][g]);
     float a = 0.f, lb = 0.f;
     for (int w = 0; w < p.warps; ++w) {
       const float sc = expf(wm[w][g] - mb);
-      a += wacc[(w * p.G + g) * p.dh + e % p.dh] * sc;
+      a += wacc[(w * G + g) * p.dh + e % p.dh] * sc;
       lb += wl[w][g] * sc;
     }
     bacc[e] = a;
@@ -294,7 +315,7 @@ vp_decode_attention_split_kernel(const DecArgs p, const VPFmt f,
   if (split > 1) cluster.sync();
   else __syncthreads();
   const long long obase = qrow * p.dh;
-  for (int e = blockIdx.y * blockDim.x + threadIdx.x; e < p.G * p.dh;
+  for (int e = blockIdx.y * blockDim.x + threadIdx.x; e < G * p.dh;
        e += split * blockDim.x) {
     const int g = e / p.dh;
     float mz[DEC_MAX_CLUSTER];
@@ -328,18 +349,18 @@ vp_decode_attention_split_kernel(const DecArgs p, const VPFmt f,
   if (split > 1) cluster.sync();   // no block leaves while another reads
 }
 
-template <typename WT, int GT>
+template <typename WT, int GT, int NB>
 int dec_launch(const DecArgs& p, const VPFmt& f, int B, int cluster,
                int q_bf16, cudaStream_t s) {
-  const auto kern = vp_decode_attention_split_kernel<WT, GT>;
-  const size_t smem = sizeof(float) * (size_t)(p.warps + 1) * p.G * p.dh;
+  const auto kern = vp_decode_attention_split_kernel<WT, GT, NB>;
+  const size_t smem = sizeof(float) * (size_t)(p.warps + 1) * p.gs * p.dh;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * p.KV, cluster, 1);
+  cfg.gridDim = dim3(B * p.KV, cluster, (p.G + p.gs - 1) / p.gs);
   cfg.blockDim = dim3(32 * p.warps);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -354,15 +375,16 @@ int dec_launch(const DecArgs& p, const VPFmt& f, int B, int cluster,
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-template <typename WT>
+// The rows of a slice (p.gs) pick the register tile GT.
+template <typename WT, int NB>
 int dec_g(const DecArgs& p, const VPFmt& f, int B, int cluster, int q_bf16,
           cudaStream_t s) {
-  if (p.G <= 1) return dec_launch<WT, 1>(p, f, B, cluster, q_bf16, s);
-  if (p.G <= 2) return dec_launch<WT, 2>(p, f, B, cluster, q_bf16, s);
-  if (p.G <= 4) return dec_launch<WT, 4>(p, f, B, cluster, q_bf16, s);
+  if (p.gs <= 1) return dec_launch<WT, 1, NB>(p, f, B, cluster, q_bf16, s);
+  if (p.gs <= 2) return dec_launch<WT, 2, NB>(p, f, B, cluster, q_bf16, s);
+  if (p.gs <= 4) return dec_launch<WT, 4, NB>(p, f, B, cluster, q_bf16, s);
   // 8 rows of 16 int8 words would not fit in registers
-  if constexpr (sizeof(WT) > 1) {
-    if (p.G <= 8) return dec_launch<WT, 8>(p, f, B, cluster, q_bf16, s);
+  if constexpr (NB / sizeof(WT) <= 8) {
+    if (p.gs <= 8) return dec_launch<WT, 8, NB>(p, f, B, cluster, q_bf16, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -782,29 +804,34 @@ int cc_launch(const FlashArgs& p, int B, cudaStream_t s) {
 }  // namespace
 
 // q (B, KV, G, dh) f32 or bf16 (q_bf16), not scaled; k_w / v_w (B, smax,
-// KV, dh) packed words of w_bytes, 16-byte aligned; k_s / v_s (B, smax)
-// f32; lengths (B,) int32; out (B, KV, G, dh) in q's dtype.  window <= 0
-// means no window.  The span splits over `cluster` blocks of `warps` warps
-// with `lpp` lanes per position (kernels/vp_attention.py:plan_decode).
+// KV, dh) packed words of w_bytes, aligned to lane_bytes; k_s / v_s (B,
+// smax) f32; lengths (B,) int32; out (B, KV, G, dh) in q's dtype.
+// window <= 0 means no window.  The span splits over `cluster` blocks of
+// `warps` warps with `lpp` lanes per position, each lane loading
+// `lane_bytes` (16, or 8 at int8 words) of a row, the G rows over slices
+// of `gs` rows (kernels/vp_attention.py:plan_decode).
 extern "C" int vp_decode_attention_launch(
     const void* q, const void* kw, const void* vw, const void* ks,
     const void* vs, const void* lengths, void* out, int B, int KV, int G,
     int dh, int smax, int window, int rolling, int w_bytes, int q_bf16,
-    int cluster, int warps, int lpp, float scale, const VPFmt* f,
-    void* stream) {
+    int cluster, int warps, int lpp, int lane_bytes, int gs, float scale,
+    const VPFmt* f, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (cluster < 1 || cluster > DEC_MAX_CLUSTER || warps < 1 ||
       warps > DEC_MAX_WARPS || lpp < 1 || lpp > 32 || (lpp & (lpp - 1)) ||
       (w_bytes != 1 && w_bytes != 2 && w_bytes != 4) ||
-      dh % (16 / w_bytes) || lpp * (16 / w_bytes) < dh)
+      (lane_bytes != 16 && (lane_bytes != 8 || w_bytes != 1)) || gs < 1 ||
+      gs > G ||
+      dh % (lane_bytes / w_bytes) || lpp * (lane_bytes / w_bytes) < dh)
     return (int)cudaErrorInvalidValue;
   DecArgs p{q,     kw,     vw,   (const float*)ks, (const float*)vs,
             (const int*)lengths, out, KV, G, dh, smax, window, rolling,
-            warps, lpp, scale};
+            gs, warps, lpp, scale};
+  if (lane_bytes == 8) return dec_g<int8_t, 8>(p, *f, B, cluster, q_bf16, s);
   switch (w_bytes) {
-    case 1: return dec_g<int8_t>(p, *f, B, cluster, q_bf16, s);
-    case 2: return dec_g<int16_t>(p, *f, B, cluster, q_bf16, s);
-    case 4: return dec_g<int32_t>(p, *f, B, cluster, q_bf16, s);
+    case 1: return dec_g<int8_t, 16>(p, *f, B, cluster, q_bf16, s);
+    case 2: return dec_g<int16_t, 16>(p, *f, B, cluster, q_bf16, s);
+    case 4: return dec_g<int32_t, 16>(p, *f, B, cluster, q_bf16, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -90,6 +90,7 @@ def vp_quant(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
     (`core.packing` layout), the layout every matmul op accepts as
     (words, None).
     """
+    contracts.require_quant_safe(fxp, vp, "vp_quant")
     if uses_kernel(x):
         x32 = x.to(torch.float32)
         if packed:
@@ -107,6 +108,7 @@ def vp_quant_scaled(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
     last `group_dims` dims divided by its pow2 scale exp2(ceil(log2(
     max(amax|x|, 1e-30)))) in f32, then quantized (the KV cache's write;
     one launch on the card)."""
+    contracts.require_quant_safe(fxp, vp, "vp_quant_scaled")
     if uses_kernel(x):
         return vp_quant_scaled_cuda(x, fxp, vp, group_dims)
     return ref.vp_quant_scaled_ref(x, fxp, vp, group_dims)
@@ -294,6 +296,8 @@ def vp_quant_matmul_batched(a, b, a_fxp: FXPFormat, a_vp: VPFormat,
     """Fused quantize + matmul over (G, M, K) x (G, K, N) floats: one
     launch for the whole batch, numerically `vp_quant` then
     `vp_matmul_batched`."""
+    contracts.require_quant_safe(a_fxp, a_vp, "vp_quant_matmul_batched")
+    contracts.require_quant_safe(b_fxp, b_vp, "vp_quant_matmul_batched")
     G, M, K = a.shape
     N = b.shape[2]
     blocks = _blocks(blocks, M, K, N)
@@ -379,6 +383,8 @@ def vp_quant_matmul(a, b, a_fxp: FXPFormat, a_vp: VPFormat,
     both gradients from the packed-word backward kernels; the CSPADE-
     masked call stays forward-only, as in the reference.
     """
+    contracts.require_quant_safe(a_fxp, a_vp, "vp_quant_matmul")
+    contracts.require_quant_safe(b_fxp, b_vp, "vp_quant_matmul")
     if a_act is None and b_act is None and _wants_grad(a, b):
         return _VPQuantMatmul.apply(a, b, a_fxp, a_vp, b_fxp, b_vp, blocks,
                                     out_dtype)
@@ -492,6 +498,7 @@ def vp_qat_matmul(x: torch.Tensor, w: torch.Tensor, fxp: FXPFormat,
     weights), the trainable twin of `vp_dequant_matmul`: the forward runs
     the quant and serving kernels, so training sees the numerics serving
     will run; the backward is straight-through (`_VPQatMatmul`)."""
+    contracts.require_quant_safe(fxp, vp, "vp_qat_matmul")
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"bad matmul shapes x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}")

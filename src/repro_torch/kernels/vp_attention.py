@@ -10,7 +10,10 @@ Decode has one body, split over the cache span: `plan_decode` fixes the
 split (blocks of a cluster, warps of a block, lanes per position) from
 the shapes of one row alone, not the batch, so a row's bits do not
 depend on the rows decoded beside it (the serving engine's buckets), and
-`decode_runs` lists the positions each run reads.
+`decode_runs` lists the positions each run reads.  A lane loads 16
+bytes of a row, or 8 at int8 rows of dh = 8 mod 16 (`lane_bytes`), and
+query rows past its registers (`DEC_MAX_G`) split over slices of a grid
+axis; neither changes a row's sums.
 Prefill has two, and `flash_body` alone picks one from q's dtype and the
 head dim before the launch: the tensor-core body (`mma.sync`) for bf16
 with dh a multiple of 16 up to 128, the CUDA-core body otherwise.  A
@@ -37,7 +40,7 @@ DEC_MAX_CLUSTER = 8   # blocks per cluster (portable size)
 DEC_BLOCKS = 128      # blocks the split aims at: ~one per SM
 DEC_WARPS = 2048      # warps the split aims at on long caches: 16 per SM
 DEC_MIN_STEPS = 2     # warp steps a run is given before runs are added
-DEC_MAX_G = {1: 4, 2: 8, 4: 8}   # query rows per kv head, by word bytes
+DEC_MAX_G = {16: 4, 8: 8, 4: 8}   # query rows a block, by words a lane
 
 TC_MAX_DH = 128
 BODY_COUNTER = {"tensor_core": "flash_tc", "cuda_core": "flash_cuda_core"}
@@ -53,10 +56,18 @@ class DecodePlan:
     """Grid of the split decode body: per (batch, kv head) a cluster of
     `cluster` blocks of `warps` warps, one run of the span per warp, in
     split order (block, then warp); `lpp` lanes hold one position's dh
-    words, so a warp step covers 32 / lpp positions."""
+    words, `lane_bytes` of them each, so a warp step covers 32 / lpp
+    positions; the G query rows in `slices` slices of `rows(G)` rows, one
+    block each (the last may hold fewer)."""
     cluster: int
     warps: int
     lpp: int
+    lane_bytes: int = 16
+    slices: int = 1
+
+    def rows(self, G: int) -> int:
+        """Query rows per slice."""
+        return _cdiv(G, self.slices)
 
     @property
     def runs(self) -> int:
@@ -76,17 +87,23 @@ def plan_decode(KV: int, smax: int, G: int, dh: int,
     least DEC_BLOCKS / KV blocks per cluster where the buffer allows, at
     most DEC_MAX_CLUSTER.  The batch does not enter: the runs fix the
     order of the sums, and a row gives the same bits in every batch.
-    Raises for shapes the body does not take: dh not a multiple of the
-    words in 16 bytes, or more than 32 of those per position, or G over
-    DEC_MAX_G (the registers of a lane)."""
-    if w_bytes not in DEC_MAX_G:
+
+    A lane holds 16 bytes of a row (nw words), or 8 where int8 rows are
+    only 8-byte aligned (dh = 8 mod 16: gemma3's dh 168).  G above
+    DEC_MAX_G[nw] (the registers of a lane: qwen2's G = 7 at 16 int8
+    words) splits into ceil(G / DEC_MAX_G[nw]) slices; the runs do not
+    depend on G, so a row's bits are the same in every slicing.  Raises
+    for shapes the body does not take: dh not a multiple of nw or past
+    32 * nw, G < 1."""
+    if w_bytes not in (1, 2, 4):
         raise ValueError(f"packed words of {w_bytes} bytes")
-    nw = 16 // w_bytes
-    if dh % nw or dh > 32 * nw or not 1 <= G <= DEC_MAX_G[w_bytes]:
+    lane_bytes = 8 if w_bytes == 1 and dh % 16 else 16
+    nw = lane_bytes // w_bytes
+    if dh % nw or not 1 <= dh <= 32 * nw or G < 1:
         raise ValueError(
             f"the decode body takes dh a multiple of {nw} up to {32 * nw} "
-            f"and G <= {DEC_MAX_G[w_bytes]} at {w_bytes}-byte words; got "
-            f"dh {dh}, G {G}")
+            f"and G >= 1 at {w_bytes}-byte words; got dh {dh}, G {G}")
+    slices = _cdiv(G, DEC_MAX_G[nw])
     lpp = 1 << (dh // nw - 1).bit_length()
     step = 32 // lpp
     cap = max(1, _cdiv(smax, DEC_MIN_STEPS * step))   # runs the buffer fills
@@ -94,7 +111,7 @@ def plan_decode(KV: int, smax: int, G: int, dh: int,
     cluster = min(DEC_MAX_CLUSTER, cap,
                   max(_cdiv(DEC_BLOCKS, KV), _cdiv(want, DEC_MAX_WARPS)))
     warps = min(DEC_MAX_WARPS, max(1, _cdiv(want, cluster)))
-    return DecodePlan(cluster, warps, lpp)
+    return DecodePlan(cluster, warps, lpp, lane_bytes, slices)
 
 
 def decode_runs(plan: DecodePlan, length: int, smax: int,
@@ -143,9 +160,9 @@ def vp_decode_attention_cuda(q, k_w, v_w, k_s, v_s, lengths, fmt: VPFormat,
     q_bf16 = build.dtype_code(q.dtype, "q")
     plan = plan_decode(KV, smax, G, dh, k_w.element_size())
     q, k_w, v_w = q.contiguous(), k_w.contiguous(), v_w.contiguous()
-    if k_w.data_ptr() % 16 or v_w.data_ptr() % 16:
-        raise ValueError("vp_decode_attention kernel reads 16-byte aligned "
-                         "caches")
+    if k_w.data_ptr() % plan.lane_bytes or v_w.data_ptr() % plan.lane_bytes:
+        raise ValueError(f"vp_decode_attention kernel reads "
+                         f"{plan.lane_bytes}-byte aligned caches")
     k_s = k_s.reshape(B, smax).to(torch.float32).contiguous()
     v_s = v_s.reshape(B, smax).to(torch.float32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
@@ -160,7 +177,8 @@ def vp_decode_attention_cuda(q, k_w, v_w, k_s, v_s, lengths, fmt: VPFormat,
             v_s.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             B, KV, G, dh, smax, int(window or 0), int(rolling),
             k_w.element_size(), q_bf16, plan.cluster, plan.warps, plan.lpp,
-            scale, ctypes.byref(f), torch.cuda.current_stream().cuda_stream)
+            plan.lane_bytes, plan.rows(G), scale, ctypes.byref(f),
+            torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "vp_decode_attention")
     build.LAUNCHES["vp_decode_attention"] += 1
     build.LAUNCHES["vp_dec_split"] += 1

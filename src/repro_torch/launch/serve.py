@@ -19,11 +19,16 @@ block `--block`) it block-quantizes its activations and runs the int8
 `--kv-quant` keeps the KV cache as packed words read by the
 `vp_decode_attention` kernel (`--kv-layout planes`: int8 significands and
 packed indices, dequantized by the planes kernel before plain attention).
+`--layout planes` stores VP weights as int8 significands and packed
+indices, dequantized by the planes kernel before a plain matmul.  `--M`
+and `--E` pick the VP format of weights and KV cache (VP(M, E) on
+FXP(12, 11)): M + E <= 8 packs each weight into an int8 word.
 `--temperature` samples (Gumbel-max, noise from a torch generator seeded
 with `--seed`) where 0 decodes greedily.  The engine runs on a virtual
 clock charged with each step's measured wall time; on the card each
-decode bucket is one CUDA graph.  `--tune-decode`, `--M`, `--E` and
-`--layout` of the reference are not ported yet.
+decode bucket is one CUDA graph.  `--arch` takes the dense configs:
+qwen2-0.5b, qwen3-0.6b, stablelm-12b and gemma3-27b.  `--tune-decode` of
+the reference is not ported yet.
 """
 from __future__ import annotations
 
@@ -186,6 +191,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     help="reduced config (CPU tests)")
     ap.add_argument("--quant", default="none",
                     choices=["none", "fxp", "vp", "vp_block"])
+    ap.add_argument("--layout", default="packed",
+                    choices=["packed", "planes"],
+                    help="VP weight storage: packed kernel words (default)"
+                         " or two planes dequantized whole before a plain "
+                         "matmul")
+    ap.add_argument("--M", type=int, default=7,
+                    help="VP significand bits; M+E <= 8 packs weights "
+                         "into int8 words (half the bytes of bf16)")
+    ap.add_argument("--E", type=int, default=2,
+                    help="VP exponent-index bits (2^E exponent options)")
     ap.add_argument("--block", type=int, default=256,
                     help="vp_block index granularity; a weight whose "
                          "contraction dim it does not divide falls back to "
@@ -254,20 +269,22 @@ def main(argv: Optional[List[str]] = None) -> dict:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    quant = QuantConfig(mode=args.quant, block=args.block,
+    quant = QuantConfig(mode=args.quant, M=args.M, E=args.E,
+                        block=args.block,
                         quantize_kv_cache=args.kv_quant,
                         kv_layout=args.kv_layout)
     cfg = (registry.get_smoke_config(args.arch, quant) if args.smoke
            else registry.get_config(args.arch, quant))
     params = init_params(cfg, seed=args.seed, device=device)
-    report = {"arch": args.arch, "quant": args.quant, "block": args.block,
+    report = {"arch": args.arch, "quant": args.quant, "layout": args.layout,
+              "M": args.M, "E": args.E, "block": args.block,
               "kv_quant": args.kv_quant, "kv_layout": args.kv_layout,
               "temperature": args.temperature, "smoke": args.smoke,
               "batch": args.batch, "prompt_len": args.prompt_len,
               "gen": args.gen, "device": str(device)}
     if args.quant != "none":
         t0 = time.perf_counter()
-        params = quantize_params(params, cfg)
+        params = quantize_params(params, cfg, layout=args.layout)
         _sync(device)
         report["export_s"] = time.perf_counter() - t0
     report["weight_bytes"] = weight_bytes(params)
@@ -290,6 +307,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         print(f"[decode] {args.gen} steps x batch {args.batch}: "
               f"{report['decode_s']:.4f}s "
               f"({report['tokens_per_s']:.1f} tok/s)")
+        report["tokens"] = tokens.tolist()
         print("[sample tokens]", tokens[:, :12].tolist())
     if args.json:
         with open(args.json, "w") as f:

@@ -266,7 +266,8 @@ def attn_block(x, params, cfg: ModelConfig, positions, pattern: str,
     to the valid history (dequantized whole, once per chunk) and itself,
     full-causal caches only.  One token is a decode step.  `train` (no
     cache) makes every projection a QAT `qdot` and runs
-    `flash_attention_walk`.
+    `flash_attention_walk`.  With `qkv_bias` the params carry "bq", "bk" and
+    "bv", added to the projections before qk-norm and rope.
     """
     q_cfg = cfg.quant
     B, S = x.shape[:2]
@@ -274,9 +275,16 @@ def attn_block(x, params, cfg: ModelConfig, positions, pattern: str,
 
     xq = block_activation(x, (params["wq"], params["wk"], params["wv"]),
                           q_cfg)
-    qp = qdot(x, params["wq"], q_cfg, train, xq).reshape(B, S, H, dh)
-    kp = qdot(x, params["wk"], q_cfg, train, xq).reshape(B, S, KV, dh)
-    vp_ = qdot(x, params["wv"], q_cfg, train, xq).reshape(B, S, KV, dh)
+    qp = qdot(x, params["wq"], q_cfg, train, xq)
+    kp = qdot(x, params["wk"], q_cfg, train, xq)
+    vp_ = qdot(x, params["wv"], q_cfg, train, xq)
+    if params.get("bq") is not None:   # qkv_bias, in the projection's dtype
+        qp = qp + params["bq"].to(qp.dtype)
+        kp = kp + params["bk"].to(kp.dtype)
+        vp_ = vp_ + params["bv"].to(vp_.dtype)
+    qp = qp.reshape(B, S, H, dh)
+    kp = kp.reshape(B, S, KV, dh)
+    vp_ = vp_.reshape(B, S, KV, dh)
     if cfg.qk_norm:
         qp = rms_norm(qp, params["q_norm"])
         kp = rms_norm(kp, params["k_norm"])

@@ -17,16 +17,20 @@ the weight's exported dict, as the reference does:
                                            {"m", "i_blk", "scale"}
             A weight whose contraction dim is not a multiple of `block`
             (the embedding table: it is indexed by vocab) falls back to
-            the per-element packed layout of vp.
+            the per-element layout of vp.
+
+Mode vp (and vp_block's fallback) stores one of two layouts, chosen at
+export (`quantize_weight(..., layout=)`): "packed" words, or "planes":
+significands and the E-bit indices packed 8 // E to a byte along d_in,
+{"m", "i_packed", "scale"}, dequantized whole by `ops.vp_dequant` (the
+planes kernel on the card) and multiplied in plain PyTorch, as the
+reference multiplies its planes weight with a plain `jnp.dot`.
 
 Training (`train=True`) keeps float master weights and, under mode vp or
 vp_block, fine-tunes them into the per-element serving format (QAT):
 `qat_mode="packed"` runs `ops.vp_qat_matmul` (quant and serving kernels
 forward, the packed-word `vp_matmul_dx` kernel backward),
 `qat_mode="fake"` the fake-quant STE in the float graph.
-
-The reference's two-plane ("planes") weight layout waits for a later
-slice.
 """
 from __future__ import annotations
 
@@ -39,7 +43,10 @@ from repro_torch.core.convert import vp_to_float
 from repro_torch.core.formats import FXPFormat, default_vp_format
 from repro_torch.core.packing import dequant_words
 from repro_torch.core.quantize import pow2_scale, vp_fake_quant_ste
+from repro_torch.core.vp_tensor import pack_indices, unpack_indices
 from repro_torch.kernels import ops
+
+LAYOUTS = ("packed", "planes")
 
 
 def canonical_formats(q: QuantConfig):
@@ -49,16 +56,23 @@ def canonical_formats(q: QuantConfig):
     return fxp, default_vp_format(fxp, q.M, q.E)
 
 
-def quantize_weight(w: torch.Tensor, q: QuantConfig) -> Any:
+def quantize_weight(w: torch.Tensor, q: QuantConfig,
+                    layout: str = "packed") -> Any:
     """Float weight (d_in, d_out) -> its serving form.
 
-    none: the float tensor.  fxp: {"m" int8, "scale"}.  vp:
-    {"w_packed", "scale"}, the words of w / scale (exported by the quant
-    kernel on the card).  vp_block: {"m" int8, "i_blk" uint8 (d_in /
-    block, d_out), "scale"}, w / scale block-quantized along d_in by
+    none: the float tensor.  fxp: {"m" int8, "scale"}.  vp, layout
+    "packed": {"w_packed", "scale"}, the words of w / scale (exported by
+    the quant kernel on the card); layout "planes": {"m", "i_packed",
+    "scale"}, the planes of w / scale (the planes kernel on the card),
+    the indices padded along d_in to a multiple of 8 // E and packed
+    there.  vp_block: {"m" int8, "i_blk" uint8 (d_in / block, d_out),
+    "scale"}, w / scale block-quantized along d_in by
     `ops.block_vp_quant` (scale and division in w's dtype, as in the
-    reference), or the vp dict when d_in is not a multiple of the block.
+    reference), or the vp dict of `layout` when d_in is not a multiple
+    of the block.
     """
+    if layout not in LAYOUTS:
+        raise ValueError(f"unsupported weight layout {layout!r}")
     if q.mode == "none":
         return w
     fxp, vp = canonical_formats(q)
@@ -70,9 +84,44 @@ def quantize_weight(w: torch.Tensor, q: QuantConfig) -> Any:
     if q.mode == "fxp":
         m = torch.clamp(torch.round(wn * 127.0), -128, 127).to(torch.int8)
         return {"m": m, "scale": (s / 127.0).to(torch.float32)}
-    return {"w_packed": ops.vp_quant(wn.to(torch.float32), fxp, vp,
-                                     packed=True),
+    if layout == "packed":
+        return {"w_packed": ops.vp_quant(wn.to(torch.float32), fxp, vp,
+                                         packed=True),
+                "scale": s.to(torch.float32)}
+    if not vp.E:   # the reference's planes dequant breaks there too
+        raise ValueError("the planes layout needs an index (E >= 1)")
+    m, i = ops.vp_quant(wn.to(torch.float32), fxp, vp, packed=False)
+    pad = (-w.shape[0]) % (8 // vp.E)
+    if pad:
+        i = torch.cat([i, i.new_zeros((pad,) + tuple(i.shape[1:]))])
+    ip = pack_indices(i.movedim(0, -1), vp.E)
+    return {"m": m, "i_packed": ip.movedim(-1, 0).contiguous(),
             "scale": s.to(torch.float32)}
+
+
+def _planes_indices(ip: torch.Tensor, vp, rows=None) -> torch.Tensor:
+    """The uint8 indices of a planes weight (d_in, ...) from its packed
+    plane, whole, or only at the d_in rows `rows` (the bits of row r sit
+    in packed row r // (8 // E) at (r % (8 // E)) * E)."""
+    per = 8 // vp.E
+    if rows is None:
+        i = unpack_indices(ip.movedim(0, -1), vp.E, ip.shape[0] * per)
+        return i.movedim(-1, 0)
+    shift = ((rows % per) * vp.E).to(torch.int32)[..., None]
+    return ((ip[rows // per].to(torch.int32) >> shift)
+            & ((1 << vp.E) - 1)).to(torch.uint8)
+
+
+def dequant_planes_weight(wq: dict, q: QuantConfig,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """A planes weight dict -> the real weight (d_in, d_out) in `dtype`:
+    the indices unpacked, `ops.vp_dequant` (the planes kernel on the
+    card), times the scale; m * 2^-f * scale rounds as the reference's
+    m.astype(dtype) * 2^-f * scale (pow2 factors)."""
+    _, vp = canonical_formats(q)
+    m = wq["m"]
+    i = _planes_indices(wq["i_packed"], vp)[:m.shape[0]]
+    return ops.vp_dequant(m, i, vp, dtype) * wq["scale"].to(dtype)
 
 
 def block_activation(x: torch.Tensor, wqs, q: QuantConfig):
@@ -119,6 +168,8 @@ def qdot(x: torch.Tensor, wq: Any, q: QuantConfig,
     if "w_packed" in wq:
         out = ops.vp_dequant_matmul(x2, wq["w_packed"], vp, out_dtype=dtype)
         out = out * wq["scale"].to(dtype)
+    elif "i_packed" in wq:
+        out = x2 @ dequant_planes_weight(wq, q, dtype)
     elif "i_blk" in wq:
         a_m, a_i, sa = xq if xq is not None else ops.block_vp_quant(
             x2, fxp, vp, q.block, axis=-1, math_dtype=torch.float32)
@@ -156,8 +207,10 @@ def embed_lookup(tokens: torch.Tensor, table: Any, q: QuantConfig,
     table gathers the rows of its tokens first and dequantizes only those
     (f32, like the reference; every value is an elementwise function of
     its row, so this equals dequantizing the table and then gathering):
-    packed words; block VP, whose row r takes the indices of block
-    r // block; int8 FXP.  A float table is gathered as it is, in
+    packed words; planes, whose row r takes its indices from packed row
+    r // (8 // E) (`ops.vp_dequant`, the planes kernel on the card);
+    block VP, whose row r takes the indices of block r // block; int8
+    FXP.  A float table is gathered as it is, in
     training too (`train` is accepted for the reference's signature; the
     embedding is not fake-quantized)."""
     if not isinstance(table, dict):
@@ -165,6 +218,10 @@ def embed_lookup(tokens: torch.Tensor, table: Any, q: QuantConfig,
     _, vp = canonical_formats(q)
     if "w_packed" in table:
         rows = dequant_words(table["w_packed"][tokens], vp, torch.float32)
+    elif "i_packed" in table:
+        rows = ops.vp_dequant(table["m"][tokens],
+                              _planes_indices(table["i_packed"], vp, tokens),
+                              vp)
     elif "i_blk" in table:
         rows = vp_to_float(table["m"][tokens],
                            table["i_blk"][tokens // q.block], vp)

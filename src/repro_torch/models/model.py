@@ -3,8 +3,12 @@ branches of `repro.models.model`).
 
 Parameters are plain dicts of tensors: {"embed", "final_norm", "lm_head",
 "layers": [per-layer {"attn", "mlp", "ln1", "ln2"}]}, the serving
-layout.  The reference stacks layers for `lax.scan`; here a Python loop
-walks the list.  Training keeps the reference's stack instead
+layout.  The reference stacks layers for `lax.scan`, one stack per
+sub-layer of each scanned group (`layer_groups`: gemma3's period of 5
+local + 1 global layers, then a tail of locals); here a Python loop
+walks the list in the order the scans apply them (`layer_plan`), each
+layer with its own attention pattern and window.  Training keeps the
+reference's stack instead
 (`stack_layers`: "layers" is one dict of (L, ...) tensors), so that every
 per-tensor scale of the gradient and moment codecs covers the same
 elements as the reference's.
@@ -15,6 +19,8 @@ the CPU (plain versions of the kernels) must be asked for explicitly.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -50,18 +56,75 @@ def _check_family(cfg: ModelConfig) -> None:
             f"family {cfg.family!r} is not ported yet (dense only)")
 
 
-def layer_pattern(cfg: ModelConfig) -> Tuple[str, Optional[int]]:
-    """(attention pattern, window) of every layer of a dense model."""
-    if cfg.sliding_window:
+@dataclasses.dataclass(frozen=True)
+class LayerGroup:
+    """One scanned group of the reference: `repeats` times the sub-layers
+    `patterns` (causal | local | global | swa)."""
+    repeats: int
+    patterns: Tuple[str, ...]
+
+
+def layer_groups(cfg: ModelConfig) -> List[LayerGroup]:
+    """The reference's scanned groups of a dense model (the dense
+    branches of `repro.models.model.layer_groups`)."""
+    _check_family(cfg)
+    if cfg.local_global_period:
+        per = cfg.local_global_period
+        n_full, tail = divmod(cfg.n_layers, per)
+        groups = []
+        if n_full:
+            groups.append(
+                LayerGroup(n_full, ("local",) * (per - 1) + ("global",)))
+        if tail:
+            groups.append(LayerGroup(1, ("local",) * tail))
+        return groups
+    return [LayerGroup(cfg.n_layers,
+                       ("swa" if cfg.sliding_window else "causal",))]
+
+
+def pattern_window(cfg: ModelConfig, pattern: str
+                   ) -> Tuple[str, Optional[int]]:
+    """A sub-layer pattern's attention: (causal | local, window)."""
+    if pattern == "local":
+        return "local", cfg.local_window
+    if pattern == "swa":
         return "local", cfg.sliding_window
     return "causal", None
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    """Layer `index` of the port's list: repeat `rep` of sub-layer `sub`
+    of group `gi`, with its attention pattern and window."""
+    index: int
+    gi: int
+    sub: int
+    rep: int
+    pattern: str
+    attention: str
+    window: Optional[int]
+
+
+@functools.lru_cache(maxsize=64)
+def layer_plan(cfg: ModelConfig) -> Tuple[LayerSpec, ...]:
+    """Every layer in the order the reference's scans apply them: group
+    g, repeat r, sub-layer j is layer offset_g + r * len(patterns_g) +
+    j.  Made once per config (each forward walks it)."""
+    out: List[LayerSpec] = []
+    for gi, group in enumerate(layer_groups(cfg)):
+        for r in range(group.repeats):
+            for j, pattern in enumerate(group.patterns):
+                attention, window = pattern_window(cfg, pattern)
+                out.append(LayerSpec(len(out), gi, j, r, pattern, attention,
+                                     window))
+    return tuple(out)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device="cuda") -> Dict[str, Any]:
     """Random float weights from a seeded torch.Generator, with the
     reference's shapes and scales (normal * 0.02; output projections
-    * 0.02 / sqrt(2 L); norms zero)."""
+    * 0.02 / sqrt(2 L); norms and QKV biases zero)."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = model_dtype(cfg)
@@ -88,6 +151,9 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     for _ in range(L):
         attn = {"wq": dense((d, H * dh)), "wk": dense((d, KV * dh)),
                 "wv": dense((d, KV * dh)), "wo": dense((H * dh, d), out_scale)}
+        if cfg.qkv_bias:
+            for name, n in (("bq", H * dh), ("bk", KV * dh), ("bv", KV * dh)):
+                attn[name] = torch.zeros((n,), dtype=dtype, device=dev)
         if cfg.qk_norm:
             attn["q_norm"] = zeros(dh)
             attn["k_norm"] = zeros(dh)
@@ -98,22 +164,25 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     return params
 
 
-def quantize_params(params: Dict[str, Any], cfg: ModelConfig
-                    ) -> Dict[str, Any]:
+def quantize_params(params: Dict[str, Any], cfg: ModelConfig,
+                    layout: str = "packed") -> Dict[str, Any]:
     """Export: every weight matrix -> its serving dict
-    (`layers.quantize_weight`: {"w_packed", "scale"} in mode vp, {"m",
-    "i_blk", "scale"} in vp_block, {"m", "scale"} in fxp).
+    (`layers.quantize_weight`: {"w_packed", "scale"} in mode vp, or
+    {"m", "i_packed", "scale"} with `layout="planes"`; {"m", "i_blk",
+    "scale"} in vp_block; {"m", "scale"} in fxp).  Biases and norms stay
+    float.
 
-    On the card each packed matrix goes through the quant kernel once;
-    block VP and FXP are plain tensor code.  The float tensors are not
-    kept: drop the input tree to free them.
+    On the card each VP matrix goes through the quant kernel (words or
+    planes) once, each block-VP one through the block quantizer; FXP is
+    plain tensor code.  The float tensors are not kept: drop the input
+    tree to free them.
     """
     if cfg.quant.mode == "none":
         return params
 
     def walk(node):
         if isinstance(node, dict):
-            return {k: (quantize_weight(v, cfg.quant)
+            return {k: (quantize_weight(v, cfg.quant, layout)
                         if k in QUANT_KEYS and isinstance(v, torch.Tensor)
                         and v.ndim == 2 else walk(v))
                     for k, v in node.items()}
@@ -128,20 +197,22 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
                device="cuda") -> List[dict]:
     """Per-layer decode caches.  With `quantize_kv_cache`: packed VP
     words + per-position f32 scales (kv_layout "packed"), or
-    significands (int8 for M <= 8), uint8 indices packed 8 // E to a byte where dh allows,
-    and the scales ("planes"); else float K/V in the model dtype.
-    device="meta" gives the shapes without allocating."""
-    _check_family(cfg)
+    significands (int8 for M <= 8), uint8 indices packed 8 // E to a
+    byte where dh allows, and the scales ("planes"); else float K/V in
+    the model dtype.  A windowed layer's buffer holds min(max_len,
+    window) positions (a rolling ring once the window is the shorter),
+    every other layer's max_len.  device="meta" gives the shapes without
+    allocating."""
     dev = resolve_device(device)
     KV, dh = cfg.n_kv_heads, cfg.head_dim
-    _, window = layer_pattern(cfg)
-    buf = min(max_len, window) if window else max_len
-
-    def zeros(tail, dtype):
-        return torch.zeros((B, buf) + tail, dtype=dtype, device=dev)
 
     caches = []
-    for _ in range(cfg.n_layers):
+    for spec in layer_plan(cfg):
+        buf = min(max_len, spec.window) if spec.window else max_len
+
+        def zeros(tail, dtype):
+            return torch.zeros((B, buf) + tail, dtype=dtype, device=dev)
+
         ln = torch.zeros((B,), dtype=torch.int32, device=dev)
         if not cfg.quant.quantize_kv_cache:
             dtype = model_dtype(cfg)
@@ -193,13 +264,12 @@ def _unbind(node) -> List[Any]:
 def _backbone(layers, x, cfg: ModelConfig, positions,
               caches: Optional[List[dict]] = None, train: bool = False,
               chunked: bool = False):
-    pattern, window = layer_pattern(cfg)
     new_caches = []
-    for i, p in enumerate(layers):
-        cache = None if caches is None else caches[i]
+    for spec, p in zip(layer_plan(cfg), layers, strict=True):
+        cache = None if caches is None else caches[spec.index]
         h, cache = attn_block(rms_norm(x, p["ln1"]), p["attn"], cfg,
-                              positions, pattern, window, cache, train,
-                              chunked)
+                              positions, spec.attention, spec.window, cache,
+                              train, chunked)
         x = x + h
         x = x + swiglu(rms_norm(x, p["ln2"]), p["mlp"], cfg.quant, train)
         new_caches.append(cache)
@@ -238,8 +308,15 @@ def loss_fn(params, batch, cfg: ModelConfig, train: bool = True):
     `train` runs every weight matmul as a QAT `qdot` and attention as the
     differentiable walk.  Dense models have no router, so the reference's
     load-balance and router-z terms are 0 and the loss is the CE.
+    Activation checkpointing (`remat`) is not ported yet, and a config
+    that asks for it raises rather than train without it.
     """
     _check_family(cfg)
+    if cfg.remat != "none":
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} (activation checkpointing) is not ported "
+            "yet (ROADMAP.md queue 1, \"Training with remat\": "
+            "torch.utils.checkpoint per layer)")
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_lookup(tokens, params["embed"], cfg.quant, train).to(

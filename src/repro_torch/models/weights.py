@@ -3,19 +3,22 @@
 `params_from_numpy` takes the JAX parameter tree of a dense model with
 every leaf converted to numpy (nested dicts and lists, as
 `jax.tree_util.tree_map(np.asarray, params)` gives it), float or
-exported by `quantize_params`, and returns the port's parameter dict.
-The reference stacks each scanned layer group on a leading (L, ...)
-axis; here every layer is its own entry.
+exported by `quantize_params` (packed words, planes or block VP; QKV
+biases and norms as they are), and returns the port's parameter dict.
+The reference stacks each sub-layer of each scanned group on a leading
+(repeats, ...) axis; here every layer is its own entry, in the order the
+scans apply them (`model.layer_plan`).  `caches_from_numpy` does the
+same for the reference's decode caches.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from .model import _check_family, resolve_device
+from .model import layer_plan, resolve_device
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -37,18 +40,33 @@ def _convert(node, device, index=None):
     return _tensor(a if index is None else a[index], device)
 
 
+def _per_layer(groups, cfg: ModelConfig, dev) -> List[Any]:
+    """The reference's stacked groups [{"sub{j}": (repeats, ...) tree}]
+    -> one converted tree per layer of `layer_plan`."""
+    plan = layer_plan(cfg)
+    want = {(s.gi, f"sub{s.sub}") for s in plan}
+    have = {(gi, k) for gi, g in enumerate(groups) for k in g}
+    if want != have:
+        raise ValueError(f"the tree's groups {sorted(have)} are not the "
+                         f"config's {sorted(want)}")
+    return [_convert(groups[s.gi][f"sub{s.sub}"], dev, index=s.rep)
+            for s in plan]
+
+
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                       device="cuda") -> Dict[str, Any]:
-    _check_family(cfg)
     dev = resolve_device(device)
-    if len(tree["groups"]) != 1 or set(tree["groups"][0]) != {"sub0"}:
-        raise ValueError("a dense model has one scanned group of one "
-                         "sub-layer")
-    stacked = tree["groups"][0]["sub0"]
     return {
         "embed": _convert(tree["embed"], dev),
         "final_norm": _convert(tree["final_norm"], dev),
         "lm_head": _convert(tree["lm_head"], dev),
-        "layers": [_convert(stacked, dev, index=l)
-                   for l in range(cfg.n_layers)],
+        "layers": _per_layer(tree["groups"], cfg, dev),
     }
+
+
+def caches_from_numpy(caches: List[Dict[str, Any]], cfg: ModelConfig,
+                      device="cuda") -> List[dict]:
+    """The reference's decode caches (one dict per group of {"sub{j}":
+    buffers with a leading repeats axis}, as numpy) -> the port's list of
+    per-layer cache dicts."""
+    return _per_layer(caches, cfg, resolve_device(device))

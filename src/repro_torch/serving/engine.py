@@ -158,16 +158,20 @@ class ServingEngine:
 
     def _check_plan(self) -> None:
         """Fail fast if the split decode-attention body cannot take the
-        packed cache at the engine's capacity (`plan_decode` raises for the
-        shapes it refuses): at construction, not at the first decode.
-        The counterpart of the reference's VMEM budget check."""
+        packed cache of some layer (a paged layer's view of the engine's
+        capacity, a ring's `buf_len` rows; `plan_decode` raises for the
+        shapes it refuses, none of the dense configs' at int8 or int16
+        words): at construction, not at the first decode.  The counterpart of the reference's VMEM budget
+        check."""
         q = self.cfg.quant
         if not (q.quantize_kv_cache and q.kv_layout == "packed"):
             return
         _, vp = kv_cache_formats(q)
         KV, dh = self.cfg.n_kv_heads, self.cfg.head_dim
-        plan_decode(KV, self.kv.capacity, self.cfg.n_heads // KV, dh,
-                    torch.empty((), dtype=storage_dtype(vp)).element_size())
+        w_bytes = torch.empty((), dtype=storage_dtype(vp)).element_size()
+        for spec in self.kv.specs:
+            smax = self.kv.capacity if spec.kind == PAGED else spec.buf_len
+            plan_decode(KV, smax, self.cfg.n_heads // KV, dh, w_bytes)
 
     # -- request API --------------------------------------------------------
 

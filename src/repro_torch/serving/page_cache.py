@@ -10,16 +10,18 @@ with a pool of fixed-size pages plus one per-slot block table:
     block_table (max_slots, pages_per_slot) int32  shared by all pools
     lengths     (max_slots,) int32                 valid span per slot
 
-The port's caches are a list of per-layer dicts, so the L layers of a
-dense model form one group (one `SubSpec`), the counterpart of the
-reference's `reps` axis.  One free list allocates PAGE GROUPS: page id
+The port's caches are a list of per-layer dicts; the layers of one
+sub-layer of one scanned group (`models.model.layer_plan`) form one
+`SubSpec`, whose pools stack them on the reference's `reps` axis and
+whose `layers` name their places in the list.  One free list allocates PAGE GROUPS: page id
 `p` addresses the p-th page of every pool at once (all layers advance
 in lockstep, so one block-table row serves the whole model).  Admission
 pops `ceil((prompt + gen) / page_size)` ids; eviction pushes them back.
 The VP words inside pages are never copied or dequantized by either.
 
-Windowed (rolling ring) layers stay DENSE per-slot rows: their size is
-bounded by the window and the ring arithmetic needs a contiguous buffer.
+Windowed (rolling ring) layers, such as gemma3's local layers, stay
+DENSE per-slot rows: their size is bounded by the window and the ring
+arithmetic needs a contiguous buffer.  A model may mix the two kinds.
 
 Page 0 is the dummy page (masked writes land there, nothing reads it);
 the free list hands out ids 1..n_pages-1.  `n_pages` is sized from a
@@ -40,7 +42,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import paged
-from repro_torch.models.model import init_cache, layer_pattern, resolve_device
+from repro_torch.models.model import (init_cache, layer_groups, layer_plan,
+                                     pattern_window, resolve_device)
 
 # Buffer kinds (the reference's SSM "state" rows come with its families) --
 PAGED = "paged"      # full-causal attention cache: seq axis -> pages
@@ -49,21 +52,25 @@ DENSE = "dense"      # rolling / windowed ring buffer: per-slot dense rows
 
 @dataclasses.dataclass(frozen=True)
 class SubSpec:
-    """Static plan of one group's cache storage."""
-    gi: int                 # group index
-    sub: str                # sub-layer key ("sub0")
+    """Static plan of one sub-layer's cache storage."""
+    gi: int                 # layer-group index
+    sub: str                # sub-layer key ("sub0", ...)
     pattern: str
     kind: str               # PAGED | DENSE
     window: Optional[int]
     buf_len: int            # seq-buffer length
-    reps: int               # layers in the group
+    reps: int               # layers of this sub-layer (the group's repeats)
     # (name, tail_shape, dtype) per buffer; tail = dims after the seq
     # axis.  "len" excluded.
     bufs: Tuple[Tuple[str, Tuple[int, ...], Any], ...]
+    layers: Tuple[int, ...] = ()   # their indices in the per-layer list
 
 
 def plan_cache(cfg: ModelConfig, capacity: int) -> List[SubSpec]:
-    """Classify the model's caches: paged, or a dense ring.
+    """Classify every sub-layer's caches, as the reference's walk over
+    `layer_groups` does: full-causal (and gemma3's global) layers PAGED,
+    windowed layers (local, sliding window) DENSE rings of
+    min(capacity, window) rows.
 
     Uses `init_cache` itself (on the meta device: no allocation) as the
     single source of buffer names, shapes and dtypes.
@@ -74,15 +81,22 @@ def plan_cache(cfg: ModelConfig, capacity: int) -> List[SubSpec]:
             "cross-attention source is request-specific; use the static "
             "path)")
     tmpl = init_cache(cfg, 1, capacity, device="meta")
-    pattern, window = layer_pattern(cfg)
-    entry = tmpl[0]
-    names = sorted(n for n in entry if n != "len")
-    return [SubSpec(
-        gi=0, sub="sub0", pattern=pattern,
-        kind=DENSE if window is not None else PAGED, window=window,
-        buf_len=int(entry[names[0]].shape[1]), reps=len(tmpl),
-        bufs=tuple((n, tuple(entry[n].shape[2:]), entry[n].dtype)
-                   for n in names))]
+    plan = layer_plan(cfg)
+    specs: List[SubSpec] = []
+    for gi, group in enumerate(layer_groups(cfg)):
+        for j, pattern in enumerate(group.patterns):
+            layers = tuple(s.index for s in plan if (s.gi, s.sub) == (gi, j))
+            window = pattern_window(cfg, pattern)[1]
+            entry = tmpl[layers[0]]
+            names = sorted(n for n in entry if n != "len")
+            specs.append(SubSpec(
+                gi=gi, sub=f"sub{j}", pattern=pattern,
+                kind=DENSE if window is not None else PAGED, window=window,
+                buf_len=int(entry[names[0]].shape[1]), reps=len(layers),
+                bufs=tuple((n, tuple(entry[n].shape[2:]), entry[n].dtype)
+                           for n in names),
+                layers=layers))
+    return specs
 
 
 def buf_key(spec: SubSpec, name: str) -> str:

@@ -76,8 +76,9 @@ def build_view(specs: Sequence[SubSpec], pools, dense, block_table,
 
     Paged buffers gather their block-table pages into a contiguous
     capacity-long view, dense ring buffers slice their slot rows;
-    `stacked` holds each buffer's (L, B, ...) copy, and layer l's cache
-    entry is its view [l], so the model's in-place writes land there.
+    `stacked` holds each buffer's (reps, B, ...) copy, and the cache
+    entry of the spec's r-th layer is its view [r], so the model's
+    in-place writes land there.
     `len` is `lens` (default `lengths[slots]`) for every layer.
     """
     if lens is None:
@@ -92,9 +93,9 @@ def build_view(specs: Sequence[SubSpec], pools, dense, block_table,
                 stacked[k] = paged.gather_pages(pools[k], block_table[slots])
             else:
                 stacked[k] = dense[k][:, slots]
-            for l in range(spec.reps):
-                caches[l][name] = stacked[k][l]
-        for l in range(spec.reps):
+            for r, l in enumerate(spec.layers):
+                caches[l][name] = stacked[k][r]
+        for l in spec.layers:
             caches[l]["len"] = lens
     return caches, stacked
 
@@ -213,9 +214,9 @@ class ModelRunner:
                 k = buf_key(spec, name)
                 stacked[k] = torch.zeros((spec.reps, 1, length) + tail,
                                          dtype=dtype, device=kv.device)
-                for l in range(spec.reps):
-                    caches[l][name] = stacked[k][l]
-            for l in range(spec.reps):
+                for r, l in enumerate(spec.layers):
+                    caches[l][name] = stacked[k][r]
+            for l in spec.layers:
                 caches[l]["len"] = torch.zeros((1,), dtype=torch.int32,
                                                device=kv.device)
         return caches, stacked

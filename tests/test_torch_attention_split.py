@@ -97,7 +97,7 @@ def test_plan_decode_fills_the_card_at_serving_shapes():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(dh=36), dict(dh=512), dict(G=9), dict(G=8, w_bytes=1),
+    dict(dh=36), dict(dh=512), dict(G=0), dict(dh=20, w_bytes=1),
     dict(w_bytes=3)], ids=str)
 def test_plan_decode_refuses_shapes_it_does_not_take(bad):
     args = dict(KV=8, smax=160, G=2, dh=64, w_bytes=2) | bad

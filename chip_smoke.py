@@ -151,18 +151,22 @@ Run from the root of a checkout.  Phases, each raising on failure:
                held), the same in f32, then short CLI runs (batch 4,
                prompt 16, 2 steps) at `--quant vp_block` (only w_down
                tiles at 256), `--layout planes` (the planes quantizer at
-               export, the planes dequant on every weight) and `--M 6
+               export, the planes dequant on every weight), `--M 6
                --E 2 --kv-quant` (int8 weight and KV words, decode
-               attention at G = 7 split over two slices);
+               attention at G = 7 split over two slices) and `--layout
+               planes --kv-layout planes --M 10 --E 2 --kv-quant` (int16
+               significands in weights and KV cache);
                gemma3-27b at full width over 7 layers (5 local + 1
                global, then a local tail), batch 2 x 1152 (past the
-               1024 window), 16 steps, prefill on the CUDA-core body at
-               dh 168, then through the engine with global layers paged
+               1024 window), 16 steps, prefill on the tensor-core body
+               at dh 168 (no CUDA-core prefill launch), then through the
+               engine with global layers paged
                and local layers on dense rings (3 requests of 1040-1152
                tokens, 2 slots, run-ahead 4 and 1 with the same tokens,
                each graph's first replay bit-identical to its eager
                step); stablelm-12b at full width over 4 layers, batch 4
-               x 128, 8 steps (prefill on the CUDA-core body at dh 160).
+               x 128, 8 steps (prefill on the tensor-core body at dh
+               160).
                After each run its kernels at its own shapes against
                their plain versions (`_dense_shapes`): the packed matmul
                of every layer-0 weight at decode and prefill M and of
@@ -173,9 +177,11 @@ Run from the root of a checkout.  Phases, each raising on failure:
                attention at G = 7 (int8: the G slices bit-identical to G
                4 and G 3 launches; int16), at dh 168 on a rolling ring of
                1024 (int8 on 8-byte lanes; int16) and at dh 160; the
-               CUDA-core
-               prefill at dh 168 (causal, local 1024) and dh 160; the
-               planes dequant at qwen2's w_down panel, bit for bit.
+               tensor-core prefill at dh 168 (causal, local 1024) and dh
+               160 beside the CUDA-core body it replaced there (slower,
+               or the phase fails), with its LDL / STL counts; the
+               planes dequant at qwen2's w_down panel in int8 and int16
+               significands, bit for bit.
   5. mimo    - the paper's B-VP MIMO equalizer (B = 64 antennas, U = 8
                users, 16-QAM, Sec. III-A): narrowband ensembles of
                n = 100,000 channels at 2 dB and 20 dB equalized through
@@ -752,7 +758,8 @@ def _attention_rows(torch, peaks, timer, gen, randn, words, vp, lines,
     from repro_torch.core.packing import dequant_words
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.vp_attention import (
-        flash_body, flash_prefill_cuda, plan_decode, vp_decode_attention_cuda)
+        TC_DHS, flash_body, flash_prefill_cuda, plan_decode,
+        vp_decode_attention_cuda)
 
     # -- SASS: registers only; the tensor cores in the prefill body ----------
     target = build._target("vp_attention")
@@ -777,7 +784,7 @@ def _attention_rows(torch, peaks, timer, gen, randn, words, vp, lines,
     tc = {k: v for k, v in inst.items() if k.startswith("prefill tc")}
     if spills:
         raise AssertionError(f"attention bodies use local memory: {spills}")
-    if len(tc) != 8 or not all(v["HMMA"] for v in tc.values()):
+    if len(tc) != len(TC_DHS) or not all(v["HMMA"] for v in tc.values()):
         raise AssertionError(f"tensor-core prefill instances: {tc}")
     record["attention_sass"] = inst
 
@@ -1617,17 +1624,49 @@ def block_kernel_phase(torch, peaks, record):
                   f"vp_dequant_planes {dt}")
     ms = timer(lambda: vp_dequant_planes_cuda(m, i, wv, torch.float32))
     plain_ms = timer(lambda: ref.vp_dequant_ref(m, i, wv, torch.float32))
+    cast_ms = timer(lambda: m.to(torch.float32))   # a yardstick
     bnd = bound(peaks, R * C * (1 + 1 + 4), 0, "f32")
     shape = [R, C, "int8+uint8", "float32"]
     _print_line("vp_dequant_planes", shape, 0.0, 0.0, ms, plain_ms, bnd, None)
+    print(f"[kernel] vp_dequant_planes {shape}: {ms:.4f} ms ({bnd[0] / ms:.1%}"
+          f" of the bound; the first design 0.3495 ms); m.to(float32) "
+          f"{cast_ms:.4f} ms")
     lines.append(("vp_dequant_planes", shape, ms, plain_ms, bnd, None, None))
-    rows += [_row("vp_dequant_planes", "vp_dequant.cu",
-                  "src/repro/kernels/vp_dequant.py:31", shape, 0.0, ms,
-                  plain_ms, bnd, None), main_pk]
+    main_pl = _row("vp_dequant_planes", "vp_dequant.cu",
+                   "src/repro/kernels/vp_dequant.py:31", shape, 0.0, ms,
+                   plain_ms, bnd, None)
+    main_pl.update(cast_ms=cast_ms,
+                   grids=_planes_grids(torch, timer, m, i, wv))
+    rows += [main_pl, main_pk]
+    # int8 and int16 significands (VP(10, E 2)), whole and in ragged and
+    # unaligned slices: the head, the steps and the tail, the index plane
+    # at its own offset (the steps then read it one byte at a time) and
+    # the output unaligned (stored one by one)
+    vp10 = default_vp_format(fxp6, 10, 2)
+    m10, i10 = vp_quant_planes_cuda(
+        (torch.randn((R // 100, C), generator=gen, device="cuda") * 0.3
+         ).clamp(-0.99, 0.99), fxp6, vp10)
+    if m10.dtype != torch.int16:
+        raise AssertionError(f"VP(10) planes are {m10.dtype}")
+    planes = [(m10, i10, vp10, "int16 whole")]
+    for (mm, ii, v_, kind) in ((m.reshape(-1), i.reshape(-1), wv, "int8"),
+                               (m10.reshape(-1), i10.reshape(-1), vp10,
+                                "int16")):
+        for lo_m, lo_i, n in ((0, 0, 1), (0, 0, 15), (3, 3, 1003),
+                              (5, 0, 4099), (0, 7, 16 * 4096 + 5),
+                              (9, 9, 100_003), (1, 2, 33)):
+            planes.append((mm[lo_m:lo_m + n], ii[lo_i:lo_i + n], v_,
+                           f"{kind} [{lo_m}:+{n}], indices [{lo_i}:+{n}]"))
+    for m_, i_, v_, what in planes:
+        for dt in (torch.float32, torch.bfloat16):
+            identical(vp_dequant_planes_cuda(m_, i_, v_, dt),
+                      ref.vp_dequant_ref(m_, i_, v_, dt),
+                      f"vp_dequant_planes {what} {dt}")
     print(f"[kernel] vp_dequant_packed (int16 and int8 words, whole and "
           f"{len(pieces) - 1} ragged or unaligned slices; f32, bf16) and "
-          f"vp_dequant_planes (int8; f32, bf16): bit-identical to their "
-          f"plain versions")
+          f"vp_dequant_planes (int8 and int16 significands, whole and "
+          f"{len(planes) - 1} ragged or unaligned slices; f32, bf16): "
+          f"bit-identical to their plain versions")
     record["block_kernel_lines"] = [
         dict(name=n, shape=s, ms=m_, plain_ms=p, bound_ms=b[0],
              bound_by=b[1], library_ms=lib, library_f32_ms=lib32)
@@ -1635,6 +1674,50 @@ def block_kernel_phase(torch, peaks, record):
     print("kernels: block_vp_matmul, vp_block_quant, vp_dequant_packed, "
           "vp_dequant_planes")
     return rows
+
+
+def _planes_grids(torch, timer, m, i, vp):
+    """The planes kernel on its planned grid (`plan_planes`: one step a
+    thread) beside a one-wave grid of the same blocks looping over the
+    steps (`plan_packed`'s), at m's shape in f32 and bf16, each checked
+    bit for bit against the plain version: {dtype: (blocks, ms) x 2}."""
+    import ctypes
+
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.vp_dequant import (
+        plan_packed, plan_planes, planes_vec, split_packed)
+
+    lib = build.library("vp_dequant")
+    fmt = build.vp_fmt_struct(vp)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        o = torch.empty(m.shape, dtype=dt, device="cuda")
+        mb = m.element_size()
+        head, steps, _ = split_packed(m.numel(), m.data_ptr() % 16, mb,
+                                      planes_vec(mb, o.element_size()) * mb)
+
+        def launch(blocks, threads):
+            err = lib.vp_dequant_planes_launch(
+                m.data_ptr(), mb, i.data_ptr(), o.data_ptr(), m.numel(),
+                build.dtype_code(dt, "dtype"), ctypes.byref(fmt), head,
+                blocks, threads, torch.cuda.current_stream().cuda_stream)
+            build.check(lib, err, "vp_dequant_planes")
+            return o
+
+        times = {}
+        for what, (blocks, threads) in (("planned", plan_planes(steps)),
+                                         ("one wave", plan_packed(steps,
+                                                                  sms))):
+            _identical(torch, launch(blocks, threads),
+                       ref.vp_dequant_ref(m, i, vp, dt),
+                       f"vp_dequant_planes {what} grid {dt}")
+            times[what] = (blocks, timer(lambda: launch(blocks, threads)))
+        print(f"[kernel] vp_dequant_planes {list(m.shape)} {dt} grids: "
+              + ", ".join(f"{k} {b} blocks {t:.4f} ms"
+                          for k, (b, t) in times.items()))
+        out[str(dt)] = times
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2794,6 +2877,13 @@ def _need(tag, counts, want):
                              f"path needs (ran, need): {short}")
 
 
+def _no_cuda_core_prefill(tag, counts):
+    """A bf16 run's prefill went through the tensor-core body alone."""
+    if counts.get("flash_cuda_core", 0):
+        raise AssertionError(f"{tag}: {counts['flash_cuda_core']} bf16 "
+                             "prefill launches on the CUDA-core body")
+
+
 def _dense_kernel_rows(torch, peaks, record, rows):
     """The kernels at the new configs' shapes, timed as phase 3 times
     them (median of 20, L2 flushed) beside their bound, their plain
@@ -2802,16 +2892,25 @@ def _dense_kernel_rows(torch, peaks, record, rows):
     (G split over 2 slices: bit-identical to the rows launched as G 4 and
     G 3) and int16, gemma3's local ring (B 2, smax 1024 rolling, KV 16, G
     2, dh 168) in int8 (8-byte lanes) and int16, stablelm's (B 4, smax
-    160, KV 8, G 4, dh 160); the CUDA-core prefill at gemma3's (B 2, S
-    1152, H 32, KV 16, dh 168) causal and local 1024 and stablelm's (B 4,
-    S 128, H 32, KV 8, dh 160); the planes dequant at qwen2's w_down
-    panel (4864, 896), bit for bit."""
+    160, KV 8, G 4, dh 160); the prefill at gemma3's (B 2, S 1152, H 32,
+    KV 16, dh 168) causal and local 1024 and stablelm's (B 4, S 128, H
+    32, KV 8, dh 160), planned on the tensor-core body, which must beat
+    its plain version and the CUDA-core body (timed beside it), bit-
+    identical across launches and to a pre-scaled q, its SASS counts
+    printed; `vp_dequant_matmul` at each family's w_up (qwen2 896 x
+    4864, stablelm 5120 x 13824, gemma3 5376 x 21504) at decode M = B
+    (skinny body) and prefill M = B x S (tensor-core body), within
+    BF16_TOL, beside `torch.matmul` on the dequantized weight; the planes
+    dequant at qwen2's w_down panel (4864, 896) in int8 and int16
+    significands, bit for bit, timed beside m.to(bf16)."""
     import torch.nn.functional as F
 
     from repro_torch.core.formats import FXPFormat, default_vp_format
     from repro_torch.core.packing import dequant_words
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.vp_attention import flash_body, plan_decode
+    from repro_torch.kernels.vp_attention import (
+        flash_body, flash_prefill_cuda, plan_decode)
+    from repro_torch.kernels.vp_dequant_matmul import fwd_body
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -2889,23 +2988,36 @@ def _dense_kernel_rows(torch, peaks, record, rows):
             plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
             library_ms=library_ms, max_abs_err=err))
 
-    # -- the CUDA-core prefill body at dh 168 and 160 -------------------------
+    # -- the tensor-core prefill body at dh 168 and 160 -----------------------
+    sass = {int(k.rsplit(" ", 1)[-1]): v for k, v in
+            record["attention_sass"].items() if k.startswith("prefill tc")}
     for B, S, H, KV, dh, window in ((2, 1152, 32, 16, 168, None),
                                     (2, 1152, 32, 16, 168, 1024),
                                     (4, 128, 32, 8, 160, None)):
         G = H // KV
-        if flash_body(torch.bfloat16, dh) != "cuda_core":
-            raise AssertionError(f"dh {dh} not planned on the CUDA cores")
+        if flash_body(torch.bfloat16, dh) != "tensor_core":
+            raise AssertionError(f"bf16 dh {dh} not planned on the tensor "
+                                 "cores")
         qd, kd, vd = (randn(B, S, n, dh, dtype=torch.bfloat16)
                       for n in (H, KV, KV))
         pattern = "local" if window else "causal"
         what = f"flash_prefill {[B, S, H, KV, dh, pattern]}"
+        scale = torch.tensor(dh ** -0.5, dtype=torch.bfloat16, device="cuda")
         got = ops.flash_prefill(qd, kd, vd, pattern, window)
         err, rel = compare(torch, got, ref.flash_prefill_ref(
             qd, kd, vd, pattern, window), BF16_TOL, what)
         _identical(torch, ops.flash_prefill(qd, kd, vd, pattern, window), got,
                    f"{what}, two launches")
+        _identical(torch, flash_prefill_cuda(qd * scale, kd, vd, True, window,
+                                             1.0, body="tensor_core"), got,
+                   f"{what}, folded scale")
+        compare(torch, flash_prefill_cuda(qd, kd, vd, True, window,
+                                          float(scale), body="cuda_core"),
+                ref.flash_prefill_ref(qd, kd, vd, pattern, window), BF16_TOL,
+                f"{what} CUDA-core body")
         ms = timer(lambda: ops.flash_prefill(qd, kd, vd, pattern, window))
+        cc_ms = timer(lambda: flash_prefill_cuda(
+            qd, kd, vd, True, window, float(scale), body="cuda_core"))
         plain_ms = timer(lambda: ref.flash_prefill_ref(qd, kd, vd, pattern,
                                                        window))
         qt = qd.transpose(1, 2)
@@ -2926,30 +3038,78 @@ def _dense_kernel_rows(torch, peaks, record, rows):
         shape = [B, S, H, KV, dh, pattern]
         _print_line("flash_prefill", shape, err, rel, ms, plain_ms, bnd,
                     library_ms)
-        print(f"[dense kernel] {what}: CUDA-core body {ms:.4f} ms, "
-              f"{ms / library_ms:.2f}x SDPA")
-        add("flash_prefill", dict(shape=shape, body="cuda_core", ms=ms,
-                                  plain_ms=plain_ms, bound_ms=bnd[0],
-                                  bound_by=bnd[1], library_ms=library_ms,
-                                  max_abs_err=err))
-
-    # -- the planes dequant at a weight panel ----------------------------------
-    K, N = 4864, 896
-    m, i = ops.vp_quant((randn(K, N) * 0.3).clamp(-0.99, 0.99), fxp,
-                        fmts[2])
-    for dtype in (torch.float32, torch.bfloat16):
-        got = ops.vp_dequant(m, i, fmts[2], dtype)
-        _identical(torch, got, ref.vp_dequant_ref(m, i, fmts[2], dtype),
-                   f"vp_dequant planes {(K, N)} {dtype}")
-    ms = timer(lambda: ops.vp_dequant(m, i, fmts[2], torch.bfloat16))
-    plain_ms = timer(lambda: ref.vp_dequant_ref(m, i, fmts[2],
-                                                torch.bfloat16))
-    bnd = bound(peaks, K * N * (1 + 1 + 2), 0, "bf16")
-    shape = [K, N, "int8 + uint8 -> bf16"]
-    _print_line("vp_dequant_planes", shape, 0.0, 0.0, ms, plain_ms, bnd, None)
-    add("vp_dequant_planes", dict(shape=shape, ms=ms, plain_ms=plain_ms,
+        print(f"[dense kernel] {what}: tensor-core body {ms:.4f} ms "
+              f"({ms / library_ms:.2f}x SDPA, {plain_ms / ms:.1f}x faster "
+              f"than plain), CUDA-core body {cc_ms:.4f} ms; dh {dh} SASS "
+              f"LDL {sass[dh]['LDL']}, STL {sass[dh]['STL']}, HMMA "
+              f"{sass[dh]['HMMA']}")
+        if not ms < min(plain_ms, cc_ms):
+            raise AssertionError(f"{what}: the tensor-core body ({ms:.4f} "
+                                 f"ms) is not faster than plain "
+                                 f"({plain_ms:.4f}) and the CUDA-core body "
+                                 f"({cc_ms:.4f})")
+        add("flash_prefill", dict(shape=shape, body="tensor_core", ms=ms,
+                                  cuda_core_ms=cc_ms, plain_ms=plain_ms,
                                   bound_ms=bnd[0], bound_by=bnd[1],
-                                  library_ms=None, max_abs_err=0.0))
+                                  library_ms=library_ms, max_abs_err=err,
+                                  ldl=sass[dh]["LDL"], stl=sass[dh]["STL"]))
+
+    # -- vp_dequant_matmul at each family's w_up: decode and prefill M ------
+    for family, B, S, K, N in (("qwen2", 4, 128, 896, 4864),
+                               ("stablelm", 4, 128, 5120, 13824),
+                               ("gemma3", 2, 1152, 5376, 21504)):
+        vp = fmts[2]
+        w = ops.vp_quant((randn(K, N) * 0.3).clamp(-0.99, 0.99), fxp, vp,
+                         packed=True)
+        w_deq = dequant_words(w, vp).to(torch.bfloat16)
+        for M in (B, B * S):
+            x = randn(M, K, dtype=torch.bfloat16)
+            body = fwd_body(M, torch.bfloat16, vp)
+            what = f"vp_dequant_matmul {family} w_up {[M, K, N]}"
+            err, rel = compare(torch, ops.vp_dequant_matmul(x, w, vp),
+                               ref.vp_dequant_matmul_ref(x, w, vp,
+                                                         torch.bfloat16),
+                               BF16_TOL, what)
+            ms = timer(lambda: ops.vp_dequant_matmul(x, w, vp))
+            plain_ms = timer(lambda: ref.vp_dequant_matmul_ref(
+                x, w, vp, torch.bfloat16))
+            library_ms = timer(lambda: torch.matmul(x, w_deq))
+            bnd = bound(peaks, 2 * (M * K + K * N + M * N), 2 * M * K * N,
+                        "bf16")
+            _print_line("vp_dequant_matmul", [M, K, N], err, rel, ms,
+                        plain_ms, bnd, library_ms)
+            print(f"[dense kernel] {what}: {body} body, {bnd[0] / ms:.1%} of "
+                  f"the bound, {ms / library_ms:.2f}x torch.matmul")
+            add("vp_dequant_matmul", dict(
+                shape=[M, K, N], family=family, body=body, ms=ms,
+                plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                library_ms=library_ms, max_abs_err=err))
+        del w, w_deq
+
+    # -- the planes dequant at a weight panel, int8 and int16 significands ---
+    K, N = 4864, 896
+    for vp in (fmts[2], default_vp_format(fxp, 10, 2)):
+        m, i = ops.vp_quant((randn(K, N) * 0.3).clamp(-0.99, 0.99), fxp, vp)
+        kind = {torch.int8: "int8", torch.int16: "int16"}[m.dtype]
+        for dtype in (torch.float32, torch.bfloat16):
+            got = ops.vp_dequant(m, i, vp, dtype)
+            _identical(torch, got, ref.vp_dequant_ref(m, i, vp, dtype),
+                       f"vp_dequant planes {(K, N)} {kind} {dtype}")
+        ms = timer(lambda: ops.vp_dequant(m, i, vp, torch.bfloat16))
+        plain_ms = timer(lambda: ref.vp_dequant_ref(m, i, vp,
+                                                    torch.bfloat16))
+        cast_ms = timer(lambda: m.to(torch.bfloat16))   # a yardstick
+        bnd = bound(peaks, K * N * (m.element_size() + 1 + 2), 0, "bf16")
+        shape = [K, N, f"{kind} + uint8 -> bf16"]
+        _print_line("vp_dequant_planes", shape, 0.0, 0.0, ms, plain_ms, bnd,
+                    None)
+        print(f"[dense kernel] vp_dequant_planes {shape}: {ms:.4f} ms, "
+              f"{bnd[0] / ms:.1%} of the bound (aim >= 50 %; the first "
+              f"design, int8: 0.0246 ms); m.to(bf16) {cast_ms:.4f} ms")
+        add("vp_dequant_planes", dict(shape=shape, ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bnd[0], bound_by=bnd[1],
+                                      library_ms=None, cast_ms=cast_ms,
+                                      max_abs_err=0.0))
     record["dense_kernels"] = out
 
 
@@ -2964,18 +3124,20 @@ def dense_phase(torch, record, rows, smi, peaks):
       (exact launch counts), and f32 the same way; then short CLI runs
       (batch 4, prompt 16, 2 steps): `--quant vp_block` (only w_down
       tiles at 256: 24 block weights, 146 packed), `--layout planes` (the
-      planes quantizer at export, the planes dequant on every weight) and
+      planes quantizer at export, the planes dequant on every weight),
       `--M 6 --E 2 --kv-quant` (int8 weight and KV words; decode
-      attention at G = 7 on the G-split body);
+      attention at G = 7 on the G-split body) and `--layout planes
+      --kv-layout planes --M 10 --E 2 --kv-quant` (int16 significands);
     - gemma3-27b at full width over 7 layers (one period of 5 local + 1
       global, then a local tail: both scanned groups): batch 2, prompt
       1152 (past the 1024-token window: the band mask in prefill, the
-      ring in decode), 16 steps; prefill on the CUDA-core body at dh 168;
+      ring in decode), 16 steps; prefill on the tensor-core body at dh
+      168, no CUDA-core prefill launch;
       then the engine with global layers paged and local layers on dense
       rings, run-ahead 4 and 1 (the same tokens), every graph's first
       replay bit-identical to its eager step, logits against plain;
     - stablelm-12b at full width over 4 layers: batch 4, prompt 128, 8
-      steps, prefill on the CUDA-core body at dh 160;
+      steps, prefill on the tensor-core body at dh 160;
     - after each bf16 run but the engine's, its kernels at its own shapes
       against their plain versions (`_dense_shapes`);
     - the kernels at these shapes, timed (`_dense_kernel_rows`)."""
@@ -3035,7 +3197,12 @@ def dense_phase(torch, record, rows, smi, peaks):
               "vp_dequant_planes": 3 * (7 * L + 1) + 3}, True),
             ("M6 E2", ["--quant", "vp", "--kv-quant", "--M", "6", "--E", "2"],
              {"vp_decode_attention": 2 * L,
-              "vp_dequant_matmul": 3 * (7 * L + 1)}, False)):
+              "vp_dequant_matmul": 3 * (7 * L + 1)}, False),
+            ("M10 E2 planes", ["--quant", "vp", "--kv-quant", "--layout",
+                               "planes", "--kv-layout", "planes", "--M",
+                               "10", "--E", "2"],
+             {"vp_quant_planes": 7 * L + 2 + 3 * 2 * L,   # export, KV writes
+              "vp_dequant_planes": 3 * (7 * L + 1) + 3 + 2 * 2 * L}, True)):
         res, qp, c = _dense_cli(torch, f"{tag} {arch} {what}",
                                 ["--arch", arch, *extra, *short], requant)
         _need(f"{tag} {arch} {what}", res["launches"], need)
@@ -3051,11 +3218,17 @@ def dense_phase(torch, record, rows, smi, peaks):
             w = qp["layers"][0]["attn"]["wq"]["w_packed"]
             if w.dtype != torch.int8:
                 raise AssertionError(f"{tag} M6 E2 words are {w.dtype}")
+        if what == "M10 E2 planes":   # int16 significands on the card
+            m = qp["layers"][0]["attn"]["wq"]["m"]
+            if m.dtype != torch.int16 or res["launches"].get(
+                    "vp_dequant_matmul", 0):
+                raise AssertionError(f"{tag} M10 planes are {m.dtype}, "
+                                     f"launches {res['launches']}")
         launches.update(res["launches"])
         out[f"{arch} {what}"] = res
         _dense_shapes(torch, f"{tag} {arch} {what}", c, qp, BATCH, 16, record)
         del qp
-    lap(f"{arch} short runs (vp_block, planes, M6 E2)")
+    lap(f"{arch} short runs (vp_block, planes, M6 E2, M10 E2 planes)")
 
     # -- gemma3-27b at full width, 7 layers ------------------------------------
     arch = "gemma3-27b"
@@ -3067,8 +3240,11 @@ def dense_phase(torch, record, rows, smi, peaks):
     res, qp = _dense_static(torch, f"{tag} {arch} ({GEMMA_LAYERS} layers)",
                             cfg, B, S, steps)
     _need(f"{tag} {arch}", res["launches"], {
-        "flash_cuda_core": GEMMA_LAYERS, "vp_dec_split": GEMMA_LAYERS * steps,
+        "flash_tc": GEMMA_LAYERS, "vp_dec_split": GEMMA_LAYERS * steps,
         "vp_dequant_matmul": (7 * GEMMA_LAYERS + 1) * (steps + 1)})
+    _no_cuda_core_prefill(f"{tag} {arch}", res["launches"])
+    print(f"{tag} {arch} prefill {B}x{S}: {res['prefill_s']:.4f}s on the "
+          f"tensor-core body (PR 24, on the CUDA-core body: 0.1253 s)")
     launches.update(res["launches"])
     out[arch] = res
     _dense_shapes(torch, f"{tag} {arch}", cfg, qp, B, S, record)
@@ -3084,8 +3260,8 @@ def dense_phase(torch, record, rows, smi, peaks):
     res, qp = _dense_static(torch, f"{tag} {arch} ({STABLELM_LAYERS} layers)",
                             cfg, B, S, steps)
     _need(f"{tag} {arch}", res["launches"], {
-        "flash_cuda_core": STABLELM_LAYERS,
-        "vp_dec_split": STABLELM_LAYERS * steps})
+        "flash_tc": STABLELM_LAYERS, "vp_dec_split": STABLELM_LAYERS * steps})
+    _no_cuda_core_prefill(f"{tag} {arch}", res["launches"])
     launches.update(res["launches"])
     out[arch] = res
     _dense_shapes(torch, f"{tag} {arch}", cfg, qp, B, S, record)
@@ -3164,9 +3340,12 @@ def _dense_engine(torch, tag, cfg, params, launches):
 
 def dequant_phase(torch, record, rows):
     """The public op `ops.vp_dequant` on the card: the packed words of
-    one weight panel into f32 and bf16, and the MIMO W planes into f32,
-    each once, checked against the op's plain path."""
+    one weight panel into f32 and bf16, the MIMO W planes (int8
+    significands) into f32 and the planes of a weight panel in VP(10, E 2)
+    (int16 significands) into bf16, each once, checked against the op's
+    plain path."""
     from repro_torch.configs.base import QuantConfig
+    from repro_torch.core.formats import default_vp_format
     from repro_torch.kernels import build, ops
     from repro_torch.mimo.equalizer import table1_specs
     from repro_torch.models.layers import canonical_formats
@@ -3180,17 +3359,23 @@ def dequant_phase(torch, record, rows):
                          fxp, vp, packed=True)
     m, i = ops.vp_quant(torch.randn(DEQUANT_PLANES, generator=gen,
                                     device="cuda") * 0.05, wf, wv)
+    vp10 = default_vp_format(fxp, 10, 2)
+    m16, i16 = ops.vp_quant((torch.randn(DEQUANT_PACKED, generator=gen,
+                                         device="cuda") * 0.3).clamp(
+        -0.99, 0.99), fxp, vp10)
     calls = {"packed f32": lambda: ops.vp_dequant(words, None, vp),
              "packed bf16": lambda: ops.vp_dequant(words, None, vp,
                                                    torch.bfloat16),
-             "planes f32": lambda: ops.vp_dequant(m, i, wv)}
+             "planes f32": lambda: ops.vp_dequant(m, i, wv),
+             "planes int16 bf16": lambda: ops.vp_dequant(m16, i16, vp10,
+                                                         torch.bfloat16)}
     torch.cuda.synchronize()
     build.reset_launches()
     # -- the path: the public op, once per call --------------------------------
     outs = {what: fn() for what, fn in calls.items()}
     counts = dict(build.LAUNCHES)
     # -------------------------------------------------------------------------
-    expect = {"vp_dequant_packed": 2, "vp_dequant_planes": 1}
+    expect = {"vp_dequant_packed": 2, "vp_dequant_planes": 2}
     print(f"[dequant] ops.vp_dequant launches: {counts}")
     if counts != expect:
         raise AssertionError(f"vp_dequant launch counts {counts} != {expect}")
@@ -3202,8 +3387,9 @@ def dequant_phase(torch, record, rows):
                 raise AssertionError(f"ops.vp_dequant {what} differs from "
                                      "its plain path")
     print(f"[dequant] ops.vp_dequant packed {list(DEQUANT_PACKED)} (f32, "
-          f"bf16) and planes {list(DEQUANT_PLANES)} (f32): bit-identical to "
-          "the plain path")
+          f"bf16), planes {list(DEQUANT_PLANES)} (int8, f32) and "
+          f"{list(DEQUANT_PACKED)} ({m16.dtype}, bf16): bit-identical to the "
+          "plain path")
     for row in rows:
         if row["name"] in expect:
             row["launches"] = counts[row["name"]]

@@ -99,7 +99,8 @@ _SIGNATURES = {
         "vp_block_amax_launch": [_P] * 4 + [_LL, _LL] + [_I] * 3 + [_P],
     },
     "vp_dequant": {
-        "vp_dequant_planes_launch": [_P, _P, _P, _LL, _I, _P, _P],
+        "vp_dequant_planes_launch": [_P, _I, _P, _P, _LL, _I, _P] + [_I] * 3
+                                    + [_P],
         "vp_dequant_packed_launch": [_P, _I, _P, _LL, _I, _P] + [_I] * 3
                                     + [_P],
     },

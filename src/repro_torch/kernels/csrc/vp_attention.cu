@@ -47,23 +47,38 @@
 //      shared memory.  No atomics: two launches are bit-identical.
 //    Output acc / max(l, 1e-30) in q's dtype.
 //
-// 2. flash_prefill_tc_kernel (bf16, dh a multiple of 16 up to 128)
-//    replaces repro/kernels/vp_attention.py:flash_prefill_pallas on the
-//    serving path.  Bound: bytes at the serving prompt (4 x 128 tokens:
-//    ~1.5 MB against ~67 MFLOP, so ~0.5 us either way) and latency in
-//    practice; operations from prompts of a few thousand tokens.  Design:
-//    - One block per (q tile of 64 rows, kv head or pair of its query
-//      heads, batch): four warps of 16 rows per query head, so each K/V
-//      tile of 64 keys is staged once in shared memory for the G heads it
+// 2. flash_prefill_tc_kernel (bf16, dh a multiple of 16 up to 128, and
+//    160 and 168) replaces repro/kernels/vp_attention.py:
+//    flash_prefill_pallas on the serving path.  Bound: bytes at the
+//    serving prompt (4 x 128 tokens: ~1.5 MB against ~67 MFLOP, so ~0.5 us
+//    either way) and latency in practice; operations from prompts of a
+//    few thousand tokens (gemma3's 2 x 1152 at dh 168: 28.6 GFLOP).
+//    Design:
+//    - One block per (kv head or pair of its query heads, batch, q tile of
+//      64 rows): four warps of 16 rows per query head, so each K/V tile
+//      of 64 keys is staged once in shared memory for the G heads it
 //      serves (two at a time), by cp.async into two buffers (the next
-//      tile loads while this one is used).
+//      tile loads while this one is used).  The q tile is the grid's
+//      slowest axis, last tile first: under a causal or local mask the
+//      tiles that see the most keys start first and the short ones fill
+//      the last wave.
 //    - QK^T and PV on mma.sync m16n8k16 (bf16 in, f32 accumulate), fed by
-//      ldmatrix (.trans for V) from rows padded by 16 bytes (no bank
-//      conflicts).  mma.sync rather than wgmma: at these sizes the tensor
-//      cores are idle either way, and its 16-row warp tiles keep P in
-//      registers as PV's A operand (the accumulator fragment of two score
-//      tiles is the operand fragment of one k step) with no warpgroup
-//      staging; every product fits one warp.
+//      ldmatrix (.trans for V) from rows padded to an odd number of
+//      16-byte chunks (no bank conflicts: 16 bytes of pad, 32 at dh = 8
+//      mod 16).  mma.sync rather than wgmma: its 16-row warp tiles keep P
+//      in registers as PV's A operand (the accumulator fragment of two
+//      score tiles is the operand fragment of one k step) with no
+//      warpgroup staging; every product fits one warp.
+//    - dh = 8 mod 16 (gemma3's 168 = 10.5 k steps): QK^T ends on one
+//      m16n8k8 step (q's last 8 columns, K's from one ldmatrix .x4 that
+//      serves four key tiles), and PV's odd last n-tile of 8 output
+//      columns takes its V fragment from an ldmatrix .x2 .trans.  No
+//      padding: every product covers the real columns only.
+//    - Registers: a thread holds q's fragments (dh / 4 registers), the
+//      16 x 64 scores (32 f32) and its share of the 16 x dh output (dh /
+//      2 f32): 158 at dh 168 (234 in all by ptxas), under the 255 of one
+//      256-thread block per SM, so nothing goes to local memory
+//      (chip_smoke.py counts LDL / STL in the SASS of every instance).
 //    - Numerics of the plain version (ref.flash_prefill_ref): scores f32
 //      from bf16 q and k; online softmax in f32 (exp2f of log2(e)-scaled
 //      scores, within an ulp of expf); p rounded to bf16 before PV, as the
@@ -80,9 +95,10 @@
 //
 // 3. flash_prefill_cc_kernel: the port's first prefill body, on CUDA-core
 //    FMAs from shared memory, for f32 (whose F32_RTOL check a bf16
-//    product would not hold) and for bf16 with other head dims.  One
-//    block per (q tile of 64 rows, head, batch).  Bound as above; it
-//    stages each K/V tile once per query head.
+//    product would not hold) and for bf16 with head dims the tensor-core
+//    body is not built for.  One block per (q tile of 64 rows, head,
+//    batch).  Bound as above; it stages each K/V tile once per query
+//    head.
 #include <cooperative_groups.h>
 
 #include "vp_common.cuh"
@@ -429,6 +445,15 @@ __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* smem) {
       : "memory");
 }
 
+__device__ __forceinline__ void ldsm_x2_t(unsigned (&r)[2], const void* smem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(s)
+      : "memory");
+}
+
 __device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* smem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile(
@@ -448,23 +473,44 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c (16 x 8 f32) += a (16 x 8 bf16, row) * b (8 x 8 bf16, col)
+__device__ __forceinline__ void mma_bf16_k8(float (&c)[4],
+                                            const unsigned (&a)[2],
+                                            unsigned b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// Row stride of a K / V tile in bf16: dh plus a pad that makes the row
+// an odd number of 16-byte chunks, so the 8 rows an ldmatrix reads fall
+// in 8 distinct 4-bank groups.
+template <int DH>
+__host__ __device__ constexpr int tc_lds() {
+  return DH + (DH % 16 ? 16 : 8);
+}
+
 template <int DH>
 __global__ void __launch_bounds__(TC_MAX_GH * 4 * 32)
 flash_prefill_tc_kernel(const FlashArgs p) {
-  constexpr int LDS = DH + 8;          // row stride in bf16: 16-byte pad
-  constexpr int KT = DH / 16;          // k steps of QK^T
+  static_assert(DH % 8 == 0, "dh is a whole number of 8-column tiles");
+  constexpr int LDS = tc_lds<DH>();
+  constexpr int KT = DH / 16;          // k16 steps of QK^T
+  constexpr bool K8 = DH % 16 != 0;    // and one k8 step for the last 8
   constexpr int NS = TC_BK / 8;        // score n-tiles
-  constexpr int NO = DH / 8;           // output n-tiles
+  constexpr int NO = DH / 8;           // output n-tiles (odd at dh 168)
   constexpr int CHUNKS = TC_BK * DH / 8;   // 16-byte chunks of a tile
   extern __shared__ __align__(16) unsigned char fsm[];
   __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(fsm);  // [2][BK][LDS]
   __nv_bfloat16* vt = kt + 2 * TC_BK * LDS;                    // [2][BK][LDS]
 
   const int G = p.H / p.KV, gh = blockDim.x / 128;
-  const int q0 = blockIdx.x * TC_BQ, b = blockIdx.z;
-  const int kvh = blockIdx.y / (G / gh);
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * TC_BQ, b = blockIdx.y;
+  const int kvh = blockIdx.x / (G / gh);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int h = kvh * G + (blockIdx.y % (G / gh)) * gh + warp / 4;
+  const int h = kvh * G + (blockIdx.x % (G / gh)) * gh + warp / 4;
   const int r0 = q0 + (warp % 4) * 16;     // the warp's first q row
   const int gr = lane >> 2, tq = lane & 3; // fragment row, column pair
 
@@ -513,6 +559,20 @@ flash_prefill_tc_kernel(const FlashArgs p) {
       qa[kk][e] = pack_bf16(lo, hi);
     }
   }
+  unsigned qt[2] = {0u, 0u};   // the k8 step's fragment (rows gr, gr + 8)
+  if constexpr (K8) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = r0 + gr + e * 8;
+      if (row < p.Sq) {
+        const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
+            q + (((long long)b * p.Sq + row) * p.H + h) * DH + KT * 16 +
+            tq * 2);
+        qt[e] = pack_bf16(__fmul_rn(__low2float(x), p.scale),
+                          __fmul_rn(__high2float(x), p.scale));
+      }
+    }
+  }
 
   float o[NO][4];
 #pragma unroll
@@ -544,6 +604,15 @@ flash_prefill_tc_kernel(const FlashArgs p) {
                         kk * 16 + ((lane >> 3) & 1) * 8);
         mma_bf16(s[j], qa[kk], bf[0], bf[1]);
         mma_bf16(s[j + 1], qa[kk], bf[2], bf[3]);
+      }
+    }
+    if constexpr (K8) {   // columns KT * 16 .. DH: one ldmatrix, 4 tiles
+#pragma unroll
+      for (int j = 0; j < NS; j += 4) {
+        unsigned bf[4];
+        ldsm_x4(bf, ktb + (j * 8 + lane) * LDS + KT * 16);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) mma_bf16_k8(s[j + t], qt, bf[t]);
       }
     }
 
@@ -609,12 +678,17 @@ flash_prefill_tc_kernel(const FlashArgs p) {
                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int j = 0; j < NO; j += 2) {
+      for (int j = 0; j + 1 < NO; j += 2) {
         unsigned bf[4];
         ldsm_x4_t(bf, vtb + (kk * 16 + (lane & 15)) * LDS + j * 8 +
                           (lane >> 4) * 8);
         mma_bf16(o[j], pa, bf[0], bf[1]);
         mma_bf16(o[j + 1], pa, bf[2], bf[3]);
+      }
+      if constexpr (NO % 2) {   // the odd last n-tile
+        unsigned bf[2];
+        ldsm_x2_t(bf, vtb + (kk * 16 + (lane & 15)) * LDS + (NO - 1) * 8);
+        mma_bf16(o[NO - 1], pa, bf[0], bf[1]);
       }
     }
     __syncthreads();   // the next load overwrites this buffer
@@ -645,18 +719,20 @@ template <int DH>
 int tc_launch(const FlashArgs& p, int B, cudaStream_t s) {
   const int G = p.H / p.KV;
   const int gh = G % TC_MAX_GH == 0 ? TC_MAX_GH : 1;
-  const size_t smem = sizeof(__nv_bfloat16) * 4 * TC_BK * (DH + 8);
+  const size_t smem = sizeof(__nv_bfloat16) * 4 * TC_BK * tc_lds<DH>();
   const auto kern = flash_prefill_tc_kernel<DH>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((p.Sq + TC_BQ - 1) / TC_BQ, p.KV * (G / gh), B);
+  const dim3 grid(p.KV * (G / gh), B, (p.Sq + TC_BQ - 1) / TC_BQ);
   kern<<<grid, 128 * gh, smem, s>>>(p);
   return (int)cudaGetLastError();
 }
 
+// The head dims the tensor-core body is built for
+// (kernels/vp_attention.py:TC_DHS).
 int tc_dh(const FlashArgs& p, int B, cudaStream_t s) {
   switch (p.dh) {
     case 16: return tc_launch<16>(p, B, s);
@@ -667,6 +743,8 @@ int tc_dh(const FlashArgs& p, int B, cudaStream_t s) {
     case 96: return tc_launch<96>(p, B, s);
     case 112: return tc_launch<112>(p, B, s);
     case 128: return tc_launch<128>(p, B, s);
+    case 160: return tc_launch<160>(p, B, s);
+    case 168: return tc_launch<168>(p, B, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -839,7 +917,8 @@ extern "C" int vp_decode_attention_launch(
 // q (B, Sq, H, dh) not scaled, k / v (B, Sk, KV, dh), out (B, Sq, H, dh),
 // all of `dtype`; scale is dh**-0.5 rounded to that dtype.  causal = 0 is
 // the full pattern; window <= 0 means none.  body 0: tensor cores (bf16,
-// dh a multiple of 16 up to 128, 16-byte aligned rows), 1: CUDA cores.
+// dh a multiple of 16 up to 128 or 160 or 168, 16-byte aligned rows), 1:
+// CUDA cores.
 extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, void* out, int B, int Sq,
                                     int Sk, int H, int KV, int dh, int causal,

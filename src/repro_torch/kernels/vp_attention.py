@@ -16,7 +16,8 @@ query rows past its registers (`DEC_MAX_G`) split over slices of a grid
 axis; neither changes a row's sums.
 Prefill has two, and `flash_body` alone picks one from q's dtype and the
 head dim before the launch: the tensor-core body (`mma.sync`) for bf16
-with dh a multiple of 16 up to 128, the CUDA-core body otherwise.  A
+at the head dims it is built for (`TC_DHS`: multiples of 16 up to 128,
+and stablelm's 160 and gemma3's 168), the CUDA-core body otherwise.  A
 failed build or launch raises; no body stands in for another.
 `build.LAUNCHES` counts every launch under `vp_decode_attention` /
 `flash_prefill`, and also each body's under `vp_dec_split`, `flash_tc`
@@ -42,7 +43,10 @@ DEC_WARPS = 2048      # warps the split aims at on long caches: 16 per SM
 DEC_MIN_STEPS = 2     # warp steps a run is given before runs are added
 DEC_MAX_G = {16: 4, 8: 8, 4: 8}   # query rows a block, by words a lane
 
-TC_MAX_DH = 128
+# Head dims of the tensor-core prefill body's instances (csrc/
+# vp_attention.cu:tc_dh): multiples of 16 up to 128, then 160 and 168,
+# whose 84 output f32 a thread still fit its registers.
+TC_DHS = frozenset(range(16, 129, 16)) | {160, 168}
 BODY_COUNTER = {"tensor_core": "flash_tc", "cuda_core": "flash_cuda_core"}
 _BODY_CODE = {"tensor_core": 0, "cuda_core": 1}
 
@@ -187,11 +191,11 @@ def vp_decode_attention_cuda(q, k_w, v_w, k_s, v_s, lengths, fmt: VPFormat,
 
 def flash_body(dtype: torch.dtype, dh: int) -> str:
     """The prefill body for q, k, v of `dtype` with head dim dh:
-    "tensor_core" for bf16 with dh a multiple of 16 up to TC_MAX_DH, else
-    "cuda_core" (f32 keeps f32 products: a bf16 product would not hold
-    the f32 tolerance)."""
+    "tensor_core" for bf16 with dh in TC_DHS (multiples of 16 up to 128,
+    160, 168), else "cuda_core" (f32 keeps f32 products: a bf16 product
+    would not hold the f32 tolerance)."""
     build.dtype_code(dtype, "q")
-    if dtype == torch.bfloat16 and dh % 16 == 0 and dh <= TC_MAX_DH:
+    if dtype == torch.bfloat16 and dh in TC_DHS:
         return "tensor_core"
     return "cuda_core"
 
@@ -220,9 +224,8 @@ def flash_prefill_cuda(q, k, v, causal: bool, window: Optional[int],
     elif body not in BODY_COUNTER:
         raise ValueError(f"unknown body {body!r}")
     elif body == "tensor_core" and flash_body(q.dtype, dh) != body:
-        raise ValueError(f"the tensor-core body takes bf16 with dh a "
-                         f"multiple of 16 up to {TC_MAX_DH}; got {q.dtype}, "
-                         f"dh {dh}")
+        raise ValueError(f"the tensor-core body takes bf16 with dh in "
+                         f"{sorted(TC_DHS)}; got {q.dtype}, dh {dh}")
     if body == "tensor_core" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the tensor-core prefill body reads 16-byte "
                          "aligned q, k, v")

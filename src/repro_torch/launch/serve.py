@@ -17,10 +17,10 @@ through the `vp_dequant_matmul` kernel; with `--quant vp_block` (index
 block `--block`) it block-quantizes its activations and runs the int8
 `block_vp_matmul` kernel; `--quant fxp` serves int8 fixed-point weights.
 `--kv-quant` keeps the KV cache as packed words read by the
-`vp_decode_attention` kernel (`--kv-layout planes`: int8 significands and
-packed indices, dequantized by the planes kernel before plain attention).
-`--layout planes` stores VP weights as int8 significands and packed
-indices, dequantized by the planes kernel before a plain matmul.  `--M`
+`vp_decode_attention` kernel (`--kv-layout planes`: significands, int8 to
+M 8 and int16 past it, and packed indices, dequantized by the planes
+kernel before plain attention).  `--layout planes` stores VP weights the
+same way, dequantized by the planes kernel before a plain matmul.  `--M`
 and `--E` pick the VP format of weights and KV cache (VP(M, E) on
 FXP(12, 11)): M + E <= 8 packs each weight into an int8 word.
 `--temperature` samples (Gumbel-max, noise from a torch generator seeded

@@ -7,7 +7,8 @@
       plan of the serving shape gives >= 128 blocks at batch 4.  The plan
       takes no batch, so a row's bits do not depend on its batch.
   (b) `flash_body` picks the tensor-core body for bf16 with dh a
-      multiple of 16 up to 128, the CUDA-core body for f32 or other dh.
+      multiple of 16 up to 128, 160 or 168, the CUDA-core body for f32 or
+      other dh.
   (c) A plain-PyTorch mirror of the split decode body's arithmetic (one
       online softmax per position slot with one exp per position, slots
       merged by scaled sums, then runs in split order) against
@@ -15,12 +16,14 @@
       (its oracle and its Pallas body in interpret mode) over 1, 3 and 8
       runs: rtol 1e-5, atol 1e-5 * max|out| (summation order only).
   (d) A mirror of the tensor-core prefill body's arithmetic (q scaled
-      and rounded to bf16, f32 scores, online softmax by exp2 over 64-key
-      tiles, p rounded to bf16 before PV, l from the f32 p) against
+      and rounded to bf16, f32 scores summed over k steps of 16 head
+      columns and, at dh = 8 mod 16, a last step of 8, online softmax by
+      exp2 over 64-key tiles, p rounded to bf16 before PV, the output in
+      n-tiles of 8 columns, l from the f32 p) against
       `ref.flash_prefill_ref` in bf16 and the JAX `ops.flash_prefill`
-      (oracle and interpret): within 1e-2 * max|out|, one bf16 rounding
-      of the output (2^-8) plus p rounded against a running, not the
-      final, row max.
+      (oracle and interpret) at dh 16, 160 and 168: within 1e-2 *
+      max|out|, one bf16 rounding of the output (2^-8) plus p rounded
+      against a running, not the final, row max.
   (e) The q scaling folded into the kernels rounds as the plain path's
       separate multiply: bit for bit on the CPU.
 
@@ -111,7 +114,10 @@ def test_plan_decode_refuses_shapes_it_does_not_take(bad):
     (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
     (torch.bfloat16, 16, "tensor_core"), (torch.bfloat16, 112, "tensor_core"),
     (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core"),
-    (torch.bfloat16, 40, "cuda_core"), (torch.bfloat16, 144, "cuda_core")],
+    (torch.bfloat16, 40, "cuda_core"), (torch.bfloat16, 144, "cuda_core"),
+    (torch.bfloat16, 160, "tensor_core"), (torch.bfloat16, 168, "tensor_core"),
+    (torch.float32, 168, "cuda_core"), (torch.bfloat16, 152, "cuda_core"),
+    (torch.bfloat16, 176, "cuda_core")],
     ids=str)
 def test_flash_body(dtype, dh, want):
     assert flash_body(dtype, dh) == want
@@ -222,11 +228,22 @@ def _bf16(x):
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def _k_steps(dh):
+    """Head-column spans of QK^T's mma steps: k16 steps, then one k8 step
+    where dh = 8 mod 16."""
+    steps = [(c, c + 16) for c in range(0, dh - 15, 16)]
+    return steps + ([(dh - 8, dh)] if dh % 16 else [])
+
+
 def tc_prefill_mirror(q, k, v, pattern, window):
     """The body's arithmetic for bf16 q, k, v (B, S, *, dh): per q tile of
     64 rows, key tiles of 64 from the tile's first visible key, f32
-    scores, exp2 of log2(e)-scaled scores against the running max, p
-    rounded to bf16 for PV, l from the f32 p, out rounded to bf16."""
+    scores summed over the k steps of `_k_steps` in order, exp2 of
+    log2(e)-scaled scores against the running max, p rounded to bf16 for
+    PV, the output in n-tiles of 8 columns (the last one alone where dh /
+    8 is odd), l from the f32 p, out rounded to bf16.  The q tiles run in
+    any order (the kernel launches the last first): each is
+    independent."""
     B, Sq, H, dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -252,7 +269,10 @@ def tc_prefill_mirror(q, k, v, pattern, window):
                 keys = torch.arange(k0, k0 + TC_BK)
                 inb = keys < Sk
                 kc = keys.clamp(max=Sk - 1)
-                s = torch.einsum("brd,bkd->brk", qh, kf[:, kc, h // G])
+                kh = kf[:, kc, h // G]
+                s = sum(torch.einsum("brd,bkd->brk", qh[..., lo:hi],
+                                     kh[..., lo:hi])
+                        for lo, hi in _k_steps(dh))
                 ok = inb[None, :].expand(len(rows), -1).clone()
                 if causal:
                     ok &= keys[None, :] <= rows[:, None]
@@ -264,8 +284,10 @@ def tc_prefill_mirror(q, k, v, pattern, window):
                 p = torch.exp2(s - mn[..., None])
                 l = l * alpha + p.sum(-1)
                 vt = torch.where(inb[:, None], vf[:, kc, h // G], 0.0)
-                acc = acc * alpha[..., None] + torch.einsum(
-                    "brk,bkd->brd", _bf16(p), vt)
+                pv = torch.cat([torch.einsum("brk,bkd->brd", _bf16(p),
+                                             vt[..., n:n + 8])
+                                for n in range(0, dh, 8)], -1)
+                acc = acc * alpha[..., None] + pv
                 m = mn
             out[:, rows, h] = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.to(torch.bfloat16)
@@ -279,11 +301,14 @@ PREFILL_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
-def test_tc_prefill_mirror_against_references(case):
+@pytest.mark.parametrize("case,dh", [
+    *(pytest.param(case, 16, id=case) for case in sorted(PREFILL_CASES)),
+    *(pytest.param(case, dh, id=f"{case}-dh{dh}") for dh in (160, 168)
+      for case in ("causal", "local", "ragged"))])
+def test_tc_prefill_mirror_against_references(case, dh):
     c = PREFILL_CASES[case]
-    B, H, KV, dh, S = 2, 4, 2, 16, c["S"]
-    rng = np.random.default_rng(S + len(case))
+    B, H, KV, S = 2, 4, 2, c["S"]
+    rng = np.random.default_rng(S + len(case) + dh)
     q, k, v = (rng.normal(size=(B, S, n, dh)).astype(np.float32)
                for n in (H, KV, KV))
     tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
@@ -302,7 +327,7 @@ def test_tc_prefill_mirror_against_references(case):
 
 # -- (e) the folded q scaling --------------------------------------------------------
 
-@pytest.mark.parametrize("dh", [16, 40, 64, 128])
+@pytest.mark.parametrize("dh", [16, 40, 64, 128, 160, 168])
 def test_folded_scale_rounds_as_the_plain_multiply(dh):
     rng = np.random.default_rng(dh)
     x = torch.from_numpy(rng.normal(0, 3, (4096,)).astype(np.float32))

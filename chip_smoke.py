@@ -182,6 +182,36 @@ Run from the root of a checkout.  Phases, each raising on failure:
                or the phase fails), with its LDL / STL counts; the
                planes dequant at qwen2's w_down panel in int8 and int16
                significands, bit for bit.
+  3b. wide  - the formats past the canonical kernels' first widths
+               (`wide_kernel_phase`), each kernel bit-identical to its
+               plain version (float sums within tolerance), timed, its
+               new instances free of local memory in the SASS: int32
+               packed words (VP(13, E 4), VP(16, E 1), VP(10, E 7))
+               through the quantizer's table and chain bodies, the KV
+               mode, both dequants (int32 in 16-byte vectors, ragged and
+               unaligned slices), `vp_dequant_matmul`'s bodies, and
+               decode attention at stablelm's dh 160 (G 4) and gemma3's
+               dh 168 ring (32-byte lanes), qwen3-moe's G 8 and
+               mixtral's G 6 (a row's bits independent of G); E 5 and E
+               7 (32 and 128 exponents) through the same kernels; int16
+               block-VP significands (M 10 E 2, M 12 E 3) through
+               `vp_block_quant` on its small, coop, two-pass and general
+               bodies and `block_vp_matmul`'s int16 body at blocks 16 and
+               256.
+  4d. formats - the serve CLI at those formats (`formats_phase`), f32,
+               batch 4, prompt 16, 4 steps, greedy tokens equal to the
+               plain path's on the card: `--quant vp --kv-quant --M 13
+               --E 4` on qwen2 (full), stablelm (4 layers) and gemma3 (7
+               layers), and through the engine with `--prefill-chunk 32`
+               over the int32 cache; `--quant vp_block --block 16
+               --kv-quant` at `--M 10 --E 2` and `--M 12 --E 3`; `--quant
+               vp --kv-quant --M 7 --E 5` and `--E 7`.
+  4e. moe    - qwen3-moe-30b-a3b over 8 layers and mixtral-8x22b over 2
+               at full width through the static serve CLI (`moe_phase`),
+               bf16, `--quant vp --kv-quant`, batch 4, prompt 128, 16
+               steps: tokens/s and launch counts by kernel, every stacked
+               expert weight dequantized by one `vp_dequant_packed`
+               launch a layer and pass, a second run's tokens equal.
   5. mimo    - the paper's B-VP MIMO equalizer (B = 64 antennas, U = 8
                users, 16-QAM, Sec. III-A): narrowband ensembles of
                n = 100,000 channels at 2 dB and 20 dB equalized through
@@ -223,6 +253,11 @@ Run from the root of a checkout.  Phases, each raising on failure:
                of one step; then one step's loss and
                gradients against the plain path in f32 and in bf16 (held
                to the plain path's own rounding floor, or 2e-2 if larger).
+  7b. remat  - stablelm-12b at full width over 4 layers, bf16, packed
+               QAT, one training step's loss and gradients with
+               remat="full" and "none" (`remat_phase`): loss bit-identical,
+               gradient max diff 0, the peak device memory of each (lower
+               with remat, or the phase fails).
   8. result  - a {"kernels": [...]} line, then the device line last.
 
 Exits non-zero without CUDA, and outside a checkout of the repository.
@@ -234,6 +269,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -342,6 +378,12 @@ BLOCK_SWEEP_KN = ((1024, 3072), (3072, 1024))  # the planner's threshold
 DEQUANT_PACKED = (1024, 3072)        # int16 words of one weight panel
 DEQUANT_PLANES = (1_600_000, 64)     # the MIMO W planes (row 5's shape)
 DEC_SHAPE = (4, 160, 8, 2, 64)       # decode: B, Smax, KV, G, dh of serve
+# Formats past the canonical kernels' first designs (faults 7-9): int32
+# words (M + E > 16), E 5-7 (32-128 exponents), and int16 block-VP
+# significands at the blocks the int32 contract admits (M 9-12 at 256)
+WIDE = {"M13E4": (13, 4), "M16E1": (16, 1), "M7E5": (7, 5),
+        "M7E7": (7, 7), "M10E7": (10, 7)}
+BLOCK_WIDE = {"M10E2": (10, 2), "M12E3": (12, 3)}
 DEC_SWEEP = (160, 1024, 4096)        # decode valid lengths at B = 4
 # The engine phase: ragged requests (prompt and budget ranges, numpy seed
 # 0) through slots of pages up to the serve's Smax; run-ahead 4, then 1;
@@ -364,6 +406,13 @@ GEMMA_LAYERS, GEMMA_SERVE = 7, (2, 1152, 16)
 GEMMA_ENGINE_REQS = (3, (1040, 1152), (8, 16))
 GEMMA_ENGINE_SLOTS, GEMMA_ENGINE_CAP = 2, 1184
 STABLELM_LAYERS, STABLELM_SERVE = 4, (4, 128, 8)
+# Training with remat: stablelm at 4 layers, one step on (batch, seq)
+REMAT_BATCH = (4, 512)
+# The MoE family at full width, cut in depth (48 layers of qwen3-moe are
+# ~58 GB of int16 expert words, beside bf16 masters; mixtral's 56, ~4.8
+# GB of words each): layers served, then (batch, prompt, decode steps)
+MOE_LAYERS = {"qwen3-moe-30b-a3b": 8, "mixtral-8x22b": 2}
+MOE_SERVE = (4, 128, 16)
 WINDOW = "chip_smoke.window"        # profiler range around the profiled call
 LIBRARY_KERNELS = re.compile(
     r"gemm|cublas|cutlass|xmma|sm90_|sm80_|ampere_|flash_fwd|fmha|"
@@ -446,14 +495,18 @@ def main() -> None:
     rows = []
     for phase, *extra in (
             (kernel_phase, peaks, record), (block_kernel_phase, peaks, record),
+            (wide_kernel_phase, peaks, record),
             (mimo_kernel_phase, peaks, record),
             (train_kernel_phase, peaks, record), (serve_phase, record, rows),
             (serve_block_phase, record, rows, smi),
             (serve_block16_phase, record, rows, smi),
             (engine_phase, record, rows, smi),
             (dense_phase, record, rows, smi, peaks),
+            (formats_phase, record, rows, smi),
+            (moe_phase, record, rows, smi),
             (dequant_phase, record, rows),
-            (mimo_phase, record, rows, smi), (train_phase, record, rows, smi)):
+            (mimo_phase, record, rows, smi), (train_phase, record, rows, smi),
+            (remat_phase, record, rows, smi)):
         out = timed(phase, *extra)
         if phase.__name__.endswith("kernel_phase"):
             rows += out
@@ -767,7 +820,7 @@ def _attention_rows(torch, peaks, timer, gen, randn, words, vp, lines,
             for op in ("LDL", "STL", "HMMA")}
     inst = {}
     for sym in sass["HMMA"]:
-        m = (re.search(r"split_kernelI([ais])Li(\d+)ELi(8)E", sym)
+        m = (re.search(r"split_kernelI([ais])Li(\d+)ELi(8|32)E", sym)
              or re.search(r"split_kernelI([ais])Li(\d+)E", sym)
              or re.search(r"(tc)_kernelILi(\d+)E", sym)
              or re.search(r"(cc)_kernelI(f|13__nv_bfloat16)E", sym))
@@ -775,7 +828,7 @@ def _attention_rows(torch, peaks, timer, gen, randn, words, vp, lines,
             name = {"a": "decode int8 G<=", "s": "decode int16 G<=",
                     "i": "decode int32 G<=", "tc": "prefill tc dh ",
                     "cc": "prefill cc "}[m[1]] + m[2].replace(
-                        "13__nv_", "") + (" 8-byte" if m.re.groups == 3
+                        "13__nv_", "") + (f" {m[3]}-byte" if m.re.groups == 3
                                           else "")
             inst[name] = {op: sass[op][sym] for op in sass}
     print("[kernel] vp_attention SASS (LDL, STL, HMMA): " + "; ".join(
@@ -1206,6 +1259,8 @@ def _block_matmul_row(torch, peaks, timer, gen, fxp, vp, lines, record):
     record["igmma_block_matmul"] = igmma
     num_sms = torch.cuda.get_device_properties(0).multi_processor_count
     f32, bf16 = torch.float32, torch.bfloat16
+    # the bodies of int8 significands (int16 ones: wide_kernel_phase)
+    INT8_BODIES = ("skinny", "tensor_core", "dp4a")
 
     def check(ops_in, bk, body, what):
         """`body` (f32 and bf16 out) bit-identical to the plain version,
@@ -1266,7 +1321,7 @@ def _block_matmul_row(torch, peaks, timer, gen, fxp, vp, lines, record):
         nbytes = M * K + M * nk + K * N + nk * N + M * N * 4
         bnd = bound(peaks, nbytes, 2 * M * K * N, "int8")
         body_ms = {}
-        for body in BODY_COUNTER:
+        for body in INT8_BODIES:
             check(ops_in, BLOCK, body, [M, K, N])
             body_ms[body] = timer(lambda: block_vp_matmul_cuda(
                 *ops_in, vp, vp, BLOCK, f32, body=body))
@@ -1303,7 +1358,7 @@ def _block_matmul_row(torch, peaks, timer, gen, fxp, vp, lines, record):
         for M in BLOCK_SWEEP_M:
             ops_in = _block_operands(torch, gen, M, K, N, fxp, vp)
             t = {b: timer(lambda: block_vp_matmul_cuda(
-                *ops_in, vp, vp, BLOCK, f32, body=b)) for b in BODY_COUNTER}
+                *ops_in, vp, vp, BLOCK, f32, body=b)) for b in INT8_BODIES}
             a16 = block_vp_dequantize(ops_in[0], ops_in[1], vp, BLOCK,
                                       axis=-1).to(bf16)
             b16 = block_vp_dequantize(ops_in[2], ops_in[3], vp, BLOCK,
@@ -1688,7 +1743,7 @@ def _planes_grids(torch, timer, m, i, vp):
         plan_packed, plan_planes, planes_vec, split_packed)
 
     lib = build.library("vp_dequant")
-    fmt = build.vp_fmt_struct(vp)
+    fmt = build.vp_fmt_struct(vp, m.device)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -2788,8 +2843,9 @@ def _dense_cli(torch, tag, argv, requantizes=False, passes=None):
 def _dense_shapes(torch, tag, cfg, params, B, S, record):
     """The kernels of one dense run at the shapes its config gives them,
     each against its plain version on the same inputs (bf16, numpy seed
-    0): `qdot` of the run's own layer-0 weights at decode M = B and
-    prefill M = B * S, and of its lm_head at M = B (packed words:
+    0): `qdot` of the run's own layer-0 weights (attention, and the MLP
+    where the layer has one) at decode M = B and prefill M = B * S, and
+    of its lm_head at M = B (packed words:
     `vp_dequant_matmul` within BF16_TOL; planes: the planes dequant, then
     the same torch matmul; vp_block: `vp_block_quant`, then
     `block_vp_matmul`; these two bit for bit); the KV write
@@ -2816,7 +2872,7 @@ def _dense_shapes(torch, tag, cfg, params, B, S, record):
     layer = params["layers"][0]
     weights = {**{k: w for k, w in layer["attn"].items()
                   if isinstance(w, dict)},
-               **layer["mlp"], "lm_head": params["lm_head"]}
+               **layer.get("mlp", {}), "lm_head": params["lm_head"]}
     cases = []   # (what, fn, input, exact)
     for name, w in weights.items():
         kind = ("block" if "i_blk" in w else "planes" if "i_packed" in w
@@ -3338,6 +3394,614 @@ def _dense_engine(torch, tag, cfg, params, launches):
                 rel_logit_diff=rels, plain_floor=floor, limit=limit)
 
 
+# ---------------------------------------------------------------------------
+# 3b. the formats of faults 7-9 (int32 words, int16 vp_block, E 5-7)
+# ---------------------------------------------------------------------------
+
+def wide_kernel_phase(torch, peaks, record):
+    """Every kernel a wide format reaches, bit-identical to its plain
+    version (float sums within tolerance) and timed: int32 packed words
+    (VP(13, E 4), VP(16, E 1), VP(10, E 7)) through the quantizer, the
+    packed dequant (4 words a 16-byte load) and decode attention at dh
+    160 (stablelm, G 4) and 168 (gemma3's rolling ring, G 2) on 32-byte
+    lanes; int16 block-VP significands (M 10 E 2, M 12 E 3) through
+    `vp_block_quant` on every body and `block_vp_matmul`'s int16 body
+    at blocks 16 and 256; E 5 and E 7 (32 and 128 exponents) through
+    quantize (table and chain bodies), the KV mode, both dequants,
+    `vp_dequant_matmul` (skinny, tensor-core, CUDA-core bodies) and
+    decode.  Local memory counted in the new instances' SASS."""
+    from repro_torch.core.formats import FXPFormat, default_vp_format
+    from repro_torch.core.packing import storage_dtype
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.vp_attention import (plan_decode,
+                                                  vp_decode_attention_cuda)
+    from repro_torch.kernels.vp_block_matmul import block_vp_matmul_cuda
+    from repro_torch.kernels.vp_block_quant import block_vp_quant_cuda
+    from repro_torch.kernels.vp_dequant import (vp_dequant_packed_cuda,
+                                                vp_dequant_planes_cuda)
+    from repro_torch.kernels.vp_dequant_matmul import (fwd_body,
+                                                       vp_dequant_matmul_cuda)
+    from repro_torch.kernels.vp_quant import (vp_quant_packed_cuda,
+                                              vp_quant_planes_cuda)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    timer = Timer(torch)
+    fxp = FXPFormat(12, 11)
+    f32, bf16 = torch.float32, torch.bfloat16
+    fmts = {k: default_vp_format(fxp, M, E) for k, (M, E) in WIDE.items()}
+    out = {"sass": {}, "rows": []}
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def line(name, shape, ms, plain_ms, bnd, err=0.0):
+        print(f"[wide] {name} {shape}: max_abs_err {err:.3e} ms {ms:.4f} "
+              f"plain_ms {plain_ms:.4f} bound_ms {bnd[0]:.4f} ({bnd[1]})")
+        out["rows"].append(dict(name=name, shape=shape, ms=ms,
+                                plain_ms=plain_ms, bound_ms=bnd[0],
+                                bound_by=bnd[1], max_abs_err=err))
+
+    # -- SASS: local memory in the instances this slice adds -----------------
+    for lib, pat in (("vp_attention", r"split_kernelIiLi\d+ELi32E"),
+                     ("vp_dequant", r"packed_kernelIi"),
+                     ("vp_block_matmul", r"i16_kernel"),
+                     ("vp_block_quant", r"."), ("vp_quant", r".")):
+        counts = {op: _sass_counts(build._target(lib), build._nvcc(), op)
+                  for op in ("LDL", "STL")}
+        inst = {k: (counts["LDL"][k], counts["STL"][k])
+                for k in counts["LDL"] if re.search(pat, k)}
+        bad = {k: v for k, v in inst.items() if v != (0, 0)}
+        print(f"[wide] {lib} SASS: {len(inst)} instances matching {pat!r}, "
+              f"LDL/STL in {bad or 'none'}")
+        if not inst or bad:
+            raise AssertionError(f"{lib}: local memory or no instance: {bad}")
+        out["sass"][lib] = len(inst)
+
+    # -- quantize: table and chain bodies, planes, KV mode ----------------------
+    R, C = DEQUANT_PACKED
+    x = (randn(R, C) * 0.4).clamp(-0.999, 0.999)
+    edge = torch.tensor([0.0, 2 ** -11, -2 ** -11, 0.999, -1.0, 2 ** -20,
+                         1e-9, 0.5, -0.25, 2 ** -11 * 3], device="cuda")
+    for key, vp in fmts.items():
+        want = ref.vp_quant_packed_ref(x, fxp, vp)
+        for body in ("table", "chain"):
+            got = vp_quant_packed_cuda(x, fxp, vp, body=body)
+            _identical(torch, got, want, f"vp_quant_packed {key} {body}")
+            _identical(torch, vp_quant_packed_cuda(edge, fxp, vp, body=body),
+                       ref.vp_quant_packed_ref(edge, fxp, vp),
+                       f"vp_quant_packed {key} {body} edges")
+        wb = torch.empty((), dtype=storage_dtype(vp)).element_size()
+        ms = timer(lambda: vp_quant_packed_cuda(x, fxp, vp))
+        pms = timer(lambda: ref.vp_quant_packed_ref(x, fxp, vp))
+        line(f"vp_quant_packed {key} ({wb}-byte words)", (R, C), ms, pms,
+             bound(peaks, R * C * (4 + wb), 0, "f32"))
+        m, i = vp_quant_planes_cuda(x, fxp, vp)
+        wm, wi = ref.vp_quant_ref(x, fxp, vp)
+        _identical(torch, m, wm, f"vp_quant_planes {key} m")
+        _identical(torch, i, wi, f"vp_quant_planes {key} i")
+        kv = randn(4, 16, 8, 64, dtype=bf16)
+        gw, gs = ops.vp_quant_scaled(kv, fxp, vp)
+        ww, ws = ref.vp_quant_scaled_ref(kv, fxp, vp)
+        _identical(torch, gw, ww, f"vp_quant_scaled {key} words")
+        _identical(torch, gs, ws, f"vp_quant_scaled {key} scales")
+
+        # -- both dequants --------------------------------------------------
+        w = want
+        for dt in (f32, bf16):
+            got = vp_dequant_packed_cuda(w, vp, dt)
+            _identical(torch, got, ref.vp_dequant_packed_ref(w, vp, dt),
+                       f"vp_dequant_packed {key} {dt}")
+            for lo, n in ((1, 1000), (3, 4099), (5, 7)):   # unaligned slices
+                sl = w.reshape(-1)[lo:lo + n]
+                _identical(torch, vp_dequant_packed_cuda(sl, vp, dt),
+                           ref.vp_dequant_packed_ref(sl, vp, dt),
+                           f"vp_dequant_packed {key} {dt} slice {lo}")
+            _identical(torch, vp_dequant_planes_cuda(m, i, vp, dt),
+                       ref.vp_dequant_ref(m, i, vp, dt),
+                       f"vp_dequant_planes {key} {dt}")
+        ms = timer(lambda: vp_dequant_packed_cuda(w, vp, bf16))
+        pms = timer(lambda: ref.vp_dequant_packed_ref(w, vp, bf16))
+        line(f"vp_dequant_packed {key} -> bf16", (R, C), ms, pms,
+             bound(peaks, R * C * (wb + 2), 0, "f32"))
+
+        # -- vp_dequant_matmul on every body its planner gives this format ----
+        for M, K, N in ((4, 1024, 3072), (512, 1024, 1024), (33, 200, 72)):
+            wk = vp_quant_packed_cuda((randn(K, N) * 0.3).clamp(-.99, .99),
+                                      fxp, vp)
+            for dt, tol in ((f32, F32_RTOL), (bf16, BF16_TOL)):
+                xx = randn(M, K, dtype=dt)
+                got = vp_dequant_matmul_cuda(xx, wk, vp, dt)
+                err, _ = compare(torch, got, ref.vp_dequant_matmul_ref(
+                    xx, wk, vp, out_dtype=dt), tol,
+                    f"vp_dequant_matmul {key} {(M, K, N)} {dt} "
+                    f"({fwd_body(M, dt, vp)})")
+            if (M, K, N) == (4, 1024, 3072):
+                xx = randn(M, K, dtype=bf16)
+                ms = timer(lambda: vp_dequant_matmul_cuda(xx, wk, vp, bf16))
+                pms = timer(lambda: ref.vp_dequant_matmul_ref(
+                    xx, wk, vp, out_dtype=bf16))
+                line(f"vp_dequant_matmul {key} "
+                     f"{fwd_body(M, bf16, vp)}", (M, K, N), ms, pms,
+                     bound(peaks, K * N * wb + M * (K + N) * 2,
+                           2 * M * K * N, "bf16"), err)
+
+    # -- decode attention: int32 rows at dh 160 / 168, E 5-7 at dh 64 ----------
+    cases = [("M13E4", (4, 160, 8, 4, 160), [160, 150, 129, 100], None,
+              False),
+             ("M13E4", (2, 1024, 16, 2, 168), [1200, 700], 1024, True),
+             ("M10E7", (2, 1024, 16, 2, 168), [1025, 1024], 1024, True),
+             ("M16E1", (4, 160, 8, 4, 160), [1, 160, 77, 3], None, False),
+             ("M13E4", (4, 160, 4, 8, 64), [160, 33, 1, 99], None, False),
+             ("M13E4", (4, 160, 8, 6, 128), [160, 150, 129, 100], 64, False),
+             ("M7E5", (4, 160, 8, 2, 64), [160, 150, 129, 100], None, False),
+             ("M7E7", (4, 160, 8, 2, 64), [200, 170, 161, 300], 160, True)]
+    for key, (B, L, KV, G, dh), lens, window, rolling in cases:
+        vp = fmts[key]
+        H = KV * G
+        k_w, v_w = (vp_quant_packed_cuda(
+            (randn(B, L, KV, dh) * 0.3).clamp(-.99, .99), fxp, vp)
+            for _ in range(2))
+        pick = torch.tensor([2.0 ** -3, 0.5, 1.0, 2.0], device="cuda")
+        k_s, v_s = (pick[torch.randint(0, 4, (B, L, 1, 1), generator=gen,
+                                       device="cuda")] for _ in range(2))
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        args = (k_w, v_w, k_s, v_s, lengths, vp, window, rolling)
+        plan = plan_decode(KV, L, G, dh, k_w.element_size())
+        tag = (f"vp_decode_attention {key} B{B} L{L} KV{KV} G{G} dh{dh} "
+               f"{'rolling' if rolling else 'window' if window else 'full'}")
+        q = randn(B, 1, H, dh)
+        for dt, tol in ((f32, F32_RTOL), (bf16, BF16_TOL)):
+            qd = q.to(dt)
+            got = ops.vp_decode_attention(qd, *args)
+            err, _ = compare(torch, got, ref.vp_decode_attention_ref(
+                qd, *args), tol, f"{tag} {dt}")
+            _identical(torch, ops.vp_decode_attention(qd, *args), got,
+                       f"{tag} {dt}, two launches")
+        pre = q.reshape(B, KV, G, dh) * dh ** -0.5
+        one = vp_decode_attention_cuda(pre[:, :, :1].contiguous(), *args,
+                                       scale=1.0)
+        _identical(torch, one, vp_decode_attention_cuda(
+            pre, *args, scale=1.0)[:, :, :1],
+            f"{tag}: a row's bits independent of G")
+        ms = timer(lambda: ops.vp_decode_attention(q, *args))
+        pms = timer(lambda: ref.vp_decode_attention_ref(q, *args))
+        valid = sum(min(n, L) - (max(n - window, 0) if window and not
+                                 rolling else 0) for n in lens)
+        line(f"{tag} ({plan.lane_bytes}-byte lanes, {plan.slices} slices)",
+             (B, L, KV, G, dh), ms, pms,
+             bound(peaks, valid * KV * dh * 2 * k_w.element_size()
+                   + valid * 8 + 2 * B * H * dh * 4,
+                   4 * valid * H * dh, "f32"), err)
+
+    # -- int16 vp_block: the quantizer's bodies and the matmul's int16 body ----
+    for key, (M_, E_) in BLOCK_WIDE.items():
+        vp = default_vp_format(fxp, M_, E_)
+        for (R, C), block, axis, body, dt in (
+                ((4, 1024), 16, -1, "small", f32),
+                ((4, 3072), 256, -1, "small", f32),
+                ((512, 1024), 16, -1, "coop", f32),
+                ((512, 3072), 256, -1, "two_pass", f32),
+                ((1024, 3072), 16, 0, "general", bf16),
+                ((1024, 3072), 256, 0, "coop", bf16),
+                ((3072, 1024), 256, 0, "two_pass", bf16),
+                ((64, 96), 6, -1, "general", f32)):
+            xx = randn(R, C, dtype=dt) * 3
+            bf = dt == bf16
+            got = block_vp_quant_cuda(xx, fxp, vp, block, axis, bf,
+                                      body=body)
+            want = ref.block_vp_quant_ref(xx, fxp, vp, block, axis,
+                                          math_dtype=dt)
+            for g, w, part in zip(got, want, ("m", "i", "s")):
+                _identical(torch, g, w, f"vp_block_quant {key} {(R, C)} "
+                           f"block {block} axis {axis} {body} {part}")
+            if got[0].dtype != torch.int16:
+                raise AssertionError(f"vp_block_quant {key}: {got[0].dtype}")
+            if (R, C, block) in ((4, 3072, 256), (1024, 3072, 16)):
+                ms = timer(lambda: block_vp_quant_cuda(xx, fxp, vp, block,
+                                                       axis, bf, body=body))
+                pms = timer(lambda: ref.block_vp_quant_ref(
+                    xx, fxp, vp, block, axis, math_dtype=dt))
+                line(f"vp_block_quant {key} {body} block {block}", (R, C),
+                     ms, pms, bound(peaks, R * C * (dt.itemsize + 2), 0,
+                                    "f32"))
+        for bk in (16, 256):
+            for M, K, N in ((4, 1024, 3072), (512, 1024, 1024),
+                            (33, 512, 70)):
+                a = block_vp_quant_cuda(randn(M, K), fxp, vp, bk, -1, False)
+                b = block_vp_quant_cuda(randn(K, N) * 0.05, fxp, vp, bk, 0,
+                                        False)
+                for dt in (f32, bf16):
+                    got = ops.block_vp_matmul(a[0], a[1], b[0], b[1], vp, vp,
+                                              bk=bk, out_dtype=dt)
+                    _identical(torch, got, ref.block_vp_matmul_ref(
+                        a[0], a[1], b[0], b[1], vp, vp, bk, out_dtype=dt),
+                        f"block_vp_matmul {key} bk {bk} {(M, K, N)} {dt}")
+                if M in (4, 512):
+                    ms = timer(lambda: block_vp_matmul_cuda(
+                        a[0], a[1], b[0], b[1], vp, vp, bk, f32))
+                    pms = timer(lambda: ref.block_vp_matmul_ref(
+                        a[0], a[1], b[0], b[1], vp, vp, bk))
+                    line(f"block_vp_matmul {key} int16 bk {bk}", (M, K, N),
+                         ms, pms, bound(peaks, (M * K + K * N) * 2
+                                        + (M + N) * K // bk + M * N * 4,
+                                        2 * M * K * N, "f32"))
+    record["wide"] = out
+    print(f"[wide] {len(out['rows'])} timed rows; every check bit-identical "
+          "(float sums within tolerance)")
+    return []   # the rows of these kernels come from phases 3 and 4
+
+
+# ---------------------------------------------------------------------------
+# 4d. the formats of faults 7-9 through the serve CLI; remat; MoE
+# ---------------------------------------------------------------------------
+
+def _plain_greedy(torch, params, cfg, prompts, steps):
+    """Greedy tokens of the plain path (every op's plain PyTorch version,
+    on the card) from the same exported params and prompts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import run_static
+
+    with ops.force_backend("ref"):
+        tokens, _ = run_static(params, cfg, prompts, steps, {})
+    return tokens
+
+
+def _format_cli(torch, tag, argv, need):
+    """One f32 serve CLI run at a wide format: its launch counts (`need`:
+    kernels that must have run), then the plain path's greedy tokens from
+    the same exported params, equal to the CLI's."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+
+    run, seen = serve.run_static, {}
+
+    def held(params, cfg, prompts, gen, *a, **kw):
+        seen.update(params=params, cfg=cfg, prompts=prompts)
+        return run(params, cfg, prompts, gen, *a, **kw)
+
+    torch.cuda.empty_cache()
+    build.reset_launches()
+    serve.run_static = held
+    try:
+        # -- the main path: the serve CLI -----------------------------------
+        report = serve.main(argv + ["--dtype", "float32"])
+        counts = dict(build.LAUNCHES)
+        # -------------------------------------------------------------------
+    finally:
+        serve.run_static = run
+    _need(tag, counts, need)
+    plain = _plain_greedy(torch, seen["params"], seen["cfg"],
+                          seen["prompts"], report["gen"])
+    if plain.tolist() != report["tokens"]:
+        raise AssertionError(f"{tag} greedy tokens differ from the plain "
+                             f"path's: {report['tokens']} vs "
+                             f"{plain.tolist()}")
+    print(f"{tag} {' '.join(argv)}: f32, {report['layers']} layers, export "
+          f"{report['export_s']:.3f}s, prefill {report['prefill_s']:.4f}s, "
+          f"decode {report['decode_s'] / report['gen'] * 1e3:.3f} ms/step; "
+          f"greedy tokens equal to the plain path's; launches {counts}")
+    return dict(report, launches=counts)
+
+
+def _format_engine(torch, tag, argv, need):
+    """The engine through the serve CLI (chunked prefill over the packed
+    KV cache), f32: launch counts, then each request's tokens against the
+    plain path's greedy generation (`oracle_generate` on the plain ops)."""
+    import numpy as np
+
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import serve
+    from repro_torch.serving.runner import oracle_generate
+
+    run, seen = serve._run_engine, {}
+
+    def held(args, params, cfg, report):
+        seen.update(params=params, cfg=cfg, args=args)
+        return run(args, params, cfg, report)
+
+    torch.cuda.empty_cache()
+    build.reset_launches()
+    serve._run_engine = held
+    try:
+        # -- the main path: the engine through the serve CLI ------------------
+        report = serve.main(argv + ["--dtype", "float32"])
+        counts = dict(build.LAUNCHES)
+        # -------------------------------------------------------------------
+    finally:
+        serve._run_engine = run
+    _need(tag, counts, need)
+    args, params, cfg = seen["args"], seen["params"], seen["cfg"]
+    rng = np.random.default_rng(args.seed)
+    with ops.force_backend("ref"):
+        for i, got in enumerate(report["tokens"]):
+            prompt = [int(t) for t in rng.integers(0, cfg.vocab,
+                                                   args.prompt_len)]
+            want = oracle_generate(params, cfg, prompt, args.gen,
+                                   report["capacity"])
+            if got != want:
+                raise AssertionError(f"{tag} request {i}: {got} vs the "
+                                     f"plain path's {want}")
+    print(f"{tag} {' '.join(argv)}: f32, {report['n_requests']} requests, "
+          f"{report['total_tokens']} tokens, every request's tokens equal "
+          f"to the plain path's; launches {counts}")
+    return dict(report, launches=counts)
+
+
+def formats_phase(torch, record, rows, smi):
+    """The serve CLI at the formats faults 7-9 opened, each in f32 with
+    greedy tokens equal to the plain path's on the card (same exported
+    params and prompts), batch 4, prompt 16, 4 steps:
+
+    - `--quant vp --kv-quant --M 13 --E 4` (int32 weight and KV words) on
+      qwen2-0.5b (full depth; G 7), stablelm-12b (4 layers; dh 160 on
+      32-byte lanes) and gemma3-27b (7 layers; dh 168), and on qwen2
+      through the engine with `--prefill-chunk 32` over the int32 cache
+      (the packed dequant of the cached words);
+    - `--quant vp_block --block 16 --kv-quant` at `--M 10 --E 2` and
+      `--M 12 --E 3` on qwen2 (int16 significands: every body of the
+      quantizer that the path plans, the int16 matmul body);
+    - `--quant vp --kv-quant --M 7 --E 5` and `--E 7` on qwen2 (32 and
+      128 exponents)."""
+    tag = "[formats]"
+    out, launches = {}, collections.Counter()
+    short = ["--batch", str(BATCH), "--prompt-len", "16", "--gen", "4"]
+    m13 = ["--quant", "vp", "--kv-quant", "--M", "13", "--E", "4"]
+    for arch, layers, need in (
+            ("qwen2-0.5b", None, {"vp_dec_split": 1, "vp_dqmm_skinny": 1}),
+            ("stablelm-12b", STABLELM_LAYERS, {"vp_dec_split": 1}),
+            ("gemma3-27b", GEMMA_LAYERS, {"vp_dec_split": 1})):
+        extra = ["--layers", str(layers)] if layers else []
+        res = _format_cli(torch, f"{tag} {arch} M13 E4",
+                          ["--arch", arch, *m13, *extra, *short], need)
+        out[f"{arch} M13 E4"] = res
+        launches.update(res["launches"])
+    res = _format_engine(
+        torch, f"{tag} qwen2-0.5b M13 E4 engine",
+        ["--arch", "qwen2-0.5b", *m13, "--engine", "--batch", "3",
+         "--max-slots", "2", "--page-size", "16", "--prompt-len", "72",
+         "--gen", "4", "--prefill-chunk", "32"],
+        {"vp_dequant_packed": 1, "vp_dec_split": 1})
+    out["qwen2-0.5b M13 E4 engine"] = res
+    launches.update(res["launches"])
+    for M, E in ((10, 2), (12, 3)):
+        res = _format_cli(
+            torch, f"{tag} qwen2-0.5b vp_block16 M{M} E{E}",
+            ["--arch", "qwen2-0.5b", "--quant", "vp_block", "--block", "16",
+             "--kv-quant", "--M", str(M), "--E", str(E), *short],
+            {"vp_bmm_i16": 1, "vp_bq_general": 1, "vp_bq_small": 1})
+        out[f"qwen2-0.5b vp_block16 M{M} E{E}"] = res
+        launches.update(res["launches"])
+    for E in (5, 7):
+        res = _format_cli(
+            torch, f"{tag} qwen2-0.5b M7 E{E}",
+            ["--arch", "qwen2-0.5b", "--quant", "vp", "--kv-quant", "--M",
+             "7", "--E", str(E), *short],
+            {"vp_dec_split": 1, "vp_qp_table": 1, "vp_dqmm_skinny": 1})
+        out[f"qwen2-0.5b M7 E{E}"] = res
+        launches.update(res["launches"])
+    for row in rows:
+        if launches.get(row["name"]):
+            row["formats_launches"] = launches[row["name"]]
+    record["formats"] = dict(out, launches=dict(launches))
+    print(f"{tag} launches over the phase's runs: {dict(launches)}; {smi}")
+
+
+def remat_phase(torch, record, rows, smi):
+    """stablelm-12b at full width, 4 layers, bf16: one training step's
+    loss and gradients (packed QAT: the quant, `vp_dequant_matmul` and
+    `vp_matmul_dx` kernels) with remat="full" and with "none", batch 4 x
+    512 tokens; each run's peak device memory (max_memory_allocated after
+    a reset, the parameters resident; each run's gradients moved to the
+    host before the next), the loss bit-identical and every gradient's
+    max difference (0: the recomputation repeats the same kernels)."""
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.kernels import build
+    from repro_torch.models.model import init_params, stack_layers
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.tree import tree_paths
+
+    tag = "[remat]"
+    cfg = _dense_cfg("stablelm-12b", QuantConfig(mode="vp", qat_mode="packed"),
+                     layers=STABLELM_LAYERS)
+    params = stack_layers(init_params(cfg, seed=0, device="cuda"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, REMAT_BATCH, generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, dims=1)}
+    value_and_grad(params, batch, cfg)   # warm-up: libraries, tables
+    out, grads = {}, {}
+    for remat in ("full", "none"):
+        c = dataclasses.replace(cfg, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        # -- the main path: one training step's loss and gradients -----------
+        loss, _, g = value_and_grad(params, batch, c)
+        torch.cuda.synchronize()
+        counts = dict(build.LAUNCHES)
+        # -------------------------------------------------------------------
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        _need(f"{tag} remat={remat}", counts, {
+            "vp_dequant_matmul": 1, "vp_matmul_dx": 1, "vp_qp_table": 1})
+        grads[remat] = {p: t.cpu() for p, t in tree_paths(g)}
+        del g
+        out[remat] = dict(loss=float(loss), seconds=dt, peak_bytes=peak,
+                          resident_bytes=base, launches=counts)
+        print(f"{tag} stablelm-12b ({STABLELM_LAYERS} layers, bf16, "
+              f"{REMAT_BATCH[0]} x {REMAT_BATCH[1]} tokens) remat={remat}: "
+              f"loss {float(loss):.6f}, {dt:.3f}s, peak memory "
+              f"{peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} GB above the "
+              f"{base / 1e9:.3f} GB resident); launches {counts}")
+    diff = max(float((grads["full"][p].float()
+                      - grads["none"][p].float()).abs().max())
+               for p in grads["none"])
+    if out["full"]["loss"] != out["none"]["loss"] or diff != 0.0:
+        raise AssertionError(f"{tag} remat changed the step: loss "
+                             f"{out['full']['loss']} vs {out['none']['loss']}"
+                             f", gradient max diff {diff}")
+    if out["full"]["peak_bytes"] >= out["none"]["peak_bytes"]:
+        raise AssertionError(f"{tag} remat did not lower the peak: {out}")
+    print(f"{tag} loss bit-identical, gradient max diff {diff}; peak "
+          f"{out['full']['peak_bytes'] / 1e9:.3f} GB with remat against "
+          f"{out['none']['peak_bytes'] / 1e9:.3f} GB without; {smi}")
+    record["remat"] = dict(out, grad_max_diff=diff)
+
+
+def _moe_shapes(torch, tag, cfg, params, B, smax, record):
+    """The MoE run's own kernels at the shapes its config gives them,
+    each against its plain version on the same inputs: layer 0's stacked
+    expert words (w_gate, w_up: (E, d, ff); w_down: (E, ff, d)) through
+    `ops.vp_dequant`, one launch over the whole stack as `moe._w` makes
+    it, into bf16 and f32 against `ref.vp_dequant_packed_ref`, bit for
+    bit; and the decode attention at the run's (B, smax, KV, G, dh) over
+    the KV format's words (the config's window, which the run's cache
+    never passes) with random per-position scales (seed 1), against
+    `ref.vp_decode_attention_ref` in f32 within F32_RTOL and bf16 within
+    BF16_TOL, bit-identical over two launches."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.attention import kv_cache_formats
+
+    moe, done = params["layers"][0]["moe"], []
+    _, vp = kv_cache_formats(cfg.quant)
+    for name in ("w_gate", "w_up", "w_down"):
+        w = moe[name]["w_packed"]
+        for dt in (torch.bfloat16, torch.float32):
+            got = ops.vp_dequant(w, None, vp, dt)
+            _identical(torch, got, ref.vp_dequant_packed_ref(w, vp, dt),
+                       f"{tag} expert dequant {name} {list(w.shape)} "
+                       f"{w.dtype} -> {dt}")
+            del got
+            done.append(f"{name} {list(w.shape)} -> {str(dt)[6:]}")
+    fxp, vp = kv_cache_formats(cfg.quant)
+    KV, dh = cfg.n_kv_heads, cfg.head_dim
+    G = cfg.n_heads // KV
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    scales = torch.tensor([2.0 ** -3, 2.0 ** -2, 0.5, 1.0, 2.0],
+                          device="cuda")
+    k_w, v_w = (ops.vp_quant((randn(B, smax, KV, dh) * 0.3).clamp(
+        -0.99, 0.99), fxp, vp, packed=True) for _ in range(2))
+    k_s, v_s = (scales[torch.randint(0, 5, (B, smax, 1, 1), generator=gen,
+                                     device="cuda")] for _ in range(2))
+    lens = [smax, smax - 1, smax - 15, smax - smax // 3][:B]
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    args = (k_w, v_w, k_s, v_s, lengths, vp, cfg.sliding_window, False)
+    what = f"{tag} vp_decode_attention {[B, smax, KV, G, dh]} {k_w.dtype}"
+    q = randn(B, 1, KV * G, dh)
+    got = ops.vp_decode_attention(q, *args)
+    compare(torch, got, ref.vp_decode_attention_ref(q, *args), F32_RTOL,
+            what)
+    _identical(torch, ops.vp_decode_attention(q, *args), got,
+               f"{what}, two launches")
+    qb = q.to(torch.bfloat16)
+    compare(torch, ops.vp_decode_attention(qb, *args),
+            ref.vp_decode_attention_ref(qb, *args), BF16_TOL, f"{what} bf16")
+    done.append(f"decode {[B, smax, KV, G, dh]} lengths {lens}")
+    print(f"{tag} expert dequant bit-identical to its plain version, decode "
+          f"attention within tolerance (f32, bf16): " + "; ".join(done))
+    record.setdefault("moe_shapes", {})[tag] = done
+
+
+def moe_phase(torch, record, rows, smi):
+    """The MoE family through the static serve CLI at full width, bf16,
+    `--quant vp --kv-quant`, random weights from seed 0: qwen3-moe-30b-a3b
+    over MOE_LAYERS[arch] layers (128 experts, top 8, GQA 32 / 4, dh 64)
+    and mixtral-8x22b over its cut (8 experts, top 2, GQA 48 / 8, dh 128,
+    window 4096), batch 4, prompt 128, 16 steps: tokens/s and launch
+    counts by kernel; every stacked expert weight dequantized by one
+    `vp_dequant_packed` launch a layer and pass (3 L per prefill and
+    decode step); the logits finite; a second run from the same params
+    and prompts gives the same tokens.  Then that run's own kernels at
+    its shapes against their plain versions (`_moe_shapes`: the expert
+    stacks' dequant, the decode attention; `_dense_shapes`: the
+    attention weights, lm_head and KV writes), and an f32 run of the
+    same CLI (batch 4, prompt 16, 4 steps) whose greedy tokens equal the
+    plain path's on the card (`_format_cli`)."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+
+    tag = "[moe]"
+    out, launches = {}, collections.Counter()
+    run, seen = serve.run_static, {}
+
+    def held(params, cfg, prompts, gen, *a, **kw):
+        tokens, logits = run(params, cfg, prompts, gen, *a, **kw)
+        seen.update(params=params, cfg=cfg, prompts=prompts, logits=logits)
+        return tokens, logits
+
+    B, S, steps = MOE_SERVE
+    for arch, layers in MOE_LAYERS.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        serve.run_static = held
+        try:
+            # -- the main path: the serve CLI ----------------------------------
+            report = serve.main([
+                "--arch", arch, "--layers", str(layers), "--quant", "vp",
+                "--kv-quant", "--batch", str(B), "--prompt-len", str(S),
+                "--gen", str(steps)])
+            counts = dict(build.LAUNCHES)
+            # ---------------------------------------------------------------
+        finally:
+            serve.run_static = run
+        peak = torch.cuda.max_memory_allocated()
+        want_dq = 3 * layers * (steps + 1)
+        if counts.get("vp_dequant_packed") != want_dq:
+            raise AssertionError(f"{tag} {arch}: {counts.get('vp_dequant_packed')}"
+                                 f" expert dequant launches, want {want_dq}")
+        _need(f"{tag} {arch}", counts, {"vp_dec_split": layers * steps,
+                                        "flash_tc": layers,
+                                        "vp_dqmm_skinny": 1})
+        again, _ = run(seen["params"], seen["cfg"], seen["prompts"], steps, {})
+        if again.tolist() != report["tokens"]:
+            raise AssertionError(f"{tag} {arch}: a second run gave other "
+                                 "tokens")
+        cfg = seen["cfg"]
+        for lg in seen["logits"]:
+            if not bool(torch.isfinite(lg).all()):
+                raise AssertionError(f"{tag} {arch}: non-finite logits")
+        print(f"{tag} {arch}: {layers} of {serve.registry.get_config(arch).n_layers}"
+              f" layers at full width (d_model {cfg.d_model}, {cfg.n_experts}"
+              f" experts top {cfg.experts_per_token}, {cfg.n_heads} / "
+              f"{cfg.n_kv_heads} heads of {cfg.head_dim}, window "
+              f"{cfg.sliding_window}), weights {report['weight_bytes'] / 1e9:.3f}"
+              f" GB, export {report['export_s']:.3f}s, prefill {B}x{S} "
+              f"{report['prefill_s']:.4f}s, decode {steps} steps "
+              f"{report['decode_s']:.4f}s ({report['tokens_per_s']:.1f} tok/s)"
+              f", peak memory {peak / 1e9:.3f} GB; a second run gave the same"
+              f" tokens; launches {counts}")
+        _moe_shapes(torch, f"{tag} {arch}", cfg, seen["params"], B,
+                    S + steps, record)
+        _dense_shapes(torch, f"{tag} {arch}", cfg, seen["params"], B, S,
+                      record)
+        seen.clear()
+        res = _format_cli(
+            torch, f"{tag} {arch}",
+            ["--arch", arch, "--layers", str(layers), "--quant", "vp",
+             "--kv-quant", "--batch", str(B), "--prompt-len", "16", "--gen",
+             "4"],
+            {"vp_dequant_packed": 3 * layers * 5, "vp_dec_split": layers * 4,
+             "vp_dqmm_skinny": 1})
+        out[arch] = dict(report, launches=counts, peak_bytes=peak, f32=res)
+        launches.update(counts)
+    for row in rows:
+        if launches.get(row["name"]):
+            row["moe_launches"] = launches[row["name"]]
+    record["moe"] = dict(out, launches=dict(launches))
+    print(f"{tag} launches over the phase's runs: {dict(launches)}; {smi}")
+
+
 def dequant_phase(torch, record, rows):
     """The public op `ops.vp_dequant` on the card: the packed words of
     one weight panel into f32 and bf16, the MIMO W planes (int8
@@ -3457,7 +4121,7 @@ def mimo_kernel_phase(torch, peaks, record):
         blocks, threads = plan_packed(x.numel(), num_sms)
         build.check(qlib, qlib.vp_quant_planes_launch(
             x.data_ptr(), m.data_ptr(), m.element_size(), i.data_ptr(),
-            x.numel(), ctypes.byref(build.quant_fmt_struct(f_, v_)), code,
+            x.numel(), ctypes.byref(build.quant_fmt_struct(f_, v_, m.device)), code,
             blocks, threads, stream), "vp_quant_planes")
         return m, i
 
@@ -3681,8 +4345,9 @@ def mimo_kernel_phase(torch, peaks, record):
     # The batch body beside the warp body (the first design), through the
     # C entry (not counted), unmasked.
     mlib = build.library("vp_quant_matmul")
-    qa, qb = build.quant_fmt_struct(wf, wv), build.quant_fmt_struct(yf, yv)
     out = torch.empty((G, M, N), dtype=torch.float32, device="cuda")
+    qa = build.quant_fmt_struct(wf, wv, out.device)
+    qb = build.quant_fmt_struct(yf, yv, out.device)
 
     def fused_c(code):
         return mlib.vp_quant_matmul_launch(
@@ -4090,16 +4755,22 @@ def mimo_phase(torch, record, rows, smi):
 # 6. the training path's kernels
 # ---------------------------------------------------------------------------
 
-def _sass_counts(lib_path: Path, nvcc: str, opcode: str = "HGMMA"):
-    """{kernel symbol: count of `opcode` in its SASS} from the cuobjdump
-    beside `nvcc` (the toolkit that built the library)."""
+@functools.lru_cache(maxsize=None)
+def _sass(lib_path: Path, nvcc: str) -> str:
+    """The SASS of a built library, from the cuobjdump beside `nvcc` (the
+    toolkit that built it); dumped once per library and run."""
     cuobjdump = Path(nvcc).with_name("cuobjdump")
     if not cuobjdump.exists():
         raise RuntimeError(f"no cuobjdump beside {nvcc}: cannot show the "
                            "tensor cores in the SASS")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+    return subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
+
+
+def _sass_counts(lib_path: Path, nvcc: str, opcode: str = "HGMMA"):
+    """{kernel symbol: count of `opcode` in its SASS} (`_sass`)."""
+    sass = _sass(lib_path, nvcc)
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -4236,7 +4907,7 @@ def train_kernel_phase(torch, peaks, record):
 
     # -- the CUDA-core body through its C entry, in the same run --------------
     lib = build.library("vp_bwd_matmul")
-    f_c = build.vp_fmt_struct(vp)
+    f_c = build.vp_fmt_struct(vp, torch.device("cuda", 0))
     stream = torch.cuda.current_stream().cuda_stream
     cuda_core = {}
     for (M, K, N) in TRAIN_SHAPES:

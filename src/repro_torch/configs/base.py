@@ -1,7 +1,7 @@
 """Model configuration schema (a copy of `repro.configs.base` cut to
-the fields the dense serving and training paths read; other families'
-fields come with their slices, and `family` lets the model reject them
-until then).
+the fields the dense and MoE serving and training paths read; other
+families' fields come with their slices, and `family` lets the model
+reject them until then).
 """
 from __future__ import annotations
 
@@ -68,6 +68,9 @@ class ModelConfig:
     sliding_window: Optional[int] = None      # SWA on every layer
     local_global_period: int = 0              # gemma3: every Nth layer global
     local_window: int = 1024                  # local-attention window
+    # MoE
+    n_experts: int = 0
+    experts_per_token: int = 0
     dtype: str = "bfloat16"
     quant: QuantConfig = QuantConfig()
     remat: str = "none"              # none | full | dots (act checkpointing)

@@ -1,5 +1,5 @@
-"""Architecture registry of the port: the dense configs it serves (the
-reference's other families come with their slices).
+"""Architecture registry of the port: the dense and MoE configs it
+serves (the reference's other families come with their slices).
 
 `get_config` returns the full-width config (the card's target);
 `get_smoke_config` the reduced one the CPU tests use.
@@ -10,13 +10,16 @@ import dataclasses
 from typing import Optional
 
 from .base import ModelConfig, QuantConfig
-from . import gemma3_27b, qwen2_0_5b, qwen3_0_6b, stablelm_12b
+from . import (gemma3_27b, mixtral_8x22b, qwen2_0_5b, qwen3_0_6b,
+               qwen3_moe_30b_a3b, stablelm_12b)
 
 _MODULES = {
     "qwen2-0.5b": qwen2_0_5b,
     "qwen3-0.6b": qwen3_0_6b,
     "stablelm-12b": stablelm_12b,
     "gemma3-27b": gemma3_27b,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
+    "mixtral-8x22b": mixtral_8x22b,
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -11,6 +11,11 @@ from .convert import scale_table
 from .formats import FXPFormat, VPFormat
 
 
+# Every `significand_dtype(M)` of a format the quantizers serve (M <= 16):
+# the significand planes the CUDA kernels read and write.
+SIGNIFICAND_DTYPES = (torch.int8, torch.int16)
+
+
 def significand_dtype(M: int) -> torch.dtype:
     """Significand plane type: int8 for M <= 8, int16 to 16, else int32."""
     if M <= 8:

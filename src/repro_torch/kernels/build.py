@@ -22,7 +22,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import torch
 
@@ -33,7 +33,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / ".repro_torch_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-VP_MAX_K = 16
+VP_MAX_K = 128   # csrc/vp_common.cuh: exponent options, E <= 7
+VP_CHAIN_K = 16   # ... held in the struct (more: a table in device memory)
 VP_IDX_TAB = 33   # csrc/vp_common.cuh: bit lengths 0..32
 
 # Launches per kernel since the last `reset_launches()`.
@@ -48,14 +49,44 @@ _F = ctypes.c_float
 class VPFmtC(ctypes.Structure):
     """`struct VPFmt` of csrc/vp_common.cuh."""
     _fields_ = [("E", _I), ("K", _I), ("m_lo", _I), ("m_hi", _I),
-                ("scale", ctypes.c_float * VP_MAX_K)]
+                ("scale", ctypes.c_float * VP_CHAIN_K), ("wide", _P)]
 
 
 class QuantFmtC(ctypes.Structure):
     """`struct QuantFmt` of csrc/vp_common.cuh."""
     _fields_ = [("vp", VPFmtC), ("two_f", ctypes.c_float),
                 ("raw_lo", ctypes.c_float), ("raw_hi", ctypes.c_float),
-                ("shift", _I * VP_MAX_K), ("idx_tab", _I * VP_IDX_TAB)]
+                ("shift", _I * VP_CHAIN_K), ("idx_tab", _I * VP_IDX_TAB),
+                ("wide_shift", _P)]
+
+
+# A format of K > VP_CHAIN_K (E 5-7) keeps all its scales and shifts in
+# device memory, one table per format and CUDA device, alive with the
+# process: its struct carries their addresses.  The wrappers pass the
+# device of the launch's tensors; a struct made without one (the
+# host-side checks) carries none.  The table is copied to the device
+# when the format first launches there, which must not be inside a CUDA
+# graph's capture: the engine runs every step eagerly before it
+# captures it.
+_WIDE_TABLES: Dict[tuple, torch.Tensor] = {}
+
+
+def _wide_table(key: tuple, values, dtype: torch.dtype,
+                device: Optional[torch.device]) -> Optional[int]:
+    if device is None or device.type != "cuda":
+        return None
+    key += (device,)
+    t = _WIDE_TABLES.get(key)
+    if t is None:
+        with torch.cuda.device(device):
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    f"{key[1:-1]}: the format's table in device memory is "
+                    "first needed inside CUDA graph capture; launch the "
+                    "format once eagerly on this device first")
+            t = _WIDE_TABLES[key] = torch.tensor(values, dtype=dtype,
+                                                 device=device)
+    return t.data_ptr()
 
 
 _SIGNATURES = {
@@ -92,9 +123,10 @@ _SIGNATURES = {
         "block_vp_matmul_skinny_launch": [_P] * 5 + [_I] * 7 + [_P] * 3,
         "block_vp_matmul_tc_launch": [_P] * 5 + [_I] * 4 + [_P] * 3,
         "block_vp_matmul_dp4a_launch": [_P] * 5 + [_I] * 5 + [_P] * 3,
+        "block_vp_matmul_i16_launch": [_P] * 5 + [_I] * 5 + [_P] * 3,
     },
     "vp_block_quant": {
-        "vp_block_quant_launch": [_P] * 6 + [_LL, _LL] + [_I] * 11
+        "vp_block_quant_launch": [_P] * 6 + [_LL, _LL] + [_I] * 12
                                  + [_P, _P],
         "vp_block_amax_launch": [_P] * 4 + [_LL, _LL] + [_I] * 3 + [_P],
     },
@@ -122,28 +154,39 @@ def reset_launches() -> None:
     LAUNCHES.clear()
 
 
-# The format structs are built once per format (a launch's host time
-# counts on decode paths) and only read: the kernels take them as const.
+# The format structs are built once per format and device (a launch's
+# host time counts on decode paths) and only read: the kernels take them
+# as const.  `device` is that of the launch's tensors.
 @functools.lru_cache(maxsize=None)
-def vp_fmt_struct(vp: VPFormat) -> VPFmtC:
+def vp_fmt_struct(vp: VPFormat,
+                  device: Optional[torch.device] = None) -> VPFmtC:
     if vp.K > VP_MAX_K:
-        raise ValueError(f"{vp}: the CUDA kernels take K <= {VP_MAX_K}")
+        raise ValueError(f"{vp}: the CUDA kernels take K <= {VP_MAX_K} "
+                         f"(E <= 7)")
     s = VPFmtC(E=vp.E, K=vp.K, m_lo=vp.raw_min, m_hi=vp.raw_max)
-    for k, fk in enumerate(vp.f):
-        s.scale[k] = 2.0 ** (-fk)
+    scales = [2.0 ** (-fk) for fk in vp.f]
+    for k, sk in enumerate(scales[:VP_CHAIN_K]):
+        s.scale[k] = sk
+    if vp.K > VP_CHAIN_K:
+        s.wide = _wide_table(("scale", vp), scales, torch.float32, device)
     return s
 
 
 @functools.lru_cache(maxsize=None)
-def quant_fmt_struct(fxp: FXPFormat, vp: VPFormat) -> QuantFmtC:
+def quant_fmt_struct(fxp: FXPFormat, vp: VPFormat,
+                     device: Optional[torch.device] = None) -> QuantFmtC:
     """The format pair as the kernels take it, with the exponent-index
     table where the format has one (else zeros: the select chain)."""
     from .vp_quant import index_table, table_ok   # vp_quant imports build
 
-    s = QuantFmtC(vp=vp_fmt_struct(vp), two_f=2.0 ** fxp.F,
+    s = QuantFmtC(vp=vp_fmt_struct(vp, device), two_f=2.0 ** fxp.F,
                   raw_lo=fxp.raw_min, raw_hi=fxp.raw_max)
-    for k, fk in enumerate(vp.f):
-        s.shift[k] = fxp.F - fk
+    shifts = [fxp.F - fk for fk in vp.f]
+    for k, sk in enumerate(shifts[:VP_CHAIN_K]):
+        s.shift[k] = sk
+    if vp.K > VP_CHAIN_K:
+        s.wide_shift = _wide_table(("shift", fxp, vp), shifts, torch.int32,
+                                   device)
     if table_ok(fxp, vp):
         for L, i in enumerate(index_table(fxp, vp)):
             s.idx_tab[L] = i

@@ -28,7 +28,10 @@
 //      before the first is used.  Words are decoded in registers through
 //      a 2^-f table in shared memory.  Int8 rows of dh = 8 mod 16 (168
 //      bytes at gemma3's dh) are only 8-byte aligned: there a lane loads
-//      8 bytes (NB = 8), int16's 8 words a lane.
+//      8 bytes (NB = 8), int16's 8 words a lane.  Int32 rows past dh
+//      128 (M + E > 16 at stablelm's dh 160 and gemma3's 168) take two
+//      16-byte loads a lane (NB = 32: 8 words, up to dh 256), at most 4
+//      query rows a slice (the loads of four steps in flight double).
 //    - All G query rows of the GQA group use each decoded word: q.k is
 //      an FMA chain per lane and a shuffle reduction over the position's
 //      lanes; the pow2 scales multiply the score (k_s) and the
@@ -142,25 +145,36 @@ __device__ __forceinline__ void load_q(const void* q, long long e,
   for (int j = 0; j < NW; ++j) qv[j] = __fmul_rn(vp_to_float(src[j]), scale);
 }
 
-// A lane's NB bytes of a cache row at src: one 16-byte load, or one
-// 8-byte load into .x and .y.
+// A lane's NB bytes of a cache row: one 8-byte load (into .x and .y),
+// or NB / 16 16-byte loads (two at int32 rows past dh 128).
 template <int NB>
-__device__ __forceinline__ uint4 load_words(const void* src, bool ok) {
+struct LaneWords {
+  uint4 v[NB > 16 ? NB / 16 : 1];
+};
+
+template <int NB>
+__device__ __forceinline__ LaneWords<NB> load_words(const void* src, bool ok) {
+  LaneWords<NB> r;
   if constexpr (NB == 8) {
     const uint2 a = ok ? __ldg(reinterpret_cast<const uint2*>(src))
                        : make_uint2(0, 0);
-    return make_uint4(a.x, a.y, 0u, 0u);
+    r.v[0] = make_uint4(a.x, a.y, 0u, 0u);
   } else {
-    return ok ? __ldg(reinterpret_cast<const uint4*>(src))
-              : make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int c = 0; c < NB / 16; ++c)
+      r.v[c] = ok ? __ldg(reinterpret_cast<const uint4*>(src) + c)
+                  : make_uint4(0, 0, 0, 0);
   }
+  return r;
 }
 
-// Word j of the bytes v, sign-extended (shifts, not a pointer cast: a
-// cast would move v to local memory).
-template <typename WT>
-__device__ __forceinline__ int word_at(const uint4& v, int j) {
+// Word j of a lane's bytes, sign-extended (shifts, not a pointer cast: a
+// cast would move the words to local memory).
+template <typename WT, int NB>
+__device__ __forceinline__ int word_at(const LaneWords<NB>& w, int j) {
   constexpr int PER = 4 / sizeof(WT), BITS = 8 * sizeof(WT);
+  const uint4& v = w.v[j / (4 * PER)];
+  j %= 4 * PER;
   const unsigned c = j < PER ? v.x : j < 2 * PER ? v.y : j < 3 * PER ? v.z : v.w;
   return (int)(c << (32 - BITS - (j % PER) * BITS)) >> (32 - BITS);
 }
@@ -231,7 +245,7 @@ vp_decode_attention_split_kernel(const DecArgs p, const VPFmt f,
   const float* vsb = p.vs + (long long)b * p.smax;
 
   for (int t0 = r_lo; t0 < r_hi; t0 += DEC_UNROLL * pps) {
-    uint4 kk[DEC_UNROLL], vv[DEC_UNROLL];
+    LaneWords<NB> kk[DEC_UNROLL], vv[DEC_UNROLL];
     float kscale[DEC_UNROLL], vscale[DEC_UNROLL];
 #pragma unroll
     for (int u = 0; u < DEC_UNROLL; ++u) {
@@ -398,8 +412,9 @@ int dec_g(const DecArgs& p, const VPFmt& f, int B, int cluster, int q_bf16,
   if (p.gs <= 1) return dec_launch<WT, 1, NB>(p, f, B, cluster, q_bf16, s);
   if (p.gs <= 2) return dec_launch<WT, 2, NB>(p, f, B, cluster, q_bf16, s);
   if (p.gs <= 4) return dec_launch<WT, 4, NB>(p, f, B, cluster, q_bf16, s);
-  // 8 rows of 16 int8 words would not fit in registers
-  if constexpr (NB / sizeof(WT) <= 8) {
+  // 8 rows of 16 int8 words, or of 8 int32 words on 32-byte lanes, would
+  // not fit in registers
+  if constexpr (NB <= 16 && NB / sizeof(WT) <= 8) {
     if (p.gs <= 8) return dec_launch<WT, 8, NB>(p, f, B, cluster, q_bf16, s);
   }
   return (int)cudaErrorInvalidValue;
@@ -898,7 +913,8 @@ extern "C" int vp_decode_attention_launch(
   if (cluster < 1 || cluster > DEC_MAX_CLUSTER || warps < 1 ||
       warps > DEC_MAX_WARPS || lpp < 1 || lpp > 32 || (lpp & (lpp - 1)) ||
       (w_bytes != 1 && w_bytes != 2 && w_bytes != 4) ||
-      (lane_bytes != 16 && (lane_bytes != 8 || w_bytes != 1)) || gs < 1 ||
+      (lane_bytes != 16 && (lane_bytes != 8 || w_bytes != 1) &&
+       (lane_bytes != 32 || w_bytes != 4)) || gs < 1 ||
       gs > G ||
       dh % (lane_bytes / w_bytes) || lpp * (lane_bytes / w_bytes) < dh)
     return (int)cudaErrorInvalidValue;
@@ -906,6 +922,7 @@ extern "C" int vp_decode_attention_launch(
             (const int*)lengths, out, KV, G, dh, smax, window, rolling,
             gs, warps, lpp, scale};
   if (lane_bytes == 8) return dec_g<int8_t, 8>(p, *f, B, cluster, q_bf16, s);
+  if (lane_bytes == 32) return dec_g<int32_t, 32>(p, *f, B, cluster, q_bf16, s);
   switch (w_bytes) {
     case 1: return dec_g<int8_t, 16>(p, *f, B, cluster, q_bf16, s);
     case 2: return dec_g<int16_t, 16>(p, *f, B, cluster, q_bf16, s);

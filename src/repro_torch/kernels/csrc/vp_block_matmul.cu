@@ -19,7 +19,7 @@
 // at (512, 1024, 1024) the 3.7 MB moved take 1.1 us, the 1.07 G int8
 // operations 0.54 us.
 //
-// Three bodies; the wrapper (kernels/vp_block_matmul.py:block_body) picks
+// Four bodies; the wrapper (kernels/vp_block_matmul.py:block_body) picks
 // one from (M, K, N, bk) and the operands' alignment before the launch,
 // and nothing falls back:
 //
@@ -63,7 +63,12 @@
 //    transposed byte by byte while it is staged), a 4 x 4 tile of int32
 //    and f32 accumulators per thread, four products per __dp4a.
 //
-// Ragged M (and N on the dp4a body) are bounds-checked, not padded.
+// 4. int16, for int16 significands (M 9-16) at any bk:
+//    block_vp_matmul_i16_kernel, the dp4a body's tiling with int32
+//    multiply-adds (below).
+//
+// Ragged M (and N on the dp4a and int16 bodies) are bounds-checked, not
+// padded.
 #include <cooperative_groups.h>
 
 #include "vp_tc_mm.cuh"
@@ -177,9 +182,12 @@ block_vp_matmul_skinny_kernel(const BArgs p) {
   const int b_lo = z * p.nk / split;  // the block's first tile
   const bool keep = G > 1 || split > 1;
   const bool col_ok = col < p.N;
-  if (t < VP_MAX_K) {
+  if (t < VP_CHAIN_K) {
     tab_a[t] = p.fa.scale[t];
     tab_b[t] = p.fb.scale[t];
+  } else if (t < VP_MAX_K) {   // E 5-7: the rest from device memory
+    if (t < p.fa.K) tab_a[t] = __ldg(p.fa.wide + t);
+    if (t < p.fb.K) tab_b[t] = __ldg(p.fb.wide + t);
   }
   // The group's barrier (named barrier 1 + g, its 4 warps).
   auto group_sync = [&]() {
@@ -419,10 +427,15 @@ block_vp_matmul_tc_kernel(const BArgs p, const __grid_constant__ TcMaps maps) {
 
   if (tid == 0) {
 #pragma unroll
-    for (int k = 0; k < VP_MAX_K; ++k) {
+    for (int k = 0; k < VP_CHAIN_K; ++k) {
       tab_a[k] = p.fa.scale[k];
       tab_b[k] = p.fb.scale[k];
     }
+    // E 5-7: the rest from device memory
+#pragma unroll 1
+    for (int k = VP_CHAIN_K; k < p.fa.K; ++k) tab_a[k] = __ldg(p.fa.wide + k);
+#pragma unroll 1
+    for (int k = VP_CHAIN_K; k < p.fb.K; ++k) tab_b[k] = __ldg(p.fb.wide + k);
 #pragma unroll
     for (int st = 0; st < S; ++st) {
       mbar_init(full + st, 1);
@@ -710,6 +723,129 @@ int dp4a_launch(const void* a_m, const void* a_i, const void* b_m,
 }
 
 
+// ---------------------------------------------------------------------------
+// 4. int16 body
+// ---------------------------------------------------------------------------
+
+// int16 significands (M 9-16, where require_int_accum_safe admits the
+// format at this bk: M 9-12 at bk 256, 9-14 at bk 16): the dp4a body's
+// tiling with the staged rows in int16 (34 halves a row: 17 words, odd)
+// and two int32 multiply-adds per 32-bit word of each operand.  A
+// product needs up to 2M - 1 bits, neither dp4a's nor the s8 wgmma's.
+// Each k-tile's int32 sum is folded into the f32 accumulator as on the
+// other bodies, so it is bit-identical to ref.block_vp_matmul_ref in f32.
+// Bound: operations on the CUDA cores (2 IMAD per 2 products, against
+// the 1 dp4a per 4 of the int8 body); a simple right body first.
+constexpr int KPAD16 = KC + 2;   // row stride in int16 (odd words)
+
+template <typename OT>
+__global__ void __launch_bounds__(THREADS)
+block_vp_matmul_i16_kernel(const int16_t* __restrict__ a,
+                           const uint8_t* __restrict__ a_i,
+                           const int16_t* __restrict__ b,
+                           const uint8_t* __restrict__ b_i,
+                           OT* __restrict__ out, int M, int K, int N, int bk,
+                           VPFmt fa, VPFmt fb) {
+  __shared__ __align__(16) int16_t as[BM][KPAD16];
+  __shared__ __align__(16) int16_t bs[BN][KPAD16];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % TX, ty = tid / TX;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int nk = K / bk;
+
+  float acc[TM][TN];
+  int iacc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      acc[i][j] = 0.f;
+      iacc[i][j] = 0;
+    }
+
+  for (int t = 0; t < nk; ++t) {
+    const int k_end = (t + 1) * bk;
+    for (int k0 = t * bk; k0 < k_end; k0 += KC) {
+      const int kc = min(KC, k_end - k0);
+      for (int e = tid; e < BM * KC; e += THREADS) {
+        const int r = e / KC, c = e % KC;
+        const int gm = m0 + r;
+        as[r][c] = (gm < M && c < kc) ? a[(long long)gm * K + k0 + c] : 0;
+      }
+      for (int e = tid; e < KC * BN; e += THREADS) {
+        const int r = e / BN, c = e % BN;
+        const int gn = n0 + c;
+        bs[c][r] = (gn < N && r < kc) ? b[(long long)(k0 + r) * N + gn] : 0;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < KC / 2; ++q) {
+        int av[TM], bv[TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+          av[i] = reinterpret_cast<const int*>(as[ty + i * TY])[q];
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          bv[j] = reinterpret_cast<const int*>(bs[tx + j * TX])[q];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            // low halves sign-extended by the shift pair, high by >> 16
+            iacc[i][j] += ((av[i] << 16) >> 16) * ((bv[j] << 16) >> 16);
+            iacc[i][j] += (av[i] >> 16) * (bv[j] >> 16);
+          }
+      }
+      __syncthreads();
+    }
+    float sa[TM], sb[TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int gm = m0 + ty + i * TY;
+      sa[i] = gm < M ? vp_scale_of_index((int)a_i[(long long)gm * nk + t], fa)
+                     : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int gn = n0 + tx + j * TX;
+      sb[j] = gn < N ? vp_scale_of_index((int)b_i[(long long)t * N + gn], fb)
+                     : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float term =
+            __fmul_rn(__fmul_rn((float)iacc[i][j], sa[i]), sb[j]);
+        acc[i][j] = __fadd_rn(acc[i][j], term);
+        iacc[i][j] = 0;
+      }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + ty + i * TY;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int gn = n0 + tx + j * TX;
+      if (gn < N) out[(long long)gm * N + gn] = vp_from_float<OT>(acc[i][j]);
+    }
+  }
+}
+
+template <typename OT>
+int i16_launch(const void* a_m, const void* a_i, const void* b_m,
+               const void* b_i, void* out, int M, int K, int N, int bk,
+               const VPFmt& fa, const VPFmt& fb, cudaStream_t s) {
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  block_vp_matmul_i16_kernel<OT><<<grid, THREADS, 0, s>>>(
+      (const int16_t*)a_m, (const uint8_t*)a_i, (const int16_t*)b_m,
+      (const uint8_t*)b_i, (OT*)out, M, K, N, bk, fa, fb);
+  return (int)cudaGetLastError();
+}
+
 int fill_args(BArgs* p, const void* a_m, const void* a_i, const void* b_m,
               const void* b_i, void* out, int M, int K, int N, int out_dtype,
               const VPFmt* fa, const VPFmt* fb) {
@@ -802,6 +938,29 @@ extern "C" int block_vp_matmul_dp4a_launch(const void* a_m, const void* a_i,
     case VP_BF16:
       return dp4a_launch<__nv_bfloat16>(a_m, a_i, b_m, b_i, out, M, K, N, bk,
                                         *fa, *fb, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// int16 body: a_m and b_m int16 (M 9-16); any bk dividing K, any N, any
+// alignment.
+extern "C" int block_vp_matmul_i16_launch(const void* a_m, const void* a_i,
+                                          const void* b_m, const void* b_i,
+                                          void* out, int M, int K, int N,
+                                          int bk, int out_dtype,
+                                          const VPFmt* fa, const VPFmt* fb,
+                                          void* stream) {
+  if (bk <= 0 || K % bk) return (int)cudaErrorInvalidValue;
+  if ((M + BM - 1) / BM > 65535) return (int)cudaErrorInvalidConfiguration;
+  if (M == 0 || N == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (out_dtype) {
+    case VP_F32:
+      return i16_launch<float>(a_m, a_i, b_m, b_i, out, M, K, N, bk, *fa,
+                               *fb, s);
+    case VP_BF16:
+      return i16_launch<__nv_bfloat16>(a_m, a_i, b_m, b_i, out, M, K, N, bk,
+                                       *fa, *fb, s);
   }
   return (int)cudaErrorInvalidValue;
 }

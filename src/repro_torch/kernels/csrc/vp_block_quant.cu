@@ -18,10 +18,12 @@
 //   each block of `block` elements along the axis (the row for axis -1,
 //       the column for axis 0) takes the largest index of its elements,
 //       and every element is re-shifted at that index (vp_shift), clipped
-//       to the significand range and stored as int8.
+//       to the significand range and stored as int8 (M <= 8) or int16
+//       (M 9-16, core/vp_tensor.py:significand_dtype: a uniform branch
+//       at each store, the same stores at twice the width).
 //
-// Bound by bytes: x read once (4 or 2 bytes an element), one int8
-// significand and a uint8 index per block written.  What held the first
+// Bound by bytes: x read once (4 or 2 bytes an element), one int8 (or
+// int16) significand and a uint8 index per block written.  What held the first
 // design back was not bytes: a decode activation took three serialized
 // reads of x (16 blocks each taking the amax of the whole tensor, then
 // an index pass and a store pass) with byte stores, a prefill activation
@@ -105,7 +107,8 @@ enum ScaleFrom { FROM_CLUSTER, FROM_GRID, LOADED };
 
 struct BqArgs {
   const void* x;      // (R, C) f32 or bf16, contiguous
-  int8_t* m;          // (R, C) significands
+  void* m;            // (R, C) significands, int8 or (m16) int16
+  int m16;            // int16 significands (M 9-16), else int8
   uint8_t* idx;       // (R, C / block) for axis -1, (R / block, C) for 0
   float* s;           // the scale (one f32)
   float* part;        // per-block maxima (coop body, amax pass)
@@ -120,6 +123,46 @@ struct BqArgs {
   int chunk;          // axis -1: elements of a CUDA block (whole blocks)
   QuantFmt q;
 };
+
+// Significand stores: int8, or int16 (m16, a uniform branch) for M >= 9.
+__device__ __forceinline__ void store_m(const BqArgs& p, long long e, int v) {
+  if (p.m16)
+    static_cast<int16_t*>(p.m)[e] = (int16_t)v;
+  else
+    static_cast<int8_t*>(p.m)[e] = (int8_t)v;
+}
+
+// Four significands from element e (a multiple of 4): one 4- or 8-byte
+// store.
+__device__ __forceinline__ void store_m4(const BqArgs& p, long long e,
+                                         const int (&v)[BQ_VEC]) {
+  if (p.m16) {
+    *reinterpret_cast<uint2*>(static_cast<int16_t*>(p.m) + e) = make_uint2(
+        (v[0] & 0xFFFF) | (unsigned)v[1] << 16,
+        (v[2] & 0xFFFF) | (unsigned)v[3] << 16);
+  } else {
+    *reinterpret_cast<unsigned*>(static_cast<int8_t*>(p.m) + e) =
+        (v[0] & 255) | (v[1] & 255) << 8 | (v[2] & 255) << 16 |
+        (unsigned)v[3] << 24;
+  }
+}
+
+// Eight significands from element e: one 8- or 16-byte store where vec
+// (e aligned, 8 in the row), else element by element up to the row's end
+// (n of them).
+__device__ __forceinline__ void store_m8(const BqArgs& p, long long e,
+                                         bool vec, int n, const int (&v)[8]) {
+  if (vec) {
+    if (p.m16)
+      vp_store8(static_cast<int16_t*>(p.m) + e, v);
+    else
+      vp_store8(static_cast<int8_t*>(p.m) + e, v);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (k < n) store_m(p, e + k, v[k]);
+  }
+}
 
 __device__ __forceinline__ float load_x(const BqArgs& p, long long e) {
   return p.x_bf16 ? __bfloat162float(
@@ -276,7 +319,8 @@ __device__ __forceinline__ int entry(int key, const int* tab,
 // The shift and index tables in shared memory (the caller syncs).
 __device__ __forceinline__ void load_tables(const BqArgs& p, int* shift,
                                             int* tab) {
-  if (threadIdx.x < VP_MAX_K) shift[threadIdx.x] = vp_shift_of(threadIdx.x, p.q);
+  for (int k = threadIdx.x; k < VP_MAX_K; k += blockDim.x)
+    shift[k] = vp_shift_of(k, p.q);
   vp_index_table(tab, p.q);
 }
 
@@ -398,13 +442,11 @@ __device__ __forceinline__ void rows_body(const BqArgs& p) {
     const int o = BQ_VEC * (t + T * j);
     if (j < p.nv && o < len) {
       const int sh = entry<TABLE>(slot[o / p.block], tab, shift) >> 8;
-      unsigned word = 0;
+      int mv[BQ_VEC];
 #pragma unroll
-      for (int k = 0; k < BQ_VEC; ++k) {
-        const int mv = min(max(vp_shift(raw[j][k], sh), lo), hi);
-        word |= (unsigned)(mv & 255) << (8 * k);
-      }
-      *reinterpret_cast<unsigned*>(p.m + e0 + o) = word;
+      for (int k = 0; k < BQ_VEC; ++k)
+        mv[k] = min(max(vp_shift(raw[j][k], sh), lo), hi);
+      store_m4(p, e0 + o, mv);
     }
   }
   for (int k = t; k < nblk; k += T)
@@ -496,20 +538,14 @@ __device__ __forceinline__ void cols_store(const BqArgs& p, const Elem& el,
 #pragma unroll
   for (int j = 0; j < BQ_ROWS; ++j) {
     if (j >= nr) continue;
-    int8_t* out = p.m + (r0 + ty + BQ_TY * j) * p.C + c;
     float v[BQ_CV];
     unpack8(w[j], v);
     int mv[BQ_CV];
 #pragma unroll
     for (int k = 0; k < BQ_CV; ++k)
       mv[k] = min(max(vp_shift(el.raw<FAST>(v[k], p.q), sh[k]), lo), hi);
-    if (vec && c + BQ_CV <= p.C) {
-      vp_store8(out, mv);
-    } else {
-#pragma unroll
-      for (int k = 0; k < BQ_CV; ++k)
-        if (c + k < p.C) out[k] = (int8_t)mv[k];
-    }
+    store_m8(p, (r0 + ty + BQ_TY * j) * p.C + c, vec && c + BQ_CV <= p.C,
+             (int)min((long long)BQ_CV, p.C - c), mv);
   }
 }
 
@@ -646,10 +682,11 @@ __device__ __forceinline__ void general_rows(const BqArgs& p, const Elem& el,
       const int e = entry<TABLE>(key, tab, shift);
       if (j == 0) p.idx[b] = (uint8_t)(e & 255);
       for (int k = j; k < p.block; k += g)
-        p.m[e0 + k] = (int8_t)min(
-            max(vp_shift(el.raw<FAST>(vp_to_float(x[e0 + k]), p.q), e >> 8),
-                lo),
-            hi);
+        store_m(p, e0 + k,
+                min(max(vp_shift(el.raw<FAST>(vp_to_float(x[e0 + k]), p.q),
+                                 e >> 8),
+                        lo),
+                    hi));
     }
   }
 }
@@ -683,14 +720,8 @@ __device__ __forceinline__ void general_store(const BqArgs& p, const Elem& el,
   for (int k = 0; k < BQ_CV; ++k)
     mv[k] = min(max(vp_shift(el.raw<FAST>(v[k], p.q), sh[k]), p.q.vp.m_lo),
                 p.q.vp.m_hi);
-  int8_t* out = p.m + r * p.C + c;
-  if (vec && c + BQ_CV <= p.C) {
-    vp_store8(out, mv);
-  } else {
-#pragma unroll
-    for (int k = 0; k < BQ_CV; ++k)
-      if (c + k < p.C) out[k] = (int8_t)mv[k];
-  }
+  store_m8(p, r * p.C + c, vec && c + BQ_CV <= p.C,
+           (int)min((long long)BQ_CV, p.C - c), mv);
 }
 
 // Axis 0: tile blockIdx.x of `block` rows x 8 * (256 / gy) columns
@@ -883,9 +914,9 @@ int quant_launch(const BqArgs& p, int axis0, int body, int grid, int threads,
 
 }  // namespace
 
-// x (R, C) of x_dtype -> m (R, C) int8, idx (axis0 ? (R / block, C) :
-// (R, C / block)) uint8 and *s, all contiguous; bf16_math rounds the
-// scale and x / s to bf16.  body (kernels/vp_block_quant.py:plan): 0
+// x (R, C) of x_dtype -> m (R, C) int8 (m_bytes 1) or int16 (2), idx
+// (axis0 ? (R / block, C) : (R, C / block)) uint8 and *s, all
+// contiguous; bf16_math rounds the scale and x / s to bf16.  body (kernels/vp_block_quant.py:plan): 0
 // small (axis -1; one cluster of `grid` = `cluster` blocks), 1 coop
 // (every block resident), 2 two-pass, 3 general (both with amax_blocks
 // blocks of the amax pass first).  The fast axis -1 bodies take `chunk`
@@ -903,13 +934,15 @@ extern "C" int vp_block_quant_launch(const void* x, void* m, void* idx,
                                      int axis0, int x_dtype, int bf16_math,
                                      int body, int grid, int threads,
                                      int nv, int chunk, int amax_blocks,
-                                     int table,
+                                     int table, int m_bytes,
                                      const QuantFmt* q, void* stream) {
   const long long dim = axis0 ? R : C;
   const int vmax = body == 0 ? BQ_SMALL_V : BQ_V;
   if (block <= 0 || R < 0 || C < 0 || dim % block ||
       (x_dtype != VP_F32 && x_dtype != VP_BF16) || q->vp.K > VP_MAX_K ||
-      q->vp.m_lo < -128 || q->vp.m_hi > 127 || body < 0 || body > 3 ||
+      (m_bytes != 1 && m_bytes != 2) ||
+      q->vp.m_lo < (m_bytes == 1 ? -128 : -32768) ||
+      q->vp.m_hi > (m_bytes == 1 ? 127 : 32767) || body < 0 || body > 3 ||
       grid < 1 || threads < 32 || threads % 32 || amax_blocks < 0 ||
       (body >= 2) != (amax_blocks > 0))
     return (int)cudaErrorInvalidValue;
@@ -931,7 +964,8 @@ extern "C" int vp_block_quant_launch(const void* x, void* m, void* idx,
   if (R * C == 0) return 0;
   BqArgs p;
   p.x = x;
-  p.m = static_cast<int8_t*>(m);
+  p.m = m;
+  p.m16 = m_bytes == 2;
   p.idx = static_cast<uint8_t*>(idx);
   p.s = static_cast<float*>(s);
   p.part = static_cast<float*>(part);

@@ -6,7 +6,14 @@
 // and the matmul bodies that its VP x VP kernels share
 // (vp_mm_warp_kernel and vp_mm_tile_kernel below).  Formats are not
 // template parameters: they ride each launch as a small struct passed by
-// value, so one compiled kernel serves every format with K <= VP_MAX_K.
+// value, so one compiled kernel serves every format with K <= VP_MAX_K:
+// every E <= 7 (E 8 fails the int32 contracts at W 12).  The struct holds
+// the first VP_CHAIN_K = 16 options, all a canonical format has, and the
+// select chains run over them as they always have; a format with more
+// (E 5-7) also carries all its scales and shifts in device memory
+// (kernels/build.py makes them once per format), which the chains and
+// table fills read on a uniform branch that K <= 16 never takes.  Tables
+// in shared memory hold VP_MAX_K entries.
 //
 // Built with nvcc for sm_90a and without --use_fast_math: rintf, expf
 // and division must round as the plain PyTorch versions do.
@@ -17,15 +24,18 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#define VP_MAX_K 16
+#define VP_MAX_K 128   // exponent options a format may have (E <= 7)
+#define VP_CHAIN_K 16  // options the struct and the select chains hold
 
 // One VP(M, f) format.  Layout mirrors the ctypes structure in
-// repro_torch/kernels/build.py: every field is 4 bytes, no padding.
+// repro_torch/kernels/build.py: 4-byte fields, then an 8-byte pointer at
+// offset 80, no padding.
 struct VPFmt {
-  int E;                   // exponent-index bits
-  int K;                   // number of exponent options, 2^E
-  int m_lo, m_hi;          // significand range [-2^(M-1), 2^(M-1) - 1]
-  float scale[VP_MAX_K];   // 2^-f_k, exact powers of two
+  int E;                    // exponent-index bits
+  int K;                    // number of exponent options, 2^E
+  int m_lo, m_hi;           // significand range [-2^(M-1), 2^(M-1) - 1]
+  float scale[VP_CHAIN_K];  // 2^-f_k, exact powers of two (k < 16)
+  const float* wide;        // K > 16: all K scales in device memory
 };
 
 // Entries of the exponent-index table: one per bit length 0..32.
@@ -36,20 +46,25 @@ struct QuantFmt {
   VPFmt vp;
   float two_f;             // 2^F
   float raw_lo, raw_hi;    // FXP raw range
-  int shift[VP_MAX_K];     // s_k = F - f_k (negative: left shift)
+  int shift[VP_CHAIN_K];   // s_k = F - f_k (negative: left shift)
   // The Fig. 3 cascade's index as a function of the bit length of
   // raw ^ (raw >> 31) (kernels/vp_quant.py:index_table); all zero for a
   // format whose index is not such a function, which the wrappers send
   // to the select chain instead.
   int idx_tab[VP_IDX_TAB];
+  const int* wide_shift;   // K > 16: all K shifts in device memory
 };
 
 // 2^-f_i by a select chain over the format's table (K dependent
-// selects, no dynamically indexed parameter memory).
+// selects, no dynamically indexed parameter memory); a format of K > 16
+// reads it from its table in device memory (an index past K: scale[0],
+// as the chain gives it).
 __device__ __forceinline__ float vp_scale_of_index(int i, const VPFmt& f) {
+  if (f.K > VP_CHAIN_K) return __ldg(f.wide + ((unsigned)i < (unsigned)f.K
+                                               ? i : 0));
   float s = f.scale[0];
 #pragma unroll
-  for (int k = 1; k < VP_MAX_K; ++k) {
+  for (int k = 1; k < VP_CHAIN_K; ++k) {
     if (k < f.K && i == k) s = f.scale[k];
   }
   return s;
@@ -63,13 +78,13 @@ __device__ __forceinline__ float vp_dequant(int w, const VPFmt& f) {
   return (float)m * vp_scale_of_index(i, f);
 }
 
-// tab[k] = vp_scale_of_index(k, f) for k < VP_MAX_K, written by threads
-// 0 .. VP_MAX_K - 1 of a block: the select chain run once per block, and
-// vp_scale_lookup reads the same numbers back with one load (an index
-// past the table gets tab[0], as the chain gives scale[0]).
+// tab[k] = vp_scale_of_index(k, f) for k < VP_MAX_K, written by the
+// threads of a block in turn: the select chain run once per entry and
+// block, and vp_scale_lookup reads the same numbers back with one load
+// (an index past the format's K gets scale[0], as the chain gives it).
 __device__ __forceinline__ void vp_scale_table(float* tab, const VPFmt& f) {
-  if (threadIdx.x < VP_MAX_K)
-    tab[threadIdx.x] = vp_scale_of_index(threadIdx.x, f);
+  for (int k = threadIdx.x; k < VP_MAX_K; k += blockDim.x)
+    tab[k] = vp_scale_of_index(k, f);
 }
 
 __device__ __forceinline__ float vp_scale_lookup(int i, const float* tab) {
@@ -99,7 +114,7 @@ __device__ __forceinline__ void vp_quantize_raw(int raw, const QuantFmt& q,
   bool any = false;
   int s_last = q.shift[0];
 #pragma unroll
-  for (int k = 0; k < VP_MAX_K; ++k) {
+  for (int k = 0; k < VP_CHAIN_K; ++k) {
     if (k < q.vp.K) {
       const int mk = vp_shift(raw, q.shift[k]);
       const bool valid = mk >= q.vp.m_lo && mk <= q.vp.m_hi;
@@ -109,6 +124,20 @@ __device__ __forceinline__ void vp_quantize_raw(int raw, const QuantFmt& q,
       }
       any = any || valid;
       s_last = q.shift[k];
+    }
+  }
+  if (q.vp.K > VP_CHAIN_K) {   // E 5-7: the rest of the options
+#pragma unroll 1
+    for (int k = VP_CHAIN_K; k < q.vp.K; ++k) {
+      const int sk = __ldg(q.wide_shift + k);
+      const int mk = vp_shift(raw, sk);
+      const bool valid = mk >= q.vp.m_lo && mk <= q.vp.m_hi;
+      if (valid && !any) {
+        m_sel = mk;
+        i_sel = k;
+      }
+      any = any || valid;
+      s_last = sk;
     }
   }
   if (!any) {
@@ -128,11 +157,15 @@ __device__ __forceinline__ void vp_quantize_raw(int raw, const QuantFmt& q,
 // in turn; the caller syncs), and vp_quantize_raw_tab reads it with one
 // load: i, then m = vp_shift(raw, s_i) clipped, which is the chain's m
 // where option i fits and its saturating m where none does.
-// q.shift[k] by a select chain (no dynamically indexed parameter memory).
+// q.shift[k] by a select chain (no dynamically indexed parameter memory),
+// or from the table in device memory for a format of K > 16 (an index
+// past K: shift[0], as the chain gives it).
 __device__ __forceinline__ int vp_shift_of(int k, const QuantFmt& q) {
+  if (q.vp.K > VP_CHAIN_K)
+    return __ldg(q.wide_shift + ((unsigned)k < (unsigned)q.vp.K ? k : 0));
   int s = q.shift[0];
 #pragma unroll
-  for (int j = 1; j < VP_MAX_K; ++j)
+  for (int j = 1; j < VP_CHAIN_K; ++j)
     if (k == j) s = q.shift[j];
   return s;
 }

@@ -12,7 +12,8 @@
 //
 // Storage: int8 or int16 significand planes (VP(M <= 8) and VP(9..16);
 // core/vp_tensor.py:significand_dtype) with uint8 indices, and packed
-// words of 1 or 2 bytes: what the port's formats produce.
+// words of 1, 2 or 4 bytes (M + E > 16: int32): what the port's formats
+// produce.
 //
 // Bound: bytes.  Each element reads 1 or 2 bytes (plus the 1-byte index of
 // the planes layout) and writes 2 or 4, with a handful of integer
@@ -21,7 +22,7 @@
 // scale (the planes kernel at 21 % of its bf16 byte bound at a weight
 // panel, the packed one at 31 % / 19 % in f32 / bf16; PERF.md rows 6-7).
 // Both now read whole vectors a thread step: the packed kernel 16 bytes
-// of words (8 int16 or 16 int8); the planes kernel 16 bytes of
+// of words (4 int32, 8 int16 or 16 int8); the planes kernel 16 bytes of
 // significands (8 int16, or 16 int8 to bf16) or 8 (8 int8 to f32, so that
 // a step writes at most 32 bytes), with the step's indices in one 8- or
 // 16-byte load.  Each scale comes from a K-entry table in shared memory,
@@ -45,7 +46,7 @@ __device__ __forceinline__ OT vp_scaled(int m, float scale) {
   return vp_from_float<OT>(mo * scale);
 }
 
-// N (8 or 16) values in 16-byte stores to 16-byte aligned p.
+// N (4, 8 or 16) values in 16-byte stores to 16-byte aligned p.
 template <int N>
 __device__ __forceinline__ void store_vec(float* p, const float (&v)[N]) {
 #pragma unroll
@@ -54,17 +55,27 @@ __device__ __forceinline__ void store_vec(float* p, const float (&v)[N]) {
         make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
 }
 
+// N (4, 8 or 16) bf16 values to 16-byte aligned p (8-byte for N = 4:
+// the 4 int32 words of one load).
 template <int N>
 __device__ __forceinline__ void store_vec(__nv_bfloat16* p,
                                           const __nv_bfloat16 (&v)[N]) {
+  if constexpr (N == 4) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(
+        (uint32_t)__bfloat16_as_ushort(v[0]) |
+            (uint32_t)__bfloat16_as_ushort(v[1]) << 16,
+        (uint32_t)__bfloat16_as_ushort(v[2]) |
+            (uint32_t)__bfloat16_as_ushort(v[3]) << 16);
+  } else {
 #pragma unroll
-  for (int q = 0; q < N; q += 8) {
-    uint32_t u[4];
+    for (int q = 0; q < N; q += 8) {
+      uint32_t u[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      u[k] = (uint32_t)__bfloat16_as_ushort(v[q + 2 * k]) |
-             (uint32_t)__bfloat16_as_ushort(v[q + 2 * k + 1]) << 16;
-    *reinterpret_cast<uint4*>(p + q) = make_uint4(u[0], u[1], u[2], u[3]);
+      for (int k = 0; k < 4; ++k)
+        u[k] = (uint32_t)__bfloat16_as_ushort(v[q + 2 * k]) |
+               (uint32_t)__bfloat16_as_ushort(v[q + 2 * k + 1]) << 16;
+      *reinterpret_cast<uint4*>(p + q) = make_uint4(u[0], u[1], u[2], u[3]);
+    }
   }
 }
 
@@ -293,7 +304,7 @@ extern "C" int vp_dequant_planes_launch(const void* m, int m_bytes,
   return (int)cudaErrorInvalidValue;
 }
 
-// w: n packed words of `w_bytes` (1 or 2) bytes each, the first `head`
+// w: n packed words of `w_bytes` (1, 2 or 4) bytes each, the first `head`
 // of them before w's first 16-byte boundary; out: n values of out_dtype;
 // the grid from kernels/vp_dequant.py:plan_packed.  Returns the CUDA
 // error of the launch (cudaErrorInvalidValue for a head that does not
@@ -309,6 +320,9 @@ extern "C" int vp_dequant_packed_launch(const void* w, int w_bytes, void* out,
                                 threads, s);
     case 2:
       return packed_out<int16_t>(w, out, n, out_dtype, *f, head, blocks,
+                                 threads, s);
+    case 4:
+      return packed_out<int32_t>(w, out, n, out_dtype, *f, head, blocks,
                                  threads, s);
   }
   return (int)cudaErrorInvalidValue;

@@ -183,7 +183,10 @@ vp_dequant_matmul_skinny_kernel(const SkArgs p) {
   const int E = p.f.E, mask = p.f.K - 1;
   const bool vec = p.vec != 0;
   const WT* w = static_cast<const WT*>(p.w);
-  if (t < VP_MAX_K) tab[t] = p.f.scale[t];
+  if (t < VP_CHAIN_K)
+    tab[t] = p.f.scale[t];
+  else if (t < p.f.K)   // E 5-7: the rest from device memory
+    tab[t] = __ldg(p.f.wide + t);
 
   float acc[MT][8];
 #pragma unroll

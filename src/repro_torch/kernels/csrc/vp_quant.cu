@@ -10,8 +10,9 @@
 // Packed words (kernels/vp_quant.py: packed_body picks the body from
 // the format, plan_packed the grid).  Bound: bytes, 4 read and 1-4
 // written per element, once the cascade costs a few instructions: the
-// select chain of vp_common.cuh:vp_quantize_raw runs all VP_MAX_K = 16
-// steps for every element (~160 integer instructions), which made the
+// select chain of vp_common.cuh:vp_quantize_raw runs all VP_CHAIN_K = 16
+// steps for every element (~160 integer instructions; a format of E 5-7
+// continues it over its table in device memory), which made the
 // first design (one element per thread) issue-bound at 4.3x its byte
 // bound.  The table body takes the index in O(1)
 // (vp_common.cuh:vp_quantize_raw_tab, one shared-memory load; ~15

@@ -458,7 +458,10 @@ __device__ __forceinline__ void tc_body(const TcArgs& p, const TcMaps& maps) {
 
   if (tid == 0) {
 #pragma unroll
-    for (int k = 0; k < VP_MAX_K; ++k) tab[k] = p.f.scale[k];
+    for (int k = 0; k < VP_CHAIN_K; ++k) tab[k] = p.f.scale[k];
+#pragma unroll 1
+    for (int k = VP_CHAIN_K; k < p.f.K; ++k)   // E 5-7: device memory
+      tab[k] = __ldg(p.f.wide + k);
 #pragma unroll
     for (int st = 0; st < S; ++st) {
       mbar_init(full + st, 1);

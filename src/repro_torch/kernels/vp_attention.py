@@ -11,7 +11,8 @@ split (blocks of a cluster, warps of a block, lanes per position) from
 the shapes of one row alone, not the batch, so a row's bits do not
 depend on the rows decoded beside it (the serving engine's buckets), and
 `decode_runs` lists the positions each run reads.  A lane loads 16
-bytes of a row, or 8 at int8 rows of dh = 8 mod 16 (`lane_bytes`), and
+bytes of a row, or 8 at int8 rows of dh = 8 mod 16, or 32 at int32 rows
+past dh 128 (`lane_bytes`), and
 query rows past its registers (`DEC_MAX_G`) split over slices of a grid
 axis; neither changes a row's sums.
 Prefill has two, and `flash_body` alone picks one from q's dtype and the
@@ -42,6 +43,7 @@ DEC_BLOCKS = 128      # blocks the split aims at: ~one per SM
 DEC_WARPS = 2048      # warps the split aims at on long caches: 16 per SM
 DEC_MIN_STEPS = 2     # warp steps a run is given before runs are added
 DEC_MAX_G = {16: 4, 8: 8, 4: 8}   # query rows a block, by words a lane
+DEC_MAX_G_WIDE = 4    # ... on 32-byte lanes (8 int32 words)
 
 # Head dims of the tensor-core prefill body's instances (csrc/
 # vp_attention.cu:tc_dh): multiples of 16 up to 128, then 160 and 168,
@@ -93,21 +95,25 @@ def plan_decode(KV: int, smax: int, G: int, dh: int,
     order of the sums, and a row gives the same bits in every batch.
 
     A lane holds 16 bytes of a row (nw words), or 8 where int8 rows are
-    only 8-byte aligned (dh = 8 mod 16: gemma3's dh 168).  G above
-    DEC_MAX_G[nw] (the registers of a lane: qwen2's G = 7 at 16 int8
-    words) splits into ceil(G / DEC_MAX_G[nw]) slices; the runs do not
-    depend on G, so a row's bits are the same in every slicing.  Raises
-    for shapes the body does not take: dh not a multiple of nw or past
-    32 * nw, G < 1."""
+    only 8-byte aligned (dh = 8 mod 16: gemma3's dh 168), or 32 where
+    int32 rows pass 32 lanes of 4 words (dh above 128: stablelm's 160,
+    gemma3's 168).  G above DEC_MAX_G[nw] (DEC_MAX_G_WIDE on 32-byte
+    lanes; the registers of a lane: qwen2's G = 7 at 16 int8 words)
+    splits into slices of that many rows; the runs do not depend on G,
+    so a row's bits are the same in every slicing.  Raises for shapes
+    the body does not take: dh not a multiple of nw or past 32 * nw,
+    G < 1."""
     if w_bytes not in (1, 2, 4):
         raise ValueError(f"packed words of {w_bytes} bytes")
-    lane_bytes = 8 if w_bytes == 1 and dh % 16 else 16
+    lane_bytes = (8 if w_bytes == 1 and dh % 16
+                  else 32 if w_bytes == 4 and dh > 128 else 16)
     nw = lane_bytes // w_bytes
     if dh % nw or not 1 <= dh <= 32 * nw or G < 1:
         raise ValueError(
             f"the decode body takes dh a multiple of {nw} up to {32 * nw} "
             f"and G >= 1 at {w_bytes}-byte words; got dh {dh}, G {G}")
-    slices = _cdiv(G, DEC_MAX_G[nw])
+    max_g = DEC_MAX_G_WIDE if lane_bytes == 32 else DEC_MAX_G[nw]
+    slices = _cdiv(G, max_g)
     lpp = 1 << (dh // nw - 1).bit_length()
     step = 32 // lpp
     cap = max(1, _cdiv(smax, DEC_MIN_STEPS * step))   # runs the buffer fills
@@ -164,9 +170,10 @@ def vp_decode_attention_cuda(q, k_w, v_w, k_s, v_s, lengths, fmt: VPFormat,
     q_bf16 = build.dtype_code(q.dtype, "q")
     plan = plan_decode(KV, smax, G, dh, k_w.element_size())
     q, k_w, v_w = q.contiguous(), k_w.contiguous(), v_w.contiguous()
-    if k_w.data_ptr() % plan.lane_bytes or v_w.data_ptr() % plan.lane_bytes:
-        raise ValueError(f"vp_decode_attention kernel reads "
-                         f"{plan.lane_bytes}-byte aligned caches")
+    align = min(plan.lane_bytes, 16)
+    if k_w.data_ptr() % align or v_w.data_ptr() % align:
+        raise ValueError(f"vp_decode_attention kernel reads {align}-byte "
+                         f"aligned caches")
     k_s = k_s.reshape(B, smax).to(torch.float32).contiguous()
     v_s = v_s.reshape(B, smax).to(torch.float32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
@@ -174,7 +181,7 @@ def vp_decode_attention_cuda(q, k_w, v_w, k_s, v_s, lengths, fmt: VPFormat,
     if out.numel() == 0:
         return out
     lib = build.library("vp_attention")
-    f = build.vp_fmt_struct(fmt)
+    f = build.vp_fmt_struct(fmt, q.device)
     with torch.cuda.device(q.device):
         err = lib.vp_decode_attention_launch(
             q.data_ptr(), k_w.data_ptr(), v_w.data_ptr(), k_s.data_ptr(),

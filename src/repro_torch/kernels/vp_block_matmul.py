@@ -4,15 +4,18 @@ Replaces `repro/kernels/vp_block_matmul.py:block_vp_matmul_pallas`.  The
 plain version is `ref.block_vp_matmul_ref`; dispatch and the int32
 accumulator contract live in `ops.block_vp_matmul`.
 
-Three CUDA bodies, and `block_body` alone picks one, from (M, K, N, bk)
-and the operands' alignment, before the launch: the skinny body
-(byte-bound, the k-tiles split across tile groups of a block and the
-blocks of a cluster) for small M, the tensor-core body (s8 `wgmma`) above, both for bk = 256 and N a
-multiple of 16; the dp4a body for anything else.  A failed build or
+Four CUDA bodies, and `block_body` alone picks one, from (M, K, N, bk),
+the significands' width and the operands' alignment, before the launch:
+for int8 significands the skinny body (byte-bound, the k-tiles split
+across tile groups of a block and the blocks of a cluster) for small M,
+the tensor-core body (s8 `wgmma`) above, both for bk = 256 and N a
+multiple of 16, the dp4a body for anything else; for int16 significands
+(M 9-16, `significand_dtype`) the int16 body (int32 multiply-adds on
+the CUDA cores) at any bk.  A failed build or
 launch raises; no body stands in for another.  `plan_skinny` sizes the
 skinny body's grid.  `build.LAUNCHES` counts every launch under
 `block_vp_matmul`, and also each body's under `vp_bmm_skinny`,
-`vp_bmm_tc` or `vp_bmm_dp4a`.
+`vp_bmm_tc`, `vp_bmm_dp4a` or `vp_bmm_i16`.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.formats import VPFormat
+from repro_torch.core.vp_tensor import SIGNIFICAND_DTYPES
 from . import build
 
 BK = 256            # the k-tile the skinny and tensor-core bodies take
@@ -37,18 +41,24 @@ SK_MAX_SPLIT = 8    # the blocks of a split form one cluster (portable size)
 SK_TERMS = 8        # k-tiles a block that keeps terms may hold
 
 BODY_COUNTER = {"skinny": "vp_bmm_skinny", "tensor_core": "vp_bmm_tc",
-                "dp4a": "vp_bmm_dp4a"}
+                "dp4a": "vp_bmm_dp4a", "int16": "vp_bmm_i16"}
+# Significand planes (`SIGNIFICAND_DTYPES`): int8 (M <= 8) on the first
+# three bodies, int16 (M 9-16) on the int16 body.
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def block_body(M: int, K: int, N: int, bk: int, aligned: bool = True) -> str:
-    """The body that computes a (M, K) @ b (K, N) with index block `bk`:
+def block_body(M: int, K: int, N: int, bk: int, aligned: bool = True,
+               m_bytes: int = 1) -> str:
+    """The body that computes a (M, K) @ b (K, N) with index block `bk`
+    over significands of `m_bytes` bytes: "int16" for int16; for int8
     "skinny" for M <= SKINNY_MAX_M and "tensor_core" above, where bk is
     BK, N a multiple of 16 and the operands 16-byte aligned (`aligned`);
     else "dp4a"."""
+    if m_bytes == 2:
+        return "int16"
     if bk != BK or K % BK or N % 16 or not aligned:
         return "dp4a"
     return "skinny" if M <= SKINNY_MAX_M else "tensor_core"
@@ -93,21 +103,31 @@ def _num_sms(device: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def significand_width(a_dtype: torch.dtype, b_dtype: torch.dtype) -> int:
+    """Bytes of the significands the kernel multiplies: 1 (int8, the
+    first three bodies) or 2 (int16, the int16 body), the same for both
+    operands (`significand_dtype` of one format).  Raises for other
+    planes: the host-side check of `block_vp_matmul_cuda`."""
+    if a_dtype != b_dtype or a_dtype not in SIGNIFICAND_DTYPES:
+        raise ValueError(f"block_vp_matmul kernel takes int8 or int16 "
+                         f"significands of one width, got {a_dtype} and "
+                         f"{b_dtype}")
+    return a_dtype.itemsize
+
+
 def block_vp_matmul_cuda(a_m: torch.Tensor, a_i: torch.Tensor,
                          b_m: torch.Tensor, b_i: torch.Tensor,
                          a_fmt: VPFormat, b_fmt: VPFormat, bk: int,
                          out_dtype: torch.dtype,
                          body: Optional[str] = None) -> torch.Tensor:
-    """a_m (M, K) int8 with a_i (M, K/bk) uint8, b_m (K, N) int8 with b_i
-    (K/bk, N) uint8 -> (M, N) out_dtype, on `block_body`'s body, or on
-    `body` where a caller measures one."""
+    """a_m (M, K) int8 or int16 with a_i (M, K/bk) uint8, b_m (K, N)
+    int8 or int16 with b_i (K/bk, N) uint8 -> (M, N) out_dtype, on
+    `block_body`'s body, or on `body` where a caller measures one."""
     tensors = (a_m, a_i, b_m, b_i)
     if not all(t.is_cuda and t.device == a_m.device for t in tensors):
         raise ValueError("block_vp_matmul kernel takes CUDA tensors on one "
                          "device")
-    if a_m.dtype != torch.int8 or b_m.dtype != torch.int8:
-        raise ValueError(f"block_vp_matmul kernel takes int8 significands, "
-                         f"got {a_m.dtype} and {b_m.dtype}")
+    mb = significand_width(a_m.dtype, b_m.dtype)
     if a_i.dtype != torch.uint8 or b_i.dtype != torch.uint8:
         raise ValueError(f"block_vp_matmul kernel takes uint8 indices, got "
                          f"{a_i.dtype} and {b_i.dtype}")
@@ -116,18 +136,21 @@ def block_vp_matmul_cuda(a_m: torch.Tensor, a_i: torch.Tensor,
     oc = build.dtype_code(out_dtype, "out_dtype")
     a_m, a_i, b_m, b_i = (t.contiguous() for t in tensors)
     aligned = a_m.data_ptr() % 16 == 0 and b_m.data_ptr() % 16 == 0
+    planned = block_body(M, K, N, bk, aligned, mb)
     if body is None:
-        body = block_body(M, K, N, bk, aligned)
+        body = planned
     elif body not in BODY_COUNTER:
         raise ValueError(f"unknown body {body!r}")
-    elif body != "dp4a" and block_body(M, K, N, bk, aligned) == "dp4a":
-        raise ValueError(f"the {body} body takes bk {BK}, N % 16 == 0 and "
-                         f"aligned operands; got bk {bk}, N {N}")
+    elif (body == "int16") != (planned == "int16") or (
+            body not in ("dp4a", "int16") and planned == "dp4a"):
+        raise ValueError(f"the {body} body does not take {a_m.dtype} "
+                         f"significands at bk {bk}, N {N}")
     out = torch.empty((M, N), dtype=out_dtype, device=a_m.device)
     if M == 0 or N == 0:
         return out
     lib = build.library("vp_block_matmul")
-    fa, fb = build.vp_fmt_struct(a_fmt), build.vp_fmt_struct(b_fmt)
+    fa = build.vp_fmt_struct(a_fmt, out.device)
+    fb = build.vp_fmt_struct(b_fmt, out.device)
     args = (a_m.data_ptr(), a_i.data_ptr(), b_m.data_ptr(), b_i.data_ptr(),
             out.data_ptr(), M, K, N)
     with torch.cuda.device(a_m.device):
@@ -141,8 +164,11 @@ def block_vp_matmul_cuda(a_m: torch.Tensor, a_i: torch.Tensor,
         elif body == "tensor_core":
             err = lib.block_vp_matmul_tc_launch(
                 *args, oc, ctypes.byref(fa), ctypes.byref(fb), stream)
-        else:
+        elif body == "dp4a":
             err = lib.block_vp_matmul_dp4a_launch(
+                *args, bk, oc, ctypes.byref(fa), ctypes.byref(fb), stream)
+        else:
+            err = lib.block_vp_matmul_i16_launch(
                 *args, bk, oc, ctypes.byref(fa), ctypes.byref(fb), stream)
     build.check(lib, err, f"block_vp_matmul ({body} body)")
     build.LAUNCHES["block_vp_matmul"] += 1

@@ -43,6 +43,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.formats import FXPFormat, VPFormat
+from repro_torch.core.vp_tensor import SIGNIFICAND_DTYPES, significand_dtype
 from . import build
 from .vp_quant import SMS, table_ok
 
@@ -184,6 +185,17 @@ def plan(R: int, C: int, block: int, axis: int, sms: int = SMS,
     return Plan("coop", grid, THREADS, nv, chunk)
 
 
+def significand_planes(vp: VPFormat) -> torch.dtype:
+    """The significand plane the kernel writes for `vp`
+    (`significand_dtype(vp.M)`); raises for a width it does not store:
+    the host-side check of `block_vp_quant_cuda`."""
+    mdt = significand_dtype(vp.M)
+    if mdt not in SIGNIFICAND_DTYPES:
+        raise ValueError(f"{vp}: the kernel stores int8 or int16 "
+                         f"significands, not {mdt}")
+    return mdt
+
+
 def _barrier(device: torch.device) -> torch.Tensor:
     """[arrivals, generation] of the device's grid-wide barrier and amax
     pass, zeroed once."""
@@ -199,7 +211,8 @@ def block_vp_quant_cuda(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
                         body: Optional[str] = None,
                         cluster: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x (R, C) f32 or bf16 on the card -> (m (R, C) int8, i uint8 with
+    """x (R, C) f32 or bf16 on the card -> (m (R, C) of
+    `significand_dtype(vp.M)` (int8, or int16 for M 9-16), i uint8 with
     `axis` reduced by `block`, s 0-d f32): x / s block-VP quantized, s
     the pow2 scale; `bf16_math` (a bf16 x) rounds s and x / s to bf16.
     `body` and `cluster` force a body and the small body's cluster
@@ -210,8 +223,7 @@ def block_vp_quant_cuda(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
     xc = build.dtype_code(x.dtype, "x")
     if bf16_math and x.dtype != torch.bfloat16:
         raise ValueError("bf16 math takes a bf16 x")
-    if vp.raw_min < -128 or vp.raw_max > 127:
-        raise ValueError(f"{vp}: the kernel stores int8 significands")
+    mdt = significand_planes(vp)
     axis = axis % 2
     R, C = x.shape
     if block < 1 or (R, C)[axis] % block:
@@ -219,7 +231,7 @@ def block_vp_quant_cuda(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
                          f"{block}")
     x = x.contiguous()
     dev = x.device
-    m = torch.empty((R, C), dtype=torch.int8, device=dev)
+    m = torch.empty((R, C), dtype=mdt, device=dev)
     i = torch.empty((R // block, C) if axis == 0 else (R, C // block),
                     dtype=torch.uint8, device=dev)
     s = torch.empty((), dtype=torch.float32, device=dev)
@@ -231,14 +243,15 @@ def block_vp_quant_cuda(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
     part = torch.empty(max(pl.grid, pl.amax_blocks), dtype=torch.float32,
                        device=dev)
     lib = build.library("vp_block_quant")
-    q = build.quant_fmt_struct(fxp, vp)
+    q = build.quant_fmt_struct(fxp, vp, dev)
     with torch.cuda.device(dev):
         err = lib.vp_block_quant_launch(
             x.data_ptr(), m.data_ptr(), i.data_ptr(), s.data_ptr(),
             part.data_ptr(), _barrier(dev).data_ptr(), R, C, block,
             int(axis == 0), xc, int(bf16_math),
             BODIES.index(pl.body),
-            pl.grid, pl.threads, pl.nv, pl.chunk, pl.amax_blocks, int(table_ok(fxp, vp)), ctypes.byref(q),
+            pl.grid, pl.threads, pl.nv, pl.chunk, pl.amax_blocks,
+            int(table_ok(fxp, vp)), m.element_size(), ctypes.byref(q),
             torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "vp_block_quant")
     build.LAUNCHES["vp_block_quant"] += 1

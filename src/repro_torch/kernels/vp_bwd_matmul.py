@@ -82,7 +82,7 @@ def _launch(name: str, words: torch.Tensor, g: torch.Tensor, fmt: VPFormat,
     if out.numel() == 0:
         return out
     lib = build.library("vp_bwd_matmul")
-    f = build.vp_fmt_struct(fmt)
+    f = build.vp_fmt_struct(fmt, out.device)
     body = bwd_body(g.dtype, fmt)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream

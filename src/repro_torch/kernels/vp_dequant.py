@@ -5,8 +5,9 @@ vp_dequant_pallas` and `vp_dequant_packed_cuda` replaces
 `vp_dequant_packed_pallas`.  The plain versions are `ref.vp_dequant_ref`
 and `ref.vp_dequant_packed_ref`; dispatch lives in `ops.vp_dequant`.
 
-Both kernels read vector steps: 16 bytes of packed words, or
-`planes_vec` significands (int8 or int16, `PLANES_DTYPES`: 16 bytes of
+Both kernels read vector steps: 16 bytes of packed words (16 int8, 8
+int16 or 4 int32: every `storage_dtype` of a format), or
+`planes_vec` significands (int8 or int16, `SIGNIFICAND_DTYPES`: 16 bytes of
 them, 8 for int8 to f32) with the step's indices in one 8- or 16-byte
 load.  `split_packed` cuts n elements at a byte offset into a scalar
 head up to the first boundary of a step's load, whole steps and a scalar
@@ -26,6 +27,7 @@ import torch
 
 from repro_torch.core.formats import VPFormat
 from repro_torch.core.packing import storage_dtype
+from repro_torch.core.vp_tensor import SIGNIFICAND_DTYPES
 from . import build
 from .vp_quant import SMS
 
@@ -33,9 +35,9 @@ VEC_BYTES = 16           # one load of a thread step
 PACKED_THREADS = 256     # threads of a block of either kernel
 PACKED_UNROLL = 2        # vector steps a thread has in flight (DQ_UNROLL)
 SM_THREADS = 2048        # resident threads of an SM (H100)
-# Significand planes the planes kernel takes: every `significand_dtype(M)`
-# of a format the quantizers serve (M <= 16).
-PLANES_DTYPES = (torch.int8, torch.int16)
+# Packed words the packed kernel takes: every `storage_dtype` of a format
+# (int32 for M + E > 16).
+PACKED_DTYPES = (torch.int8, torch.int16, torch.int32)
 
 
 def split_packed(n: int, offset: int, word_bytes: int,
@@ -81,7 +83,7 @@ def vp_dequant_planes_cuda(m: torch.Tensor, i: torch.Tensor, vp: VPFormat,
                            dtype: torch.dtype) -> torch.Tensor:
     """(significand (int8 or int16), uint8 index) planes of one shape ->
     reals in dtype."""
-    if m.dtype not in PLANES_DTYPES:
+    if m.dtype not in SIGNIFICAND_DTYPES:
         raise ValueError(f"the kernel takes int8 or int16 significands, got "
                          f"{m.dtype}")
     if m.shape != i.shape or i.dtype != torch.uint8:
@@ -97,7 +99,7 @@ def vp_dequant_planes_cuda(m: torch.Tensor, i: torch.Tensor, vp: VPFormat,
     if m.numel() == 0:
         return out
     lib = build.library("vp_dequant")
-    fmt = build.vp_fmt_struct(vp)
+    fmt = build.vp_fmt_struct(vp, out.device)
     mb = m.element_size()
     head, steps, _ = split_packed(m.numel(), m.data_ptr() % VEC_BYTES, mb,
                                   planes_vec(mb, out.element_size()) * mb)
@@ -120,15 +122,16 @@ def vp_dequant_packed_cuda(w: torch.Tensor, vp: VPFormat,
     if w.dtype != storage_dtype(vp):
         raise ValueError(f"packed words of {vp} are {storage_dtype(vp)}, "
                          f"got {w.dtype}")
-    if w.dtype not in (torch.int8, torch.int16):
-        raise ValueError(f"the kernel takes int8 or int16 words, got {w.dtype}")
+    if w.dtype not in PACKED_DTYPES:
+        raise ValueError(f"the kernel takes int8, int16 or int32 words, got "
+                         f"{w.dtype}")
     oc = build.dtype_code(dtype, "dtype")
     w = w.contiguous()
     out = torch.empty(w.shape, dtype=dtype, device=w.device)
     if w.numel() == 0:
         return out
     lib = build.library("vp_dequant")
-    fmt = build.vp_fmt_struct(vp)
+    fmt = build.vp_fmt_struct(vp, out.device)
     head, steps, _ = split_packed(w.numel(), w.data_ptr() % VEC_BYTES,
                                   w.element_size())
     blocks, threads = plan_packed(steps, torch.cuda.get_device_properties(

@@ -118,7 +118,7 @@ def vp_dequant_matmul_cuda(x: torch.Tensor, w: torch.Tensor, w_fmt: VPFormat,
     if K == 0:
         return out.zero_()
     lib = build.library("vp_dequant_matmul")
-    f = build.vp_fmt_struct(w_fmt)
+    f = build.vp_fmt_struct(w_fmt, out.device)
     reduced = False
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream

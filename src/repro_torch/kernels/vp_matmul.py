@@ -180,7 +180,7 @@ def vp_matmul_cuda(a_m: torch.Tensor, a_i: Optional[torch.Tensor],
                         all(p.data_ptr() % CHUNK_BYTES == 0 for p in planes))
     _flags, (pa, pb, bm, bk, bn) = mask_args(a_act, b_act, tiles, dev)
     lib = build.library("vp_matmul")
-    fa, fb = build.vp_fmt_struct(a_fmt), build.vp_fmt_struct(b_fmt)
+    fa, fb = build.vp_fmt_struct(a_fmt, dev), build.vp_fmt_struct(b_fmt, dev)
     with torch.cuda.device(dev):
         err = lib.vp_matmul_launch(
             a_m.data_ptr(), None if a_i is None else a_i.data_ptr(),

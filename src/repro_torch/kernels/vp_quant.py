@@ -124,7 +124,7 @@ def vp_quant_packed_cuda(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
     blocks, threads = plan_packed(x.numel(), torch.cuda.get_device_properties(
         x.device).multi_processor_count)
     lib = build.library("vp_quant")
-    fmt = build.quant_fmt_struct(fxp, vp)
+    fmt = build.quant_fmt_struct(fxp, vp, x.device)
     with torch.cuda.device(x.device):
         err = lib.vp_quant_packed_launch(
             x.data_ptr(), w.data_ptr(), x.numel(), w.element_size(),
@@ -162,7 +162,7 @@ def vp_quant_scaled_cuda(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,
                          "exceed the kernel's int32 extents")
     blocks, threads = plan_kv(rows)
     lib = build.library("vp_quant")
-    fmt = build.quant_fmt_struct(fxp, vp)
+    fmt = build.quant_fmt_struct(fxp, vp, x.device)
     with torch.cuda.device(x.device):
         err = lib.vp_quant_packed_kv_launch(
             x.data_ptr(), w.data_ptr(), s.data_ptr(), rows, g, xc,
@@ -188,7 +188,7 @@ def vp_quant_planes_cuda(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat
     blocks, threads = plan_packed(x.numel(), torch.cuda.get_device_properties(
         x.device).multi_processor_count)
     lib = build.library("vp_quant")
-    fmt = build.quant_fmt_struct(fxp, vp)
+    fmt = build.quant_fmt_struct(fxp, vp, x.device)
     with torch.cuda.device(x.device):
         err = lib.vp_quant_planes_launch(
             x.data_ptr(), m.data_ptr(), m.element_size(), i.data_ptr(),

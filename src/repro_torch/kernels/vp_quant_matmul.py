@@ -59,8 +59,8 @@ def vp_quant_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
                         batch_converts(a_fxp) and batch_converts(b_fxp))
     _flags, (pa, pb, bm, bk, bn) = mask_args(a_act, b_act, tiles, a.device)
     lib = build.library("vp_quant_matmul")
-    qa = build.quant_fmt_struct(a_fxp, a_vp)
-    qb = build.quant_fmt_struct(b_fxp, b_vp)
+    qa = build.quant_fmt_struct(a_fxp, a_vp, out.device)
+    qb = build.quant_fmt_struct(b_fxp, b_vp, out.device)
     with torch.cuda.device(a.device):
         err = lib.vp_quant_matmul_launch(
             a.data_ptr(), ctypes.byref(qa), b.data_ptr(), ctypes.byref(qb),

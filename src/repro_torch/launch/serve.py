@@ -33,6 +33,7 @@ the reference is not ported yet.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from typing import List, Optional
@@ -189,6 +190,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     choices=registry.ARCH_NAMES)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU tests)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="serve the first N layers at full width (0: all; "
+                         "the card holds gemma3's or the MoE configs' "
+                         "words only cut in depth)")
+    ap.add_argument("--dtype", default=None,
+                    choices=["bfloat16", "float32"],
+                    help="model dtype (default: the config's)")
     ap.add_argument("--quant", default="none",
                     choices=["none", "fxp", "vp", "vp_block"])
     ap.add_argument("--layout", default="packed",
@@ -275,8 +283,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
                         kv_layout=args.kv_layout)
     cfg = (registry.get_smoke_config(args.arch, quant) if args.smoke
            else registry.get_config(args.arch, quant))
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
     params = init_params(cfg, seed=args.seed, device=device)
-    report = {"arch": args.arch, "quant": args.quant, "layout": args.layout,
+    report = {"arch": args.arch, "layers": cfg.n_layers, "dtype": cfg.dtype,
+              "quant": args.quant, "layout": args.layout,
               "M": args.M, "E": args.E, "block": args.block,
               "kv_quant": args.kv_quant, "kv_layout": args.kv_layout,
               "temperature": args.temperature, "smoke": args.smoke,

@@ -26,6 +26,7 @@ host and proposes a shrunken mesh.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import List, Optional
 
@@ -54,6 +55,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     choices=registry.ARCH_NAMES)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU tests)")
+    ap.add_argument("--remat", default=None, choices=["none", "full", "dots"],
+                    help="activation checkpointing (default: the config's; "
+                         "full recomputes each scanned group's repetition "
+                         "in the backward, dots runs as none)")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -93,6 +98,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     quant = QuantConfig(mode=args.quant)
     cfg = (registry.get_smoke_config(args.arch, quant) if args.smoke
            else registry.get_config(args.arch, quant))
+    if args.remat:
+        cfg = dataclasses.replace(cfg, remat=args.remat)
     opt_cfg = OptConfig(lr=args.lr, warmup_steps=min(100, args.steps // 10),
                         total_steps=args.steps,
                         moment_codec="vp" if args.compress_moments else None)
@@ -106,7 +113,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
                               compress_grads=cmp_cfg, qat=qat)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    report = {"arch": args.arch, "smoke": args.smoke, "qat": args.qat,
+    report = {"arch": args.arch, "remat": cfg.remat,
+              "smoke": args.smoke, "qat": args.qat,
               "batch": args.batch, "seq": args.seq, "device": str(device),
               "steps": [], "resumed_from": None, "restarts": 0}
 

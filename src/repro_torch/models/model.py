@@ -1,9 +1,10 @@
-"""Dense transformer serving and training paths (port of the dense
-branches of `repro.models.model`).
+"""Dense and MoE transformer serving and training paths (port of the
+dense and MoE branches of `repro.models.model`).
 
 Parameters are plain dicts of tensors: {"embed", "final_norm", "lm_head",
-"layers": [per-layer {"attn", "mlp", "ln1", "ln2"}]}, the serving
-layout.  The reference stacks layers for `lax.scan`, one stack per
+"layers": [per-layer {"attn", "mlp" (dense) or "moe" (MoE: `w_router`
+and the stacked experts), "ln1", "ln2"}]}, the serving layout.  The
+reference stacks layers for `lax.scan`, one stack per
 sub-layer of each scanned group (`layer_groups`: gemma3's period of 5
 local + 1 global layers, then a tail of locals); here a Python loop
 walks the list in the order the scans apply them (`layer_plan`), each
@@ -13,6 +14,9 @@ reference's stack instead
 per-tensor scale of the gradient and moment codecs covers the same
 elements as the reference's.
 Caches are a list of per-layer dicts (see `models.attention.attn_block`).
+With `remat="full"` training recomputes each scanned group's repetition
+in the backward (`torch.utils.checkpoint`), the unit the reference's
+`jax.checkpoint` wraps; "dots" runs as "none", as in the reference.
 
 Entry points default to device="cuda" and raise when CUDA is absent;
 the CPU (plain versions of the kernels) must be asked for explicitly.
@@ -24,6 +28,7 @@ import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.packing import storage_dtype
@@ -31,6 +36,7 @@ from repro_torch.core.vp_tensor import significand_dtype
 from .attention import attn_block, kv_cache_formats
 from .layers import embed_lookup, qdot, quantize_weight, rms_norm
 from .mlp import swiglu
+from .moe import moe_block
 
 QUANT_KEYS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
               "embed", "lm_head"}
@@ -50,10 +56,15 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
+FAMILIES = ("dense", "moe")
+MOE_PATTERNS = ("moe", "moe_swa")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r} is not ported yet ({', '.join(FAMILIES)}"
+            " only)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +76,7 @@ class LayerGroup:
 
 
 def layer_groups(cfg: ModelConfig) -> List[LayerGroup]:
-    """The reference's scanned groups of a dense model (the dense
+    """The reference's scanned groups of a dense or MoE model (those
     branches of `repro.models.model.layer_groups`)."""
     _check_family(cfg)
     if cfg.local_global_period:
@@ -78,6 +89,9 @@ def layer_groups(cfg: ModelConfig) -> List[LayerGroup]:
         if tail:
             groups.append(LayerGroup(1, ("local",) * tail))
         return groups
+    if cfg.family == "moe":
+        return [LayerGroup(cfg.n_layers, (
+            "moe_swa" if cfg.sliding_window else "moe",))]
     return [LayerGroup(cfg.n_layers,
                        ("swa" if cfg.sliding_window else "causal",))]
 
@@ -87,7 +101,7 @@ def pattern_window(cfg: ModelConfig, pattern: str
     """A sub-layer pattern's attention: (causal | local, window)."""
     if pattern == "local":
         return "local", cfg.local_window
-    if pattern == "swa":
+    if pattern in ("swa", "moe_swa"):
         return "local", cfg.sliding_window
     return "causal", None
 
@@ -124,7 +138,8 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 device="cuda") -> Dict[str, Any]:
     """Random float weights from a seeded torch.Generator, with the
     reference's shapes and scales (normal * 0.02; output projections
-    * 0.02 / sqrt(2 L); norms and QKV biases zero)."""
+    * 0.02 / sqrt(2 L); norms and QKV biases zero; MoE layers a f32
+    router (d, E) and experts stacked (E, d, ff) / (E, ff, d))."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = model_dtype(cfg)
@@ -148,7 +163,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         "lm_head": dense((d, cfg.vocab)),
         "layers": [],
     }
-    for _ in range(L):
+    for spec in layer_plan(cfg):
         attn = {"wq": dense((d, H * dh)), "wk": dense((d, KV * dh)),
                 "wv": dense((d, KV * dh)), "wo": dense((H * dh, d), out_scale)}
         if cfg.qkv_bias:
@@ -157,10 +172,19 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         if cfg.qk_norm:
             attn["q_norm"] = zeros(dh)
             attn["k_norm"] = zeros(dh)
-        mlp = {"w_gate": dense((d, ff)), "w_up": dense((d, ff)),
-               "w_down": dense((ff, d), out_scale)}
-        params["layers"].append(
-            {"attn": attn, "mlp": mlp, "ln1": zeros(d), "ln2": zeros(d)})
+        layer = {"attn": attn, "ln1": zeros(d), "ln2": zeros(d)}
+        if spec.pattern in MOE_PATTERNS:
+            E = cfg.n_experts
+            router = torch.randn((d, E), generator=gen, device=dev,
+                                 dtype=torch.float32) * 0.02
+            layer["moe"] = {"w_router": router,
+                            "w_gate": dense((E, d, ff)),
+                            "w_up": dense((E, d, ff)),
+                            "w_down": dense((E, ff, d), out_scale)}
+        else:
+            layer["mlp"] = {"w_gate": dense((d, ff)), "w_up": dense((d, ff)),
+                            "w_down": dense((ff, d), out_scale)}
+        params["layers"].append(layer)
     return params
 
 
@@ -169,8 +193,11 @@ def quantize_params(params: Dict[str, Any], cfg: ModelConfig,
     """Export: every weight matrix -> its serving dict
     (`layers.quantize_weight`: {"w_packed", "scale"} in mode vp, or
     {"m", "i_packed", "scale"} with `layout="planes"`; {"m", "i_blk",
-    "scale"} in vp_block; {"m", "scale"} in fxp).  Biases and norms stay
-    float.
+    "scale"} in vp_block; {"m", "scale"} in fxp).  A stack of matrices
+    (3-D: the experts (E, d_in, d_out), or layers; 4-D: layers of
+    experts) is exported matrix by matrix, one scale each, and stacked
+    back, as the reference's vmap of the export does.  Biases, norms and
+    the MoE router stay float.
 
     On the card each VP matrix goes through the quant kernel (words or
     planes) once, each block-VP one through the block quantizer; FXP is
@@ -180,11 +207,19 @@ def quantize_params(params: Dict[str, Any], cfg: ModelConfig,
     if cfg.quant.mode == "none":
         return params
 
+    def export(w):
+        if w.ndim == 2:
+            return quantize_weight(w, cfg.quant, layout)
+        parts = [export(wi) for wi in w]
+        if isinstance(parts[0], torch.Tensor):
+            return torch.stack(parts)
+        return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+
     def walk(node):
         if isinstance(node, dict):
-            return {k: (quantize_weight(v, cfg.quant, layout)
+            return {k: (export(v)
                         if k in QUANT_KEYS and isinstance(v, torch.Tensor)
-                        and v.ndim == 2 else walk(v))
+                        and v.ndim in (2, 3, 4) else walk(v))
                     for k, v in node.items()}
         if isinstance(node, list):
             return [walk(v) for v in node]
@@ -261,19 +296,62 @@ def _unbind(node) -> List[Any]:
     return list(node.unbind(0))
 
 
+def _sublayer(x, p, spec: LayerSpec, cfg: ModelConfig, positions, cache,
+              train: bool, chunked: bool):
+    """One layer: attention, then the MLP or the MoE block -> (x, cache,
+    aux (2,) f32 [load_balance, router_z], zero for a dense MLP)."""
+    h, cache = attn_block(rms_norm(x, p["ln1"]), p["attn"], cfg, positions,
+                          spec.attention, spec.window, cache, train, chunked)
+    x = x + h
+    if spec.pattern in MOE_PATTERNS:
+        h, aux = moe_block(rms_norm(x, p["ln2"]), p["moe"], cfg, train=train)
+        aux = torch.stack([aux["load_balance"], aux["router_z"]])
+    else:
+        h = swiglu(rms_norm(x, p["ln2"]), p["mlp"], cfg.quant, train)
+        aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+    return x + h, cache, aux
+
+
+def _repetition(x, layers, specs, cfg: ModelConfig, positions,
+                train: bool):
+    """One repetition of a scanned group without caches (training):
+    its sub-layers in order -> (x, aux summed over them)."""
+    aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+    for spec, p in zip(specs, layers):
+        x, _, a = _sublayer(x, p, spec, cfg, positions, None, train, False)
+        aux = aux + a
+    return x, aux
+
+
 def _backbone(layers, x, cfg: ModelConfig, positions,
               caches: Optional[List[dict]] = None, train: bool = False,
               chunked: bool = False):
+    """Every layer in `layer_plan` order -> (x, new caches, aux (2,) f32
+    summed over the layers).  Training with `remat="full"` checkpoints
+    each repetition of a scanned group (its sub-layers together, the
+    unit of the reference's `jax.checkpoint`): its activations are
+    recomputed in the backward, bit for bit."""
+    plan = layer_plan(cfg)
+    aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+    if caches is None and cfg.remat == "full" and torch.is_grad_enabled():
+        reps: Dict[Tuple[int, int], List[int]] = {}
+        for spec in plan:
+            reps.setdefault((spec.gi, spec.rep), []).append(spec.index)
+        for idx in reps.values():
+            x, a = torch.utils.checkpoint.checkpoint(
+                _repetition, x, [layers[i] for i in idx],
+                [plan[i] for i in idx], cfg, positions, train,
+                use_reentrant=False)
+            aux = aux + a
+        return x, None, aux
     new_caches = []
-    for spec, p in zip(layer_plan(cfg), layers, strict=True):
+    for spec, p in zip(plan, layers, strict=True):
         cache = None if caches is None else caches[spec.index]
-        h, cache = attn_block(rms_norm(x, p["ln1"]), p["attn"], cfg,
-                              positions, spec.attention, spec.window, cache,
-                              train, chunked)
-        x = x + h
-        x = x + swiglu(rms_norm(x, p["ln2"]), p["mlp"], cfg.quant, train)
+        x, cache, a = _sublayer(x, p, spec, cfg, positions, cache, train,
+                                chunked)
+        aux = aux + a
         new_caches.append(cache)
-    return x, new_caches
+    return x, new_caches, aux
 
 
 def chunked_cross_entropy(hidden: torch.Tensor, lm_head: torch.Tensor,
@@ -306,30 +384,25 @@ def loss_fn(params, batch, cfg: ModelConfig, train: bool = True):
     parameters in the training layout (`stack_layers`).
 
     `train` runs every weight matmul as a QAT `qdot` and attention as the
-    differentiable walk.  Dense models have no router, so the reference's
-    load-balance and router-z terms are 0 and the loss is the CE.
-    Activation checkpointing (`remat`) is not ported yet, and a config
-    that asks for it raises rather than train without it.
+    differentiable walk.  The loss is ce + 0.01 load_balance + 1e-3
+    router_z, the aux terms summed over the MoE layers (0 for a dense
+    model), as the reference's.  `cfg.remat == "full"` checkpoints each
+    scanned group's repetition (`_backbone`).
     """
     _check_family(cfg)
-    if cfg.remat != "none":
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} (activation checkpointing) is not ported "
-            "yet (ROADMAP.md queue 1, \"Training with remat\": "
-            "torch.utils.checkpoint per layer)")
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_lookup(tokens, params["embed"], cfg.quant, train).to(
         model_dtype(cfg))
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
-    x, _ = _backbone(_unbind(params["layers"]), x, cfg, positions,
-                     train=train)
+    x, _, aux = _backbone(_unbind(params["layers"]), x, cfg, positions,
+                          train=train)
     x = rms_norm(x, params["final_norm"])
     ce = chunked_cross_entropy(x, params["lm_head"], batch["labels"], cfg,
                                cfg.loss_chunk)
-    zero = torch.zeros((), dtype=torch.float32, device=ce.device)
-    return ce, {"ce": ce, "load_balance": zero, "router_z": zero}
+    loss = ce + 0.01 * aux[0] + 1e-3 * aux[1]
+    return loss, {"ce": ce, "load_balance": aux[0], "router_z": aux[1]}
 
 
 @torch.no_grad()
@@ -348,8 +421,8 @@ def prefill(params, tokens: torch.Tensor, caches, cfg: ModelConfig,
                              device=tokens.device).expand(B, S)
     if chunked:
         positions = caches[0]["len"][:, None] + positions
-    x, caches = _backbone(params["layers"], x, cfg, positions, caches,
-                          chunked=chunked)
+    x, caches, _ = _backbone(params["layers"], x, cfg, positions, caches,
+                             chunked=chunked)
     x = rms_norm(x, params["final_norm"])
     logits = qdot(x[:, -1], params["lm_head"], cfg.quant)
     return logits.to(torch.float32), caches
@@ -361,7 +434,7 @@ def decode_step(params, token: torch.Tensor, caches, cfg: ModelConfig):
     _check_family(cfg)
     x = embed_lookup(token, params["embed"], cfg.quant).to(model_dtype(cfg))
     positions = caches[0]["len"][:, None]
-    x, caches = _backbone(params["layers"], x, cfg, positions, caches)
+    x, caches, _ = _backbone(params["layers"], x, cfg, positions, caches)
     x = rms_norm(x, params["final_norm"])
     logits = qdot(x[:, 0], params["lm_head"], cfg.quant)
     return logits.to(torch.float32), caches

@@ -1,14 +1,15 @@
 """Carry the reference's parameters across as numpy arrays.
 
-`params_from_numpy` takes the JAX parameter tree of a dense model with
-every leaf converted to numpy (nested dicts and lists, as
+`params_from_numpy` takes the JAX parameter tree of a dense or MoE
+model with every leaf converted to numpy (nested dicts and lists, as
 `jax.tree_util.tree_map(np.asarray, params)` gives it), float or
 exported by `quantize_params` (packed words, planes or block VP; QKV
 biases and norms as they are), and returns the port's parameter dict.
 The reference stacks each sub-layer of each scanned group on a leading
 (repeats, ...) axis; here every layer is its own entry, in the order the
-scans apply them (`model.layer_plan`).  `caches_from_numpy` does the
-same for the reference's decode caches.
+scans apply them (`model.layer_plan`): an MoE layer's (L, E, d, ff)
+expert stacks and their (L, E) scales become (E, d, ff) and (E,).
+`caches_from_numpy` does the same for the reference's decode caches.
 """
 from __future__ import annotations
 

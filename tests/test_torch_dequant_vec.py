@@ -42,10 +42,10 @@ from repro_torch.analysis.contracts import require_quant_safe
 from repro_torch.core.formats import FXPFormat as TFXP
 from repro_torch.core.formats import VPFormat as TVP
 from repro_torch.core.formats import default_vp_format as t_default_vp
-from repro_torch.core.vp_tensor import significand_dtype
+from repro_torch.core.vp_tensor import SIGNIFICAND_DTYPES, significand_dtype
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.vp_dequant import (
-    PACKED_THREADS, PACKED_UNROLL, PLANES_DTYPES, SM_THREADS, VEC_BYTES,
+    PACKED_THREADS, PACKED_UNROLL, SM_THREADS, VEC_BYTES,
     plan_packed, plan_planes, planes_vec, split_packed,
     vp_dequant_planes_cuda)
 
@@ -311,8 +311,8 @@ def test_planes_widths_cover_every_served_format():
             except ValueError:     # VPContractError too
                 continue
             seen.add(significand_dtype(M))
-            assert significand_dtype(M) in PLANES_DTYPES, (M, E)
-    assert seen == set(PLANES_DTYPES)
+            assert significand_dtype(M) in SIGNIFICAND_DTYPES, (M, E)
+    assert seen == set(SIGNIFICAND_DTYPES)
 
 
 def test_planes_wrapper_refuses_other_widths():

@@ -212,6 +212,24 @@ Run from the root of a checkout.  Phases, each raising on failure:
                steps: tokens/s and launch counts by kernel, every stacked
                expert weight dequantized by one `vp_dequant_packed`
                launch a layer and pass, a second run's tokens equal.
+  4f. ssm    - the SSM and hybrid families and the engine's MoE rows
+               (`ssm_phase`): the kernels at rwkv6-3b's and zamba2-7b's
+               shapes (`vp_dequant_matmul` with f32 activations, N 112 /
+               128, K 7168, vocab 65536 / 32000; decode attention at G 1,
+               dh 112 in int16 and int8 words; the tensor-core prefill at
+               dh 112; the KV write, bit for bit) against their plain
+               versions, timed, and a one-token block's rows bit-identical
+               alone and in a batch of 4; both models whole at full width
+               through the static serve CLI (bf16, batch 4 x 128, 16
+               steps), then in f32 at a cut (rwkv6 4 layers, zamba2 9)
+               against the plain path's tokens; both through the engine
+               (6 ragged requests, run-ahead 4 and 1 with the same tokens,
+               zamba2 also in chunks of 32; f32 at the cut against the
+               plain path, whole and chunked); qwen3-moe (8 layers) and
+               mixtral (2) through the engine (each graph's first replay
+               bit-identical to its eager step); one packed-QAT train step
+               with VP gradients and moments and remat on each family at
+               the cut.
   5. mimo    - the paper's B-VP MIMO equalizer (B = 64 antennas, U = 8
                users, 16-QAM, Sec. III-A): narrowband ensembles of
                n = 100,000 channels at 2 dB and 20 dB equalized through
@@ -270,6 +288,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import math
 import re
@@ -331,7 +350,8 @@ KERNEL_NAMES = {"vp_quant_packed": "vp_quant_packed_",      # every body
                 "vp_bq_general": "vp_block_quant_general_",
                 "vp_block_amax": "vp_block_amax_kernel",
                 "vp_dequant_planes": "vp_dequant_planes_kernel",
-                "vp_dequant_packed": "vp_dequant_packed_kernel"}
+                "vp_dequant_packed": "vp_dequant_packed_kernel",
+                "rms_norm": "rms_norm_kernel"}
 MIMO_G = 100_000           # realizations (paper Sec. III-A)
 MIMO_SHAPE = (16, 64, 2)   # (2U, B) x (B, 2) per realization
 MASKED_N = 256             # masked mode: (n U, B) x (B, n)
@@ -395,7 +415,8 @@ ENGINE_F32_LAYERS = 4
 ENGINE_FLOOR_REQS = 2      # requests whose plain-path floor is measured
 _ENGINE_ROWS = ("vp_quant_packed", "vp_dequant_matmul", "vp_decode_attention",
                 "flash_prefill", "vp_quant_planes", "vp_dequant_planes",
-                "vp_dequant_packed", "block_vp_matmul", "vp_block_quant")
+                "vp_dequant_packed", "block_vp_matmul", "vp_block_quant",
+                "rms_norm")
 FLASH_SWEEP = (128, 512, 2048)       # causal bf16 prompts at B = 4
 # The dense phase: gemma3 at 7 layers (one period of 5 local + 1 global,
 # then a local tail; the 62-layer words alone would be ~59 GB beside ~59
@@ -413,6 +434,36 @@ REMAT_BATCH = (4, 512)
 # GB of words each): layers served, then (batch, prompt, decode steps)
 MOE_LAYERS = {"qwen3-moe-30b-a3b": 8, "mixtral-8x22b": 2}
 MOE_SERVE = (4, 128, 16)
+# The SSM and hybrid families (rwkv6-3b, zamba2-7b) at full width and
+# depth: static serve (batch, prompt, decode steps); the f32 runs against
+# the plain path and the train step at a cut (rwkv6 4 layers; zamba2 one
+# repetition of 6 mamba layers and the shared block, then the tail of 3);
+# the engine's requests (count, prompt range, budget range, numpy seed
+# 0), slots, capacity and prefill chunk, also for the MoE engine rows;
+# the projections' shapes (arch, weight, K, N, activation dtype: rwkv6's
+# lerp hands its R/K/V/G and channel-mix projections f32); zamba2's
+# shared block's decode (B, smax, KV, G, dh) and prefill (B, S, H)
+SSM_ARCHS = ("rwkv6-3b", "zamba2-7b")
+SSM_SERVE = (4, 128, 16)
+SSM_F32_LAYERS = {"rwkv6-3b": 4, "zamba2-7b": 9}
+SSM_ENGINE_REQS = (6, (40, 96), (8, 16))
+SSM_ENGINE_SLOTS, SSM_ENGINE_CAP, SSM_ENGINE_CHUNK = 4, 112, 32
+SSM_TRAIN = (2, 256)
+SSM_DQMM = (("rwkv6-3b", "w_r", 2560, 2560, "f32"),
+            ("rwkv6-3b", "w_ck", 2560, 8960, "f32"),
+            ("rwkv6-3b", "w_o", 2560, 2560, "bf16"),
+            ("rwkv6-3b", "w_cv", 8960, 2560, "bf16"),
+            ("rwkv6-3b", "lm_head", 2560, 65536, "bf16"),
+            ("zamba2-7b", "w_z", 3584, 7168, "bf16"),
+            ("zamba2-7b", "w_bc", 3584, 128, "bf16"),
+            ("zamba2-7b", "w_dt", 3584, 112, "bf16"),
+            ("zamba2-7b", "w_out", 7168, 3584, "bf16"),
+            ("zamba2-7b", "wq", 3584, 3584, "bf16"),
+            ("zamba2-7b", "w_up", 3584, 14336, "bf16"),
+            ("zamba2-7b", "w_down", 14336, 3584, "bf16"),
+            ("zamba2-7b", "lm_head", 3584, 32000, "bf16"))
+SSM_DEC_SHAPE = (4, 144, 32, 1, 112)
+SSM_PREFILL_SHAPE = (4, 128, 32)
 WINDOW = "chip_smoke.window"        # profiler range around the profiled call
 LIBRARY_KERNELS = re.compile(
     r"gemm|cublas|cutlass|xmma|sm90_|sm80_|ampere_|flash_fwd|fmha|"
@@ -504,6 +555,7 @@ def main() -> None:
             (dense_phase, record, rows, smi, peaks),
             (formats_phase, record, rows, smi),
             (moe_phase, record, rows, smi),
+            (ssm_phase, record, rows, smi, peaks),
             (dequant_phase, record, rows),
             (mimo_phase, record, rows, smi), (train_phase, record, rows, smi),
             (remat_phase, record, rows, smi)):
@@ -629,13 +681,88 @@ def kernel_phase(torch, peaks, record):
     # -- vp_decode_attention and flash_prefill: their three bodies --------------
     rows += _attention_rows(torch, peaks, timer, gen, randn, words, vp, lines,
                             record)
+
+    # -- rms_norm: every norm of the path ---------------------------------------
+    rows.append(_rms_norm_row(torch, peaks, timer, randn, lines))
     record["kernel_lines"] = [
         dict(name=n, shape=s, ms=m, plain_ms=p, bound_ms=b[0], bound_by=b[1],
              library_ms=lib) for n, s, m, p, b, lib in lines]
     print("kernels: vp_quant_packed, vp_dequant_matmul, "
           "vp_decode_attention (split body), flash_prefill (tensor-core and "
-          "CUDA-core bodies)")
+          "CUDA-core bodies), rms_norm")
     return rows
+
+
+def _rms_norm_row(torch, peaks, timer, randn, lines):
+    """Row 16, `rms_norm`, at the norms' shapes on the main paths (the
+    serve's decode and prefill ln1 / ln2 and q_norm / k_norm, zamba2's
+    ln and gated out_norm, rwkv6's per-head ln_x with its (H, N) gamma),
+    x in bf16 and f32 and gamma in f32 and bf16: bit for bit the plain
+    version (the kernel's summation order, IEEE-rounded steps); each row
+    of a launch
+    bit-identical to the same row launched alone and among 512 rows (a
+    row's bits do not depend on the number of rows); the serve's shapes
+    timed beside the plain version and `F.rms_norm` (its weight
+    1 + gamma made beforehand)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.rms_norm import rms_norm_cuda
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = (((4, 1, 1024), (1024,)), ((4, 1, 16, 128), (128,)),
+              ((4, 128, 1024), (1024,)), ((4, 1, 3584), (3584,)),
+              ((4, 1, 7168), (7168,)), ((4, 128, 40, 64), (40, 64)))
+    build.reset_launches()
+    checks = 0
+    for xs, gs in shapes:
+        for xdt in (bf16, f32):
+            for gdt in (f32, bf16):
+                x = randn(*xs, dtype=xdt) * 3
+                g = (randn(*gs) * 0.1).to(gdt)
+                got = rms_norm_cuda(x, g)
+                _identical(torch, got, ref.rms_norm_ref(x, g),
+                           f"rms_norm {list(xs)} {xdt} gamma {gdt}")
+                _identical(torch, rms_norm_cuda(x, g), got,
+                           f"rms_norm {list(xs)}, two launches")
+                checks += 2
+    # a row's bits at 1, 4 and 512 rows (and across a row count that
+    # leaves the last block part empty)
+    for D in (1024, 3584, 128):
+        g = randn(D) * 0.1
+        x = randn(512, D, dtype=bf16) * 3
+        whole = rms_norm_cuda(x, g)
+        for lo, n in ((0, 1), (3, 1), (0, 4), (5, 13), (500, 12)):
+            _identical(torch, rms_norm_cuda(x[lo:lo + n], g),
+                       whole[lo:lo + n], f"rms_norm D {D} rows {lo}+{n}")
+            checks += 1
+    if build.LAUNCHES["rms_norm"] != checks + 3:
+        raise AssertionError(f"rms_norm launches {dict(build.LAUNCHES)}")
+    print(f"[kernel] rms_norm: bit-identical to the plain version at "
+          f"{[list(xs) for xs, _ in shapes]}; every row bit-identical at 1, "
+          "4, 13 and 512 rows")
+
+    row = None
+    for xs, gs in shapes[:3]:
+        x, g = randn(*xs, dtype=bf16) * 3, randn(*gs) * 0.1
+        err, rel = compare(torch, rms_norm_cuda(x, g), ref.rms_norm_ref(x, g),
+                           BF16_TOL, f"rms_norm {list(xs)}")
+        ms = timer(lambda: rms_norm_cuda(x, g))
+        plain_ms = timer(lambda: ref.rms_norm_ref(x, g))
+        library_ms = None
+        if hasattr(F, "rms_norm"):
+            w1 = (1.0 + g).to(bf16)
+            library_ms = timer(lambda: F.rms_norm(x, gs, w1, 1e-6))
+        bnd = bound(peaks, 2 * x.numel() * 2 + g.numel() * 4, 4 * x.numel(),
+                    "f32")
+        _print_line("rms_norm", list(xs), err, rel, ms, plain_ms, bnd,
+                    library_ms)
+        lines.append(("rms_norm", list(xs), ms, plain_ms, bnd, library_ms))
+        if row is None:
+            row = _row("rms_norm", "rms_norm.cu",
+                       "src/repro/models/layers.py:245", list(xs), err, ms,
+                       plain_ms, bnd, library_ms)
+    return row
 
 
 def _quant_packed_row(torch, peaks, timer, gen, randn, fxp, vp, record):
@@ -1820,6 +1947,18 @@ def _attention_counts(torch, cfg, prefill: bool):
     return {"flash_prefill": L, BODY_COUNTER[body]: L}
 
 
+def _norm_counts(cfg):
+    """The `rms_norm` launches of one forward pass: ln1 and ln2 of each
+    layer (rwkv6's also ln_x; a Mamba2 layer's ln and gated out_norm),
+    q_norm and k_norm where the config has them, and the final norm."""
+    from repro_torch.models.model import layer_plan
+
+    per = {"rwkv": 3, "mamba": 2}
+    return {"rms_norm": 1 + sum(
+        per.get(spec.pattern, 2 + 2 * bool(cfg.qk_norm))
+        for spec in layer_plan(cfg))}
+
+
 def _add(*counts):
     out = {}
     for c in counts:
@@ -1847,9 +1986,11 @@ def serve_phase(torch, record, rows):
     L = cfg.n_layers
     head = {"vp_dequant_matmul": 1, "vp_dqmm_skinny": 1}     # lm_head
     prefill = _add(_dqmm_counts(torch, cfg, BATCH * PROMPT), head,
-                   _qp(2 * L, "kv"), _attention_counts(torch, cfg, True))
+                   _qp(2 * L, "kv"), _attention_counts(torch, cfg, True),
+                   _norm_counts(cfg))
     decode = _add(_dqmm_counts(torch, cfg, BATCH), head,
-                  _qp(2 * L, "kv"), _attention_counts(torch, cfg, False))
+                  _qp(2 * L, "kv"), _attention_counts(torch, cfg, False),
+                  _norm_counts(cfg))
     if prefill.get("vp_dqmm_tc") != 7 * L or decode.get(
             "vp_dqmm_skinny") != 7 * L + 1 or prefill.get(
             "flash_tc") != L or decode.get("vp_dec_split") != L:
@@ -1973,9 +2114,9 @@ def _block_serve_counts(torch, cfg, block: int, batch: int, prompt: int):
         return _add(counts, *[quantizes(m, K, -1) for m, K in acts])
 
     prefill = _add(matmuls(batch * prompt), _qp(2 * L, "kv"),
-                   _attention_counts(torch, cfg, True))
+                   _attention_counts(torch, cfg, True), _norm_counts(cfg))
     decode = _add(matmuls(batch), _qp(2 * L, "kv"),
-                  _attention_counts(torch, cfg, False))
+                  _attention_counts(torch, cfg, False), _norm_counts(cfg))
     weights = list(_weight_shapes(cfg)) * L + [head, (cfg.vocab,
                                                       cfg.d_model)]
     export = _add(*[quantizes(K, N, 0) if K % block == 0 else
@@ -3223,9 +3364,10 @@ def dense_phase(torch, record, rows, smi, peaks):
         raise AssertionError(f"{arch}: {cfg}")
     head = {"vp_dequant_matmul": 1, "vp_dqmm_skinny": 1}
     prefill = _add(_dqmm_counts(torch, cfg, BATCH * PROMPT), head,
-                   _qp(2 * L, "kv"), _attention_counts(torch, cfg, True))
+                   _qp(2 * L, "kv"), _attention_counts(torch, cfg, True),
+                   _norm_counts(cfg))
     decode = _add(_dqmm_counts(torch, cfg, BATCH), head, _qp(2 * L, "kv"),
-                  _attention_counts(torch, cfg, False))
+                  _attention_counts(torch, cfg, False), _norm_counts(cfg))
     expect = _add(prefill, *[decode] * GEN, _qp(7 * L + 2, "table"))
     argv = ["--arch", arch, "--quant", "vp", "--kv-quant", "--batch",
             str(BATCH), "--prompt-len", str(PROMPT), "--gen", str(GEN)]
@@ -3804,7 +3946,7 @@ def remat_phase(torch, record, rows, smi):
     tag = "[remat]"
     cfg = _dense_cfg("stablelm-12b", QuantConfig(mode="vp", qat_mode="packed"),
                      layers=STABLELM_LAYERS)
-    params = stack_layers(init_params(cfg, seed=0, device="cuda"))
+    params = stack_layers(init_params(cfg, seed=0, device="cuda"), cfg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     tokens = torch.randint(0, cfg.vocab, REMAT_BATCH, generator=gen,
@@ -4000,6 +4142,562 @@ def moe_phase(torch, record, rows, smi):
             row["moe_launches"] = launches[row["name"]]
     record["moe"] = dict(out, launches=dict(launches))
     print(f"{tag} launches over the phase's runs: {dict(launches)}; {smi}")
+
+
+# ---------------------------------------------------------------------------
+# 4f. the SSM and hybrid families, and the engine's MoE rows
+# ---------------------------------------------------------------------------
+
+def _ssm_kernel_rows(torch, peaks, record, rows):
+    """The kernels at the shapes rwkv6-3b and zamba2-7b give them, timed
+    as phase 3 times them beside bound, plain version and library call,
+    each held against its plain version: `qdot` of weights exported at
+    each projection's shape (`quantize_weight`: the quant kernel, then
+    `vp_dequant_matmul`) at decode M = 4 (skinny body) and prefill M =
+    512 (tensor-core body), rwkv6's R/K/V/G and channel-mix key and
+    receptance shapes with f32 activations (as its lerp makes them) and
+    its output, value and lm_head (vocab 65536) with bf16 ones, zamba2's
+    w_z / w_x, w_bc (N 128), w_dt (N 112), w_out (K 7168), the shared
+    block's projections and lm_head (vocab 32000), f32 within F32_RTOL
+    and bf16 within BF16_TOL; zamba2's shared block's decode attention
+    (B 4, smax 144, KV 32, G 1, dh 112) over int16 and int8 words, f32
+    and bf16 q, and its tensor-core prefill (B 4, S 128, 32 heads, dh
+    112), within tolerance and bit-identical across launches; the KV
+    write (`quantize_kv`, the quantizer's KV mode) at (4, 1 and 128, 32,
+    112) in int16 and int8 words, bit for bit.  Local memory (LDL / STL)
+    of the attention instances (phase 4's count) and of
+    `vp_dequant_matmul`'s, printed."""
+    import dataclasses as dc
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core.formats import FXPFormat, default_vp_format
+    from repro_torch.core.packing import dequant_words
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.vp_attention import flash_body, plan_decode
+    from repro_torch.kernels.vp_dequant_matmul import fwd_body
+    from repro_torch.models.attention import quantize_kv
+    from repro_torch.models.layers import qdot, quantize_weight
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    timer = Timer(torch)
+    fxp = FXPFormat(12, 11)
+    fmts = {2: default_vp_format(fxp, 7, 2), 1: default_vp_format(fxp, 6, 2)}
+    q = QuantConfig(mode="vp", quantize_kv_cache=True)
+    by_name = {r["name"]: r for r in rows}
+    out = []
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def add(name, entry):
+        by_name[name].setdefault("ssm_shapes", []).append(entry)
+        out.append(dict(entry, name=name))
+
+    # -- vp_dequant_matmul through qdot, at each projection's shape ----------
+    for arch, name, K, N, xname in SSM_DQMM:
+        xdt = {"f32": torch.float32, "bf16": torch.bfloat16}[xname]
+        w = quantize_weight((randn(K, N) * 0.02).to(torch.bfloat16), q)
+        w_deq = (dequant_words(w["w_packed"], fmts[2], torch.float32)
+                 * w["scale"]).to(xdt)
+        for M in (4,) if name == "lm_head" else (4, 512):
+            x = randn(M, K, dtype=xdt)
+            body = fwd_body(M, xdt, fmts[2])
+            what = f"{arch} {name} {[M, K, N]} {str(xdt)[6:]} x"
+            got = qdot(x, w, q)
+            with ops.force_backend("ref"):
+                want = qdot(x, w, q)
+            tol = F32_RTOL if xdt == torch.float32 else BF16_TOL
+            err, rel = compare(torch, got, want, tol, what)
+            ms = timer(lambda: qdot(x, w, q))
+            with ops.force_backend("ref"):
+                plain_ms = timer(lambda: qdot(x, w, q))
+            library_ms = timer(lambda: torch.matmul(x, w_deq))
+            # An f32 x on the tensor cores runs as three bf16 terms: 3 x
+            # 2MKN at the bf16 rate; the skinny body's f32 x: the f32 rate.
+            xb = x.element_size()
+            f32_x = xdt == torch.float32
+            terms = 3 if f32_x and body == "tensor_core" else 1
+            bnd = bound(peaks, M * K * xb + K * N * 2 + M * N * xb,
+                        terms * 2 * M * K * N,
+                        "f32" if f32_x and body != "tensor_core" else "bf16")
+            _print_line("vp_dequant_matmul", [M, K, N], err, rel, ms,
+                        plain_ms, bnd, library_ms)
+            print(f"[ssm kernel] {what}: {body} body, {bnd[0] / ms:.1%} of "
+                  f"the bound, {ms / library_ms:.2f}x torch.matmul")
+            add("vp_dequant_matmul", dict(
+                shape=[M, K, N], arch=arch, weight=name, x=str(xdt)[6:],
+                body=body, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
+                bound_by=bnd[1], library_ms=library_ms, max_abs_err=err))
+            del got, want
+        del w, w_deq
+
+    # -- zamba2's shared block: decode attention at G 1, dh 112 --------------
+    B, smax, KV, G, dh = SSM_DEC_SHAPE
+    H = KV * G
+    lens = [smax, smax - 4, smax - 15, smax - smax // 3]
+    scales = torch.tensor([2.0 ** -3, 2.0 ** -2, 0.5, 1.0, 2.0],
+                          device="cuda")
+    for w_bytes in (2, 1):
+        vp = fmts[w_bytes]
+        k_w, v_w = (ops.vp_quant((randn(B, smax, KV, dh) * 0.3).clamp(
+            -0.99, 0.99), fxp, vp, packed=True) for _ in range(2))
+        k_s, v_s = (scales[torch.randint(0, 5, (B, smax, 1, 1), generator=gen,
+                                         device="cuda")] for _ in range(2))
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        qd = randn(B, 1, H, dh)
+        args = (k_w, v_w, k_s, v_s, lengths, vp, None, False)
+        plan = plan_decode(KV, smax, G, dh, w_bytes)
+        what = f"vp_decode_attention {[B, smax, KV, G, dh]} int{8 * w_bytes}"
+        got = ops.vp_decode_attention(qd, *args)
+        err, rel = compare(torch, got, ref.vp_decode_attention_ref(qd, *args),
+                           F32_RTOL, what)
+        qb = qd.to(torch.bfloat16)
+        compare(torch, ops.vp_decode_attention(qb, *args),
+                ref.vp_decode_attention_ref(qb, *args), BF16_TOL,
+                f"{what} bf16")
+        _identical(torch, ops.vp_decode_attention(qd, *args), got,
+                   f"{what}, two launches")
+        ms = timer(lambda: ops.vp_decode_attention(qd, *args))
+        plain_ms = timer(lambda: ref.vp_decode_attention_ref(qd, *args))
+        kd, vd = ((dequant_words(w, vp, torch.float32) * s)
+                  .transpose(1, 2).contiguous()
+                  for w, s in ((k_w, k_s), (v_w, v_s)))
+        pos = torch.arange(smax, device="cuda")[None, :]
+        mask = (pos < lengths.to(torch.int64)[:, None])[:, None, None]
+        qt = qd.transpose(1, 2)
+        library_ms = timer(lambda: F.scaled_dot_product_attention(
+            qt, kd, vd, attn_mask=mask))
+        valid = sum(lens)
+        bnd = bound(peaks, valid * KV * dh * w_bytes * 2 + valid * 2 * 4
+                    + 2 * B * H * dh * 4, 4 * valid * KV * G * dh, "f32")
+        shape = [B, smax, KV, G, dh, f"int{8 * w_bytes}", "full"]
+        _print_line("vp_decode_attention", shape, err, rel, ms, plain_ms, bnd,
+                    library_ms)
+        print(f"[ssm kernel] {what}: {plan}")
+        add("vp_decode_attention", dict(
+            shape=shape, plan=dataclasses.asdict(plan), ms=ms,
+            plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+            library_ms=library_ms, max_abs_err=err))
+
+    # -- the tensor-core prefill at dh 112 -----------------------------------
+    Bp, S, Hp = SSM_PREFILL_SHAPE
+    if flash_body(torch.bfloat16, dh) != "tensor_core":
+        raise AssertionError(f"bf16 dh {dh} not planned on the tensor cores")
+    qd, kd, vd = (randn(Bp, S, Hp, dh, dtype=torch.bfloat16)
+                  for _ in range(3))
+    what = f"flash_prefill {[Bp, S, Hp, Hp, dh, 'causal']}"
+    got = ops.flash_prefill(qd, kd, vd, "causal", None)
+    err, rel = compare(torch, got, ref.flash_prefill_ref(
+        qd, kd, vd, "causal", None), BF16_TOL, what)
+    _identical(torch, ops.flash_prefill(qd, kd, vd, "causal", None), got,
+               f"{what}, two launches")
+    ms = timer(lambda: ops.flash_prefill(qd, kd, vd, "causal", None))
+    plain_ms = timer(lambda: ref.flash_prefill_ref(qd, kd, vd, "causal",
+                                                   None))
+    qt, kt, vt = (t.transpose(1, 2) for t in (qd, kd, vd))
+    library_ms = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    bnd = bound(peaks, 2 * 4 * Bp * S * Hp * dh,
+                4 * Bp * Hp * dh * S * (S + 1) // 2, "bf16")
+    sass = record["attention_sass"]
+    _print_line("flash_prefill", [Bp, S, Hp, Hp, dh, "causal"], err, rel, ms,
+                plain_ms, bnd, library_ms)
+    tc = sass[f"prefill tc dh {dh}"]
+    if tc["LDL"] or tc["STL"] or not tc["HMMA"]:
+        raise AssertionError(f"{what}: SASS {tc}")
+    print(f"[ssm kernel] {what}: tensor-core body {ms:.4f} ms "
+          f"({ms / library_ms:.2f}x SDPA), SASS LDL {tc['LDL']}, STL "
+          f"{tc['STL']}, HMMA {tc['HMMA']}; decode instances (LDL/STL) "
+          + "; ".join(f"{k} {v['LDL']}/{v['STL']}" for k, v in sass.items()
+                      if k.startswith("decode")))
+    add("flash_prefill", dict(shape=[Bp, S, Hp, Hp, dh, "causal"],
+                              body="tensor_core", ms=ms, plain_ms=plain_ms,
+                              bound_ms=bnd[0], bound_by=bnd[1],
+                              library_ms=library_ms, max_abs_err=err,
+                              ldl=tc["LDL"], stl=tc["STL"]))
+
+    # -- the KV write at (B, S, 32, 112) ---------------------------------------
+    for M in (7, 6):
+        qm = dc.replace(q, M=M, E=2)
+        for S_kv in (1, S):
+            x = randn(Bp, S_kv, KV, dh, dtype=torch.bfloat16)
+            what = f"KV write {[Bp, S_kv, KV, dh]} M {M}"
+            got = quantize_kv(x, qm)
+            with ops.force_backend("ref"):
+                want = quantize_kv(x, qm)
+            for g, w_ in zip(got, want):
+                _identical(torch, g, w_, what)
+            ms = timer(lambda: quantize_kv(x, qm))
+            with ops.force_backend("ref"):
+                plain_ms = timer(lambda: quantize_kv(x, qm))
+            n = x.numel()
+            bnd = bound(peaks, n * 2 + n * got[0].element_size()
+                        + Bp * S_kv * 4, 0, "f32")
+            _print_line("vp_quant_packed", [Bp, S_kv, KV, dh, f"M {M}"], 0.0,
+                        0.0, ms, plain_ms, bnd, None)
+            add("vp_quant_packed", dict(
+                shape=[Bp, S_kv, KV, dh, f"kv M {M}"], ms=ms,
+                plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                library_ms=None, max_abs_err=0.0))
+
+    # -- a row's bits do not depend on its batch (the engine's buckets) -------
+    from repro_torch.configs import registry
+    from repro_torch.models import mamba2, rwkv6
+    from repro_torch.models.model import init_params, quantize_params
+
+    for arch in SSM_ARCHS:
+        cfg = dc.replace(registry.get_config(arch, q), n_layers=1)
+        p = quantize_params(init_params(cfg, 0, "cuda"), cfg)["layers"][0]
+        d, Bb = cfg.d_model, 4
+        x = randn(Bb, 1, d, dtype=torch.bfloat16)
+        if arch == "rwkv6-3b":
+            state = {"s": randn(Bb, d // 64, 64, 64),
+                     "last_tm": randn(Bb, d, dtype=torch.bfloat16),
+                     "last_cm": randn(Bb, d, dtype=torch.bfloat16)}
+
+            def block(x, st):
+                h, st = rwkv6.rwkv6_time_mix(x, p, cfg, st)
+                return h + rwkv6.rwkv6_channel_mix(x, p, cfg, st)[0]
+        else:
+            _, n, nh, hp, conv_dim, _ = mamba2.mamba2_dims(cfg)
+            state = {"h": randn(Bb, nh, hp, n),
+                     "conv": randn(Bb, 3, conv_dim, dtype=torch.bfloat16)}
+
+            def block(x, st):
+                return mamba2.mamba2_block(x, p, cfg, st)[0]
+        full = {k: v.clone() for k, v in state.items()}
+        got = block(x, full)
+        for i in range(Bb):
+            one = {k: v[i:i + 1].clone() for k, v in state.items()}
+            _identical(torch, block(x[i:i + 1], one), got[i:i + 1],
+                       f"{arch} decode block, row {i} alone vs in a batch "
+                       f"of {Bb}")
+            for k in one:
+                _identical(torch, one[k], full[k][i:i + 1],
+                           f"{arch} decode state {k}, row {i}")
+        print(f"[ssm kernel] {arch}: a one-token block's output and state "
+              f"rows bit-identical alone and in a batch of {Bb}")
+        del p
+
+    # -- local memory of vp_dequant_matmul's instances -------------------------
+    target = build._target("vp_dequant_matmul")
+    local = {op: _sass_counts(target, build._nvcc(), op)
+             for op in ("LDL", "STL")}
+    inst = {k: (local["LDL"][k], local["STL"][k]) for k in local["LDL"]
+            if "kernel" in k}
+    print(f"[ssm kernel] vp_dequant_matmul SASS: {len(inst)} instances, "
+          f"LDL/STL nonzero in {[k for k, v in inst.items() if any(v)]}")
+    record["ssm_kernels"] = dict(
+        rows=out, dqmm_local={k: list(v) for k, v in inst.items()})
+
+
+def _ssm_static(torch, tag, arch, launches):
+    """One family through the static serve CLI at full width and depth,
+    bf16, `--quant vp --kv-quant`, batch x prompt x steps of SSM_SERVE:
+    export, prefill and decode times, tokens/s, peak memory and launches
+    by kernel; the logits finite and a second run from the same params
+    and prompts with the same tokens; then an f32 run of the CLI at
+    SSM_F32_LAYERS (batch 4, prompt 16, 4 steps) whose greedy tokens equal
+    the plain path's on the card."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.models.model import layer_plan
+
+    B, S, steps = SSM_SERVE
+    run, seen = serve.run_static, {}
+
+    def held(params, cfg, prompts, gen, *a, **kw):
+        tokens, logits = run(params, cfg, prompts, gen, *a, **kw)
+        seen.update(params=params, cfg=cfg, prompts=prompts, logits=logits)
+        return tokens, logits
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    serve.run_static = held
+    try:
+        # -- the main path: the serve CLI ------------------------------------
+        report = serve.main([
+            "--arch", arch, "--quant", "vp", "--kv-quant", "--batch", str(B),
+            "--prompt-len", str(S), "--gen", str(steps)])
+        counts = dict(build.LAUNCHES)
+        # -------------------------------------------------------------------
+    finally:
+        serve.run_static = run
+    peak = torch.cuda.max_memory_allocated()
+    cfg = seen["cfg"]
+    need = {"vp_dqmm_skinny": 1, "vp_dqmm_tc": 1}
+    apps = sum(spec.pattern == "shared_attn" for spec in layer_plan(cfg))
+    if apps:
+        need.update({"vp_dec_split": apps * steps, "flash_tc": apps,
+                     "vp_qp_kv": 2 * apps * (steps + 1)})
+    _need(f"{tag} {arch}", counts, need)
+    for lg in seen["logits"]:
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{tag} {arch}: non-finite logits")
+    again, _ = run(seen["params"], cfg, seen["prompts"], steps, {})
+    if again.tolist() != report["tokens"]:
+        raise AssertionError(f"{tag} {arch}: a second run gave other tokens")
+    print(f"{tag} {arch}: all {cfg.n_layers} layers at full width (d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
+          + (f", d_inner {cfg.d_inner}, {cfg.ssm_nheads} SSM heads of "
+             f"{cfg.ssm_headdim}, state {cfg.ssm_state}, the shared block "
+             f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim}"
+             if cfg.family == "hybrid" else "")
+          + f"), bf16, weights {report['weight_bytes'] / 1e9:.3f} GB, "
+          f"export {report['export_s']:.3f}s, prefill {B}x{S} "
+          f"{report['prefill_s']:.4f}s, decode {steps} steps "
+          f"{report['decode_s']:.4f}s ({report['decode_s'] / steps * 1e3:.3f}"
+          f" ms/step, {report['tokens_per_s']:.1f} tok/s), peak memory "
+          f"{peak / 1e9:.3f} GB; a second run gave the same tokens; "
+          f"launches {counts}")
+    seen.clear()
+    launches.update(counts)
+    layers = SSM_F32_LAYERS[arch]
+    f32 = _format_cli(
+        torch, f"{tag} {arch}",
+        ["--arch", arch, "--layers", str(layers), "--quant", "vp",
+         "--kv-quant", "--batch", "4", "--prompt-len", "16", "--gen", "4"],
+        {"vp_dqmm_skinny": 1, "vp_dqmm_tc": 1})
+    return dict(report, launches=counts, peak_bytes=peak, f32=f32)
+
+
+def _family_engine(torch, tag, cfg, params, reqs, cap, launches,
+                   chunk=None, lookahead=ENGINE_LOOKAHEAD):
+    """`reqs` through the engine (SSM_ENGINE_SLOTS slots, pages of
+    ENGINE_PAGE, capacity `cap`, prefill whole or in chunks of `chunk`)
+    at each run-ahead of `lookahead`: every graph's first replay
+    bit-identical to its eager step, decode ms per step and the kernels
+    that ran; the same tokens at each run-ahead, but for an MoE config,
+    whose expert capacity is taken over the bucket's rows (padding
+    included, as in the reference), so that a request's tokens may
+    depend on its bucket: there the agreement is printed."""
+    waves, recs = [], []
+    for ahead in lookahead:
+        eng = _engine(cfg, params, decode_lookahead=ahead,
+                      max_slots=SSM_ENGINE_SLOTS, capacity=cap,
+                      page_size=ENGINE_PAGE, prefill_chunk=chunk)
+        kinds = sorted({(s.pattern, s.kind) for s in eng.kv.specs})
+        torch.cuda.reset_peak_memory_stats()
+        r, wall, calls, ran = _engine_wave(torch, eng, reqs)
+        peak = torch.cuda.max_memory_allocated()
+        _check_graph_log(eng.runner, f"{tag} run-ahead {ahead}:")
+        eng.kv.check_conservation()
+        launches.update(ran)
+        recs.append(r)
+        waves.append(dict(_decode_rates(r, calls), wall_s=wall,
+                          peak_bytes=peak, run_ahead=ahead, chunk=chunk,
+                          kernels=_engine_counts(ran)))
+        print(f"{tag} run-ahead {ahead}{f', chunks of {chunk}' if chunk else ''}"
+              f": {len(reqs)} requests (prompts {[len(p) for p, _ in reqs]},"
+              f" budgets {[g for _, g in reqs]}) in {wall:.3f}s, "
+              f"{waves[-1]['decode_ms_per_step']:.3f} ms per decode step "
+              f"(graph captures and checks included), peak memory "
+              f"{peak / 1e9:.3f} GB; cache plan {kinds}; kernels that ran "
+              f"{_engine_counts(ran)}")
+        _need(tag, ran, {"vp_dequant_matmul": 1})
+        del eng
+    differ = [a["rid"] for other in recs[1:]
+              for a, b in zip(recs[0], other) if a["tokens"] != b["tokens"]]
+    if differ and cfg.family != "moe":
+        raise AssertionError(f"{tag}: run-ahead changed the tokens of "
+                             f"requests {differ}")
+    if len(recs) > 1:
+        print(f"{tag}: requests whose tokens differ between run-ahead "
+              f"{lookahead}: {differ or 'none'}")
+    return dict(waves=waves, tokens=[r["tokens"] for r in recs[0]],
+                differ_by_run_ahead=differ)
+
+
+def _plain_engine_tokens(torch, cfg, params, prompt, gen, cap, chunk=None):
+    """Greedy tokens of the plain path (plain ops on the card) at B = 1
+    over a cache of `cap` positions: `runner.oracle_generate` for a whole
+    prompt, else chunked prefills of `chunk` as the engine cuts it, then
+    the same greedy decode."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import decode_step, init_cache, prefill
+    from repro_torch.serving.runner import oracle_generate
+
+    with ops.force_backend("ref"):
+        if not chunk:
+            return oracle_generate(params, cfg, prompt, gen, cap)
+        caches = init_cache(cfg, 1, cap)
+        p = torch.tensor([prompt], dtype=torch.int64, device="cuda")
+        for lo in range(0, p.shape[1], chunk):
+            lg, caches = prefill(params, p[:, lo:lo + chunk], caches, cfg,
+                                 chunked=True)
+        toks = [int(torch.argmax(lg[0]))]
+        for _ in range(gen - 1):
+            lg, caches = decode_step(params, torch.tensor(
+                [[toks[-1]]], dtype=torch.int32, device="cuda"), caches, cfg)
+            toks.append(int(torch.argmax(lg[0])))
+    return toks
+
+
+def ssm_phase(torch, record, rows, smi, peaks):
+    """The SSM and hybrid families at full width (`models.rwkv6`,
+    `models.mamba2`, the shared block) and the engine's MoE rows:
+
+    (a) the kernels at these families' shapes (`_ssm_kernel_rows`);
+    (b) rwkv6-3b and zamba2-7b whole through the static serve CLI, bf16,
+        then f32 at their cut against the plain path (`_ssm_static`);
+    (c) both through the engine whole, bf16: SSM_ENGINE_REQS ragged
+        requests, graphs at run-ahead 4 and 1 with the same tokens, and
+        zamba2 with chunked prefill (chunks of SSM_ENGINE_CHUNK); then
+        f32 at the cut depth, every request's tokens equal to the plain
+        path's greedy tokens (chunked as the engine chunks, zamba2's
+        chunks dropping their conv history as the reference's do);
+    (d) the engine's MoE rows: qwen3-moe-30b-a3b and mixtral-8x22b at
+        MOE_LAYERS, bf16, the same requests at run-ahead 4 and 1 (each
+        graph's first replay bit-identical to its eager step; mixtral's
+        window keeps dense rings);
+    (e) one packed-QAT train step, VP gradients and VP moments, remat
+        "full", on rwkv6 at 4 layers and zamba2 at one repetition of its
+        group plus the tail (SSM_F32_LAYERS), batch x seq of SSM_TRAIN:
+        loss, seconds per step (the second of two), peak memory."""
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.models.model import init_params, quantize_params
+
+    tag = "[ssm]"
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        laps[what] = now - t_lap[0]
+        t_lap[0] = now
+        print(f"[time] ssm {what}: {laps[what]:.2f}s")
+
+    _ssm_kernel_rows(torch, peaks, record, rows)
+    lap("kernels")
+    out, launches = {}, collections.Counter()
+    for arch in SSM_ARCHS:
+        out[arch] = _ssm_static(torch, tag, arch, launches)
+        lap(f"static {arch}")
+
+    n, (lo, hi), (g_lo, g_hi) = SSM_ENGINE_REQS
+    rng = np.random.default_rng(0)
+    plens = rng.integers(lo, hi + 1, n)
+    gens = rng.integers(g_lo, g_hi + 1, n)
+    quant = QuantConfig(mode="vp", quantize_kv_cache=True)
+    engines = {}
+    for arch in SSM_ARCHS + tuple(MOE_LAYERS):
+        cfg = registry.get_config(arch, quant)
+        if arch in MOE_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=MOE_LAYERS[arch])
+        reqs = [([int(t) for t in rng.integers(0, cfg.vocab, int(s))],
+                 int(g)) for s, g in zip(plens, gens)]
+        torch.cuda.empty_cache()
+        params = quantize_params(init_params(cfg, seed=0, device="cuda"), cfg)
+        res = {"whole": _family_engine(
+            torch, f"{tag} {arch} engine", cfg, params, reqs,
+            SSM_ENGINE_CAP, launches)}
+        if arch == "zamba2-7b":
+            res["chunked"] = _family_engine(
+                torch, f"{tag} {arch} engine", cfg, params, reqs,
+                SSM_ENGINE_CAP, launches, chunk=SSM_ENGINE_CHUNK,
+                lookahead=(4,))
+        del params
+        gc.collect()
+        if arch in SSM_ARCHS:   # f32 at the cut, against the plain path
+            c32 = dataclasses.replace(cfg, n_layers=SSM_F32_LAYERS[arch],
+                                      dtype="float32")
+            p32 = quantize_params(init_params(c32, seed=0, device="cuda"),
+                                  c32)
+            few = reqs[:3]
+            for chunk in ((None, SSM_ENGINE_CHUNK) if arch == "zamba2-7b"
+                          else (None,)):
+                got = _family_engine(
+                    torch, f"{tag} {arch} f32 engine", c32, p32, few,
+                    SSM_ENGINE_CAP, launches, chunk=chunk, lookahead=(4,))
+                want = [_plain_engine_tokens(torch, c32, p32, p, g,
+                                             SSM_ENGINE_CAP, chunk)
+                        for p, g in few]
+                if got["tokens"] != want:
+                    raise AssertionError(
+                        f"{tag} {arch} f32 engine (chunks {chunk}): "
+                        f"{got['tokens']} vs the plain path's {want}")
+                res[f"f32 chunk {chunk}"] = got
+            print(f"{tag} {arch} f32 engine at {c32.n_layers} layers: every "
+                  "request's tokens equal to the plain path's, whole and "
+                  "chunked")
+            del p32
+        engines[arch] = res
+        lap(f"engine {arch}")
+
+    trains = {}
+    for arch in SSM_ARCHS:
+        trains[arch] = _ssm_train(torch, tag, arch, launches)
+        lap(f"train {arch}")
+    for row in rows:
+        if launches.get(row["name"]):
+            row["ssm_launches"] = launches[row["name"]]
+    record["ssm"] = dict(static=out, engine=engines, train=trains,
+                         launches=dict(launches), laps=laps)
+    print(f"{tag} launches over the phase's runs: {dict(launches)}; {smi}")
+
+
+def _ssm_train(torch, tag, arch, launches):
+    """One packed-QAT step (VP gradients, VP moments, remat "full") of
+    `arch` at SSM_F32_LAYERS layers, bf16, twice: loss, seconds of the
+    second step, peak memory, launches of the quant, serving and dx
+    kernels."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import build
+    from repro_torch.models.model import init_params, stack_layers
+    from repro_torch.optim.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.compression import (CompressionConfig,
+                                               init_compressor_state)
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dataclasses.replace(registry.get_config(arch),
+                              n_layers=SSM_F32_LAYERS[arch], remat="full")
+    B, S = SSM_TRAIN
+    gc.collect()   # earlier runs' engines and graphs hold device memory
+    torch.cuda.empty_cache()
+    params = stack_layers(init_params(cfg, seed=0, device="cuda"), cfg)
+    opt_cfg = OptConfig(lr=1e-4, warmup_steps=1, total_steps=4,
+                        moment_codec="vp")
+    step = make_train_step(cfg, opt_cfg,
+                           compress_grads=CompressionConfig(codec="vp"),
+                           qat=QuantConfig(mode="vp", qat_mode="packed"))
+    opt, cmp = init_opt_state(params, opt_cfg), init_compressor_state(params)
+    data = SyntheticLM(DataConfig(cfg.vocab, S, B, seed=0), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(2):
+        build.reset_launches()
+        t0 = time.perf_counter()
+        # -- the main path: one train step --------------------------------------
+        params, opt, m, cmp = step(params, opt, data.batch_at(i), cmp)
+        torch.cuda.synchronize()
+        counts = dict(build.LAUNCHES)
+        # -------------------------------------------------------------------
+        steps.append(dict(loss=float(m["loss"]), seconds=time.perf_counter()
+                          - t0, grad_norm=float(m["grad_norm"])))
+        if not math.isfinite(steps[-1]["loss"]):
+            raise AssertionError(f"{tag} {arch} train: non-finite loss")
+    peak = torch.cuda.max_memory_allocated()
+    _need(f"{tag} {arch} train", counts, {
+        "vp_dequant_matmul": 1, "vp_matmul_dx": 1, "vp_qp_table": 1})
+    launches.update(counts)
+    print(f"{tag} {arch} train, {cfg.n_layers} layers at full width, bf16, "
+          f"remat full, packed QAT, VP gradients and moments, {B} x {S} "
+          f"tokens: losses {[s['loss'] for s in steps]}, grad norms "
+          f"{[round(s['grad_norm'], 4) for s in steps]}, "
+          f"{steps[1]['seconds']:.3f} s/step (first {steps[0]['seconds']:.3f}"
+          f" s), peak memory {peak / 1e9:.3f} GB; launches {counts}")
+    del params, opt, cmp
+    return dict(steps=steps, peak_bytes=peak, launches=counts,
+                layers=cfg.n_layers, batch=[B, S])
 
 
 def dequant_phase(torch, record, rows):
@@ -5093,7 +5791,8 @@ def train_phase(torch, record, rows, smi):
     fwd = _dqmm_counts(torch, cfg, TRAIN_BATCH * TRAIN_SEQ)
     if fwd.get("vp_dqmm_tc") != per_step:
         raise AssertionError(f"planned train forward: {fwd}")
-    step = _add(fwd, _qp(per_step, "table"), {"vp_matmul_dx": per_step})
+    step = _add(fwd, _qp(per_step, "table"), {"vp_matmul_dx": per_step},
+                _norm_counts(cfg))
     expect = {k: v * TRAIN_STEPS for k, v in step.items()}
     print(f"[train] launches in {TRAIN_STEPS} steps: {counts} "
           f"(per step: {step})")
@@ -5114,7 +5813,7 @@ def train_phase(torch, record, rows, smi):
     data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH),
                        device="cuda")
     batch = data.batch_at(0)
-    params = stack_layers(init_params(cfg, seed=0, device="cuda"))
+    params = stack_layers(init_params(cfg, seed=0, device="cuda"), cfg)
     opt_cfg = OptConfig(warmup_steps=0, total_steps=TRAIN_STEPS,
                         moment_codec="vp")
     step_fn = make_train_step(cfg, opt_cfg,
@@ -5129,7 +5828,7 @@ def train_phase(torch, record, rows, smi):
 
     # -- one step's loss and gradients: kernel path vs plain path ------------
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    p32 = stack_layers(init_params(cfg32, seed=0, device="cuda"))
+    p32 = stack_layers(init_params(cfg32, seed=0, device="cuda"), cfg32)
     loss_rel32, g32 = _grad_diffs(torch, _train_grads(torch, p32, batch,
                                                       cfg32),
                                   _train_grads(torch, p32, batch, cfg32,
@@ -5142,7 +5841,7 @@ def train_phase(torch, record, rows, smi):
         raise AssertionError(f"f32 train step: loss {loss_rel32:.3e}, "
                              f"gradients {g32}")
     del p32
-    p16 = stack_layers(init_params(cfg, seed=0, device="cuda"))
+    p16 = stack_layers(init_params(cfg, seed=0, device="cuda"), cfg)
     plain = _train_grads(torch, p16, batch, cfg, plain=True)
     loss_rel, g16 = _grad_diffs(torch, _train_grads(torch, p16, batch, cfg),
                                 plain)

@@ -1,7 +1,7 @@
 """Model configuration schema (a copy of `repro.configs.base` cut to
-the fields the dense and MoE serving and training paths read; other
-families' fields come with their slices, and `family` lets the model
-reject them until then).
+the fields the dense, MoE, SSM and hybrid serving and training paths
+read; the encoder-decoder and VLM fields come with their slice, and
+`family` lets the model reject them until then).
 """
 from __future__ import annotations
 
@@ -71,6 +71,15 @@ class ModelConfig:
     # MoE
     n_experts: int = 0
     experts_per_token: int = 0
+    # SSM (mamba2)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_chunk: int = 256
+    # RWKV6
+    rwkv: bool = False
+    # Hybrid (zamba2): one SHARED attention block applied every N ssm layers
+    shared_attn_period: int = 0
     dtype: str = "bfloat16"
     quant: QuantConfig = QuantConfig()
     remat: str = "none"              # none | full | dots (act checkpointing)
@@ -79,3 +88,11 @@ class ModelConfig:
     @property
     def head_dim(self) -> int:
         return self.d_head if self.d_head else self.d_model // self.n_heads
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim

@@ -1,5 +1,5 @@
-"""Architecture registry of the port: the dense and MoE configs it
-serves (the reference's other families come with their slices).
+"""Architecture registry of the port: the dense, MoE, SSM and hybrid
+configs it serves (encoder-decoder and VLM come with their slice).
 
 `get_config` returns the full-width config (the card's target);
 `get_smoke_config` the reduced one the CPU tests use.
@@ -11,7 +11,7 @@ from typing import Optional
 
 from .base import ModelConfig, QuantConfig
 from . import (gemma3_27b, mixtral_8x22b, qwen2_0_5b, qwen3_0_6b,
-               qwen3_moe_30b_a3b, stablelm_12b)
+               qwen3_moe_30b_a3b, rwkv6_3b, stablelm_12b, zamba2_7b)
 
 _MODULES = {
     "qwen2-0.5b": qwen2_0_5b,
@@ -20,6 +20,8 @@ _MODULES = {
     "gemma3-27b": gemma3_27b,
     "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
     "mixtral-8x22b": mixtral_8x22b,
+    "rwkv6-3b": rwkv6_3b,
+    "zamba2-7b": zamba2_7b,
 }
 
 ARCH_NAMES = tuple(_MODULES)

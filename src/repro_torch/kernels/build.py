@@ -136,6 +136,9 @@ _SIGNATURES = {
         "vp_dequant_packed_launch": [_P, _I, _P, _LL, _I, _P] + [_I] * 3
                                     + [_P],
     },
+    "rms_norm": {
+        "rms_norm_launch": [_P, _I, _P, _I, _P, _LL, _I, _I, _F, _I, _P],
+    },
 }
 SOURCES = tuple(_SIGNATURES)
 

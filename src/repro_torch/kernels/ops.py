@@ -15,9 +15,10 @@ The trainable ops are `torch.autograd.Function`s, each the counterpart
 of a `jax.custom_vjp` of the reference: `vp_dequant_matmul` (dx from the
 `vp_matmul_dx` kernel over the packed words), `vp_qat_matmul` (packed
 forward, straight-through backward) and the unmasked `vp_quant_matmul`
-(dx and dw kernels over the quantized operands saved as packed words).
-A call that needs no gradient skips the Function and runs the forward
-alone.
+(dx and dw kernels over the quantized operands saved as packed words),
+and `rms_norm` (the kernel forward, its backward in PyTorch ops; the
+reference's is XLA's autodiff of its jnp).  A call
+that needs no gradient skips the Function and runs the forward alone.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ from .vp_dequant_matmul import vp_dequant_matmul_cuda
 from .vp_matmul import vp_matmul_cuda
 from .vp_quant import (vp_quant_packed_cuda, vp_quant_planes_cuda,
                        vp_quant_scaled_cuda)
+from .rms_norm import rms_norm_cuda
 from .vp_quant_matmul import vp_quant_matmul_cuda
 
 # Set only by `force_backend`.
@@ -79,6 +81,45 @@ def _wants_grad(*tensors: Optional[torch.Tensor]) -> bool:
     Function; otherwise the forward alone)."""
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The kernel forward; the backward in PyTorch ops from the saved
+    inputs: with r = rsqrt(mean(x^2) + eps) and t = dy (1 + gamma),
+    dx = r t - x r^3 mean(t x), dgamma = the sum over rows of dy x r."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return rms_norm_cuda(x, gamma, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma = ctx.saved_tensors
+        xf, gf = x.to(torch.float32), g.to(torch.float32)
+        r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + ctx.eps)
+        dx = dgamma = None
+        if ctx.needs_input_grad[0]:
+            t = gf * (1.0 + gamma.to(torch.float32))
+            dx = (r * t - xf * (r * r * r * torch.mean(
+                t * xf, dim=-1, keepdim=True))).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dgamma = (gf * xf * r).reshape(-1, *gamma.shape).sum(0).to(
+                gamma.dtype)
+        return dx, dgamma, None
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
+    """x * rsqrt(mean(x^2) + eps) * (1 + gamma) in f32, cast back to x's
+    dtype, over x's last axis; gamma (D,), or x's trailing shape (a
+    per-head gamma).  On the card one launch whose row's bits do not
+    depend on the number of rows."""
+    if uses_kernel(x, gamma):
+        if _wants_grad(x, gamma):
+            return _RMSNorm.apply(x, gamma, eps)
+        return rms_norm_cuda(x, gamma, eps)
+    return ref.rms_norm_ref(x, gamma, eps)
 
 
 def vp_quant(x: torch.Tensor, fxp: FXPFormat, vp: VPFormat,

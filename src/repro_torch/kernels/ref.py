@@ -353,3 +353,28 @@ def flash_prefill_ref(q, k, v, pattern: str = "causal",
                       v.to(torch.float32))
     out = (pv / l[..., None]).permute(0, 3, 1, 2, 4)
     return out.reshape(B, Sq, H, dh).to(q.dtype)
+
+
+def rms_norm_ref(x: torch.Tensor, gamma: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """x * (1 / sqrt(mean(x^2) + eps)) * (1 + gamma) in f32, cast back to
+    x's dtype (the reference's `models/layers.py:rms_norm`), over x's
+    last axis; gamma (D,) or x's trailing shape.  The sum of squares in
+    the kernel's order (csrc/rms_norm.cu): 32 partial sums, partial l
+    adding columns l, l + 32, ... in turn, then halved five times."""
+    xf = x.to(torch.float32)
+    D = xf.shape[-1]
+    sq = xf * xf
+    sq = torch.nn.functional.pad(sq, (0, -D % 32))
+    sq = sq.reshape(*sq.shape[:-1], -1, 32)
+    acc = sq[..., 0, :]
+    for k in range(1, sq.shape[-2]):
+        acc = acc + sq[..., k, :]
+    while acc.shape[-1] > 1:
+        h = acc.shape[-1] // 2
+        acc = acc[..., :h] + acc[..., h:]
+    # tensor / tensor: a scalar divisor would be taken as its reciprocal
+    mean = acc / torch.full_like(acc, float(D))
+    r = torch.sqrt(mean + eps).reciprocal()
+    out = (xf * r) * (1.0 + gamma.to(torch.float32))
+    return out.to(x.dtype)

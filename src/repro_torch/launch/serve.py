@@ -26,9 +26,12 @@ FXP(12, 11)): M + E <= 8 packs each weight into an int8 word.
 `--temperature` samples (Gumbel-max, noise from a torch generator seeded
 with `--seed`) where 0 decodes greedily.  The engine runs on a virtual
 clock charged with each step's measured wall time; on the card each
-decode bucket is one CUDA graph.  `--arch` takes the dense configs:
-qwen2-0.5b, qwen3-0.6b, stablelm-12b and gemma3-27b.  `--tune-decode` of
-the reference is not ported yet.
+decode bucket is one CUDA graph.  `--arch` takes the dense configs
+(qwen2-0.5b, qwen3-0.6b, stablelm-12b, gemma3-27b), the MoE configs
+(qwen3-moe-30b-a3b, mixtral-8x22b), the SSM config rwkv6-3b and the
+hybrid zamba2-7b, whose shared attention block is exported once; on the
+engine their state rows live per slot beside the pages.  `--tune-decode`
+of the reference is not ported yet.
 """
 from __future__ import annotations
 

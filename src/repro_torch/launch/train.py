@@ -7,7 +7,12 @@ fault-tolerance fleet (counterpart of `repro.launch.train`).
 
 Runs on the card by default and raises when CUDA is absent; `--device
 cpu` runs the plain PyTorch versions of the kernels (`--smoke` gives the
-reduced config the CPU can train).  Weights are random from seed 0 (torch
+reduced config the CPU can train).  `--arch` takes the dense, MoE, SSM
+(rwkv6-3b) and hybrid (zamba2-7b) configs; parameters train in the
+reference's tree (`models.model.stack_layers`: one stack per sub-layer
+of each scanned group, the hybrid's shared block once), so every
+per-leaf scale of `--compress-grads` and `--compress-moments` covers the
+reference's elements.  Weights are random from seed 0 (torch
 generator), batches come from `data.SyntheticLM` (numpy, seed 0).  With
 `--qat packed` every weight matmul quantizes its float master to packed
 VP words and runs the quant and `vp_dequant_matmul` kernels forward and
@@ -167,7 +172,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
             print(f"[restart] attempt {attempt}")
             report["restarts"] = attempt
         start = 0
-        params = stack_layers(init_params(cfg, seed=0, device=device))
+        params = stack_layers(init_params(cfg, seed=0, device=device), cfg)
         opt_state = init_opt_state(params, opt_cfg)
         cmp_state = (init_compressor_state(params)
                      if args.compress_grads else None)

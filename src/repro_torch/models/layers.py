@@ -181,11 +181,39 @@ def qdot(x: torch.Tensor, wq: Any, q: QuantConfig,
     return out.reshape(*lead, -1)
 
 
+def per_row(fn, *xs: torch.Tensor) -> torch.Tensor:
+    """`fn` of each row of the leading axis alone, the rows concatenated.
+    A library matmul or batched product may pick another kernel, and so
+    another summation order, for another number of rows; taken one row
+    at a time, a row's bits do not depend on the rows it is batched
+    with (the engine's decode buckets)."""
+    return torch.cat([fn(*(x[i:i + 1] for x in xs))
+                      for i in range(xs[0].shape[0])])
+
+
+def row_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (kept).  On the card in a fixed tree of sums
+    of at most 32 terms each: PyTorch's reduction spreads one row's sum
+    over more threads, in another order, when a launch holds fewer rows,
+    so a plain sum over a decode row would depend on its batch; a sum of
+    at most 32 terms takes one order at any row count.  Elsewhere one
+    sum."""
+    if not t.is_cuda:
+        return t.sum(-1, keepdim=True)
+    while t.shape[-1] > 32:
+        n = t.shape[-1]
+        c = max(c for c in range(1, 33) if n % c == 0)
+        if c == 1:   # a prime past 32: one sum
+            break
+        t = t.reshape(*t.shape[:-1], n // c, c).sum(-1)
+    return t.sum(-1, keepdim=True)
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
-    xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps)
-    return (out * (1.0 + gamma.to(torch.float32))).to(x.dtype)
+    """x * rsqrt(mean(x^2) + eps) * (1 + gamma) in f32, cast back to x's
+    dtype (`ops.rms_norm`: on the card one launch of the RMSNorm kernel,
+    whose row's bits do not depend on its batch)."""
+    return ops.rms_norm(x, gamma, eps)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4):
@@ -231,11 +259,19 @@ def embed_lookup(tokens: torch.Tensor, table: Any, q: QuantConfig,
 
 
 def weight_bytes(params: Dict[str, Any]) -> int:
-    """Bytes of every tensor in a parameter tree."""
-    if isinstance(params, torch.Tensor):
-        return params.numel() * params.element_size()
-    if isinstance(params, dict):
-        return sum(weight_bytes(v) for v in params.values())
-    if isinstance(params, (list, tuple)):
-        return sum(weight_bytes(v) for v in params)
-    return 0
+    """Bytes of every tensor in a parameter tree, each counted once (the
+    hybrid's shared block appears at each of its applications)."""
+    seen: Dict[int, int] = {}
+
+    def walk(node):
+        if isinstance(node, torch.Tensor):
+            seen[id(node)] = node.numel() * node.element_size()
+        elif isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+
+    walk(params)
+    return sum(seen.values())

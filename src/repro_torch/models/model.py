@@ -1,19 +1,31 @@
-"""Dense and MoE transformer serving and training paths (port of the
-dense and MoE branches of `repro.models.model`).
+"""Dense, MoE, SSM and hybrid serving and training paths (port of
+those branches of `repro.models.model`).
 
-Parameters are plain dicts of tensors: {"embed", "final_norm", "lm_head",
-"layers": [per-layer {"attn", "mlp" (dense) or "moe" (MoE: `w_router`
-and the stacked experts), "ln1", "ln2"}]}, the serving layout.  The
-reference stacks layers for `lax.scan`, one stack per
-sub-layer of each scanned group (`layer_groups`: gemma3's period of 5
-local + 1 global layers, then a tail of locals); here a Python loop
-walks the list in the order the scans apply them (`layer_plan`), each
-layer with its own attention pattern and window.  Training keeps the
-reference's stack instead
-(`stack_layers`: "layers" is one dict of (L, ...) tensors), so that every
-per-tensor scale of the gradient and moment codecs covers the same
-elements as the reference's.
-Caches are a list of per-layer dicts (see `models.attention.attn_block`).
+Serving parameters are plain dicts of tensors: {"embed", "final_norm",
+"lm_head", "layers": [one dict per layer]}.  A layer is {"attn", "mlp"
+(dense) or "moe" (MoE: `w_router` and the stacked experts), "ln1",
+"ln2"}, an RWKV6 layer (`models.rwkv6`: time and channel mix) or a
+Mamba2 layer (`models.mamba2`, with its pre-norm "ln").  The reference
+stacks layers for `lax.scan`, one stack per sub-layer of each scanned
+group (`layer_groups`: gemma3's period of 5 local + 1 global layers,
+then a tail of locals; zamba2's 6 mamba layers and the shared attention
+block, then a tail of mambas); here a Python loop walks the list in the
+order the scans apply them (`layer_plan`), each layer with its own
+pattern and window.  The hybrid's shared attention block is ONE dict,
+and every application of it in the list is that same dict.
+
+Training takes the reference's own tree instead (`stack_layers`):
+{"embed", "final_norm", "lm_head", "groups": [{"sub{j}": a dict of
+(repeats, ...) tensors}], "shared_attn"?}, one stack per sub-layer of
+each scanned group and the shared block once, outside the groups.  So
+every per-tensor scale of the gradient and moment codecs covers the
+same elements as the reference's, on every model, and the shared
+block's gradient is the sum over its applications.  `_unbind` gives the
+per-layer list back as views into those stacks.
+
+Caches are a list of per-layer dicts (see `models.attention.attn_block`;
+an SSM layer's state rows {"s", "last_tm", "last_cm"} or {"h", "conv"}
+have no sequence axis and no "len", and are updated in place).
 With `remat="full"` training recomputes each scanned group's repetition
 in the backward (`torch.utils.checkpoint`), the unit the reference's
 `jax.checkpoint` wraps; "dots" runs as "none", as in the reference.
@@ -35,11 +47,15 @@ from repro_torch.core.packing import storage_dtype
 from repro_torch.core.vp_tensor import significand_dtype
 from .attention import attn_block, kv_cache_formats
 from .layers import embed_lookup, qdot, quantize_weight, rms_norm
+from .mamba2 import D_CONV, mamba2_block, mamba2_dims
 from .mlp import swiglu
 from .moe import moe_block
+from .rwkv6 import HEAD_DIM as RWKV_HEAD
+from .rwkv6 import rwkv6_channel_mix, rwkv6_time_mix
 
-QUANT_KEYS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
-              "embed", "lm_head"}
+QUANT_KEYS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_in",
+              "w_out", "w_r", "w_k", "w_v", "w_g", "w_o", "w_ck", "w_cv",
+              "w_cr", "w_z", "w_x", "w_bc", "w_dt", "embed", "lm_head"}
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -56,8 +72,10 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 MOE_PATTERNS = ("moe", "moe_swa")
+SSM_PATTERNS = ("mamba", "rwkv")
+SHARED = "shared_attn"
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -70,15 +88,27 @@ def _check_family(cfg: ModelConfig) -> None:
 @dataclasses.dataclass(frozen=True)
 class LayerGroup:
     """One scanned group of the reference: `repeats` times the sub-layers
-    `patterns` (causal | local | global | swa)."""
+    `patterns` (causal | local | global | swa | moe | moe_swa | mamba |
+    rwkv | shared_attn)."""
     repeats: int
     patterns: Tuple[str, ...]
 
 
 def layer_groups(cfg: ModelConfig) -> List[LayerGroup]:
-    """The reference's scanned groups of a dense or MoE model (those
-    branches of `repro.models.model.layer_groups`)."""
+    """The reference's scanned groups (its `layer_groups`, but for the
+    encoder-decoder family)."""
     _check_family(cfg)
+    if cfg.family == "hybrid":
+        per = cfg.shared_attn_period
+        n_full, tail = divmod(cfg.n_layers, per)
+        groups = []
+        if n_full:
+            groups.append(LayerGroup(n_full, ("mamba",) * per + (SHARED,)))
+        if tail:
+            groups.append(LayerGroup(1, ("mamba",) * tail))
+        return groups
+    if cfg.family == "ssm" and cfg.rwkv:
+        return [LayerGroup(cfg.n_layers, ("rwkv",))]
     if cfg.local_global_period:
         per = cfg.local_global_period
         n_full, tail = divmod(cfg.n_layers, per)
@@ -98,7 +128,8 @@ def layer_groups(cfg: ModelConfig) -> List[LayerGroup]:
 
 def pattern_window(cfg: ModelConfig, pattern: str
                    ) -> Tuple[str, Optional[int]]:
-    """A sub-layer pattern's attention: (causal | local, window)."""
+    """A sub-layer pattern's attention: (causal | local, window); the
+    shared block is causal with no window."""
     if pattern == "local":
         return "local", cfg.local_window
     if pattern in ("swa", "moe_swa"):
@@ -139,31 +170,32 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     """Random float weights from a seeded torch.Generator, with the
     reference's shapes and scales (normal * 0.02; output projections
     * 0.02 / sqrt(2 L); norms and QKV biases zero; MoE layers a f32
-    router (d, E) and experts stacked (E, d, ff) / (E, ff, d))."""
+    router (d, E) and experts stacked (E, d, ff) / (E, ff, d); RWKV6
+    and Mamba2 layers their f32 mixes, decays, conv and norms as the
+    reference's `_rwkv_params` / `_mamba_params`).  The hybrid's shared
+    block is made once and every application refers to it."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = model_dtype(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
-    def dense(shape, scale=0.02):
+    def dense(shape, scale=0.02, dt=dtype):
         w = torch.randn(shape, generator=gen, device=dev,
                         dtype=torch.float32)
-        return (w * scale).to(dtype)
+        return (w * scale).to(dt)
+
+    def full(shape, value=0.0):
+        return torch.full(shape, value, dtype=torch.float32, device=dev)
 
     def zeros(n):
-        return torch.zeros((n,), dtype=torch.float32, device=dev)
+        return full((n,))
 
     d, ff, L = cfg.d_model, cfg.d_ff, cfg.n_layers
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     out_scale = 0.02 / max(1, 2 * L) ** 0.5
-    params: Dict[str, Any] = {
-        "embed": dense((cfg.vocab, d)),
-        "final_norm": zeros(d),
-        "lm_head": dense((d, cfg.vocab)),
-        "layers": [],
-    }
-    for spec in layer_plan(cfg):
+
+    def attn_mlp():
         attn = {"wq": dense((d, H * dh)), "wk": dense((d, KV * dh)),
                 "wv": dense((d, KV * dh)), "wo": dense((H * dh, d), out_scale)}
         if cfg.qkv_bias:
@@ -172,18 +204,68 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         if cfg.qk_norm:
             attn["q_norm"] = zeros(dh)
             attn["k_norm"] = zeros(dh)
-        layer = {"attn": attn, "ln1": zeros(d), "ln2": zeros(d)}
-        if spec.pattern in MOE_PATTERNS:
-            E = cfg.n_experts
-            router = torch.randn((d, E), generator=gen, device=dev,
-                                 dtype=torch.float32) * 0.02
-            layer["moe"] = {"w_router": router,
-                            "w_gate": dense((E, d, ff)),
-                            "w_up": dense((E, d, ff)),
-                            "w_down": dense((E, ff, d), out_scale)}
+        return {"attn": attn, "ln1": zeros(d), "ln2": zeros(d)}
+
+    def rwkv():
+        lora = max(32, d // 16)
+        p = {"w_r": dense((d, d)), "w_k": dense((d, d)),
+             "w_v": dense((d, d)), "w_g": dense((d, d)),
+             "w_o": dense((d, d), out_scale),
+             "w_dec_a": dense((d, lora), dt=torch.float32),
+             "w_dec_b": dense((lora, d), dt=torch.float32),
+             "w_dec0": zeros(d),
+             "u_bonus": full((d // RWKV_HEAD, RWKV_HEAD)),
+             "ln_x": zeros(d),
+             "w_ck": dense((d, ff)), "w_cv": dense((ff, d), out_scale),
+             "w_cr": dense((d, d))}
+        for name in ("r", "k", "v", "g", "w", "ck", "cr"):
+            p[f"mu_{name}"] = full((d,), 0.5)
+        p["ln1"], p["ln2"] = zeros(d), zeros(d)
+        return p
+
+    def mamba():
+        di, n, nh, _, conv_dim, _ = mamba2_dims(cfg)
+        return {"w_z": dense((d, di)), "w_x": dense((d, di)),
+                "w_bc": dense((d, 2 * n)), "w_dt": dense((d, nh)),
+                "conv_w": dense((D_CONV, conv_dim), 0.2, torch.float32),
+                "conv_b": zeros(conv_dim), "dt_bias": zeros(nh),
+                "a_log": zeros(nh), "d_skip": full((nh,), 1.0),
+                "out_norm": zeros(di), "w_out": dense((di, d), out_scale),
+                "ln": zeros(d)}
+
+    params: Dict[str, Any] = {
+        "embed": dense((cfg.vocab, d)),
+        "final_norm": zeros(d),
+        "lm_head": dense((d, cfg.vocab)),
+        "layers": [],
+    }
+    shared = None
+    for spec in layer_plan(cfg):
+        if spec.pattern == SHARED:
+            if shared is None:
+                shared = attn_mlp()
+                shared["mlp"] = {"w_gate": dense((d, ff)),
+                                 "w_up": dense((d, ff)),
+                                 "w_down": dense((ff, d), out_scale)}
+            layer = shared
+        elif spec.pattern == "rwkv":
+            layer = rwkv()
+        elif spec.pattern == "mamba":
+            layer = mamba()
         else:
-            layer["mlp"] = {"w_gate": dense((d, ff)), "w_up": dense((d, ff)),
-                            "w_down": dense((ff, d), out_scale)}
+            layer = attn_mlp()
+            if spec.pattern in MOE_PATTERNS:
+                E = cfg.n_experts
+                router = torch.randn((d, E), generator=gen, device=dev,
+                                     dtype=torch.float32) * 0.02
+                layer["moe"] = {"w_router": router,
+                                "w_gate": dense((E, d, ff)),
+                                "w_up": dense((E, d, ff)),
+                                "w_down": dense((E, ff, d), out_scale)}
+            else:
+                layer["mlp"] = {"w_gate": dense((d, ff)),
+                                "w_up": dense((d, ff)),
+                                "w_down": dense((ff, d), out_scale)}
         params["layers"].append(layer)
     return params
 
@@ -196,8 +278,10 @@ def quantize_params(params: Dict[str, Any], cfg: ModelConfig,
     "scale"} in vp_block; {"m", "scale"} in fxp).  A stack of matrices
     (3-D: the experts (E, d_in, d_out), or layers; 4-D: layers of
     experts) is exported matrix by matrix, one scale each, and stacked
-    back, as the reference's vmap of the export does.  Biases, norms and
-    the MoE router stay float.
+    back, as the reference's vmap of the export does.  Biases, norms,
+    the MoE router and RWKV6's f32 low-rank decay stay float.  A dict
+    met again (the hybrid's shared block, at each of its applications)
+    is exported once and the result shared.
 
     On the card each VP matrix goes through the quant kernel (words or
     planes) once, each block-VP one through the block quantizer; FXP is
@@ -215,12 +299,17 @@ def quantize_params(params: Dict[str, Any], cfg: ModelConfig,
             return torch.stack(parts)
         return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
 
+    done: Dict[int, Any] = {}
+
     def walk(node):
         if isinstance(node, dict):
-            return {k: (export(v)
+            if id(node) not in done:
+                done[id(node)] = {
+                    k: (export(v)
                         if k in QUANT_KEYS and isinstance(v, torch.Tensor)
                         and v.ndim in (2, 3, 4) else walk(v))
                     for k, v in node.items()}
+            return done[id(node)]
         if isinstance(node, list):
             return [walk(v) for v in node]
         return node
@@ -236,13 +325,33 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
     byte where dh allows, and the scales ("planes"); else float K/V in
     the model dtype.  A windowed layer's buffer holds min(max_len,
     window) positions (a rolling ring once the window is the shorter),
-    every other layer's max_len.  device="meta" gives the shapes without
-    allocating."""
+    every other layer's max_len.  An RWKV6 layer keeps its state rows
+    {"s" (B, H, 64, 64) f32, "last_tm", "last_cm" (B, d)}, a Mamba2
+    layer {"h" (B, heads, P, N) f32, "conv" (B, D_CONV - 1, conv
+    channels)}, in the model dtype where not f32; each application of
+    the shared block has its own attention cache.  device="meta" gives
+    the shapes without allocating."""
     dev = resolve_device(device)
     KV, dh = cfg.n_kv_heads, cfg.head_dim
+    dtype, d, f32 = model_dtype(cfg), cfg.d_model, torch.float32
 
     caches = []
     for spec in layer_plan(cfg):
+        if spec.pattern == "rwkv":
+            H = d // RWKV_HEAD
+            caches.append(dict(
+                s=torch.zeros((B, H, RWKV_HEAD, RWKV_HEAD), dtype=f32,
+                              device=dev),
+                last_tm=torch.zeros((B, d), dtype=dtype, device=dev),
+                last_cm=torch.zeros((B, d), dtype=dtype, device=dev)))
+            continue
+        if spec.pattern == "mamba":
+            _, n, nh, p, conv_dim, _ = mamba2_dims(cfg)
+            caches.append(dict(
+                h=torch.zeros((B, nh, p, n), dtype=f32, device=dev),
+                conv=torch.zeros((B, D_CONV - 1, conv_dim), dtype=dtype,
+                                 device=dev)))
+            continue
         buf = min(max_len, spec.window) if spec.window else max_len
 
         def zeros(tail, dtype):
@@ -250,7 +359,6 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
 
         ln = torch.zeros((B,), dtype=torch.int32, device=dev)
         if not cfg.quant.quantize_kv_cache:
-            dtype = model_dtype(cfg)
             caches.append(dict(k=zeros((KV, dh), dtype),
                                v=zeros((KV, dh), dtype), len=ln))
             continue
@@ -275,31 +383,73 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
     return caches
 
 
-def stack_layers(params: Dict[str, Any]) -> Dict[str, Any]:
-    """Serving layout -> training layout: the per-layer list becomes one
-    dict of tensors stacked on a leading (L, ...) axis (copies)."""
+def stack_layers(params: Dict[str, Any], cfg: ModelConfig
+                 ) -> Dict[str, Any]:
+    """Serving layout -> training layout, the reference's tree: the
+    layers of sub-layer j of scanned group g become "groups"[g]["sub{j}"],
+    one dict of tensors stacked on a leading (repeats, ...) axis
+    (copies), and the hybrid's shared block "shared_attn" (its tensors,
+    not copied), outside the groups."""
+    groups: List[Dict[str, Any]] = [{} for _ in layer_groups(cfg)]
+    members: Dict[Tuple[int, int], List[Any]] = {}
+    out = {k: v for k, v in params.items() if k != "layers"}
+    for spec, layer in zip(layer_plan(cfg), params["layers"], strict=True):
+        if spec.pattern == SHARED:
+            out[SHARED] = layer
+        else:
+            members.setdefault((spec.gi, spec.sub), []).append(layer)
+
     def stack(nodes):
         if isinstance(nodes[0], dict):
             return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
         return torch.stack(nodes)
 
-    return {**params, "layers": stack(params["layers"])}
+    for (gi, j), nodes in members.items():
+        groups[gi][f"sub{j}"] = stack(nodes)
+    out["groups"] = groups
+    return out
 
 
-def _unbind(node) -> List[Any]:
-    """A stacked dict of (L, ...) tensors -> L per-layer dicts of views
-    (`unbind`, whose gradient is one stack)."""
+def _unbind_stack(node) -> List[Any]:
+    """A dict of (R, ...) tensors -> R dicts of views (`unbind`, whose
+    gradient is one stack)."""
     if isinstance(node, dict):
-        parts = {k: _unbind(v) for k, v in node.items()}
+        parts = {k: _unbind_stack(v) for k, v in node.items()}
         n = len(next(iter(parts.values())))
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
     return list(node.unbind(0))
 
 
+def _unbind(params: Dict[str, Any], cfg: ModelConfig) -> List[Any]:
+    """Training layout -> the per-layer list in `layer_plan` order: each
+    layer a view into its (group, sub-layer) stack at its repeat, each
+    application of the shared block the same dict."""
+    views = {(gi, key): _unbind_stack(node)
+             for gi, g in enumerate(params["groups"])
+             for key, node in g.items()}
+    return [params[SHARED] if spec.pattern == SHARED
+            else views[(spec.gi, f"sub{spec.sub}")][spec.rep]
+            for spec in layer_plan(cfg)]
+
+
 def _sublayer(x, p, spec: LayerSpec, cfg: ModelConfig, positions, cache,
               train: bool, chunked: bool):
-    """One layer: attention, then the MLP or the MoE block -> (x, cache,
-    aux (2,) f32 [load_balance, router_z], zero for a dense MLP)."""
+    """One layer -> (x, cache, aux (2,) f32 [load_balance, router_z],
+    zero but for an MoE block).  RWKV6: time mix then channel mix;
+    Mamba2: the block after its norm; otherwise attention, then the MLP
+    or the MoE block.  An SSM layer's cache is its state, updated in
+    place and returned."""
+    zero = torch.zeros((2,), dtype=torch.float32, device=x.device)
+    if spec.pattern == "rwkv":
+        h, cache = rwkv6_time_mix(rms_norm(x, p["ln1"]), p, cfg, cache,
+                                  train)
+        x = x + h
+        h, cache = rwkv6_channel_mix(rms_norm(x, p["ln2"]), p, cfg, cache,
+                                     train)
+        return x + h, cache, zero
+    if spec.pattern == "mamba":
+        h, cache = mamba2_block(rms_norm(x, p["ln"]), p, cfg, cache, train)
+        return x + h, cache, zero
     h, cache = attn_block(rms_norm(x, p["ln1"]), p["attn"], cfg, positions,
                           spec.attention, spec.window, cache, train, chunked)
     x = x + h
@@ -308,7 +458,7 @@ def _sublayer(x, p, spec: LayerSpec, cfg: ModelConfig, positions, cache,
         aux = torch.stack([aux["load_balance"], aux["router_z"]])
     else:
         h = swiglu(rms_norm(x, p["ln2"]), p["mlp"], cfg.quant, train)
-        aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+        aux = zero
     return x + h, cache, aux
 
 
@@ -385,8 +535,8 @@ def loss_fn(params, batch, cfg: ModelConfig, train: bool = True):
 
     `train` runs every weight matmul as a QAT `qdot` and attention as the
     differentiable walk.  The loss is ce + 0.01 load_balance + 1e-3
-    router_z, the aux terms summed over the MoE layers (0 for a dense
-    model), as the reference's.  `cfg.remat == "full"` checkpoints each
+    router_z, the aux terms summed over the MoE layers (0 for the other
+    families), as the reference's.  `cfg.remat == "full"` checkpoints each
     scanned group's repetition (`_backbone`).
     """
     _check_family(cfg)
@@ -396,13 +546,25 @@ def loss_fn(params, batch, cfg: ModelConfig, train: bool = True):
         model_dtype(cfg))
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
-    x, _, aux = _backbone(_unbind(params["layers"]), x, cfg, positions,
+    x, _, aux = _backbone(_unbind(params, cfg), x, cfg, positions,
                           train=train)
     x = rms_norm(x, params["final_norm"])
     ce = chunked_cross_entropy(x, params["lm_head"], batch["labels"], cfg,
                                cfg.loss_chunk)
     loss = ce + 0.01 * aux[0] + 1e-3 * aux[1]
     return loss, {"ce": ce, "load_balance": aux[0], "router_z": aux[1]}
+
+
+def _decode_positions(caches: List[dict]) -> torch.Tensor:
+    """The current position (B, 1) of each row: the length of the first
+    cache that has one (every attention cache advances together), or
+    zeros for a model of SSM layers only (no rope reads it)."""
+    for cache in caches:
+        if "len" in cache:
+            return cache["len"][:, None]
+    B = next(iter(caches[0].values())).shape[0]
+    return torch.zeros((B, 1), dtype=torch.int32,
+                       device=next(iter(caches[0].values())).device)
 
 
 @torch.no_grad()
@@ -413,14 +575,15 @@ def prefill(params, tokens: torch.Tensor, caches, cfg: ModelConfig,
 
     chunked: `tokens` is a prompt CHUNK continuing already-prefilled
     caches (continuous batching): positions are offset by the cache
-    length and attention appends at that offset."""
+    length (`_decode_positions`) and attention appends at that offset;
+    SSM states carry forward."""
     _check_family(cfg)
     B, S = tokens.shape
     x = embed_lookup(tokens, params["embed"], cfg.quant).to(model_dtype(cfg))
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
     if chunked:
-        positions = caches[0]["len"][:, None] + positions
+        positions = _decode_positions(caches) + positions
     x, caches, _ = _backbone(params["layers"], x, cfg, positions, caches,
                              chunked=chunked)
     x = rms_norm(x, params["final_norm"])
@@ -433,7 +596,7 @@ def decode_step(params, token: torch.Tensor, caches, cfg: ModelConfig):
     """One decode step: token (B, 1) -> (logits (B, V) f32, caches)."""
     _check_family(cfg)
     x = embed_lookup(token, params["embed"], cfg.quant).to(model_dtype(cfg))
-    positions = caches[0]["len"][:, None]
+    positions = _decode_positions(caches)
     x, caches, _ = _backbone(params["layers"], x, cfg, positions, caches)
     x = rms_norm(x, params["final_norm"])
     logits = qdot(x[:, 0], params["lm_head"], cfg.quant)

@@ -1,15 +1,19 @@
 """Carry the reference's parameters across as numpy arrays.
 
-`params_from_numpy` takes the JAX parameter tree of a dense or MoE
-model with every leaf converted to numpy (nested dicts and lists, as
-`jax.tree_util.tree_map(np.asarray, params)` gives it), float or
-exported by `quantize_params` (packed words, planes or block VP; QKV
-biases and norms as they are), and returns the port's parameter dict.
-The reference stacks each sub-layer of each scanned group on a leading
-(repeats, ...) axis; here every layer is its own entry, in the order the
-scans apply them (`model.layer_plan`): an MoE layer's (L, E, d, ff)
-expert stacks and their (L, E) scales become (E, d, ff) and (E,).
-`caches_from_numpy` does the same for the reference's decode caches.
+`params_from_numpy` takes the JAX parameter tree of a dense, MoE, SSM
+or hybrid model with every leaf converted to numpy (nested dicts and
+lists, as `jax.tree_util.tree_map(np.asarray, params)` gives it), float
+or exported by `quantize_params` (packed words, planes or block VP; QKV
+biases, norms and SSM parameters as they are), and returns the port's
+serving parameter dict.  The reference stacks each sub-layer of each
+scanned group on a leading (repeats, ...) axis; here every layer is its
+own entry, in the order the scans apply them (`model.layer_plan`): an
+MoE layer's (L, E, d, ff) expert stacks and their (L, E) scales become
+(E, d, ff) and (E,).  The hybrid's "shared_attn" is converted once and
+every application of it in the list is that one dict (its tensors are
+never copied).  `caches_from_numpy` does the same for the reference's
+decode caches, where each application of the shared block has its own
+cache in its group and an SSM layer its state rows.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from .model import layer_plan, resolve_device
+from .model import SHARED, layer_plan, resolve_device
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -41,27 +45,35 @@ def _convert(node, device, index=None):
     return _tensor(a if index is None else a[index], device)
 
 
-def _per_layer(groups, cfg: ModelConfig, dev) -> List[Any]:
+def _per_layer(groups, cfg: ModelConfig, dev, shared=None) -> List[Any]:
     """The reference's stacked groups [{"sub{j}": (repeats, ...) tree}]
-    -> one converted tree per layer of `layer_plan`."""
+    -> one converted tree per layer of `layer_plan`.  With `shared` (a
+    converted dict) the shared block's applications are that dict and
+    the groups do not hold them (parameters); without it the groups do
+    (caches)."""
     plan = layer_plan(cfg)
-    want = {(s.gi, f"sub{s.sub}") for s in plan}
+    want = {(s.gi, f"sub{s.sub}") for s in plan
+            if shared is None or s.pattern != SHARED}
     have = {(gi, k) for gi, g in enumerate(groups) for k in g}
     if want != have:
         raise ValueError(f"the tree's groups {sorted(have)} are not the "
                          f"config's {sorted(want)}")
-    return [_convert(groups[s.gi][f"sub{s.sub}"], dev, index=s.rep)
+    return [shared if shared is not None and s.pattern == SHARED
+            else _convert(groups[s.gi][f"sub{s.sub}"], dev, index=s.rep)
             for s in plan]
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                       device="cuda") -> Dict[str, Any]:
     dev = resolve_device(device)
+    shared = _convert(tree[SHARED], dev) if SHARED in tree else None
+    if (shared is None) != all(s.pattern != SHARED for s in layer_plan(cfg)):
+        raise ValueError("the tree's shared block does not match the config")
     return {
         "embed": _convert(tree["embed"], dev),
         "final_norm": _convert(tree["final_norm"], dev),
         "lm_head": _convert(tree["lm_head"], dev),
-        "layers": _per_layer(tree["groups"], cfg, dev),
+        "layers": _per_layer(tree["groups"], cfg, dev, shared),
     }
 
 

@@ -170,6 +170,8 @@ class ServingEngine:
         KV, dh = self.cfg.n_kv_heads, self.cfg.head_dim
         w_bytes = torch.empty((), dtype=storage_dtype(vp)).element_size()
         for spec in self.kv.specs:
+            if not spec.has_len:   # an SSM state: no attention
+                continue
             smax = self.kv.capacity if spec.kind == PAGED else spec.buf_len
             plan_decode(KV, smax, self.cfg.n_heads // KV, dh, w_bytes)
 

@@ -21,7 +21,10 @@ The VP words inside pages are never copied or dequantized by either.
 
 Windowed (rolling ring) layers, such as gemma3's local layers, stay
 DENSE per-slot rows: their size is bounded by the window and the ring
-arithmetic needs a contiguous buffer.  A model may mix the two kinds.
+arithmetic needs a contiguous buffer.  SSM layers (Mamba2's h and conv,
+RWKV6's s and last token) keep STATE rows: fixed-size per slot, with no
+sequence axis, no length and no pages.  A model may mix the kinds; one
+with no PAGED layer (rwkv6) allocates no pages at all.
 
 Page 0 is the dummy page (masked writes land there, nothing reads it);
 the free list hands out ids 1..n_pages-1.  `n_pages` is sized from a
@@ -42,12 +45,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import paged
-from repro_torch.models.model import (init_cache, layer_groups, layer_plan,
+from repro_torch.models.model import (SSM_PATTERNS, init_cache,
+                                     layer_groups, layer_plan,
                                      pattern_window, resolve_device)
 
-# Buffer kinds (the reference's SSM "state" rows come with its families) --
+# Buffer kinds ---------------------------------------------------------------
 PAGED = "paged"      # full-causal attention cache: seq axis -> pages
 DENSE = "dense"      # rolling / windowed ring buffer: per-slot dense rows
+STATE = "state"      # SSM state: per-slot rows, no seq axis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,21 +61,26 @@ class SubSpec:
     gi: int                 # layer-group index
     sub: str                # sub-layer key ("sub0", ...)
     pattern: str
-    kind: str               # PAGED | DENSE
+    kind: str               # PAGED | DENSE | STATE
     window: Optional[int]
-    buf_len: int            # seq-buffer length
+    buf_len: int            # seq-buffer length (0 for STATE)
     reps: int               # layers of this sub-layer (the group's repeats)
     # (name, tail_shape, dtype) per buffer; tail = dims after the seq
-    # axis.  "len" excluded.
+    # axis (PAGED / DENSE) or after the slot axis (STATE).  "len" excluded.
     bufs: Tuple[Tuple[str, Tuple[int, ...], Any], ...]
     layers: Tuple[int, ...] = ()   # their indices in the per-layer list
+
+    @property
+    def has_len(self) -> bool:
+        return self.kind in (PAGED, DENSE)
 
 
 def plan_cache(cfg: ModelConfig, capacity: int) -> List[SubSpec]:
     """Classify every sub-layer's caches, as the reference's walk over
-    `layer_groups` does: full-causal (and gemma3's global) layers PAGED,
-    windowed layers (local, sliding window) DENSE rings of
-    min(capacity, window) rows.
+    `layer_groups` does: full-causal (and gemma3's global, and each
+    application of the hybrid's shared block) layers PAGED, windowed
+    layers (local, sliding window) DENSE rings of min(capacity, window)
+    rows, SSM layers STATE rows.
 
     Uses `init_cache` itself (on the meta device: no allocation) as the
     single source of buffer names, shapes and dtypes.
@@ -86,14 +96,18 @@ def plan_cache(cfg: ModelConfig, capacity: int) -> List[SubSpec]:
     for gi, group in enumerate(layer_groups(cfg)):
         for j, pattern in enumerate(group.patterns):
             layers = tuple(s.index for s in plan if (s.gi, s.sub) == (gi, j))
-            window = pattern_window(cfg, pattern)[1]
             entry = tmpl[layers[0]]
             names = sorted(n for n in entry if n != "len")
+            if pattern in SSM_PATTERNS:
+                kind, window, buf_len, skip = STATE, None, 0, 1
+            else:
+                window = pattern_window(cfg, pattern)[1]
+                kind = DENSE if window is not None else PAGED
+                buf_len, skip = int(entry[names[0]].shape[1]), 2
             specs.append(SubSpec(
-                gi=gi, sub=f"sub{j}", pattern=pattern,
-                kind=DENSE if window is not None else PAGED, window=window,
-                buf_len=int(entry[names[0]].shape[1]), reps=len(layers),
-                bufs=tuple((n, tuple(entry[n].shape[2:]), entry[n].dtype)
+                gi=gi, sub=f"sub{j}", pattern=pattern, kind=kind,
+                window=window, buf_len=buf_len, reps=len(layers),
+                bufs=tuple((n, tuple(entry[n].shape[skip:]), entry[n].dtype)
                            for n in names),
                 layers=layers))
     return specs
@@ -122,7 +136,8 @@ class PagedKVCache:
 
     Device state (updated in place by the runner):
       pools        {buf_key: (L, n_pages, page_size, *tail)}
-      dense        {buf_key: (L, max_slots, buf_len, *tail)}  ring buffers
+      dense        {buf_key: (L, max_slots, buf_len, *tail)}  ring buffers,
+                   {buf_key: (L, max_slots, *tail)}           SSM states
       block_table  (max_slots, pages_per_slot) int32
       lengths      (max_slots,) int32
 
@@ -169,8 +184,9 @@ class PagedKVCache:
                         (spec.reps, self.n_pages, page_size) + tail,
                         dtype=dtype, device=dev)
                 else:
+                    rows = (spec.buf_len,) if spec.kind == DENSE else ()
                     self.dense[k] = torch.zeros(
-                        (spec.reps, max_slots, spec.buf_len) + tail,
+                        (spec.reps, max_slots) + rows + tail,
                         dtype=dtype, device=dev)
         self.block_table = torch.zeros(
             (max_slots, self.pages_per_slot), dtype=torch.int32, device=dev)
@@ -213,8 +229,9 @@ class PagedKVCache:
     def alloc(self, total_len: int) -> int:
         """Claim a slot + pages for a request of `total_len` positions.
 
-        Returns the slot id.  The slot's dense rows are zeroed (a fresh
-        request must not see the previous tenant's ring); its PAGES are
+        Returns the slot id.  The slot's dense rows and states are zeroed
+        (a fresh request must not see the previous tenant's ring or
+        state); its PAGES are
         handed over as they are: page contents are garbage until written,
         and every read is masked by `lengths` (the tests poison free
         pages to pin this).

@@ -4,16 +4,18 @@
 A decode step is gather -> compute -> commit -> sample on the device:
 
   gather  - block-table rows -> contiguous per-slot cache views
-            (`kernels.paged.gather_pages`; dense ring rows slice
-            directly).  A view spans the slot's whole capacity, so one
-            step serves every mix of request lengths: positions past a
-            slot's `lengths` entry are outside the attention's valid span.
+            (`kernels.paged.gather_pages`; dense ring rows and SSM state
+            rows slice directly).  A view spans the slot's whole
+            capacity, so one step serves every mix of request lengths:
+            positions past a slot's `lengths` entry are outside the
+            attention's valid span.
   compute - the port's UNCHANGED `decode_step`, `steps` times.  Its
             attention writes each new K/V in place, here into the view.
   commit  - scatter only the `steps` new positions of each active slot
             back to the pools (inactive padding rows to the dummy page
-            0) and advance `lengths` on the device.  Nothing else in the
-            cache is copied or dequantized.
+            0), write back the active rows of dense rings and SSM states
+            whole, and advance `lengths` on the device.  Nothing else in
+            the cache is copied or dequantized.
   sample  - argmax, or with a temperature the Gumbel-max draw
             argmax(logits / T + g), g from an explicit `torch.Generator`
             drawn into the step's input before it runs (the form of
@@ -75,11 +77,13 @@ def build_view(specs: Sequence[SubSpec], pools, dense, block_table,
     slots -> (caches, stacked).
 
     Paged buffers gather their block-table pages into a contiguous
-    capacity-long view, dense ring buffers slice their slot rows;
+    capacity-long view, dense ring buffers and SSM states slice their
+    slot rows;
     `stacked` holds each buffer's (reps, B, ...) copy, and the cache
     entry of the spec's r-th layer is its view [r], so the model's
     in-place writes land there.
-    `len` is `lens` (default `lengths[slots]`) for every layer.
+    `len` is `lens` (default `lengths[slots]`) for every layer with a
+    sequence axis (an SSM state has none).
     """
     if lens is None:
         lens = lengths[slots]
@@ -95,8 +99,9 @@ def build_view(specs: Sequence[SubSpec], pools, dense, block_table,
                 stacked[k] = dense[k][:, slots]
             for r, l in enumerate(spec.layers):
                 caches[l][name] = stacked[k][r]
-        for l in spec.layers:
-            caches[l]["len"] = lens
+        if spec.has_len:
+            for l in spec.layers:
+                caches[l]["len"] = lens
     return caches, stacked
 
 
@@ -137,7 +142,8 @@ def oracle_generate(params, cfg: ModelConfig, prompt: Sequence[int],
 
 def supports_chunked(specs: Sequence[SubSpec]) -> bool:
     """Chunked prefill needs offset-aware attention writes, which the
-    chunk path implements for full-causal (non-windowed) layers only."""
+    chunk path implements for full-causal (non-windowed) layers only;
+    SSM states carry across chunks natively."""
     return all(s.kind != DENSE for s in specs)
 
 
@@ -203,22 +209,25 @@ class ModelRunner:
     def _fresh_cache(self, prompt_pad: int):
         """Zero B=1 caches for a whole-prompt prefill -> (caches,
         stacked): paged buffers sized to the page-rounded prompt, dense
-        ones at their engine shapes (rows write back verbatim)."""
+        rings and SSM states at their engine shapes (rows write back
+        verbatim)."""
         kv = self.kv
         n_layers = sum(spec.reps for spec in kv.specs)
         caches: List[dict] = [dict() for _ in range(n_layers)]
         stacked: Dict[str, torch.Tensor] = {}
         for spec in kv.specs:
-            length = prompt_pad if spec.kind == PAGED else spec.buf_len
+            rows = ((prompt_pad,) if spec.kind == PAGED else
+                    (spec.buf_len,) if spec.kind == DENSE else ())
             for name, tail, dtype in spec.bufs:
                 k = buf_key(spec, name)
-                stacked[k] = torch.zeros((spec.reps, 1, length) + tail,
+                stacked[k] = torch.zeros((spec.reps, 1) + rows + tail,
                                          dtype=dtype, device=kv.device)
                 for r, l in enumerate(spec.layers):
                     caches[l][name] = stacked[k][r]
-            for l in spec.layers:
-                caches[l]["len"] = torch.zeros((1,), dtype=torch.int32,
-                                               device=kv.device)
+            if spec.has_len:
+                for l in spec.layers:
+                    caches[l]["len"] = torch.zeros(
+                        (1,), dtype=torch.int32, device=kv.device)
         return caches, stacked
 
     def _tokens(self, toks: Sequence[int], shape) -> torch.Tensor:
@@ -284,7 +293,8 @@ class ModelRunner:
     def _commit(self, stacked, slots, active, pos0, n: int) -> None:
         """Scatter the n new positions of every active row back to the
         pools (inactive rows to the dummy page 0), write back the active
-        rows of dense buffers, advance `lengths`.  Device-side only."""
+        rows of dense rings and SSM states (inactive rows keep theirs),
+        advance `lengths`.  Device-side only."""
         kv = self.kv
         ps, Bp = kv.page_size, slots.shape[0]
         idxs = pos0.to(torch.int64)[:, None] + torch.arange(

@@ -321,7 +321,7 @@ def test_qat_steps_in_vp_block_match_reference(jax_params, qat_mode):
         want.append(float(m["loss"]))
 
     tp = tmodel.stack_layers(params_from_numpy(_np_tree(jax_params), tcfg,
-                                               "cpu"))
+                                               "cpu"), tcfg)
     tstep = make_train_step(tcfg, topt.OptConfig(**opt_kw))
     to = topt.init_opt_state(tp, topt.OptConfig(**opt_kw))
     got = []

@@ -186,13 +186,14 @@ def test_remat_configs_refuse_training():
         assert tregistry.get_config(arch).remat == "full"
     cfg = dataclasses.replace(tregistry.get_smoke_config("gemma3-27b"),
                               remat="full", n_layers=3)
-    params = tmodel.stack_layers(tmodel.init_params(cfg, 0, device="cpu"))
+    params = tmodel.stack_layers(tmodel.init_params(cfg, 0, device="cpu"),
+                                 cfg)
     toks = torch.zeros((1, 4), dtype=torch.int64)
     loss, _ = tmodel.loss_fn(params, {"tokens": toks, "labels": toks}, cfg)
     assert bool(torch.isfinite(loss))
-    with pytest.raises(NotImplementedError, match="ssm"):
+    with pytest.raises(NotImplementedError, match="encdec"):
         tmodel.loss_fn(params, {"tokens": toks, "labels": toks},
-                       dataclasses.replace(cfg, family="ssm"))
+                       dataclasses.replace(cfg, family="encdec"))
 
 
 # -- (c) the quantize contract --------------------------------------------------

@@ -66,7 +66,7 @@ def port_grads(tree, tcfg, tokens, labels):
     """(loss, metrics, {path: grad}) of the port's loss_fn in training,
     on the stacked training layout."""
     params = tmodel.stack_layers(params_from_numpy(np_tree(tree), tcfg,
-                                                   "cpu"))
+                                                   "cpu"), tcfg)
     flat = dict(_leaves(params))
     for t in flat.values():
         t.requires_grad_(True)
@@ -80,27 +80,21 @@ def port_grads(tree, tcfg, tokens, labels):
 
 def _leaves(node, prefix=""):
     if isinstance(node, dict):
-        for k, v in node.items():
-            yield from _leaves(v, f"{prefix}/{k}")
+        node = node.items()
+    elif isinstance(node, list):
+        node = enumerate(node)
     else:
         yield prefix, node
+        return
+    for k, v in node:
+        yield from _leaves(v, f"{prefix}/{k}")
 
 
 def ref_grads_by_layer(jg, tcfg):
-    """The reference's gradient tree cut into the port's stacked
-    training layout: layer `index` of `layer_plan` is repeat `rep` of
-    group `gi`'s sub-layer `sub`."""
-    layers = {}
-    plan = tmodel.layer_plan(tcfg)
-    for spec in plan:
-        sub = np_tree(jg["groups"][spec.gi][f"sub{spec.sub}"])
-        for path, a in _leaves(sub):
-            layers.setdefault(path, [None] * len(plan))[spec.index] = \
-                a[spec.rep]
-    out = {f"/layers{p}": np.stack(v) for p, v in layers.items()}
-    for k in ("embed", "final_norm", "lm_head"):
-        out[f"/{k}"] = np.asarray(jg[k])
-    return out
+    """The reference's gradient tree by path: the port's training layout
+    is the reference's tree (one stack per sub-layer of each scanned
+    group), so the paths are the same."""
+    return dict(_leaves(np_tree(jg)))
 
 
 @pytest.mark.parametrize("arch,quant", [
@@ -151,7 +145,8 @@ def test_remat_checkpoints_each_group_repetition(monkeypatch):
         return real(fn, *args, **kw)
 
     monkeypatch.setattr(torch.utils.checkpoint, "checkpoint", spy)
-    params = tmodel.stack_layers(tmodel.init_params(tcfg, 0, device="cpu"))
+    params = tmodel.stack_layers(tmodel.init_params(tcfg, 0, device="cpu"),
+                                 tcfg)
     tokens, labels = batch(tcfg.vocab)
     b = {"tokens": torch.from_numpy(tokens),
          "labels": torch.from_numpy(labels)}

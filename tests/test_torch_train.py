@@ -238,7 +238,7 @@ def jax_params():
 
 def _torch_params(jax_params, tcfg):
     tree = jax.tree_util.tree_map(np.asarray, jax_params)
-    return tmodel.stack_layers(params_from_numpy(tree, tcfg, "cpu"))
+    return tmodel.stack_layers(params_from_numpy(tree, tcfg, "cpu"), tcfg)
 
 
 def _batches(n, vocab):
@@ -307,9 +307,7 @@ def test_train_steps_match_reference(jax_params, qat_mode, microbatches):
     _PORT_RUNS[qat_mode, microbatches] = got
     assert all(np.isfinite(got))
     np.testing.assert_allclose(got, want, rtol=1e-5)
-    jl = dict(tree_paths(jax.tree_util.tree_map(np.asarray, {
-        "embed": jp["embed"], "final_norm": jp["final_norm"],
-        "lm_head": jp["lm_head"], "layers": jp["groups"][0]["sub0"]})))
+    jl = dict(tree_paths(jax.tree_util.tree_map(np.asarray, jp)))
     tl = dict(tree_paths(tp))
     assert sorted(jl) == sorted(tl)
     move = 2 * _opt_kw()["lr"] * STEPS
@@ -341,7 +339,8 @@ def _tiny_cfg():
 
 
 def _tiny_params(cfg, seed=0):
-    return tmodel.stack_layers(tmodel.init_params(cfg, seed, device="cpu"))
+    return tmodel.stack_layers(tmodel.init_params(cfg, seed, device="cpu"),
+                               cfg)
 
 
 def test_microbatch_parity():

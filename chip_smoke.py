@@ -230,6 +230,25 @@ Run from the root of a checkout.  Phases, each raising on failure:
                bit-identical to its eager step); one packed-QAT train step
                with VP gradients and moments and remat on each family at
                the cut.
+  4g. encdec / vlm - the encoder-decoder and VLM families
+               (`encdec_vlm_phase`): the kernels at whisper-tiny's and
+               internvl2-1b's shapes against their plain versions, timed
+               (`flash_prefill` at pattern "full", its first card
+               launches: whisper's encoder at S 1500 and its cross
+               prefill at Sq 128 / Sk 1500, bf16 on the tensor cores and
+               f32 on the CUDA cores; causal at 256 patches + 128 tokens,
+               G 7; the tensor-core `vp_dequant_matmul` at M 6000 and
+               `patch_proj`; the skinny body on the unaligned lm_head rows
+               of vocab 51865 and 151655; decode at G 1, dh 64); both
+               models whole at full width through the static serve CLI
+               (bf16, batch 4 x 128, 16 steps: exact prefill, decode and
+               KV-write launches, a second run's tokens equal, a profile
+               of the encode, prefill and one decode step), then in f32
+               (internvl2 at 4 layers) against the plain path's tokens;
+               internvl2 through the engine, text-only (run-ahead 4 and
+               1, the same tokens); one packed-QAT train step on each
+               (whisper whole, internvl2 at 4 layers), and one f32 step's
+               loss and gradients against the plain path.
   5. mimo    - the paper's B-VP MIMO equalizer (B = 64 antennas, U = 8
                users, 16-QAM, Sec. III-A): narrowband ensembles of
                n = 100,000 channels at 2 dB and 20 dB equalized through
@@ -464,6 +483,34 @@ SSM_DQMM = (("rwkv6-3b", "w_r", 2560, 2560, "f32"),
             ("zamba2-7b", "lm_head", 3584, 32000, "bf16"))
 SSM_DEC_SHAPE = (4, 144, 32, 1, 112)
 SSM_PREFILL_SHAPE = (4, 128, 32)
+# The encoder-decoder and VLM families (whisper-tiny: 4 + 4 layers, d 384,
+# 6 heads of 64, 1500 frames, vocab 51865; internvl2-1b: 24 layers, d 896,
+# 14 / 2 heads of 64, 256 patches, vocab 151655) whole at full width:
+# static serve (batch, prompt, decode steps); internvl2's f32 run and
+# train step at ED_CUT layers (whisper whole); the train batch (batch,
+# seq); the kernel shapes of these paths: flash prefill (B, Sq, Sk, H,
+# KV, dh, pattern): whisper's encoder, its cross-attention prefill,
+# internvl2's causal prefill of 256 patches + 128 tokens; the f32 case
+# (CUDA-core body); vp_dequant_matmul (M, K, N, weight): whisper's encoder
+# and cross K/V at M = 4 x 1500 frames, internvl2's patch projection at 4
+# x 256 patches, both lm_heads at decode (odd vocabularies: int16 rows
+# not 16-byte aligned); whisper's decoder self-attention decode (B, smax,
+# KV, G, dh)
+ED_ARCHS = ("whisper-tiny", "internvl2-1b")
+ED_SERVE = (4, 128, 16)
+ED_CUT = 4
+ED_TRAIN = (2, 128)
+ED_FLASH = ((4, 1500, 1500, 6, 6, 64, "full"),
+            (4, 128, 1500, 6, 6, 64, "full"),
+            (4, 384, 384, 14, 2, 64, "causal"))
+ED_FLASH_F32 = (4, 1500, 1500, 6, 6, 64, "full")
+ED_DQMM = ((6000, 384, 384, "whisper encoder wq / wk / wv / wo, cross wk / wv"),
+           (6000, 384, 1536, "whisper encoder w_in"),
+           (6000, 1536, 384, "whisper encoder w_out"),
+           (1024, 896, 896, "internvl2 patch_proj"),
+           (4, 384, 51865, "whisper lm_head"),
+           (4, 896, 151655, "internvl2 lm_head"))
+ED_DEC_SHAPE = (4, 144, 6, 1, 64)
 WINDOW = "chip_smoke.window"        # profiler range around the profiled call
 LIBRARY_KERNELS = re.compile(
     r"gemm|cublas|cutlass|xmma|sm90_|sm80_|ampere_|flash_fwd|fmha|"
@@ -556,6 +603,7 @@ def main() -> None:
             (formats_phase, record, rows, smi),
             (moe_phase, record, rows, smi),
             (ssm_phase, record, rows, smi, peaks),
+            (encdec_vlm_phase, record, rows, smi, peaks),
             (dequant_phase, record, rows),
             (mimo_phase, record, rows, smi), (train_phase, record, rows, smi),
             (remat_phase, record, rows, smi)):
@@ -3778,14 +3826,15 @@ def wide_kernel_phase(torch, peaks, record):
 # 4d. the formats of faults 7-9 through the serve CLI; remat; MoE
 # ---------------------------------------------------------------------------
 
-def _plain_greedy(torch, params, cfg, prompts, steps):
+def _plain_greedy(torch, params, cfg, prompts, steps, **stub):
     """Greedy tokens of the plain path (every op's plain PyTorch version,
-    on the card) from the same exported params and prompts."""
+    on the card) from the same exported params and prompts (and the same
+    frames or patches, `stub`)."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import run_static
 
     with ops.force_backend("ref"):
-        tokens, _ = run_static(params, cfg, prompts, steps, {})
+        tokens, _ = run_static(params, cfg, prompts, steps, {}, **stub)
     return tokens
 
 
@@ -3799,7 +3848,7 @@ def _format_cli(torch, tag, argv, need):
     run, seen = serve.run_static, {}
 
     def held(params, cfg, prompts, gen, *a, **kw):
-        seen.update(params=params, cfg=cfg, prompts=prompts)
+        seen.update(params=params, cfg=cfg, prompts=prompts, stub=kw)
         return run(params, cfg, prompts, gen, *a, **kw)
 
     torch.cuda.empty_cache()
@@ -3814,7 +3863,7 @@ def _format_cli(torch, tag, argv, need):
         serve.run_static = run
     _need(tag, counts, need)
     plain = _plain_greedy(torch, seen["params"], seen["cfg"],
-                          seen["prompts"], report["gen"])
+                          seen["prompts"], report["gen"], **seen["stub"])
     if plain.tolist() != report["tokens"]:
         raise AssertionError(f"{tag} greedy tokens differ from the plain "
                              f"path's: {report['tokens']} vs "
@@ -4148,43 +4197,195 @@ def moe_phase(torch, record, rows, smi):
 # 4f. the SSM and hybrid families, and the engine's MoE rows
 # ---------------------------------------------------------------------------
 
+def _qdot_row(torch, peaks, timer, randn, w, M, xdt, what):
+    """`qdot` of the exported packed weight `w` (K, N) at M rows of x in
+    `xdt` (randn) against its plain path (f32 within F32_RTOL, bf16
+    within BF16_TOL), two launches bit-identical, timed as the model
+    calls it (the kernel, then the scale multiply) beside `torch.matmul`
+    on the dequantized weight.  The bound counts an f32 x on the
+    tensor-core body as three bf16 terms, 3 x 2MKN at the bf16 rate, and
+    the skinny body's f32 x at the f32 rate.  Returns the row's entry."""
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core.packing import dequant_words
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.vp_dequant_matmul import fwd_body
+    from repro_torch.models.layers import canonical_formats, qdot
+
+    q = QuantConfig(mode="vp")
+    _, fmt = canonical_formats(q)
+    words = w["w_packed"]
+    K, N = words.shape
+    x = randn(M, K, dtype=xdt)
+    w_deq = (dequant_words(words, fmt, torch.float32) * w["scale"]).to(xdt)
+    body = fwd_body(M, xdt, fmt)
+    f32_x = xdt == torch.float32
+    got = qdot(x, w, q)
+    with ops.force_backend("ref"):
+        want = qdot(x, w, q)
+    err, rel = compare(torch, got, want, F32_RTOL if f32_x else BF16_TOL,
+                       what)
+    _identical(torch, qdot(x, w, q), got, f"{what}, two launches")
+    ms = timer(lambda: qdot(x, w, q))
+    with ops.force_backend("ref"):
+        plain_ms = timer(lambda: qdot(x, w, q))
+    library_ms = timer(lambda: torch.matmul(x, w_deq))
+    xb = x.element_size()
+    terms = 3 if f32_x and body == "tensor_core" else 1
+    bnd = bound(peaks, M * K * xb + K * N * words.element_size() + M * N * xb,
+                terms * 2 * M * K * N,
+                "f32" if f32_x and body != "tensor_core" else "bf16")
+    _print_line("vp_dequant_matmul", [M, K, N], err, rel, ms, plain_ms, bnd,
+                library_ms)
+    print(f"{what}: {body} body, {bnd[0] / ms:.1%} of the bound, "
+          f"{ms / library_ms:.2f}x torch.matmul")
+    return dict(shape=[M, K, N], x=str(xdt)[6:], body=body, ms=ms,
+                plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                library_ms=library_ms, max_abs_err=err)
+
+
+def _decode_row(torch, peaks, timer, gen, randn, w_bytes, shape, what):
+    """`vp_decode_attention` at (B, smax, KV, G, dh) of `shape` over packed
+    words of `w_bytes` (VP(7, E 2) int16, VP(6, E 2) int8) with random
+    per-position pow2 scales, lengths smax, smax - 4, smax - 15 and
+    smax - smax // 3 (the full pattern): f32 q within F32_RTOL and bf16 q
+    within BF16_TOL of the plain version, two launches bit-identical,
+    timed beside SDPA on the dequantized cache with a span mask.  Returns
+    the row's entry."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.formats import FXPFormat, default_vp_format
+    from repro_torch.core.packing import dequant_words
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.vp_attention import plan_decode
+
+    fxp = FXPFormat(12, 11)
+    vp = default_vp_format(fxp, 7 if w_bytes == 2 else 6, 2)
+    B, smax, KV, G, dh = shape
+    H = KV * G
+    lens = [smax, smax - 4, smax - 15, smax - smax // 3]
+    scales = torch.tensor([2.0 ** -3, 2.0 ** -2, 0.5, 1.0, 2.0],
+                          device="cuda")
+    k_w, v_w = (ops.vp_quant((randn(B, smax, KV, dh) * 0.3).clamp(
+        -0.99, 0.99), fxp, vp, packed=True) for _ in range(2))
+    k_s, v_s = (scales[torch.randint(0, 5, (B, smax, 1, 1), generator=gen,
+                                     device="cuda")] for _ in range(2))
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    qd = randn(B, 1, H, dh)
+    args = (k_w, v_w, k_s, v_s, lengths, vp, None, False)
+    got = ops.vp_decode_attention(qd, *args)
+    err, rel = compare(torch, got, ref.vp_decode_attention_ref(qd, *args),
+                       F32_RTOL, what)
+    qb = qd.to(torch.bfloat16)
+    compare(torch, ops.vp_decode_attention(qb, *args),
+            ref.vp_decode_attention_ref(qb, *args), BF16_TOL, f"{what} bf16")
+    _identical(torch, ops.vp_decode_attention(qd, *args), got,
+               f"{what}, two launches")
+    ms = timer(lambda: ops.vp_decode_attention(qd, *args))
+    plain_ms = timer(lambda: ref.vp_decode_attention_ref(qd, *args))
+    kd, vd = ((dequant_words(w, vp, torch.float32) * s)
+              .transpose(1, 2).contiguous()
+              for w, s in ((k_w, k_s), (v_w, v_s)))
+    pos = torch.arange(smax, device="cuda")[None, :]
+    mask = (pos < lengths.to(torch.int64)[:, None])[:, None, None]
+    qt = qd.transpose(1, 2)
+    library_ms = timer(lambda: F.scaled_dot_product_attention(
+        qt, kd, vd, attn_mask=mask))
+    valid = sum(lens)
+    bnd = bound(peaks, valid * KV * dh * w_bytes * 2 + valid * 2 * 4
+                + 2 * B * H * dh * 4, 4 * valid * KV * G * dh, "f32")
+    row_shape = [B, smax, KV, G, dh, f"int{8 * w_bytes}", "full"]
+    _print_line("vp_decode_attention", row_shape, err, rel, ms, plain_ms, bnd,
+                library_ms)
+    plan = plan_decode(KV, smax, G, dh, w_bytes)
+    print(f"{what}: {plan}")
+    return dict(shape=row_shape, plan=dataclasses.asdict(plan), ms=ms,
+                plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                library_ms=library_ms, max_abs_err=err)
+
+
+def _flash_row(torch, peaks, timer, randn, shape, dtype, sass, what):
+    """`flash_prefill` at (B, Sq, Sk, H, KV, dh, pattern) of `shape` in
+    `dtype` on the body `flash_body` plans (bf16: tensor cores, whose
+    SASS entry in `sass` must hold no LDL / STL and some HMMA; f32: CUDA
+    cores): within BF16_TOL / F32_RTOL of its plain version, two launches
+    bit-identical, timed beside SDPA (causal for "causal", no mask for
+    "full"; K / V repeated to H heads first).  Returns the row's entry."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.vp_attention import flash_body
+
+    B, Sq, Sk, H, KV, dh, pattern = shape
+    body = flash_body(dtype, dh)
+    if body != ("tensor_core" if dtype == torch.bfloat16 else "cuda_core"):
+        raise AssertionError(f"{what}: {dtype} dh {dh} planned on {body}")
+    qd = randn(B, Sq, H, dh, dtype=dtype)
+    kd, vd = (randn(B, Sk, KV, dh, dtype=dtype) for _ in range(2))
+    got = ops.flash_prefill(qd, kd, vd, pattern, None)
+    err, rel = compare(torch, got, ref.flash_prefill_ref(
+        qd, kd, vd, pattern, None),
+        BF16_TOL if dtype == torch.bfloat16 else F32_RTOL, what)
+    _identical(torch, ops.flash_prefill(qd, kd, vd, pattern, None), got,
+               f"{what}, two launches")
+    ms = timer(lambda: ops.flash_prefill(qd, kd, vd, pattern, None))
+    plain_ms = timer(lambda: ref.flash_prefill_ref(qd, kd, vd, pattern, None))
+    qt = qd.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+              for t in (kd, vd))
+    library_ms = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=pattern == "causal"))
+    pairs = Sq * Sk if pattern == "full" else Sq * (Sq + 1) // 2
+    bnd = bound(peaks, qd.element_size() * (2 * B * Sq * H * dh
+                                            + 2 * B * Sk * KV * dh),
+                4 * B * H * dh * pairs,
+                "bf16" if dtype == torch.bfloat16 else "f32")
+    row_shape = [B, Sq, Sk, H, KV, dh, pattern, str(dtype)[6:]]
+    _print_line("flash_prefill", row_shape, err, rel, ms, plain_ms, bnd,
+                library_ms)
+    entry = dict(shape=row_shape, body=body, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bnd[0], bound_by=bnd[1], library_ms=library_ms,
+                 max_abs_err=err)
+    line = (f"{what}: {body} body {ms:.4f} ms, {ms / library_ms:.2f}x SDPA, "
+            f"{bnd[0] / ms:.1%} of the bound")
+    if body == "tensor_core":
+        tc = sass[f"prefill tc dh {dh}"]
+        if tc["LDL"] or tc["STL"] or not tc["HMMA"]:
+            raise AssertionError(f"{what}: SASS {tc}")
+        entry.update(ldl=tc["LDL"], stl=tc["STL"])
+        line += (f", SASS LDL {tc['LDL']}, STL {tc['STL']}, HMMA "
+                 f"{tc['HMMA']}")
+    print(line)
+    return entry
+
+
 def _ssm_kernel_rows(torch, peaks, record, rows):
     """The kernels at the shapes rwkv6-3b and zamba2-7b give them, timed
     as phase 3 times them beside bound, plain version and library call,
     each held against its plain version: `qdot` of weights exported at
     each projection's shape (`quantize_weight`: the quant kernel, then
-    `vp_dequant_matmul`) at decode M = 4 (skinny body) and prefill M =
-    512 (tensor-core body), rwkv6's R/K/V/G and channel-mix key and
-    receptance shapes with f32 activations (as its lerp makes them) and
-    its output, value and lm_head (vocab 65536) with bf16 ones, zamba2's
-    w_z / w_x, w_bc (N 128), w_dt (N 112), w_out (K 7168), the shared
-    block's projections and lm_head (vocab 32000), f32 within F32_RTOL
-    and bf16 within BF16_TOL; zamba2's shared block's decode attention
-    (B 4, smax 144, KV 32, G 1, dh 112) over int16 and int8 words, f32
-    and bf16 q, and its tensor-core prefill (B 4, S 128, 32 heads, dh
-    112), within tolerance and bit-identical across launches; the KV
-    write (`quantize_kv`, the quantizer's KV mode) at (4, 1 and 128, 32,
-    112) in int16 and int8 words, bit for bit.  Local memory (LDL / STL)
-    of the attention instances (phase 4's count) and of
+    `vp_dequant_matmul`; `_qdot_row`) at decode M = 4 (skinny body) and
+    prefill M = 512 (tensor-core body), rwkv6's R/K/V/G and channel-mix
+    key and receptance shapes with f32 activations (as its lerp makes
+    them) and its output, value and lm_head (vocab 65536) with bf16 ones,
+    zamba2's w_z / w_x, w_bc (N 128), w_dt (N 112), w_out (K 7168), the
+    shared block's projections and lm_head (vocab 32000); zamba2's shared
+    block's decode attention (B 4, smax 144, KV 32, G 1, dh 112) over
+    int16 and int8 words (`_decode_row`), and its tensor-core prefill (B
+    4, S 128, 32 heads, dh 112; `_flash_row`); the KV write
+    (`quantize_kv`, the quantizer's KV mode) at (4, 1 and 128, 32, 112)
+    in int16 and int8 words, bit for bit.  Local memory (LDL / STL) of
+    the attention instances (phase 4's count) and of
     `vp_dequant_matmul`'s, printed."""
     import dataclasses as dc
 
-    import torch.nn.functional as F
-
     from repro_torch.configs.base import QuantConfig
-    from repro_torch.core.formats import FXPFormat, default_vp_format
-    from repro_torch.core.packing import dequant_words
-    from repro_torch.kernels import build, ops, ref
-    from repro_torch.kernels.vp_attention import flash_body, plan_decode
-    from repro_torch.kernels.vp_dequant_matmul import fwd_body
+    from repro_torch.kernels import build, ops
     from repro_torch.models.attention import quantize_kv
-    from repro_torch.models.layers import qdot, quantize_weight
+    from repro_torch.models.layers import quantize_weight
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     timer = Timer(torch)
-    fxp = FXPFormat(12, 11)
-    fmts = {2: default_vp_format(fxp, 7, 2), 1: default_vp_format(fxp, 6, 2)}
     q = QuantConfig(mode="vp", quantize_kv_cache=True)
     by_name = {r["name"]: r for r in rows}
     out = []
@@ -4200,124 +4401,31 @@ def _ssm_kernel_rows(torch, peaks, record, rows):
     for arch, name, K, N, xname in SSM_DQMM:
         xdt = {"f32": torch.float32, "bf16": torch.bfloat16}[xname]
         w = quantize_weight((randn(K, N) * 0.02).to(torch.bfloat16), q)
-        w_deq = (dequant_words(w["w_packed"], fmts[2], torch.float32)
-                 * w["scale"]).to(xdt)
         for M in (4,) if name == "lm_head" else (4, 512):
-            x = randn(M, K, dtype=xdt)
-            body = fwd_body(M, xdt, fmts[2])
-            what = f"{arch} {name} {[M, K, N]} {str(xdt)[6:]} x"
-            got = qdot(x, w, q)
-            with ops.force_backend("ref"):
-                want = qdot(x, w, q)
-            tol = F32_RTOL if xdt == torch.float32 else BF16_TOL
-            err, rel = compare(torch, got, want, tol, what)
-            ms = timer(lambda: qdot(x, w, q))
-            with ops.force_backend("ref"):
-                plain_ms = timer(lambda: qdot(x, w, q))
-            library_ms = timer(lambda: torch.matmul(x, w_deq))
-            # An f32 x on the tensor cores runs as three bf16 terms: 3 x
-            # 2MKN at the bf16 rate; the skinny body's f32 x: the f32 rate.
-            xb = x.element_size()
-            f32_x = xdt == torch.float32
-            terms = 3 if f32_x and body == "tensor_core" else 1
-            bnd = bound(peaks, M * K * xb + K * N * 2 + M * N * xb,
-                        terms * 2 * M * K * N,
-                        "f32" if f32_x and body != "tensor_core" else "bf16")
-            _print_line("vp_dequant_matmul", [M, K, N], err, rel, ms,
-                        plain_ms, bnd, library_ms)
-            print(f"[ssm kernel] {what}: {body} body, {bnd[0] / ms:.1%} of "
-                  f"the bound, {ms / library_ms:.2f}x torch.matmul")
-            add("vp_dequant_matmul", dict(
-                shape=[M, K, N], arch=arch, weight=name, x=str(xdt)[6:],
-                body=body, ms=ms, plain_ms=plain_ms, bound_ms=bnd[0],
-                bound_by=bnd[1], library_ms=library_ms, max_abs_err=err))
-            del got, want
-        del w, w_deq
+            add("vp_dequant_matmul", dict(_qdot_row(
+                torch, peaks, timer, randn, w, M, xdt,
+                f"[ssm kernel] {arch} {name} {[M, K, N]} {xname} x"),
+                arch=arch, weight=name))
+        del w
 
     # -- zamba2's shared block: decode attention at G 1, dh 112 --------------
-    B, smax, KV, G, dh = SSM_DEC_SHAPE
-    H = KV * G
-    lens = [smax, smax - 4, smax - 15, smax - smax // 3]
-    scales = torch.tensor([2.0 ** -3, 2.0 ** -2, 0.5, 1.0, 2.0],
-                          device="cuda")
     for w_bytes in (2, 1):
-        vp = fmts[w_bytes]
-        k_w, v_w = (ops.vp_quant((randn(B, smax, KV, dh) * 0.3).clamp(
-            -0.99, 0.99), fxp, vp, packed=True) for _ in range(2))
-        k_s, v_s = (scales[torch.randint(0, 5, (B, smax, 1, 1), generator=gen,
-                                         device="cuda")] for _ in range(2))
-        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        qd = randn(B, 1, H, dh)
-        args = (k_w, v_w, k_s, v_s, lengths, vp, None, False)
-        plan = plan_decode(KV, smax, G, dh, w_bytes)
-        what = f"vp_decode_attention {[B, smax, KV, G, dh]} int{8 * w_bytes}"
-        got = ops.vp_decode_attention(qd, *args)
-        err, rel = compare(torch, got, ref.vp_decode_attention_ref(qd, *args),
-                           F32_RTOL, what)
-        qb = qd.to(torch.bfloat16)
-        compare(torch, ops.vp_decode_attention(qb, *args),
-                ref.vp_decode_attention_ref(qb, *args), BF16_TOL,
-                f"{what} bf16")
-        _identical(torch, ops.vp_decode_attention(qd, *args), got,
-                   f"{what}, two launches")
-        ms = timer(lambda: ops.vp_decode_attention(qd, *args))
-        plain_ms = timer(lambda: ref.vp_decode_attention_ref(qd, *args))
-        kd, vd = ((dequant_words(w, vp, torch.float32) * s)
-                  .transpose(1, 2).contiguous()
-                  for w, s in ((k_w, k_s), (v_w, v_s)))
-        pos = torch.arange(smax, device="cuda")[None, :]
-        mask = (pos < lengths.to(torch.int64)[:, None])[:, None, None]
-        qt = qd.transpose(1, 2)
-        library_ms = timer(lambda: F.scaled_dot_product_attention(
-            qt, kd, vd, attn_mask=mask))
-        valid = sum(lens)
-        bnd = bound(peaks, valid * KV * dh * w_bytes * 2 + valid * 2 * 4
-                    + 2 * B * H * dh * 4, 4 * valid * KV * G * dh, "f32")
-        shape = [B, smax, KV, G, dh, f"int{8 * w_bytes}", "full"]
-        _print_line("vp_decode_attention", shape, err, rel, ms, plain_ms, bnd,
-                    library_ms)
-        print(f"[ssm kernel] {what}: {plan}")
-        add("vp_decode_attention", dict(
-            shape=shape, plan=dataclasses.asdict(plan), ms=ms,
-            plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
-            library_ms=library_ms, max_abs_err=err))
+        add("vp_decode_attention", _decode_row(
+            torch, peaks, timer, gen, randn, w_bytes, SSM_DEC_SHAPE,
+            f"[ssm kernel] vp_decode_attention {list(SSM_DEC_SHAPE)} "
+            f"int{8 * w_bytes}"))
 
     # -- the tensor-core prefill at dh 112 -----------------------------------
     Bp, S, Hp = SSM_PREFILL_SHAPE
-    if flash_body(torch.bfloat16, dh) != "tensor_core":
-        raise AssertionError(f"bf16 dh {dh} not planned on the tensor cores")
-    qd, kd, vd = (randn(Bp, S, Hp, dh, dtype=torch.bfloat16)
-                  for _ in range(3))
-    what = f"flash_prefill {[Bp, S, Hp, Hp, dh, 'causal']}"
-    got = ops.flash_prefill(qd, kd, vd, "causal", None)
-    err, rel = compare(torch, got, ref.flash_prefill_ref(
-        qd, kd, vd, "causal", None), BF16_TOL, what)
-    _identical(torch, ops.flash_prefill(qd, kd, vd, "causal", None), got,
-               f"{what}, two launches")
-    ms = timer(lambda: ops.flash_prefill(qd, kd, vd, "causal", None))
-    plain_ms = timer(lambda: ref.flash_prefill_ref(qd, kd, vd, "causal",
-                                                   None))
-    qt, kt, vt = (t.transpose(1, 2) for t in (qd, kd, vd))
-    library_ms = timer(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
-    bnd = bound(peaks, 2 * 4 * Bp * S * Hp * dh,
-                4 * Bp * Hp * dh * S * (S + 1) // 2, "bf16")
+    _, _, KV, _, dh = SSM_DEC_SHAPE
     sass = record["attention_sass"]
-    _print_line("flash_prefill", [Bp, S, Hp, Hp, dh, "causal"], err, rel, ms,
-                plain_ms, bnd, library_ms)
-    tc = sass[f"prefill tc dh {dh}"]
-    if tc["LDL"] or tc["STL"] or not tc["HMMA"]:
-        raise AssertionError(f"{what}: SASS {tc}")
-    print(f"[ssm kernel] {what}: tensor-core body {ms:.4f} ms "
-          f"({ms / library_ms:.2f}x SDPA), SASS LDL {tc['LDL']}, STL "
-          f"{tc['STL']}, HMMA {tc['HMMA']}; decode instances (LDL/STL) "
+    add("flash_prefill", _flash_row(
+        torch, peaks, timer, randn, (Bp, S, S, Hp, Hp, dh, "causal"),
+        torch.bfloat16, sass, f"[ssm kernel] flash_prefill "
+        f"{[Bp, S, Hp, Hp, dh, 'causal']}"))
+    print("[ssm kernel] decode instances (LDL/STL) "
           + "; ".join(f"{k} {v['LDL']}/{v['STL']}" for k, v in sass.items()
                       if k.startswith("decode")))
-    add("flash_prefill", dict(shape=[Bp, S, Hp, Hp, dh, "causal"],
-                              body="tensor_core", ms=ms, plain_ms=plain_ms,
-                              bound_ms=bnd[0], bound_by=bnd[1],
-                              library_ms=library_ms, max_abs_err=err,
-                              ldl=tc["LDL"], stl=tc["STL"]))
 
     # -- the KV write at (B, S, 32, 112) ---------------------------------------
     for M in (7, 6):
@@ -4632,7 +4740,9 @@ def ssm_phase(torch, record, rows, smi, peaks):
 
     trains = {}
     for arch in SSM_ARCHS:
-        trains[arch] = _ssm_train(torch, tag, arch, launches)
+        cfg = dataclasses.replace(registry.get_config(arch),
+                                  n_layers=SSM_F32_LAYERS[arch], remat="full")
+        trains[arch] = _family_train(torch, tag, cfg, launches)
         lap(f"train {arch}")
     for row in rows:
         if launches.get(row["name"]):
@@ -4642,12 +4752,56 @@ def ssm_phase(torch, record, rows, smi, peaks):
     print(f"{tag} launches over the phase's runs: {dict(launches)}; {smi}")
 
 
-def _ssm_train(torch, tag, arch, launches):
-    """One packed-QAT step (VP gradients, VP moments, remat "full") of
-    `arch` at SSM_F32_LAYERS layers, bf16, twice: loss, seconds of the
-    second step, peak memory, launches of the quant, serving and dx
-    kernels."""
-    from repro_torch.configs import registry
+def _stub_inputs(torch, cfg, B):
+    """The zero stub input of a family's training batch, as the train CLI
+    adds it: an encoder-decoder's frames, a VLM's patches (f32)."""
+    if cfg.family == "encdec":
+        return {"frames": torch.zeros((B, cfg.encoder_seq, cfg.d_model),
+                                      device="cuda")}
+    if cfg.family == "vlm":
+        return {"patches": torch.zeros((B, cfg.n_patches, cfg.d_model),
+                                       device="cuda")}
+    return {}
+
+
+def _f32_grad_check(torch, tag, cfg, batch):
+    """One packed-QAT step's loss and gradients of `cfg` in f32 (its depth)
+    on `batch`, on the kernel path against the plain path: the loss
+    within F32_RTOL, every gradient within GRAD_RTOL of its max|plain|;
+    the global gradient norms of both printed.  Returns the figures."""
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.models.model import init_params, stack_layers
+
+    c32 = dataclasses.replace(cfg, dtype="float32", quant=QuantConfig(
+        mode="vp", qat_mode="packed"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = stack_layers(init_params(c32, seed=0, device="cuda"), c32)
+    got = _train_grads(torch, params, batch, c32)
+    want = _train_grads(torch, params, batch, c32, plain=True)
+    loss_rel, rels = _grad_diffs(torch, got, want)
+    worst = max(rels, key=rels.get)
+    norms = [math.sqrt(sum(float(g.double().pow(2).sum())
+                           for g in grads.values())) for _, grads in (got, want)]
+    print(f"{tag} {c32.name} f32 train step, {c32.n_layers} layers, kernel "
+          f"vs plain path: loss {got[0]:.6f} / {want[0]:.6f} (rel diff "
+          f"{loss_rel:.3e}, limit {F32_RTOL:g}); max gradient diff / "
+          f"max|plain grad| {rels[worst]:.3e} at {worst} (limit "
+          f"{GRAD_RTOL:g}); gradient norms {norms[0]:.6g} / {norms[1]:.6g}")
+    if loss_rel > F32_RTOL or rels[worst] > GRAD_RTOL:
+        raise AssertionError(f"{tag} {c32.name} f32 train step: loss "
+                             f"{loss_rel:.3e}, gradients {rels}")
+    return dict(loss=got[0], plain_loss=want[0], loss_rel=loss_rel,
+                grad_rel=rels, grad_norms=norms)
+
+
+def _family_train(torch, tag, cfg, launches, batch=SSM_TRAIN):
+    """One packed-QAT step (VP gradients, VP moments) of `cfg` (its
+    depth, dtype and remat as given), SyntheticLM batch x seq of `batch`
+    with the zero stub input its family takes (an encoder-decoder's
+    frames, a VLM's patches, as the train CLI adds them), twice: loss,
+    seconds of the second step, peak memory, launches of the quant,
+    serving and dx kernels."""
     from repro_torch.configs.base import QuantConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import build
@@ -4657,9 +4811,7 @@ def _ssm_train(torch, tag, arch, launches):
                                                init_compressor_state)
     from repro_torch.train.train_step import make_train_step
 
-    cfg = dataclasses.replace(registry.get_config(arch),
-                              n_layers=SSM_F32_LAYERS[arch], remat="full")
-    B, S = SSM_TRAIN
+    B, S = batch
     gc.collect()   # earlier runs' engines and graphs hold device memory
     torch.cuda.empty_cache()
     params = stack_layers(init_params(cfg, seed=0, device="cuda"), cfg)
@@ -4670,6 +4822,7 @@ def _ssm_train(torch, tag, arch, launches):
                            qat=QuantConfig(mode="vp", qat_mode="packed"))
     opt, cmp = init_opt_state(params, opt_cfg), init_compressor_state(params)
     data = SyntheticLM(DataConfig(cfg.vocab, S, B, seed=0), device="cuda")
+    stub = _stub_inputs(torch, cfg, B)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     steps = []
@@ -4677,27 +4830,303 @@ def _ssm_train(torch, tag, arch, launches):
         build.reset_launches()
         t0 = time.perf_counter()
         # -- the main path: one train step --------------------------------------
-        params, opt, m, cmp = step(params, opt, data.batch_at(i), cmp)
+        params, opt, m, cmp = step(params, opt, {**data.batch_at(i), **stub},
+                                   cmp)
         torch.cuda.synchronize()
         counts = dict(build.LAUNCHES)
         # -------------------------------------------------------------------
         steps.append(dict(loss=float(m["loss"]), seconds=time.perf_counter()
                           - t0, grad_norm=float(m["grad_norm"])))
         if not math.isfinite(steps[-1]["loss"]):
-            raise AssertionError(f"{tag} {arch} train: non-finite loss")
+            raise AssertionError(f"{tag} {cfg.name} train: non-finite loss")
     peak = torch.cuda.max_memory_allocated()
-    _need(f"{tag} {arch} train", counts, {
+    _need(f"{tag} {cfg.name} train", counts, {
         "vp_dequant_matmul": 1, "vp_matmul_dx": 1, "vp_qp_table": 1})
     launches.update(counts)
-    print(f"{tag} {arch} train, {cfg.n_layers} layers at full width, bf16, "
-          f"remat full, packed QAT, VP gradients and moments, {B} x {S} "
-          f"tokens: losses {[s['loss'] for s in steps]}, grad norms "
+    print(f"{tag} {cfg.name} train, {cfg.n_layers} layers at full width, "
+          f"{cfg.dtype}, remat {cfg.remat}, packed QAT, VP gradients and "
+          f"moments, {B} x {S} tokens"
+          + (f" + {cfg.n_patches} patches" if "patches" in stub else "")
+          + (f", {cfg.encoder_seq} frames" if "frames" in stub else "")
+          + f": losses {[s['loss'] for s in steps]}, grad norms "
           f"{[round(s['grad_norm'], 4) for s in steps]}, "
           f"{steps[1]['seconds']:.3f} s/step (first {steps[0]['seconds']:.3f}"
           f" s), peak memory {peak / 1e9:.3f} GB; launches {counts}")
     del params, opt, cmp
     return dict(steps=steps, peak_bytes=peak, launches=counts,
                 layers=cfg.n_layers, batch=[B, S])
+
+
+def _ed_kernel_rows(torch, peaks, record, rows):
+    """The kernels at the shapes whisper-tiny and internvl2-1b give them,
+    timed as phase 3 times them (median of 20, L2 flushed) beside bound,
+    plain version and library call, each held against its plain version
+    and bit-identical across two launches: `flash_prefill` at pattern
+    "full", the first launches of that pattern on the card (whisper's
+    encoder, S 1500, not a multiple of any tile: the last key tile
+    masked; its cross-attention prefill, Sq 128 against Sk 1500; bf16 on
+    the tensor-core body within BF16_TOL, beside SDPA without a mask; one
+    f32 case on the CUDA-core body within F32_RTOL), and causal at
+    internvl2's 256 patches + 128 tokens (G 7; `_flash_row`); `qdot` of
+    weights exported at each shape of ED_DQMM (`_qdot_row`: the
+    tensor-core body at M 6000 and 1024, the skinny body at both lm_heads,
+    whose int16 rows of 51865 and 151655 words are not 16-byte aligned,
+    in bf16 and f32 x); `vp_decode_attention` at whisper's decoder (G 1,
+    dh 64) in int16 and int8 words (`_decode_row`)."""
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.models.layers import quantize_weight
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    timer = Timer(torch)
+    q = QuantConfig(mode="vp")
+    by_name = {r["name"]: r for r in rows}
+    out = []
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def add(name, entry):
+        by_name[name].setdefault("encdec_vlm_shapes", []).append(entry)
+        out.append(dict(entry, name=name))
+
+    sass = record["attention_sass"]
+    for shape, dtype in ([(c, torch.bfloat16) for c in ED_FLASH]
+                         + [(ED_FLASH_F32, torch.float32)]):
+        add("flash_prefill", _flash_row(
+            torch, peaks, timer, randn, shape, dtype, sass,
+            f"[ed kernel] flash_prefill {list(shape)} {str(dtype)[6:]}"))
+    for M, K, N, name in ED_DQMM:
+        w = quantize_weight((randn(K, N) * 0.02).to(torch.bfloat16), q)
+        aligned = "not " if (2 * N) % 16 else ""
+        for xdt in ((torch.bfloat16, torch.float32) if M <= 4
+                    else (torch.bfloat16,)):
+            add("vp_dequant_matmul", dict(_qdot_row(
+                torch, peaks, timer, randn, w, M, xdt,
+                f"[ed kernel] {name} {[M, K, N]} {str(xdt)[6:]} x"
+                + (f" (rows of {N} int16 words: {aligned}16-byte aligned)"
+                   if M <= 4 else "")), weight=name))
+        del w
+    for w_bytes in (2, 1):
+        add("vp_decode_attention", _decode_row(
+            torch, peaks, timer, gen, randn, w_bytes, ED_DEC_SHAPE,
+            f"[ed kernel] vp_decode_attention {list(ED_DEC_SHAPE)} "
+            f"int{8 * w_bytes}"))
+    record["encdec_vlm_kernels"] = out
+
+
+def _ed_static(torch, tag, arch, launches, record):
+    """One family whole through the static serve CLI at full width, bf16,
+    `--quant vp --kv-quant`, batch x prompt x steps of ED_SERVE (whisper:
+    its random frames encoded first; internvl2: 256 zero patches
+    prefilled before the prompt): encode, prefill and decode times,
+    tokens/s, peak memory and launches by kernel, exact where the path
+    fixes them (every prefill attention, the encoder's and the cross
+    prefill's included, one launch of the tensor-core body per layer, no
+    CUDA-core launch; one split decode launch per layer and step; the KV
+    writes); the logits finite and a second run from the same params and
+    inputs with the same tokens; the run's own decoder weights, lm_head
+    and KV writes at its shapes against their plain versions
+    (`_dense_shapes`).  Then an f32 run of the CLI (batch 4, prompt 16, 4
+    steps; internvl2 at ED_CUT layers) whose greedy tokens equal the
+    plain path's on the card."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+
+    B, S, steps = ED_SERVE
+    run, seen = serve.run_static, {}
+
+    def held(params, cfg, prompts, gen, *a, **kw):
+        tokens, logits = run(params, cfg, prompts, gen, *a, **kw)
+        seen.update(params=params, cfg=cfg, prompts=prompts, logits=logits,
+                    stub=kw)
+        return tokens, logits
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    serve.run_static = held
+    try:
+        # -- the main path: the serve CLI ------------------------------------
+        report = serve.main([
+            "--arch", arch, "--quant", "vp", "--kv-quant", "--batch", str(B),
+            "--prompt-len", str(S), "--gen", str(steps)])
+        counts = dict(build.LAUNCHES)
+        # -------------------------------------------------------------------
+    finally:
+        serve.run_static = run
+    peak = torch.cuda.max_memory_allocated()
+    cfg = seen["cfg"]
+    L = cfg.n_layers
+    prefills = L + (cfg.encoder_layers + L if cfg.family == "encdec" else 0)
+    exact = {"flash_tc": prefills, "vp_dec_split": L * steps,
+             "vp_qp_kv": 2 * L * (steps + 1)}
+    if {k: counts.get(k, 0) for k in exact} != exact:
+        raise AssertionError(f"{tag} {arch}: launches {counts}, want {exact}")
+    _need(f"{tag} {arch}", counts, {"vp_dqmm_skinny": 1, "vp_dqmm_tc": 1})
+    _no_cuda_core_prefill(f"{tag} {arch}", counts)
+    for lg in seen["logits"]:
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{tag} {arch}: non-finite logits")
+    again, _ = run(seen["params"], cfg, seen["prompts"], steps, {},
+                   **seen["stub"])
+    if again.tolist() != report["tokens"]:
+        raise AssertionError(f"{tag} {arch}: a second run gave other tokens")
+    print(f"{tag} {arch}: all {L} layers at full width (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
+          + (f", {cfg.encoder_layers} encoder layers over {cfg.encoder_seq} "
+             f"frames: encode {report['encode_s']:.4f}s"
+             if cfg.family == "encdec" else
+             f", {report['patches']} patches prefilled before the prompt")
+          + f"), bf16, weights {report['weight_bytes'] / 1e9:.3f} GB, "
+          f"export {report['export_s']:.3f}s, prefill {B}x{S} "
+          f"{report['prefill_s']:.4f}s, decode {steps} steps "
+          f"{report['decode_s']:.4f}s ({report['decode_s'] / steps * 1e3:.3f}"
+          f" ms/step, {report['tokens_per_s']:.1f} tok/s), peak memory "
+          f"{peak / 1e9:.3f} GB; a second run gave the same tokens; "
+          f"launches {counts}")
+    profiled = _ed_profile(torch, f"{tag} {arch}", seen)
+    _dense_shapes(torch, f"{tag} {arch}", cfg, seen["params"], B, S, record)
+    seen.clear()
+    launches.update(counts)
+    cut = ["--layers", str(ED_CUT)] if cfg.family == "vlm" else []
+    f32 = _format_cli(
+        torch, f"{tag} {arch}",
+        ["--arch", arch, *cut, "--quant", "vp", "--kv-quant", "--batch", "4",
+         "--prompt-len", "16", "--gen", "4"],
+        {"vp_dqmm_skinny": 1, "vp_dqmm_tc": 1, "flash_cuda_core": 1,
+         "vp_dec_split": 1})
+    return dict(report, launches=counts, peak_bytes=peak, f32=f32,
+                profiled=profiled)
+
+
+def _ed_profile(torch, tag, seen):
+    """A profile (`_profile`: wall, device busy, idle share, top kernels)
+    of the static run's prefill (whisper: of its encoding first) and of
+    one decode step after it, from the run's own params and inputs; the
+    library kernels in each trace printed (whisper's cross-attention
+    decode step is plain PyTorch, as in the reference)."""
+    from repro_torch.models.model import (cross_kv, decode_step,
+                                          encoder_forward, init_cache,
+                                          prefill)
+
+    params, cfg, prompts = seen["params"], seen["cfg"], seen["prompts"]
+    frames, patches = seen["stub"].get("frames"), seen["stub"].get("patches")
+    B, S = prompts.shape
+    P = 0 if patches is None else patches.shape[1]
+    caches = init_cache(cfg, B, P + S + 1)
+    runs, box = [], {}
+    if frames is not None:
+        def encode():
+            with torch.no_grad():
+                box["ckv"] = cross_kv(params, encoder_forward(
+                    params, frames, cfg), cfg)
+        encode()
+        runs.append(("encode", encode))
+
+    def prefill_once():   # rewrites slots [0, P + S) of the same buffers
+        box["lg"], box["caches"] = prefill(params, prompts, caches, cfg,
+                                           patches=patches,
+                                           cross_kv=box.get("ckv"))
+
+    prefill_once()
+    tok = torch.argmax(box["lg"], -1).to(torch.int32)[:, None]
+    runs += [("prefill", prefill_once),
+             ("decode step", lambda: decode_step(
+                 params, tok, box["caches"], cfg, cross_kv=box.get("ckv")))]
+    out = {}
+    for what, fn in runs:
+        _, kernels = _profile(torch, f"{tag} {what}", fn)
+        busy = sum(us for _, us in kernels)
+        library = sorted({n.split("<")[0][:60] for n, _ in kernels
+                          if LIBRARY_KERNELS.search(n)
+                          and not any(v in n for v in KERNEL_NAMES.values())})
+        print(f"{tag} {what}: library kernels in the trace: "
+              f"{library or 'none'}")
+        out[what] = dict(kernels=len(kernels), busy_ms=busy / 1e3,
+                         library=library)
+    return out
+
+
+def encdec_vlm_phase(torch, record, rows, smi, peaks):
+    """The encoder-decoder and VLM families at full width (`models.model`'s
+    encoder, cross-attention and patch paths):
+
+    (a) the kernels at their shapes (`_ed_kernel_rows`): the flash
+        prefill's full pattern and Sq != Sk, the tensor-core matmul at the
+        encoder's M 6000, the skinny body on unaligned lm_head rows;
+    (b) whisper-tiny (4 + 4 layers, 1500 frames) and internvl2-1b (24
+        layers, 256 patches) whole through the static serve CLI, bf16,
+        then in f32 (whisper whole, internvl2 at ED_CUT layers) against
+        the plain path's tokens (`_ed_static`);
+    (c) internvl2 through the engine, text-only as the reference's engine
+        serves it, bf16, whole: SSM_ENGINE_REQS ragged requests (numpy
+        seed 0), SSM_ENGINE_SLOTS slots, capacity SSM_ENGINE_CAP, graphs
+        at run-ahead 4 and 1 with the same tokens, each graph's first
+        replay bit-identical to its eager step;
+    (d) one packed-QAT train step, VP gradients and VP moments, on
+        whisper whole and internvl2 at ED_CUT layers, batch x seq of
+        ED_TRAIN with zero frames / patches: loss, seconds per step (the
+        second of two), peak memory; then one f32 step's loss and
+        gradients there against the plain path (`_f32_grad_check`)."""
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import init_params, quantize_params
+
+    tag = "[ed]"
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        laps[what] = now - t_lap[0]
+        t_lap[0] = now
+        print(f"[time] ed {what}: {laps[what]:.2f}s")
+
+    _ed_kernel_rows(torch, peaks, record, rows)
+    lap("kernels")
+    out, launches = {}, collections.Counter()
+    for arch in ED_ARCHS:
+        out[arch] = _ed_static(torch, tag, arch, launches, record)
+        lap(f"static {arch}")
+
+    n, (lo, hi), (g_lo, g_hi) = SSM_ENGINE_REQS
+    rng = np.random.default_rng(0)
+    plens = rng.integers(lo, hi + 1, n)
+    gens = rng.integers(g_lo, g_hi + 1, n)
+    cfg = registry.get_config("internvl2-1b",
+                              QuantConfig(mode="vp", quantize_kv_cache=True))
+    reqs = [([int(t) for t in rng.integers(0, cfg.vocab, int(s))], int(g))
+            for s, g in zip(plens, gens)]
+    torch.cuda.empty_cache()
+    params = quantize_params(init_params(cfg, seed=0, device="cuda"), cfg)
+    engine = _family_engine(torch, f"{tag} internvl2-1b engine", cfg, params,
+                            reqs, SSM_ENGINE_CAP, launches)
+    del params
+    gc.collect()
+    lap("engine internvl2-1b")
+
+    trains = {}
+    for arch in ED_ARCHS:
+        cfg = registry.get_config(arch)
+        if cfg.family == "vlm":
+            cfg = dataclasses.replace(cfg, n_layers=ED_CUT)
+        trains[arch] = _family_train(torch, tag, cfg, launches, ED_TRAIN)
+        B, S = ED_TRAIN
+        batch = {**SyntheticLM(DataConfig(cfg.vocab, S, B, seed=0),
+                               device="cuda").batch_at(0),
+                 **_stub_inputs(torch, cfg, B)}
+        trains[arch]["f32"] = _f32_grad_check(torch, tag, cfg, batch)
+        lap(f"train {arch}")
+    for row in rows:
+        if launches.get(row["name"]):
+            row["encdec_vlm_launches"] = launches[row["name"]]
+    record["encdec_vlm"] = dict(static=out, engine=engine, train=trains,
+                                launches=dict(launches), laps=laps)
+    print(f"{tag} launches over the phase's runs: {dict(launches)}; {smi}")
 
 
 def dequant_phase(torch, record, rows):
@@ -5827,20 +6256,7 @@ def train_phase(torch, record, rows, smi):
     del params, opt, cmp, step_fn
 
     # -- one step's loss and gradients: kernel path vs plain path ------------
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    p32 = stack_layers(init_params(cfg32, seed=0, device="cuda"), cfg32)
-    loss_rel32, g32 = _grad_diffs(torch, _train_grads(torch, p32, batch,
-                                                      cfg32),
-                                  _train_grads(torch, p32, batch, cfg32,
-                                               plain=True))
-    worst = max(g32, key=g32.get)
-    print(f"[train] f32 kernel vs plain path, one step: loss rel diff "
-          f"{loss_rel32:.3e} (limit {F32_RTOL:g}); max gradient diff / "
-          f"max|plain grad| {g32[worst]:.3e} at {worst} (limit {GRAD_RTOL:g})")
-    if loss_rel32 > F32_RTOL or g32[worst] > GRAD_RTOL:
-        raise AssertionError(f"f32 train step: loss {loss_rel32:.3e}, "
-                             f"gradients {g32}")
-    del p32
+    f32 = _f32_grad_check(torch, "[train]", cfg, batch)
     p16 = stack_layers(init_params(cfg, seed=0, device="cuda"), cfg)
     plain = _train_grads(torch, p16, batch, cfg, plain=True)
     loss_rel, g16 = _grad_diffs(torch, _train_grads(torch, p16, batch, cfg),
@@ -5863,7 +6279,8 @@ def train_phase(torch, record, rows, smi):
         steps=steps, seconds_per_step=s_step,
         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / s_step,
         peak_bytes=report["peak_bytes"], launches=counts, profiled=seen,
-        f32_loss_rel=loss_rel32, f32_grad_rel=g32, bf16_loss_rel=loss_rel,
+        f32_loss_rel=f32["loss_rel"], f32_grad_rel=f32["grad_rel"],
+        bf16_loss_rel=loss_rel,
         bf16_grad_rel=g16, bf16_floor_loss=floor_loss, bf16_floor_grad=floor_g,
         bf16_limit=limit)
 

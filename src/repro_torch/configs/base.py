@@ -1,7 +1,7 @@
 """Model configuration schema (a copy of `repro.configs.base` cut to
-the fields the dense, MoE, SSM and hybrid serving and training paths
-read; the encoder-decoder and VLM fields come with their slice, and
-`family` lets the model reject them until then).
+the fields the port's serving and training paths read: every family,
+dense, MoE, SSM, hybrid, encoder-decoder and VLM; the reference's
+distribution hints are not ported).
 """
 from __future__ import annotations
 
@@ -80,6 +80,11 @@ class ModelConfig:
     rwkv: bool = False
     # Hybrid (zamba2): one SHARED attention block applied every N ssm layers
     shared_attn_period: int = 0
+    # Encoder-decoder (whisper)
+    encoder_layers: int = 0
+    encoder_seq: int = 0
+    # VLM
+    n_patches: int = 0
     dtype: str = "bfloat16"
     quant: QuantConfig = QuantConfig()
     remat: str = "none"              # none | full | dots (act checkpointing)
@@ -96,3 +101,38 @@ class ModelConfig:
     @property
     def ssm_nheads(self) -> int:
         return self.d_inner // self.ssm_headdim
+
+    def param_count(self) -> int:
+        """Approximate parameter count, the reference's formula
+        (`repro.configs.base.ModelConfig.param_count`): attention and MLP
+        (or experts, or the SSM projections) per layer, norms, embedding
+        and lm_head, the hybrid's shared block once, and an encoder's
+        layers and the decoder's cross attention."""
+        d, dff, v = self.d_model, self.d_ff, self.vocab
+        hd, nh, nkv = self.head_dim, self.n_heads, self.n_kv_heads
+        attn = d * hd * nh + 2 * d * hd * nkv + hd * nh * d
+        mlp = 3 * d * dff
+        if self.n_experts:
+            mlp = self.n_experts * 3 * d * dff + d * self.n_experts
+        ssm = 0
+        if self.family in ("ssm", "hybrid") and not self.rwkv:
+            di, ns, nh_s = self.d_inner, self.ssm_state, self.ssm_nheads
+            ssm = d * (2 * di + 2 * ns + nh_s) + di * d + di
+        if self.rwkv:
+            ssm = 6 * d * d + 2 * d * dff + d * dff
+        per_layer = 2 * d
+        if self.family == "ssm":
+            per_layer += ssm + (2 * d * dff + d * dff if self.rwkv else 0)
+            if self.rwkv:
+                per_layer = 2 * d + ssm
+        elif self.family == "hybrid":
+            per_layer += ssm
+        else:
+            per_layer += attn + mlp
+        total = self.n_layers * per_layer + 2 * v * d + d
+        if self.family == "hybrid" and self.shared_attn_period:
+            total += attn + 3 * d * dff
+        if self.encoder_layers:
+            total += self.encoder_layers * (attn + mlp + 2 * d)
+            total += self.n_layers * (attn + 2 * d)
+        return int(total)

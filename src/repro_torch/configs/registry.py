@@ -1,5 +1,5 @@
-"""Architecture registry of the port: the dense, MoE, SSM and hybrid
-configs it serves (encoder-decoder and VLM come with their slice).
+"""Architecture registry of the port: the dense, MoE, SSM, hybrid,
+encoder-decoder and VLM configs of the reference, each family it serves.
 
 `get_config` returns the full-width config (the card's target);
 `get_smoke_config` the reduced one the CPU tests use.
@@ -10,8 +10,9 @@ import dataclasses
 from typing import Optional
 
 from .base import ModelConfig, QuantConfig
-from . import (gemma3_27b, mixtral_8x22b, qwen2_0_5b, qwen3_0_6b,
-               qwen3_moe_30b_a3b, rwkv6_3b, stablelm_12b, zamba2_7b)
+from . import (gemma3_27b, internvl2_1b, mixtral_8x22b, qwen2_0_5b,
+               qwen3_0_6b, qwen3_moe_30b_a3b, rwkv6_3b, stablelm_12b,
+               whisper_tiny, zamba2_7b)
 
 _MODULES = {
     "qwen2-0.5b": qwen2_0_5b,
@@ -22,6 +23,8 @@ _MODULES = {
     "mixtral-8x22b": mixtral_8x22b,
     "rwkv6-3b": rwkv6_3b,
     "zamba2-7b": zamba2_7b,
+    "whisper-tiny": whisper_tiny,
+    "internvl2-1b": internvl2_1b,
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -30,8 +30,19 @@ decode bucket is one CUDA graph.  `--arch` takes the dense configs
 (qwen2-0.5b, qwen3-0.6b, stablelm-12b, gemma3-27b), the MoE configs
 (qwen3-moe-30b-a3b, mixtral-8x22b), the SSM config rwkv6-3b and the
 hybrid zamba2-7b, whose shared attention block is exported once; on the
-engine their state rows live per slot beside the pages.  `--tune-decode`
-of the reference is not ported yet.
+engine their state rows live per slot beside the pages.  whisper-tiny
+(encoder-decoder): frames (B, encoder_seq, d_model) drawn from the run's
+torch generator in the model dtype (the reference's CLI encodes f32
+frames), encoded and turned into the decoder's cross K/V once before the
+static path (`encode_s`); the engine refuses it, as the reference's
+does.  internvl2-1b (VLM): the static path prefills zero patch
+embeddings (n_patches of them, as the reference's CLI) before the
+prompt, its caches sized to n_patches + prompt + generation; the engine
+serves it text-only, as the reference's.  `--tune-decode` of the
+reference is not ported yet.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
+        --quant vp --kv-quant --batch 4 --prompt-len 128 --gen 16
 """
 from __future__ import annotations
 
@@ -48,8 +59,8 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import QuantConfig
 from repro_torch.models.layers import weight_bytes
 from repro_torch.models.model import (
-    decode_step, init_cache, init_params, prefill, quantize_params,
-    resolve_device,
+    cross_kv, decode_step, encoder_forward, init_cache, init_params,
+    model_dtype, prefill, quantize_params, resolve_device,
 )
 from repro_torch.serving.runner import gumbel_noise, sample
 
@@ -67,19 +78,36 @@ def _sync(device: torch.device) -> None:
 
 def run_static(params, cfg, prompts: torch.Tensor, gen: int,
                report: Optional[dict] = None, temperature: float = 0.0,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               frames: Optional[torch.Tensor] = None,
+               patches: Optional[torch.Tensor] = None):
     """Prefill `prompts` (B, S), then `gen` decode steps: greedy, or
-    sampled at `temperature` > 0 with noise from `generator`.
+    sampled at `temperature` > 0 with noise from `generator`.  An
+    encoder-decoder first encodes `frames` (B, S_enc, d) into the
+    decoder's cross K/V (`encode_s`); a VLM prefills `patches` (B, P, d)
+    before the prompt, into caches of P + S + gen positions.
 
     Returns (tokens (B, gen), logits of every step [(B, V)] with the
     prefill's first).  Fills `report` with the timings when given.
     """
     device = prompts.device
     B, S = prompts.shape
-    caches = init_cache(cfg, B, S + gen, device=device)
+    P = 0 if patches is None else patches.shape[1]
+    caches = init_cache(cfg, B, P + S + gen, device=device)
+    ckv, encode_s = None, 0.0
+    if cfg.family == "encdec":
+        if frames is None:
+            raise ValueError("an encoder-decoder serves from frames")
+        _sync(device)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ckv = cross_kv(params, encoder_forward(params, frames, cfg), cfg)
+        _sync(device)
+        encode_s = time.perf_counter() - t0
     _sync(device)
     t0 = time.perf_counter()
-    logits, caches = prefill(params, prompts, caches, cfg)
+    logits, caches = prefill(params, prompts, caches, cfg, patches=patches,
+                             cross_kv=ckv)
     _sync(device)
     prefill_s = time.perf_counter() - t0
     _require_finite(logits, "prefill")
@@ -95,7 +123,7 @@ def run_static(params, cfg, prompts: torch.Tensor, gen: int,
     t0 = time.perf_counter()
     for _ in range(gen):
         out_tokens.append(tok)
-        logits, caches = decode_step(params, tok, caches, cfg)
+        logits, caches = decode_step(params, tok, caches, cfg, cross_kv=ckv)
         all_logits.append(logits)
         tok = draw(logits)
     _sync(device)
@@ -103,7 +131,8 @@ def run_static(params, cfg, prompts: torch.Tensor, gen: int,
     _require_finite(logits, "decode")
     if report is not None:
         report.update(prefill_s=prefill_s, decode_s=decode_s,
-                      tokens_per_s=B * gen / max(decode_s, 1e-12))
+                      tokens_per_s=B * gen / max(decode_s, 1e-12),
+                      encode_s=encode_s, patches=P)
     return torch.cat(out_tokens, dim=1), all_logits
 
 
@@ -316,10 +345,23 @@ def main(argv: Optional[List[str]] = None) -> dict:
         ).to(device)
         gen = torch.Generator(device=device)
         gen.manual_seed(args.seed)
+        frames = patches = None
+        if cfg.family == "encdec":
+            frames = torch.randn((args.batch, cfg.encoder_seq, cfg.d_model),
+                                 generator=gen, device=device).to(
+                                     model_dtype(cfg))
+        if cfg.family == "vlm":
+            patches = torch.zeros((args.batch, cfg.n_patches, cfg.d_model),
+                                  device=device)
         tokens, _ = run_static(params, cfg, prompts, args.gen, report,
-                               args.temperature, gen)
-        print(f"[prefill] {args.batch}x{args.prompt_len} in "
-              f"{report['prefill_s']:.4f}s")
+                               args.temperature, gen, frames=frames,
+                               patches=patches)
+        if frames is not None:
+            print(f"[encode] {args.batch}x{cfg.encoder_seq} frames in "
+                  f"{report['encode_s']:.4f}s")
+        print(f"[prefill] {args.batch}x{args.prompt_len}"
+              + (f" + {report['patches']} patches" if patches is not None
+                 else "") + f" in {report['prefill_s']:.4f}s")
         print(f"[decode] {args.gen} steps x batch {args.batch}: "
               f"{report['decode_s']:.4f}s "
               f"({report['tokens_per_s']:.1f} tok/s)")

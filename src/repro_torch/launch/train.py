@@ -8,7 +8,10 @@ fault-tolerance fleet (counterpart of `repro.launch.train`).
 Runs on the card by default and raises when CUDA is absent; `--device
 cpu` runs the plain PyTorch versions of the kernels (`--smoke` gives the
 reduced config the CPU can train).  `--arch` takes the dense, MoE, SSM
-(rwkv6-3b) and hybrid (zamba2-7b) configs; parameters train in the
+(rwkv6-3b), hybrid (zamba2-7b), encoder-decoder (whisper-tiny: zero
+frames (B, encoder_seq, d_model) in every batch) and VLM (internvl2-1b:
+zero patches (B, n_patches, d_model)) configs, the stub inputs the
+reference's CLI gives them; parameters train in the
 reference's tree (`models.model.stack_layers`: one stack per sub-layer
 of each scanned group, the hybrid's shared block once), so every
 per-leaf scale of `--compress-grads` and `--compress-moments` covers the
@@ -116,6 +119,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
                                   global_batch=args.batch), device=device)
     step_fn = make_train_step(cfg, opt_cfg, microbatches=args.microbatches,
                               compress_grads=cmp_cfg, qat=qat)
+    extra_batch = {}
+    if cfg.family == "encdec":
+        extra_batch["frames"] = torch.zeros(
+            (args.batch, cfg.encoder_seq, cfg.d_model), device=device)
+    if cfg.family == "vlm":
+        extra_batch["patches"] = torch.zeros(
+            (args.batch, cfg.n_patches, cfg.d_model), device=device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     report = {"arch": args.arch, "remat": cfg.remat,
@@ -191,7 +201,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
         tokens = args.batch * args.seq
         for i in range(start, args.steps):
-            batch = data.batch_at(i)
+            batch = {**data.batch_at(i), **extra_batch}
             _sync(device)
             t0 = time.perf_counter()
             if args.compress_grads:

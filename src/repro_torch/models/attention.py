@@ -1,5 +1,6 @@
-"""Attention block with a VP (packed or planes) or float KV cache (port of the
-serving and training branches of `repro.models.attention`).
+"""Attention block with a VP (packed or planes) or float KV cache, and
+cross-attention over a precomputed source (port of the serving and
+training branches of `repro.models.attention`).
 
 Prefill runs `ops.flash_prefill` (the flash kernel on the card) and writes
 the prompt's K/V into the cache; decode appends one position and runs
@@ -18,7 +19,7 @@ lengths.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -188,6 +189,11 @@ def _layout(cache: dict) -> str:
 _KEY_BUF = {"packed": "k_w", "planes": "k_m", "float": "k"}
 
 
+def buffer_len(cache: dict) -> int:
+    """The positions an attention cache's buffers hold (smax)."""
+    return cache[_KEY_BUF[_layout(cache)]].shape[1]
+
+
 def _write(buf: torch.Tensor, val: torch.Tensor, at: torch.Tensor) -> None:
     """buf[b, at[b] + j] = val[b, j] for every sequence b, in place."""
     S = val.shape[1]
@@ -254,8 +260,9 @@ def _chunked_prefill_attention(qp, k_all, v_all, offset, hist_len: int):
 
 def attn_block(x, params, cfg: ModelConfig, positions, pattern: str,
                window: Optional[int], cache: Optional[dict] = None,
-               train: bool = False, chunked: bool = False):
-    """Self-attention block -> (out, cache).
+               train: bool = False, chunked: bool = False,
+               kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Self- or cross-attention block -> (out, cache).
 
     cache: {"k_w", "k_s", "v_w", "v_s", "len"} packed VP words, {"k_m",
     "k_i", "k_s", "v_m", "v_i", "v_s", "len"} VP planes, or {"k", "v",
@@ -268,31 +275,64 @@ def attn_block(x, params, cfg: ModelConfig, positions, pattern: str,
     cache) makes every projection a QAT `qdot` and runs
     `flash_attention_walk`.  With `qkv_bias` the params carry "bq", "bk" and
     "bv", added to the projections before qk-norm and rope.
+    `positions=None` applies no rope (the encoder-decoder's attentions),
+    and pattern "full" masks nothing but padding.
+
+    A prompt longer than a full-causal buffer raises ValueError: the
+    port never clamps a write (`models.model` checks a decode step's
+    room before its layers run).
+
+    kv_override (k, v), each (B, Sk, KV, dh) floats in x's dtype, is a
+    cross-attention source (the encoder's K/V): only wq projects x, no
+    qk-norm or rope touches the source, no cache is written; a prompt
+    runs `ops.flash_prefill` at pattern "full" (Sq != Sk: the flash
+    kernel on the card), a decode step the plain `ref.decode_attention_ref`
+    over the whole source (the reference's step is plain array code too).
     """
     q_cfg = cfg.quant
     B, S = x.shape[:2]
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
-    xq = block_activation(x, (params["wq"], params["wk"], params["wv"]),
-                          q_cfg)
+    if kv_override is None:
+        xq = block_activation(
+            x, (params["wq"], params["wk"], params["wv"]), q_cfg)
+    else:
+        xq = block_activation(x, (params["wq"],), q_cfg)
     qp = qdot(x, params["wq"], q_cfg, train, xq)
-    kp = qdot(x, params["wk"], q_cfg, train, xq)
-    vp_ = qdot(x, params["wv"], q_cfg, train, xq)
     if params.get("bq") is not None:   # qkv_bias, in the projection's dtype
         qp = qp + params["bq"].to(qp.dtype)
-        kp = kp + params["bk"].to(kp.dtype)
-        vp_ = vp_ + params["bv"].to(vp_.dtype)
     qp = qp.reshape(B, S, H, dh)
-    kp = kp.reshape(B, S, KV, dh)
-    vp_ = vp_.reshape(B, S, KV, dh)
+    if kv_override is None:
+        kp = qdot(x, params["wk"], q_cfg, train, xq)
+        vp_ = qdot(x, params["wv"], q_cfg, train, xq)
+        if params.get("bk") is not None:
+            kp = kp + params["bk"].to(kp.dtype)
+            vp_ = vp_ + params["bv"].to(vp_.dtype)
+        kp = kp.reshape(B, S, KV, dh)
+        vp_ = vp_.reshape(B, S, KV, dh)
+    else:
+        kp, vp_ = kv_override
     if cfg.qk_norm:
         qp = rms_norm(qp, params["q_norm"])
-        kp = rms_norm(kp, params["k_norm"])
-    qp = rope(qp, positions, cfg.rope_theta)
-    kp = rope(kp, positions, cfg.rope_theta)
+        if kv_override is None:
+            kp = rms_norm(kp, params["k_norm"])
+    if positions is not None and kv_override is None:
+        qp = rope(qp, positions, cfg.rope_theta)
+        kp = rope(kp, positions, cfg.rope_theta)
 
     layout = None if cache is None else _layout(cache)
-    if train:
+    if kv_override is not None:
+        if cache is not None:
+            raise ValueError("cross-attention writes no KV cache")
+        if S == 1:
+            src_len = torch.full((B,), kp.shape[1], dtype=torch.int32,
+                                 device=x.device)
+            out = kref.decode_attention_ref(qp, kp, vp_, src_len)
+        elif train:
+            out = flash_attention_walk(qp, kp, vp_, pattern="full")
+        else:
+            out = flash_attention(qp, kp, vp_, pattern="full")
+    elif train:
         if cache is not None:
             raise ValueError("training attention takes no KV cache")
         out = flash_attention_walk(qp, kp, vp_, pattern=pattern,
@@ -314,6 +354,10 @@ def attn_block(x, params, cfg: ModelConfig, positions, pattern: str,
         cache = {**cache, "len": idx + S}
     elif S > 1:
         smax = cache[_KEY_BUF[layout]].shape[1]
+        if S > smax and window is None:
+            raise ValueError(
+                f"a prompt of {S} positions does not fit a full-causal KV "
+                f"cache of {smax}: size the cache to the whole sequence")
         out = flash_attention(qp, kp, vp_, pattern=pattern, window=window)
         kw, vw = kp, vp_
         if S > smax:

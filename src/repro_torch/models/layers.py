@@ -216,6 +216,33 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
     return ops.rms_norm(x, gamma, eps)
 
 
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5):
+    """(x - mean) * rsqrt(var + eps) * gamma + beta over the last axis in
+    f32 (population variance), cast back to x's dtype: the reference's
+    `layer_norm`, plain PyTorch (the encoder-decoder's norms; the
+    reference leaves it to XLA)."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * gamma.to(torch.float32) + beta.to(torch.float32)).to(
+        x.dtype)
+
+
+def sinusoid_pos(positions: torch.Tensor, d: int,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """Whisper-style sinusoidal positions (*positions.shape, d): angle
+    pos / 10000 ** (j / max(d // 2 - 1, 1)) for j < d // 2, its sines
+    then its cosines, in f32, cast to `dtype` (the reference's
+    `sinusoid_pos(s, d, dtype)` is this at positions arange(s); each row
+    depends on its position alone, so a gathered row equals the table's)."""
+    pos = positions.to(torch.float32)[..., None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=positions.device)
+    ang = pos / (10000.0 ** (dim / max(d // 2 - 1, 1)))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4):
     """Rotary embedding: x (..., S, H, dh), positions (..., S)."""
     dh = x.shape[-1]

@@ -1,4 +1,5 @@
-"""Feed-forward block: SwiGLU (port of `repro.models.mlp.swiglu`)."""
+"""Feed-forward blocks: SwiGLU (the LM default) and GELU (whisper-style);
+port of `repro.models.mlp`."""
 from __future__ import annotations
 
 import torch
@@ -17,3 +18,13 @@ def swiglu(x: torch.Tensor, params, q: QuantConfig,
     u = qdot(x, params["w_up"], q, train, xq)
     h = F.silu(g.to(torch.float32)).to(x.dtype) * u
     return qdot(h, params["w_down"], q, train)
+
+
+def gelu_mlp(x: torch.Tensor, params, q: QuantConfig,
+             train: bool = False) -> torch.Tensor:
+    """params: w_in (d, ff), b_in (ff,), w_out (ff, d), b_out (d,).  The
+    GELU is `jax.nn.gelu`'s default, the tanh approximation, in f32; the
+    biases are added in x's dtype."""
+    h = qdot(x, params["w_in"], q, train) + params["b_in"].to(x.dtype)
+    h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
+    return qdot(h, params["w_out"], q, train) + params["b_out"].to(x.dtype)

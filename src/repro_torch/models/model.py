@@ -1,5 +1,5 @@
-"""Dense, MoE, SSM and hybrid serving and training paths (port of
-those branches of `repro.models.model`).
+"""Serving and training paths of every family: dense, MoE, SSM, hybrid,
+encoder-decoder and VLM (port of `repro.models.model`).
 
 Serving parameters are plain dicts of tensors: {"embed", "final_norm",
 "lm_head", "layers": [one dict per layer]}.  A layer is {"attn", "mlp"
@@ -23,6 +23,17 @@ same elements as the reference's, on every model, and the shared
 block's gradient is the sum over its applications.  `_unbind` gives the
 per-layer list back as views into those stacks.
 
+The encoder-decoder (whisper) adds {"encoder": [one dict per encoder
+layer: "attn", a GELU "mlp" with biases, "ln1_g/b", "ln2_g/b"], "cross":
+[one dict per decoder layer: "attn" (no biases), "ln_g/b"], "enc_ln_g/b"},
+lists in serving and (L, ...) stacks in training, as the reference
+keeps them.  Its decoder layers are the causal layers of `layer_plan`,
+each followed by cross-attention over the encoder's K/V (`cross_kv`);
+no attention of it takes rope, the decoder's positions are sinusoids.
+The VLM (internvl2) adds "patch_proj" (d, d): its prefill and loss
+prepend the projected patch embeddings to the tokens' and run the dense
+stack over both.
+
 Caches are a list of per-layer dicts (see `models.attention.attn_block`;
 an SSM layer's state rows {"s", "last_tm", "last_cm"} or {"h", "conv"}
 have no sequence axis and no "len", and are updated in place).
@@ -45,17 +56,19 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.packing import storage_dtype
 from repro_torch.core.vp_tensor import significand_dtype
-from .attention import attn_block, kv_cache_formats
-from .layers import embed_lookup, qdot, quantize_weight, rms_norm
+from .attention import attn_block, buffer_len, kv_cache_formats
+from .layers import (block_activation, embed_lookup, layer_norm, qdot,
+                     quantize_weight, rms_norm, sinusoid_pos)
 from .mamba2 import D_CONV, mamba2_block, mamba2_dims
-from .mlp import swiglu
+from .mlp import gelu_mlp, swiglu
 from .moe import moe_block
 from .rwkv6 import HEAD_DIM as RWKV_HEAD
 from .rwkv6 import rwkv6_channel_mix, rwkv6_time_mix
 
 QUANT_KEYS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_in",
               "w_out", "w_r", "w_k", "w_v", "w_g", "w_o", "w_ck", "w_cv",
-              "w_cr", "w_z", "w_x", "w_bc", "w_dt", "embed", "lm_head"}
+              "w_cr", "w_z", "w_x", "w_bc", "w_dt", "embed", "lm_head",
+              "patch_proj"}
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -72,7 +85,7 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 MOE_PATTERNS = ("moe", "moe_swa")
 SSM_PATTERNS = ("mamba", "rwkv")
 SHARED = "shared_attn"
@@ -81,8 +94,7 @@ SHARED = "shared_attn"
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet ({', '.join(FAMILIES)}"
-            " only)")
+            f"unknown family {cfg.family!r} (one of {', '.join(FAMILIES)})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,8 +107,9 @@ class LayerGroup:
 
 
 def layer_groups(cfg: ModelConfig) -> List[LayerGroup]:
-    """The reference's scanned groups (its `layer_groups`, but for the
-    encoder-decoder family)."""
+    """The reference's scanned groups (its `layer_groups`): the
+    encoder-decoder's decoder and the VLM's backbone are one group of
+    causal layers."""
     _check_family(cfg)
     if cfg.family == "hybrid":
         per = cfg.shared_attn_period
@@ -173,7 +186,11 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     router (d, E) and experts stacked (E, d, ff) / (E, ff, d); RWKV6
     and Mamba2 layers their f32 mixes, decays, conv and norms as the
     reference's `_rwkv_params` / `_mamba_params`).  The hybrid's shared
-    block is made once and every application refers to it."""
+    block is made once and every application refers to it.  An
+    encoder-decoder also gets its encoder layers (GELU MLP with zero
+    biases, LayerNorm gains one and biases zero), one cross-attention per
+    decoder layer (no QKV bias) and the encoder's final LayerNorm; a VLM
+    its patch projection (d, d)."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = model_dtype(cfg)
@@ -195,16 +212,19 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     out_scale = 0.02 / max(1, 2 * L) ** 0.5
 
-    def attn_mlp():
+    def attention(cross=False):
         attn = {"wq": dense((d, H * dh)), "wk": dense((d, KV * dh)),
                 "wv": dense((d, KV * dh)), "wo": dense((H * dh, d), out_scale)}
-        if cfg.qkv_bias:
+        if cfg.qkv_bias and not cross:
             for name, n in (("bq", H * dh), ("bk", KV * dh), ("bv", KV * dh)):
                 attn[name] = torch.zeros((n,), dtype=dtype, device=dev)
         if cfg.qk_norm:
             attn["q_norm"] = zeros(dh)
             attn["k_norm"] = zeros(dh)
-        return {"attn": attn, "ln1": zeros(d), "ln2": zeros(d)}
+        return attn
+
+    def attn_mlp():
+        return {"attn": attention(), "ln1": zeros(d), "ln2": zeros(d)}
 
     def rwkv():
         lora = max(32, d // 16)
@@ -267,6 +287,25 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                                 "w_up": dense((d, ff)),
                                 "w_down": dense((ff, d), out_scale)}
         params["layers"].append(layer)
+    if cfg.family == "encdec":
+        def ones():
+            return full((d,), 1.0)
+
+        def bias(n):
+            return torch.zeros((n,), dtype=dtype, device=dev)
+
+        params["encoder"] = [
+            {"attn": attention(),
+             "mlp": {"w_in": dense((d, ff)), "b_in": bias(ff),
+                     "w_out": dense((ff, d)), "b_out": bias(d)},
+             "ln1_g": ones(), "ln1_b": zeros(d),
+             "ln2_g": ones(), "ln2_b": zeros(d)}
+            for _ in range(cfg.encoder_layers)]
+        params["cross"] = [{"attn": attention(cross=True), "ln_g": ones(),
+                            "ln_b": zeros(d)} for _ in range(L)]
+        params["enc_ln_g"], params["enc_ln_b"] = ones(), zeros(d)
+    if cfg.family == "vlm":
+        params["patch_proj"] = dense((d, d))
     return params
 
 
@@ -317,6 +356,19 @@ def quantize_params(params: Dict[str, Any], cfg: ModelConfig,
     return walk(params)
 
 
+class Caches(list):
+    """The per-layer caches of one batch (a list, as any other) that also
+    know on the host `hi`, the largest length a row has reached: a
+    decode step checks its room from it without reading the lengths from
+    the device, which would stall the host on every step.  `init_cache`
+    returns one; `prefill` and `decode_step` return one where they got
+    one."""
+
+    def __init__(self, caches, hi: int):
+        super().__init__(caches)
+        self.hi = hi
+
+
 def init_cache(cfg: ModelConfig, B: int, max_len: int,
                device="cuda") -> List[dict]:
     """Per-layer decode caches.  With `quantize_kv_cache`: packed VP
@@ -329,8 +381,13 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
     {"s" (B, H, 64, 64) f32, "last_tm", "last_cm" (B, d)}, a Mamba2
     layer {"h" (B, heads, P, N) f32, "conv" (B, D_CONV - 1, conv
     channels)}, in the model dtype where not f32; each application of
-    the shared block has its own attention cache.  device="meta" gives
-    the shapes without allocating."""
+    the shared block has its own attention cache; the encoder-decoder
+    one full-causal self-attention cache per decoder layer (the
+    cross-attention source is not cached: `cross_kv`).  A VLM's
+    full-causal buffers must hold its patches too (n_patches + prompt +
+    generation): a write past a full-causal buffer raises.
+    device="meta" gives the shapes without allocating.  Returns `Caches`
+    (all lengths 0)."""
     dev = resolve_device(device)
     KV, dh = cfg.n_kv_heads, cfg.head_dim
     dtype, d, f32 = model_dtype(cfg), cfg.d_model, torch.float32
@@ -380,7 +437,7 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
             v_m=zeros((KV, dh), mdt),
             v_i=zeros((KV, dh_i), torch.uint8),
             v_s=zeros((1, 1), torch.float32), len=ln))
-    return caches
+    return Caches(caches, 0)
 
 
 def stack_layers(params: Dict[str, Any], cfg: ModelConfig
@@ -389,7 +446,8 @@ def stack_layers(params: Dict[str, Any], cfg: ModelConfig
     layers of sub-layer j of scanned group g become "groups"[g]["sub{j}"],
     one dict of tensors stacked on a leading (repeats, ...) axis
     (copies), and the hybrid's shared block "shared_attn" (its tensors,
-    not copied), outside the groups."""
+    not copied), outside the groups; the encoder-decoder's "encoder" and
+    "cross" lists become (L, ...) stacks the same way."""
     groups: List[Dict[str, Any]] = [{} for _ in layer_groups(cfg)]
     members: Dict[Tuple[int, int], List[Any]] = {}
     out = {k: v for k, v in params.items() if k != "layers"}
@@ -399,15 +457,20 @@ def stack_layers(params: Dict[str, Any], cfg: ModelConfig
         else:
             members.setdefault((spec.gi, spec.sub), []).append(layer)
 
-    def stack(nodes):
-        if isinstance(nodes[0], dict):
-            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
-        return torch.stack(nodes)
-
     for (gi, j), nodes in members.items():
-        groups[gi][f"sub{j}"] = stack(nodes)
+        groups[gi][f"sub{j}"] = _stack(nodes)
     out["groups"] = groups
+    for key in ("encoder", "cross"):
+        if key in params:
+            out[key] = _stack(params[key])
     return out
+
+
+def _stack(nodes):
+    """Equal trees of tensors -> one tree of (len(nodes), ...) stacks."""
+    if isinstance(nodes[0], dict):
+        return {k: _stack([n[k] for n in nodes]) for k in nodes[0]}
+    return torch.stack(nodes)
 
 
 def _unbind_stack(node) -> List[Any]:
@@ -418,6 +481,12 @@ def _unbind_stack(node) -> List[Any]:
         n = len(next(iter(parts.values())))
         return [{k: v[i] for k, v in parts.items()} for i in range(n)]
     return list(node.unbind(0))
+
+
+def _layer_list(node) -> List[Any]:
+    """A list of per-layer dicts (serving) or a dict of (L, ...) stacks
+    (training) -> the per-layer dicts."""
+    return node if isinstance(node, list) else _unbind_stack(node)
 
 
 def _unbind(params: Dict[str, Any], cfg: ModelConfig) -> List[Any]:
@@ -529,27 +598,116 @@ def chunked_cross_entropy(hidden: torch.Tensor, lm_head: torch.Tensor,
     return tot / torch.clamp(cnt, min=1.0)
 
 
+def encoder_forward(params, frames: torch.Tensor, cfg: ModelConfig,
+                    train: bool = False) -> torch.Tensor:
+    """Whisper encoder over stub frame embeddings (B, S_enc, d) -> (B,
+    S_enc, d) in their dtype (the reference's `_encoder_forward`): the
+    sinusoid positions added, then per encoder layer full self-attention
+    without rope under layer_norm(ln1) (`ops.flash_prefill` at pattern
+    "full" when serving) and the GELU MLP under layer_norm(ln2), each
+    added to the residual, then layer_norm(enc_ln)."""
+    S = frames.shape[1]
+    x = frames + sinusoid_pos(torch.arange(S, device=frames.device),
+                              cfg.d_model, frames.dtype)
+    for p in _layer_list(params["encoder"]):
+        a, _ = attn_block(layer_norm(x, p["ln1_g"], p["ln1_b"]), p["attn"],
+                          cfg, None, "full", None, train=train)
+        x = x + a
+        x = x + gelu_mlp(layer_norm(x, p["ln2_g"], p["ln2_b"]), p["mlp"],
+                         cfg.quant, train)
+    return layer_norm(x, params["enc_ln_g"], params["enc_ln_b"])
+
+
+def cross_kv(params, enc: torch.Tensor, cfg: ModelConfig
+             ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The encoder output (B, S_enc, d) -> per decoder layer its
+    cross-attention source (k, v), each (B, S_enc, KV, dh) in enc's
+    dtype: the layer's wk and wv through `qdot` without QAT, in training
+    too, as the reference's `_cross_kv`."""
+    B, S, _ = enc.shape
+    KV, dh = cfg.n_kv_heads, cfg.head_dim
+    out = []
+    for p in _layer_list(params["cross"]):
+        wk, wv = p["attn"]["wk"], p["attn"]["wv"]
+        xq = block_activation(enc, (wk, wv), cfg.quant)
+        out.append((qdot(enc, wk, cfg.quant, xq=xq).reshape(B, S, KV, dh),
+                    qdot(enc, wv, cfg.quant, xq=xq).reshape(B, S, KV, dh)))
+    return out
+
+
+def _decoder(params, layers, x, cfg: ModelConfig, ckv, caches=None,
+             train: bool = False):
+    """Whisper decoder (the reference's `_decoder_backbone`) -> (x,
+    caches): per layer causal self-attention without rope under
+    rms_norm(ln1), writing its cache; cross-attention over the layer's
+    (k, v) of `ckv` under layer_norm(ln_g, ln_b); SwiGLU under
+    rms_norm(ln2); each added to the residual."""
+    new_caches = []
+    for i, (p, pc) in enumerate(zip(layers, _layer_list(params["cross"]),
+                                    strict=True)):
+        cache = None if caches is None else caches[i]
+        a, cache = attn_block(rms_norm(x, p["ln1"]), p["attn"], cfg, None,
+                              "causal", None, cache, train)
+        x = x + a
+        a, _ = attn_block(layer_norm(x, pc["ln_g"], pc["ln_b"]), pc["attn"],
+                          cfg, None, "full", None, train=train,
+                          kv_override=ckv[i])
+        x = x + a
+        x = x + swiglu(rms_norm(x, p["ln2"]), p["mlp"], cfg.quant, train)
+        new_caches.append(cache)
+    return x, (None if caches is None else new_caches)
+
+
+def _require(batch, key: str, cfg: ModelConfig, shape: str) -> torch.Tensor:
+    if key not in batch:
+        raise ValueError(f"family {cfg.family!r} needs batch[{key!r}] "
+                         f"{shape}")
+    return batch[key]
+
+
 def loss_fn(params, batch, cfg: ModelConfig, train: bool = True):
     """batch {"tokens" (B, S), "labels" (B, S)} -> (loss, metrics), for
-    parameters in the training layout (`stack_layers`).
+    parameters in the training layout (`stack_layers`); an
+    encoder-decoder also takes "frames" (B, S_enc, d), a VLM "patches"
+    (B, P, d) (a missing one raises ValueError naming it).
 
     `train` runs every weight matmul as a QAT `qdot` and attention as the
     differentiable walk.  The loss is ce + 0.01 load_balance + 1e-3
     router_z, the aux terms summed over the MoE layers (0 for the other
     families), as the reference's.  `cfg.remat == "full"` checkpoints each
-    scanned group's repetition (`_backbone`).
+    scanned group's repetition (`_backbone`).  An encoder-decoder encodes
+    the frames, adds the decoder's sinusoid positions and runs the
+    decoder over the cross K/V; a VLM prepends the projected patches and
+    ignores their labels (-1).
     """
     _check_family(cfg)
-    tokens = batch["tokens"]
+    tokens, labels = batch["tokens"], batch["labels"]
     B, S = tokens.shape
-    x = embed_lookup(tokens, params["embed"], cfg.quant, train).to(
-        model_dtype(cfg))
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device).expand(B, S)
-    x, _, aux = _backbone(_unbind(params, cfg), x, cfg, positions,
-                          train=train)
+    dtype = model_dtype(cfg)
+    x = embed_lookup(tokens, params["embed"], cfg.quant, train).to(dtype)
+    dev = tokens.device
+    if cfg.family == "encdec":
+        frames = _require(batch, "frames", cfg, "(B, encoder_seq, d_model)")
+        enc = encoder_forward(params, frames.to(dtype), cfg, train)
+        x = x + sinusoid_pos(torch.arange(S, device=dev), cfg.d_model, dtype)
+        x, _ = _decoder(params, _unbind(params, cfg), x, cfg,
+                        cross_kv(params, enc, cfg), train=train)
+        aux = torch.zeros((2,), dtype=torch.float32, device=dev)
+    else:
+        if cfg.family == "vlm":
+            patches = _require(batch, "patches", cfg, "(B, P, d_model)")
+            pp = qdot(patches.to(dtype), params["patch_proj"], cfg.quant,
+                      train)
+            x = torch.cat([pp, x], dim=1)
+            labels = torch.cat([torch.full(
+                (B, pp.shape[1]), -1, dtype=labels.dtype, device=dev),
+                labels], dim=1)
+            S = x.shape[1]
+        positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+        x, _, aux = _backbone(_unbind(params, cfg), x, cfg, positions,
+                              train=train)
     x = rms_norm(x, params["final_norm"])
-    ce = chunked_cross_entropy(x, params["lm_head"], batch["labels"], cfg,
+    ce = chunked_cross_entropy(x, params["lm_head"], labels, cfg,
                                cfg.loss_chunk)
     loss = ce + 0.01 * aux[0] + 1e-3 * aux[1]
     return loss, {"ce": ce, "load_balance": aux[0], "router_z": aux[1]}
@@ -567,37 +725,118 @@ def _decode_positions(caches: List[dict]) -> torch.Tensor:
                        device=next(iter(caches[0].values())).device)
 
 
+def _check_room(caches: List[dict], cfg: ModelConfig, S: int
+                ) -> Optional[int]:
+    """Raise ValueError where writing S positions at the cache length
+    would pass the end of a full-causal buffer (the reference's JAX
+    clamps such a write onto the last slot; the port never does).  Every
+    attention cache advances together, so the first full-causal one
+    speaks for all.  The length is `Caches.hi` where the caches carry it
+    (returned: the length after the write), else one host read of the
+    lengths (returns None), skipped inside CUDA graph capture (the
+    engine's views have room by construction)."""
+    known = caches.hi if isinstance(caches, Caches) else None
+    for spec, cache in zip(layer_plan(cfg), caches):
+        if "len" in cache and spec.window is None:
+            if known is None:
+                if (torch.cuda.is_available()
+                        and torch.cuda.is_current_stream_capturing()):
+                    return None
+                at = int(cache["len"].max())
+            else:
+                at = known
+            room = buffer_len(cache)
+            if at + S > room:
+                raise ValueError(
+                    f"writing {S} position(s) at length {at} passes the end"
+                    f" of a full-causal KV cache of {room} positions: size "
+                    "it to the whole sequence (patches, prompt and "
+                    "generation)")
+            break
+    return None if known is None else known + S
+
+
+def _with_hi(caches, hi: Optional[int]):
+    return caches if hi is None else Caches(caches, hi)
+
+
 @torch.no_grad()
 def prefill(params, tokens: torch.Tensor, caches, cfg: ModelConfig,
-            chunked: bool = False):
+            chunked: bool = False, patches: Optional[torch.Tensor] = None,
+            cross_kv: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None):
     """One causal pass over the prompt (B, S) into empty caches ->
     (last-position logits (B, V) f32, filled caches).
 
     chunked: `tokens` is a prompt CHUNK continuing already-prefilled
     caches (continuous batching): positions are offset by the cache
     length (`_decode_positions`) and attention appends at that offset;
-    SSM states carry forward."""
+    SSM states carry forward.
+
+    patches (VLM, B, P, d): projected by `patch_proj` and prepended to
+    the tokens' embeddings, positions 0 .. P + S - 1 (the caches must
+    hold P + S; not with `chunked`).  cross_kv (encoder-decoder, required
+    there): the decoder's per-layer cross-attention sources
+    (`cross_kv(params, encoder_forward(...))`); the decoder's sinusoid
+    positions are added; `chunked` is refused, as in the reference.
+    """
     _check_family(cfg)
     B, S = tokens.shape
-    x = embed_lookup(tokens, params["embed"], cfg.quant).to(model_dtype(cfg))
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device).expand(B, S)
-    if chunked:
-        positions = _decode_positions(caches) + positions
-    x, caches, _ = _backbone(params["layers"], x, cfg, positions, caches,
-                             chunked=chunked)
+    dtype = model_dtype(cfg)
+    x = embed_lookup(tokens, params["embed"], cfg.quant).to(dtype)
+    dev = tokens.device
+    known = caches.hi if isinstance(caches, Caches) else None
+    if cfg.family == "encdec":
+        if chunked:
+            raise ValueError("chunked prefill is not supported for encdec")
+        if cross_kv is None:
+            raise ValueError("an encoder-decoder prefill takes cross_kv, "
+                             "the encoded source's K/V")
+        x = x + sinusoid_pos(torch.arange(S, device=dev), cfg.d_model, dtype)
+        x, caches = _decoder(params, params["layers"], x, cfg, cross_kv,
+                             caches)
+        hi = None if known is None else known + S
+    else:
+        if patches is not None:
+            if cfg.family != "vlm" or chunked:
+                raise ValueError("patches go with a whole-prompt prefill "
+                                 "of a VLM")
+            pp = qdot(patches.to(dtype), params["patch_proj"], cfg.quant)
+            x = torch.cat([pp, x], dim=1)
+            S = x.shape[1]
+        hi = None if known is None else known + S
+        positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+        if chunked:
+            hi = _check_room(caches, cfg, S)
+            positions = _decode_positions(caches) + positions
+        x, caches, _ = _backbone(params["layers"], x, cfg, positions, caches,
+                                 chunked=chunked)
     x = rms_norm(x, params["final_norm"])
     logits = qdot(x[:, -1], params["lm_head"], cfg.quant)
-    return logits.to(torch.float32), caches
+    return logits.to(torch.float32), _with_hi(caches, hi)
 
 
 @torch.no_grad()
-def decode_step(params, token: torch.Tensor, caches, cfg: ModelConfig):
-    """One decode step: token (B, 1) -> (logits (B, V) f32, caches)."""
+def decode_step(params, token: torch.Tensor, caches, cfg: ModelConfig,
+                cross_kv: Optional[List[Tuple[torch.Tensor, torch.Tensor]]]
+                = None):
+    """One decode step: token (B, 1) -> (logits (B, V) f32, caches).  An
+    encoder-decoder takes `cross_kv` (as `prefill`) and adds the
+    sinusoid row at position clip(len, 0, smax - 1), as the reference."""
     _check_family(cfg)
-    x = embed_lookup(token, params["embed"], cfg.quant).to(model_dtype(cfg))
-    positions = _decode_positions(caches)
-    x, caches, _ = _backbone(params["layers"], x, cfg, positions, caches)
+    hi = _check_room(caches, cfg, 1)
+    dtype = model_dtype(cfg)
+    x = embed_lookup(token, params["embed"], cfg.quant).to(dtype)
+    if cfg.family == "encdec":
+        if cross_kv is None:
+            raise ValueError("an encoder-decoder decode step takes cross_kv")
+        first = caches[0]
+        pos = torch.clamp(first["len"], 0, buffer_len(first) - 1)
+        x = x + sinusoid_pos(pos, cfg.d_model, dtype)[:, None]
+        x, caches = _decoder(params, params["layers"], x, cfg, cross_kv,
+                             caches)
+    else:
+        positions = _decode_positions(caches)
+        x, caches, _ = _backbone(params["layers"], x, cfg, positions, caches)
     x = rms_norm(x, params["final_norm"])
     logits = qdot(x[:, 0], params["lm_head"], cfg.quant)
-    return logits.to(torch.float32), caches
+    return logits.to(torch.float32), _with_hi(caches, hi)

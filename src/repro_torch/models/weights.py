@@ -1,7 +1,7 @@
 """Carry the reference's parameters across as numpy arrays.
 
-`params_from_numpy` takes the JAX parameter tree of a dense, MoE, SSM
-or hybrid model with every leaf converted to numpy (nested dicts and
+`params_from_numpy` takes the JAX parameter tree of a model of any
+family with every leaf converted to numpy (nested dicts and
 lists, as `jax.tree_util.tree_map(np.asarray, params)` gives it), float
 or exported by `quantize_params` (packed words, planes or block VP; QKV
 biases, norms and SSM parameters as they are), and returns the port's
@@ -11,9 +11,12 @@ own entry, in the order the scans apply them (`model.layer_plan`): an
 MoE layer's (L, E, d, ff) expert stacks and their (L, E) scales become
 (E, d, ff) and (E,).  The hybrid's "shared_attn" is converted once and
 every application of it in the list is that one dict (its tensors are
-never copied).  `caches_from_numpy` does the same for the reference's
-decode caches, where each application of the shared block has its own
-cache in its group and an SSM layer its state rows.
+never copied).  An encoder-decoder's "encoder" and "cross" stacks
+become one dict per layer, and its "enc_ln_g/b" and a VLM's
+"patch_proj" are carried as they are.  `caches_from_numpy` does the
+same for the reference's decode caches, where each application of the
+shared block has its own cache in its group, an SSM layer its state
+rows, and the encoder-decoder keeps [{"self": (L, ...) buffers}].
 """
 from __future__ import annotations
 
@@ -24,6 +27,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from .model import SHARED, layer_plan, resolve_device
+
+# family -> the top-level keys of its tree beside the LM's
+EXTRA_KEYS = {"encdec": ("encoder", "cross", "enc_ln_g", "enc_ln_b"),
+              "vlm": ("patch_proj",)}
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -69,12 +76,24 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     shared = _convert(tree[SHARED], dev) if SHARED in tree else None
     if (shared is None) != all(s.pattern != SHARED for s in layer_plan(cfg)):
         raise ValueError("the tree's shared block does not match the config")
-    return {
+    extra = EXTRA_KEYS.get(cfg.family, ())
+    have = {k for k in tree if k in sum(EXTRA_KEYS.values(), ())}
+    if have != set(extra):
+        raise ValueError(f"the tree's keys {sorted(have)} are not the "
+                         f"{cfg.family} config's {sorted(extra)}")
+    out = {
         "embed": _convert(tree["embed"], dev),
         "final_norm": _convert(tree["final_norm"], dev),
         "lm_head": _convert(tree["lm_head"], dev),
         "layers": _per_layer(tree["groups"], cfg, dev, shared),
     }
+    for key in extra:
+        if key in ("encoder", "cross"):
+            n = cfg.encoder_layers if key == "encoder" else cfg.n_layers
+            out[key] = [_convert(tree[key], dev, index=i) for i in range(n)]
+        else:
+            out[key] = _convert(tree[key], dev)
+    return out
 
 
 def caches_from_numpy(caches: List[Dict[str, Any]], cfg: ModelConfig,
@@ -82,4 +101,6 @@ def caches_from_numpy(caches: List[Dict[str, Any]], cfg: ModelConfig,
     """The reference's decode caches (one dict per group of {"sub{j}":
     buffers with a leading repeats axis}, as numpy) -> the port's list of
     per-layer cache dicts."""
+    if cfg.family == "encdec":
+        caches = [{"sub0": caches[0]["self"]}]
     return _per_layer(caches, cfg, resolve_device(device))

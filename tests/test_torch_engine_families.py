@@ -2,8 +2,10 @@
 the reference's `test_engine_family_parity` (zamba2-7b: Mamba2 state
 rows and a paged shared attention block; rwkv6-3b: state rows only, no
 pages; mixtral-8x22b: sliding-window dense rings and MoE; qwen3-moe:
-paged layers and MoE) on their SMOKE configs, float weights as that test
-serves them.
+paged layers and MoE) and the VLM internvl2-1b (served text-only, as the
+reference's engine serves it: no patches reach its runner) on their
+SMOKE configs, float weights as that test serves them.  Both engines
+refuse the encoder-decoder whisper-tiny for the same reason.
 
 Both engines get the same parameters (the reference's tree carried
 across as numpy) and the same requests (`REQS`: ragged prompts and
@@ -35,7 +37,8 @@ REQS = [([1, 2, 3, 4, 5], 4, 0.0),
         (list(range(7)), 5, 0.0),
         ([9, 8, 7], 3, 0.05)]
 CAP, PAGE, SLOTS = 24, 8, 2
-ARCHS = ("zamba2-7b", "rwkv6-3b", "mixtral-8x22b", "qwen3-moe-30b-a3b")
+ARCHS = ("zamba2-7b", "rwkv6-3b", "mixtral-8x22b", "qwen3-moe-30b-a3b",
+         "internvl2-1b")
 
 _TREES = {}
 
@@ -91,6 +94,25 @@ def test_chunked_prefill_matches_reference_engine(arch):
         assert got[1] != static[1] and got[0] == static[0]
 
 
+def test_engine_refuses_encdec_as_the_reference():
+    """whisper-tiny: the cross-attention source is request-specific; both
+    engines raise a ValueError that says so before serving anything."""
+    jc = jregistry.get_smoke_config("whisper-tiny")
+    tc = tregistry.get_smoke_config("whisper-tiny")
+    jp = jinit_params(jax.random.PRNGKey(0), jc)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tc, "cpu")
+    with pytest.raises(ValueError) as want:
+        JEngine(jp, jc, max_slots=SLOTS, capacity=CAP, page_size=PAGE,
+                clock=JClock())
+    with pytest.raises(ValueError) as got:
+        ServingEngine(tp, tc, max_slots=SLOTS, capacity=CAP, page_size=PAGE,
+                      clock=VirtualClock())
+    reason = ("paged serving does not support encoder-decoder models (the "
+              "cross-attention source is request-specific")
+    assert str(got.value).startswith(reason)
+    assert str(want.value).startswith(reason)
+
+
 def test_mixtral_chunked_prefill_is_refused():
     _, tp, _, tc = trees("mixtral-8x22b")
     with pytest.raises(ValueError, match="full-causal"):
@@ -102,7 +124,8 @@ def test_mixtral_chunked_prefill_is_refused():
     ("zamba2-7b", {("mamba", STATE), ("shared_attn", PAGED)}),
     ("rwkv6-3b", {("rwkv", STATE)}),
     ("mixtral-8x22b", {("moe_swa", DENSE)}),
-    ("qwen3-moe-30b-a3b", {("moe", PAGED)})])
+    ("qwen3-moe-30b-a3b", {("moe", PAGED)}),
+    ("internvl2-1b", {("causal", PAGED)})])
 def test_cache_plan_kinds(arch, kinds):
     """Each sub-layer's storage kind; state rows have no sequence axis
     and cost no page bytes; rwkv6 (states) and mixtral (rings) have no
@@ -117,7 +140,8 @@ def test_cache_plan_kinds(arch, kinds):
             for name, tail, _ in s.bufs:
                 assert kv.dense[f"g{s.gi}.{s.sub}.{name}"].shape == (
                     s.reps, SLOTS) + tail
-    assert kv.has_paged == (arch in ("zamba2-7b", "qwen3-moe-30b-a3b"))
+    assert kv.has_paged == (arch in ("zamba2-7b", "qwen3-moe-30b-a3b",
+                                     "internvl2-1b"))
     if not kv.has_paged:
         assert kv.pages_needed(CAP) == 0 and kv.bytes_per_page == 0
         assert not kv.pools and kv.can_admit(CAP)

@@ -181,7 +181,9 @@ def test_formats_end_to_end(arch):
 def test_remat_configs_refuse_training():
     """gemma3's and stablelm's full configs set remat="full", which the
     port now trains with (tests/test_torch_remat.py holds it against the
-    reference); what is still refused is a family not ported yet."""
+    reference); every family trains now, and what is refused is a batch
+    without the stub input its family needs: an encoder-decoder's
+    "frames", a VLM's "patches", each named."""
     for arch in ("gemma3-27b", "stablelm-12b"):
         assert tregistry.get_config(arch).remat == "full"
     cfg = dataclasses.replace(tregistry.get_smoke_config("gemma3-27b"),
@@ -191,9 +193,10 @@ def test_remat_configs_refuse_training():
     toks = torch.zeros((1, 4), dtype=torch.int64)
     loss, _ = tmodel.loss_fn(params, {"tokens": toks, "labels": toks}, cfg)
     assert bool(torch.isfinite(loss))
-    with pytest.raises(NotImplementedError, match="encdec"):
-        tmodel.loss_fn(params, {"tokens": toks, "labels": toks},
-                       dataclasses.replace(cfg, family="encdec"))
+    for family, key in (("encdec", "frames"), ("vlm", "patches")):
+        with pytest.raises(ValueError, match=key):
+            tmodel.loss_fn(params, {"tokens": toks, "labels": toks},
+                           dataclasses.replace(cfg, family=family))
 
 
 # -- (c) the quantize contract --------------------------------------------------

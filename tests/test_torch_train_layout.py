@@ -12,6 +12,9 @@ layers and the shared attention block, then a Mamba2 tail) both codecs
 give the reference's decoded values bit for bit, leaf by leaf.  The
 gradients are the reference's own (`jax.value_and_grad` of its
 `loss_fn`, `PRNGKey(2)`, a numpy batch), carried across as numpy.
+`check_grad_codec` and `check_moment_codec` also serve the
+encoder-decoder and VLM files (`test_torch_encdec.py`,
+`test_torch_vlm.py`).
 
 One reference-side defect would show here (ROADMAP, notes on the
 reference side): both codecs scale a leaf by exp2(ceil(log2(amax))), a
@@ -53,7 +56,8 @@ _GRADS = {}
 
 
 def ref_grads(arch):
-    """The reference's gradient tree as numpy (cached per arch)."""
+    """The reference's gradient tree as numpy (cached per arch); an
+    encoder-decoder's batch carries random frames, a VLM's patches."""
     if arch not in _GRADS:
         jc = jregistry.get_smoke_config(arch)
         tree = jax.jit(jmodel.init_params, static_argnums=1)(
@@ -63,6 +67,11 @@ def ref_grads(arch):
         labels = rng.integers(0, jc.vocab, (B, S)).astype(np.int32)
         labels[1, -3:] = -1
         jb = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)}
+        stub = {"encdec": ("frames", jc.encoder_seq),
+                "vlm": ("patches", jc.n_patches)}.get(jc.family)
+        if stub:
+            jb[stub[0]] = jnp.asarray(rng.normal(
+                size=(B, stub[1], jc.d_model)).astype(np.float32))
         _, jg = jax.jit(jax.value_and_grad(
             lambda p: jmodel.loss_fn(p, jb, jc, train=True)[0]))(tree)
         _GRADS[arch] = np_tree(jg)
@@ -114,10 +123,15 @@ def assert_leaves_identical(got, want, what):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_vp_gradient_codec_matches_reference_per_leaf(arch, monkeypatch):
+    check_grad_codec(arch, monkeypatch)
+
+
+def check_grad_codec(arch, monkeypatch, g=None):
     """Three rounds of error feedback through the VP gradient codec (the
-    gradient scaled by 1, 1.5, 2): decoded gradients and residuals bit
-    for bit, leaf by leaf."""
-    g = ref_grads(arch)
+    gradient scaled by 1, 1.5, 2; `g`, a reference-shaped numpy tree, or
+    `ref_grads(arch)`): decoded gradients and residuals bit for bit, leaf
+    by leaf."""
+    g = ref_grads(arch) if g is None else g
     monkeypatch.setattr(jnp, "exp2", exact_exp2)
     jcodec = jax.jit(lambda gr, st: jcmp.compress_decompress(
         gr, st, jcmp.CompressionConfig(codec="vp")))
@@ -136,11 +150,15 @@ def test_vp_gradient_codec_matches_reference_per_leaf(arch, monkeypatch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_vp_moment_codec_matches_reference_per_leaf(arch, monkeypatch):
+    check_moment_codec(arch, monkeypatch)
+
+
+def check_moment_codec(arch, monkeypatch, g=None):
     """Adam's first and second moments of three rounds of gradients,
     each stored through the VP moment codec (encode, then decode for the
     next round): words, scales and decoded moments bit for bit, leaf by
     leaf.  The moments are formed in numpy and fed to both codecs."""
-    g = ref_grads(arch)
+    g = ref_grads(arch) if g is None else g
     monkeypatch.setattr(jnp, "exp2", exact_exp2)
     jcfg, tcfg = jopt.OptConfig(moment_codec="vp"), topt.OptConfig(
         moment_codec="vp")
@@ -201,7 +219,8 @@ def test_one_stack_over_all_layers_would_change_the_codec():
     assert differ > 0
 
 
-@pytest.mark.parametrize("arch", ARCHS + ("rwkv6-3b", "qwen3-0.6b"))
+@pytest.mark.parametrize("arch", ARCHS + ("rwkv6-3b", "qwen3-0.6b",
+                                          "whisper-tiny", "internvl2-1b"))
 def test_stack_then_unbind_gives_the_serving_list_back(arch):
     """`stack_layers` then `_unbind` returns every layer's tensors equal
     to the serving list's, in `layer_plan` order; the shared block is

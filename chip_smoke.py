@@ -264,6 +264,18 @@ Run from the root of a checkout.  Phases, each raising on failure:
                none on the warp body (per-body counters `vp_mm_tile` /
                `vp_mm_warp` / `vp_mm_batch`); the CSPADE calls' planes on
                the table body (`vp_qpl_table`).
+  5b. search - the paper's Sec. II-D exponent-list search on the card
+               (`search_phase`): every subcarrier of a wideband band of
+               64 subcarriers x 16 realizations through
+               `WidebandCalibrator.search_vp_format`, each candidate list
+               one launch of the planes quantize kernel and one of the
+               planes dequant kernel (exact counts, no plain version
+               run), against the same search on the CPU on the same
+               arrays: the same formats, NMSE within 1e-12; seconds per
+               subcarrier; `search_min_M` at E 2 and E 3 and one forced
+               greedy search (lists padded with repeated exponents)
+               against the CPU; both kernels timed at the search's tile;
+               the Fig. 11 cost-model ratios of `launch.equalize`.
   6. train kernels - the backward kernels `vp_matmul_dx` and
                `vp_matmul_dw` (tensor-core body) against their plain
                versions at the full-width training shapes (M = 8 x 128 =
@@ -295,7 +307,29 @@ Run from the root of a checkout.  Phases, each raising on failure:
                remat="full" and "none" (`remat_phase`): loss bit-identical,
                gradient max diff 0, the peak device memory of each (lower
                with remat, or the phase fails).
+  7c. tune   - the measured plan cache (`tune_phase`, a cache file of
+               its own): the serve CLI with `--tune-decode` on qwen3-0.6b
+               at full width, bf16, `--quant vp --kv-quant`, batch 4 x
+               128, 32 steps, tuning the skinny `vp_dequant_matmul`
+               body's split of K over every weight panel (one plan for
+               every decode batch) and the split decode body's (cluster,
+               warps) over the cache geometry; a second run makes no new
+               entry; every entry timed under the heuristic's plan and
+               the tuned one (the tuned no slower beyond the timer's
+               spread), held against the plain version, and a skinny
+               row's bits the same at M 1 to 4 under its tuned plan; an
+               f32 run on the tuned cache gives the plain path's greedy
+               tokens; the engine on it the same tokens at run-ahead 4
+               and 1, each graph's first replay bit-identical to its
+               eager step; `analysis/smem.py`'s static shared memory and
+               register check against the build's report; one oversized
+               plan (a cluster of 16) refused by the model and by the C
+               entry.
   8. result  - a {"kernels": [...]} line, then the device line last.
+
+Every phase runs with `REPRO_TORCH_AUTOTUNE_CACHE` pointed at a fresh
+temporary file, so none reads a plan cache left on the machine, and every
+phase but `tune_phase` launches on the heuristic plans.
 
 Exits non-zero without CUDA, and outside a checkout of the repository.
 Imports nothing of JAX and nothing of the JAX package.
@@ -310,10 +344,12 @@ import functools
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -511,6 +547,25 @@ ED_DQMM = ((6000, 384, 384, "whisper encoder wq / wk / wv / wo, cross wk / wv"),
            (4, 384, 51865, "whisper lm_head"),
            (4, 896, 151655, "internvl2 lm_head"))
 ED_DEC_SHAPE = (4, 144, 6, 1, 64)
+# The Sec. II-D search on the card: a wideband band (subcarriers,
+# realizations); search_min_M's (E, NMSE target), met at M <= 5 at E 3
+# (the exhaustive branch has no candidate past it on FXP(12, 11)); the
+# (M, E) of the forced greedy search; formats equal, NMSE within SEARCH_RTOL
+SEARCH_BAND = (64, 16)
+SEARCH_MIN_M = ((2, 1e-4), (3, 1e-2))
+SEARCH_GREEDY = (5, 3)
+SEARCH_RTOL = 1e-12
+# --tune-decode on the serve run; a tuned plan may read up to TUNE_NOISE
+# (factor, ms) over the heuristic's in the Timer, first as timed, then
+# both re-timed in TUNE_TURNS turns: one plan timed twice in one call read
+# -1.5 % to +0.8 % apart at these shapes (H100 80GB HBM3, 700 W, PERF.md
+# §6), and 0.0005 ms is a CUDA event's resolution; the plan cache's
+# environment variable
+TUNE_ARGV = ["--arch", ARCH, "--quant", "vp", "--kv-quant", "--batch",
+             str(BATCH), "--prompt-len", str(PROMPT), "--gen", str(GEN)]
+TUNE_NOISE = (1.05, 0.0005)
+TUNE_TURNS = 3
+CACHE_ENV = "REPRO_TORCH_AUTOTUNE_CACHE"
 WINDOW = "chip_smoke.window"        # profiler range around the profiled call
 LIBRARY_KERNELS = re.compile(
     r"gemm|cublas|cutlass|xmma|sm90_|sm80_|ampere_|flash_fwd|fmha|"
@@ -591,25 +646,33 @@ def main() -> None:
         return out
 
     rows = []
-    for phase, *extra in (
-            (kernel_phase, peaks, record), (block_kernel_phase, peaks, record),
-            (wide_kernel_phase, peaks, record),
-            (mimo_kernel_phase, peaks, record),
-            (train_kernel_phase, peaks, record), (serve_phase, record, rows),
-            (serve_block_phase, record, rows, smi),
-            (serve_block16_phase, record, rows, smi),
-            (engine_phase, record, rows, smi),
-            (dense_phase, record, rows, smi, peaks),
-            (formats_phase, record, rows, smi),
-            (moe_phase, record, rows, smi),
-            (ssm_phase, record, rows, smi, peaks),
-            (encdec_vlm_phase, record, rows, smi, peaks),
-            (dequant_phase, record, rows),
-            (mimo_phase, record, rows, smi), (train_phase, record, rows, smi),
-            (remat_phase, record, rows, smi)):
-        out = timed(phase, *extra)
-        if phase.__name__.endswith("kernel_phase"):
-            rows += out
+    # no phase reads a plan cache left on the machine; tune_phase keeps
+    # its own
+    with isolated_plan_cache():
+        for phase, *extra in (
+                (kernel_phase, peaks, record),
+                (block_kernel_phase, peaks, record),
+                (wide_kernel_phase, peaks, record),
+                (mimo_kernel_phase, peaks, record),
+                (train_kernel_phase, peaks, record),
+                (serve_phase, record, rows),
+                (serve_block_phase, record, rows, smi),
+                (serve_block16_phase, record, rows, smi),
+                (engine_phase, record, rows, smi),
+                (dense_phase, record, rows, smi, peaks),
+                (formats_phase, record, rows, smi),
+                (moe_phase, record, rows, smi),
+                (ssm_phase, record, rows, smi, peaks),
+                (encdec_vlm_phase, record, rows, smi, peaks),
+                (dequant_phase, record, rows),
+                (mimo_phase, record, rows, smi),
+                (search_phase, record, rows, peaks),
+                (train_phase, record, rows, smi),
+                (remat_phase, record, rows, smi),
+                (tune_phase, record, rows, smi, peaks)):
+            out = timed(phase, *extra)
+            if phase.__name__.endswith("kernel_phase"):
+                rows += out
 
     # ---- 8. result --------------------------------------------------------
     if args.json_out:
@@ -5127,6 +5190,535 @@ def encdec_vlm_phase(torch, record, rows, smi, peaks):
     record["encdec_vlm"] = dict(static=out, engine=engine, train=trains,
                                 launches=dict(launches), laps=laps)
     print(f"{tag} launches over the phase's runs: {dict(launches)}; {smi}")
+
+
+# ---------------------------------------------------------------------------
+# 5b. the Sec. II-D search on the card
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def isolated_plan_cache():
+    """Point the plan cache (`kernels.autotune`) at a fresh file for the
+    block, then drop it and restore the variable: what the block reads is
+    what it wrote, and nothing is left behind."""
+    from repro_torch.kernels import autotune
+
+    old = os.environ.get(CACHE_ENV)
+    with tempfile.TemporaryDirectory() as d:
+        os.environ[CACHE_ENV] = os.path.join(d, "autotune.json")
+        autotune.clear_cache()
+        try:
+            yield os.environ[CACHE_ENV]
+        finally:
+            autotune.clear_cache()
+            if old is None:
+                os.environ.pop(CACHE_ENV, None)
+            else:
+                os.environ[CACHE_ENV] = old
+
+
+def _try(fn, *a, **kw):
+    """fn's result, or the type of the ValueError / TypeError it raised."""
+    try:
+        return fn(*a, **kw)
+    except (ValueError, TypeError) as e:
+        return type(e)
+
+
+def _same_search(what, got, want):
+    if isinstance(want, type) or want is None:
+        if got is not want:
+            raise AssertionError(f"{what}: card {got} vs CPU {want}")
+        return
+    if repr(got[0]) != repr(want[0]) or \
+            abs(got[1] - want[1]) > SEARCH_RTOL * abs(want[1]):
+        raise AssertionError(f"{what}: card {got} vs CPU {want}")
+
+
+def search_phase(torch, record, rows, peaks):
+    """The paper's Sec. II-D exponent-list search on the card
+    (`WidebandCalibrator.search_vp_format`, `core.param_search`): every
+    subcarrier of a wideband band (SEARCH_BAND, torch seed 5, 20 dB)
+    through the planes quantize kernel and the planes dequant kernel, one
+    launch of each per candidate list and no plain version run (the
+    counted path); the same search on the CPU (the plain versions) on the
+    same arrays: the same formats and each format's NMSE within
+    SEARCH_RTOL; `search_min_M` at E 2 and E 3 and one forced greedy
+    search (lists padded with repeated exponents) against the CPU; the
+    kernels timed at the search's (rows, 64) tile; the Fig. 11 ratios of
+    the equalizer CLI."""
+    from repro_torch.core import param_search
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch.equalize import fig11
+    from repro_torch.mimo.channel import ChannelConfig
+    from repro_torch.mimo.equalizer import table1_specs
+    from repro_torch.mimo.ofdm import (
+        OFDMConfig, WidebandCalibrator, make_wideband_ensemble)
+
+    S, n = SEARCH_BAND
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    w = make_wideband_ensemble(gen, ChannelConfig(), OFDMConfig(S, 4), n,
+                               20.0).w_beam
+    w_cpu = w.cpu()
+    bvp = next(s for s in table1_specs() if s.name == "B-VP")
+    fxp, vp = bvp.w_fxp, bvp.w_vp
+    cands = len(param_search.candidate_lists(fxp, vp.M, vp.E))
+    card, host = WidebandCalibrator(bvp), WidebandCalibrator(bvp)
+    plain = collections.Counter()
+    real = {name: getattr(ref, name) for name in ("vp_quant_ref",
+                                                  "vp_dequant_ref")}
+
+    def counted(name):
+        def run(*a, **kw):
+            plain[name] += 1
+            return real[name](*a, **kw)
+        return run
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    for name in real:
+        setattr(ref, name, counted(name))
+    try:
+        # -- the path: every subcarrier's search on the card --------------
+        t0 = time.perf_counter()
+        fmts = [card.search_vp_format(s, w[s]) for s in range(S)]
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        counts = dict(build.LAUNCHES)
+        # -----------------------------------------------------------------
+    finally:
+        for name, fn in real.items():
+            setattr(ref, name, fn)
+    expect = {"vp_quant_planes": S * cands, "vp_qpl_table": S * cands,
+              "vp_dequant_planes": S * cands}
+    print(f"[search] {S} subcarriers x {cands} candidate lists of {vp.M}, "
+          f"E {vp.E} on {fxp}: launches {counts}, plain versions run "
+          f"{dict(plain)}; {card_s:.3f}s, {card_s / S * 1e3:.3f} ms per "
+          "subcarrier")
+    if counts != expect or plain:
+        raise AssertionError(f"search launches {counts} != {expect}, or a "
+                             f"plain version ran: {dict(plain)}")
+    t0 = time.perf_counter()
+    host_fmts = [host.search_vp_format(s, w_cpu[s]) for s in range(S)]
+    host_s = time.perf_counter() - t0
+    if [repr(f) for f in fmts] != [repr(f) for f in host_fmts]:
+        raise AssertionError(f"card formats {fmts} != CPU {host_fmts}")
+    worst = 0.0
+    for s in range(S):
+        xs = WidebandCalibrator.search_samples(w[s])
+        xh = WidebandCalibrator.search_samples(w_cpu[s])
+        if not torch.equal(xs.cpu(), xh):
+            raise AssertionError(f"subcarrier {s}: samples differ")
+        a = param_search.vp_nmse(xs, fxp, fmts[s])
+        b = param_search.vp_nmse(xh, fxp, fmts[s])
+        worst = max(worst, abs(a - b) / b)
+    if worst > SEARCH_RTOL:
+        raise AssertionError(f"NMSE card vs CPU {worst:.3e} > {SEARCH_RTOL}")
+    print(f"[search] formats equal to the CPU's on every subcarrier "
+          f"({sorted({repr(f) for f in fmts})}); NMSE card vs CPU within "
+          f"{worst:.3e} relative; the CPU's search {host_s:.3f}s")
+    xs, xh = (WidebandCalibrator.search_samples(t[0]) for t in (w, w_cpu))
+    checks = {}
+    for E, target in SEARCH_MIN_M:
+        got = _try(param_search.search_min_M, xs, fxp, E, target)
+        _same_search(f"search_min_M E {E}", got,
+                     _try(param_search.search_min_M, xh, fxp, E, target))
+        checks[f"min_M E{E} {target:g}"] = repr(got)
+    M, E = SEARCH_GREEDY
+    build.reset_launches()
+    got = param_search.search_exponent_list(xs, fxp, M, E, max_exhaustive=0)
+    greedy = dict(build.LAUNCHES)
+    _same_search("greedy search", got, param_search.search_exponent_list(
+        xh, fxp, M, E, max_exhaustive=0))
+    checks["greedy"] = repr(got)
+    print(f"[search] search_min_M and the greedy search (M {M}, E {E}; "
+          f"{greedy.get('vp_quant_planes', 0)} candidate lists, padded "
+          f"with repeated exponents) equal to the CPU's: {checks}")
+
+    # -- the kernels at the search's tile ----------------------------------
+    timer = Timer(torch)
+    tile = param_search._prepare(xs, None).tile
+    m, i = ops.vp_quant(tile, fxp, fmts[0])
+    mh, ih = ref.vp_quant_ref(tile, fxp, fmts[0])
+    _identical(torch, m, mh, "search tile planes (significands)")
+    _identical(torch, i, ih, "search tile planes (indices)")
+    _identical(torch, ops.vp_dequant(m, i, fmts[0]),
+               ref.vp_dequant_ref(m, i, fmts[0]), "search tile dequant")
+    nel = tile.numel()
+    by_name, shapes = {r["name"]: r for r in rows}, []
+    for name, fn, plain_fn, nbytes in (
+            ("vp_quant_planes", lambda: ops.vp_quant(tile, fxp, fmts[0]),
+             lambda: ref.vp_quant_ref(tile, fxp, fmts[0]), nel * (4 + 2)),
+            ("vp_dequant_planes", lambda: ops.vp_dequant(m, i, fmts[0]),
+             lambda: ref.vp_dequant_ref(m, i, fmts[0]), nel * (2 + 4))):
+        ms, plain_ms = timer(fn), timer(plain_fn)
+        bnd = bound(peaks, nbytes, 0, "f32")
+        _print_line(name, list(tile.shape), 0.0, 0.0, ms, plain_ms, bnd, None)
+        shapes.append(dict(name=name, shape=list(tile.shape),
+                           launches=counts[name], ms=ms, plain_ms=plain_ms,
+                           bound_ms=bnd[0], bound_by=bnd[1], library_ms=None,
+                           max_abs_err=0.0))
+        if name in by_name:
+            by_name[name].setdefault("search_shapes", []).append(shapes[-1])
+    fig = fig11()
+    print(f"[search] Fig. 11 (launch.equalize): area B-FXP/A-FXP "
+          f"{fig['area_bfxp_afxp']:.2f}, B-VP/B-FXP {fig['area_bvp_bfxp']:.2f};"
+          f" power B-VP/B-FXP {fig['power_bvp_bfxp']:.2f} (muting "
+          f"{fig['muting_rate']}); FLP/VP CMAC array {fig['flp_vp_cmac']:.2f}")
+    record["search"] = dict(
+        band=list(SEARCH_BAND), candidates=cands, launches=counts,
+        card_s=card_s, ms_per_subcarrier=card_s / S * 1e3, cpu_s=host_s,
+        formats=sorted({repr(f) for f in fmts}), nmse_rel=worst,
+        checks=checks, fig11=fig, shapes=shapes)
+
+
+# ---------------------------------------------------------------------------
+# 9. the measured plan cache (`--tune-decode`)
+# ---------------------------------------------------------------------------
+
+def _tuned_skinny(torch, peaks, timer, gen, K, N, vp, plan):
+    """The skinny body on random words (K, N) at the serve's decode rows
+    under the heuristic's split and the tuned one: ms at M = 1, 2 and
+    BATCH (L2 flushed), the tuned plan within BF16_TOL of the plain
+    version, and rows 0..m of an M = m product bit-identical to those of
+    the M = BATCH product under the tuned plan (the split fixes a row's
+    sums; the rows a block follow M)."""
+    from repro_torch.core.packing import dequant_words, storage_dtype
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.vp_dequant_matmul import (
+        plan_skinny, vp_dequant_matmul_cuda)
+
+    bf16 = torch.bfloat16
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    w = torch.randint(-8, 8, (K, N), generator=gen, device="cuda",
+                      dtype=torch.int32).to(storage_dtype(vp))
+    x = torch.randn((BATCH, K), generator=gen, device="cuda").to(bf16)
+    h = plan_skinny(BATCH, K, N, num_sms)
+    heur = (h.split, h.k_per)
+
+    def run(m, p):
+        return vp_dequant_matmul_cuda(x[:m], w, vp, bf16, body="skinny",
+                                      plan=p)
+
+    full = run(BATCH, plan)
+    err, rel = compare(torch, full, ref.vp_dequant_matmul_ref(x, w, vp, bf16),
+                       BF16_TOL, f"[tune] skinny {[BATCH, K, N]} {plan}")
+    for m in range(1, BATCH):
+        _identical(torch, run(m, plan), full[:m],
+                   f"[tune] skinny {[K, N]} {plan}: rows at M {m} and "
+                   f"{BATCH}")
+    plans = (("heuristic", heur), ("tuned", plan))
+    ms = {name: {m: timer(lambda: run(m, p)) for m in (1, 2, BATCH)}
+          for name, p in plans}
+
+    def retime():
+        """(heuristic, tuned) ms summed over M, each the median of
+        TUNE_TURNS readings taken in turns."""
+        got = {name: [] for name, _ in plans}
+        for _ in range(TUNE_TURNS):
+            for name, p in plans:
+                got[name].append(sum(timer(lambda: run(m, p))
+                                     for m in (1, 2, BATCH)))
+        return tuple(statistics.median(got[name]) for name, _ in plans)
+    plain_ms = timer(lambda: ref.vp_dequant_matmul_ref(x, w, vp, bf16))
+    w_deq = dequant_words(w, vp, torch.float32).to(bf16)
+    library_ms = timer(lambda: torch.matmul(x, w_deq))
+    bnd = bound(peaks, BATCH * K * 2 + K * N * w.element_size()
+                + BATCH * N * 2, 2 * BATCH * K * N, "bf16")
+    return dict(kernel="vp_dqmm_skinny", shape=[BATCH, K, N],
+                heuristic=list(heur), tuned=list(plan),
+                heuristic_ms=ms["heuristic"], tuned_ms=ms["tuned"],
+                ms=ms["tuned"][BATCH], plain_ms=plain_ms, bound_ms=bnd[0],
+                bound_by=bnd[1], library_ms=library_ms, max_abs_err=err,
+                retime=retime)
+
+
+def _tuned_decode(torch, peaks, timer, gen, dims, vp, plan):
+    """The split decode body at the serve's batch over random cache words
+    of a tuned geometry (KV, smax, G, dh, w_bytes, window, rolling) under
+    the heuristic's (cluster, warps) and the tuned one: each within
+    F32_RTOL (f32 q) and BF16_TOL (bf16 q) of the plain version, both
+    timed (L2 flushed)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.vp_attention import (
+        plan_decode, vp_decode_attention_cuda)
+    from repro_torch.models.layers import canonical_formats
+    from repro_torch.configs.base import QuantConfig
+
+    KV, smax, G, dh, w_bytes, window, rolling = dims
+    fxp, _ = canonical_formats(QuantConfig(mode="vp"))
+    B, H = BATCH, KV * G
+    k_w, v_w = (ops.vp_quant((torch.randn(
+        (B, smax, KV, dh), generator=gen, device="cuda") * 0.3).clamp(
+            -0.99, 0.99), fxp, vp, packed=True) for _ in range(2))
+    k_s, v_s = (2.0 ** torch.randint(-3, 2, (B, smax, 1, 1), generator=gen,
+                                     device="cuda").float() for _ in range(2))
+    lengths = torch.tensor([smax, smax - 4, smax - 15, smax - smax // 3],
+                           dtype=torch.int32, device="cuda")[:B]
+    h = plan_decode(KV, smax, G, dh, w_bytes)
+    heur = (h.cluster, h.warps)
+    win = window or None
+    out, runs = {}, {}
+    for dt, tol in ((torch.float32, F32_RTOL), (torch.bfloat16, BF16_TOL)):
+        q = torch.randn((B, 1, H, dh), generator=gen, device="cuda").to(dt)
+        want = ref.vp_decode_attention_ref(q, k_w, v_w, k_s, v_s, lengths, vp,
+                                           window=win, rolling=bool(rolling))
+        for name, p in (("heuristic", heur), ("tuned", plan)):
+            def run(q=q, p=p):
+                return vp_decode_attention_cuda(
+                    q.reshape(B, KV, G, dh), k_w, v_w, k_s, v_s, lengths, vp,
+                    win, bool(rolling), dh ** -0.5, plan=p)
+            err, _ = compare(torch, run().reshape(B, 1, H, dh), want, tol,
+                             f"[tune] decode {list(dims)} {name} {p} {dt}")
+            out[(name, dt)] = (err, timer(run))
+            runs[(name, dt)] = run
+    qd = torch.randn((B, 1, H, dh), generator=gen, device="cuda")
+    plain_ms = timer(lambda: ref.vp_decode_attention_ref(
+        qd, k_w, v_w, k_s, v_s, lengths, vp, window=win,
+        rolling=bool(rolling)))
+    valid = int(lengths.sum())
+    bnd = bound(peaks, valid * KV * dh * w_bytes * 2 + valid * 2 * 4
+                + 2 * B * H * dh * 2, 4 * valid * KV * G * dh, "f32")
+    bf = torch.bfloat16
+
+    def retime():
+        """(heuristic, tuned) bf16 ms, each the median of TUNE_TURNS
+        readings taken in turns."""
+        got = {"heuristic": [], "tuned": []}
+        for _ in range(TUNE_TURNS):
+            for name in got:
+                got[name].append(timer(runs[(name, bf)]))
+        return tuple(statistics.median(v) for v in got.values())
+
+    return dict(kernel="vp_dec_split", shape=[B] + list(dims),
+                heuristic=list(heur), tuned=list(plan),
+                heuristic_ms={"bf16": out[("heuristic", bf)][1],
+                              "f32": out[("heuristic", torch.float32)][1]},
+                tuned_ms={"bf16": out[("tuned", bf)][1],
+                          "f32": out[("tuned", torch.float32)][1]},
+                ms=out[("tuned", bf)][1], plain_ms=plain_ms, bound_ms=bnd[0],
+                bound_by=bnd[1], library_ms=None,
+                max_abs_err=out[("tuned", torch.float32)][0], retime=retime)
+
+
+def _smem_against_build(torch):
+    """Each instance of the two tuned bodies in the build report of the
+    libraries loaded (`build.build_log`: this process's compile, or the
+    report kept beside a library built before): its static shared memory
+    equal to `analysis/smem.py`'s and its registers x the body's threads
+    within the SM's file."""
+    from repro_torch.analysis import smem
+    from repro_torch.kernels import build
+
+    logs = {name: build.build_log(name)
+            for name in ("vp_dequant_matmul", "vp_attention")}
+    missing = [name for name, log in logs.items() if log is None]
+    if missing:
+        raise AssertionError(f"no build report of {missing}")
+    nbytes = {"int8": 1, "int16": 2, "int32": 4}
+    seen = {}
+    for name, log in logs.items():
+        for inst, (regs, static) in smem.parse_build_log(log).items():
+            kernel, args = inst[:-1].split("<")
+            args = args.split(",")
+            if kernel == "vp_dequant_matmul_skinny_kernel":
+                model = smem.skinny_launch(int(args[0]), 1, nbytes[args[1]])
+            elif kernel == "vp_decode_attention_split_kernel":
+                model = smem.decode_launch(1, smem.DEC_MAX_WARPS,
+                                           int(args[1]), 64,
+                                           nbytes[args[0]], int(args[2]))
+            else:
+                continue
+            if model.instance != inst or model.static_smem != static or \
+                    smem.problems(model, registers=regs):
+                raise AssertionError(
+                    f"{inst}: build {static} bytes static, {regs} registers; "
+                    f"the model {model}, {smem.problems(model, registers=regs)}")
+            seen[inst] = dict(registers=regs, static_smem=static)
+    if sum(k.startswith("vp_dequant") for k in seen) != 15 or \
+            not any(k.startswith("vp_decode") for k in seen):
+        excerpt = [line for line in logs["vp_attention"].splitlines()
+                   if "ptxas" in line][:12]
+        raise AssertionError(f"instances in the build report: {sorted(seen)}"
+                             f"; its first lines: {excerpt}")
+    print(f"[tune] analysis/smem.py against the build report: "
+          f"{len(seen)} instances, static shared memory equal, registers x "
+          "threads within 65,536: " + "; ".join(
+              f"{k} {v['registers']} regs {v['static_smem']} B"
+              for k, v in sorted(seen.items())))
+    return seen
+
+
+def _oversized(torch):
+    """A skinny split over 16 blocks: the model refuses it (a cluster past
+    the portable 8) and the C entry refuses its launch."""
+    import ctypes
+
+    from repro_torch.analysis import smem
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.kernels import build
+    from repro_torch.models.layers import canonical_formats
+
+    _, vp = canonical_formats(QuantConfig(mode="vp"))
+    M, K, N, split = BATCH, 1024, 1024, 16
+    k_per = K // split
+    ok, launch = smem.plan_feasible("vp_dqmm_skinny", (split, k_per), (K, N),
+                                    (vp,))
+    if ok:
+        raise AssertionError(f"the model admits {launch}")
+    x = torch.zeros((M, K), dtype=torch.bfloat16, device="cuda")
+    w = torch.zeros((K, N), dtype=torch.int16, device="cuda")
+    out = torch.empty((M, N), dtype=torch.bfloat16, device="cuda")
+    lib = build.library("vp_dequant_matmul")
+    err = lib.vp_dqmm_skinny_launch(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N, 1, 2, 1, 4,
+        split, k_per, ctypes.byref(build.vp_fmt_struct(vp, x.device)),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if err == 0:
+        raise AssertionError("the C entry launched a cluster of 16 blocks")
+    msg = lib.vp_error_string(err).decode()
+    print(f"[tune] oversized skinny plan (split {split}, k_per {k_per}): the "
+          f"model refuses it ({smem.problems(launch)}); its launch through "
+          f"the C entry fails with CUDA error {err} ({msg})")
+    return dict(plan=[split, k_per], problems=smem.problems(launch),
+                cuda_error=err, message=msg)
+
+
+def tune_phase(torch, record, rows, smi, peaks):
+    """`--tune-decode` on the serve CLI (`serving/profile.py`,
+    `kernels/autotune.py`, `analysis/smem.py`) with a plan cache of its
+    own (`isolated_plan_cache`): full-width qwen3-0.6b, bf16, `--quant vp
+    --kv-quant`, batch 4 x 128, 32 steps, tuning the skinny
+    `vp_dequant_matmul` body's split over every weight panel and the
+    split decode body's (cluster, warps) over the cache geometry, then
+    serving (the counted path).  A second run in the same process makes
+    no new entry.  Every entry timed under the heuristic's plan and the
+    tuned one (Timer), the tuned no slower beyond TUNE_NOISE (re-timed
+    in turns before it fails), within
+    tolerance of the plain version, and a skinny row's bits the same at
+    M 1..4; an f32 run on the tuned cache gives the plain path's greedy
+    tokens; the engine on it gives the same tokens at run-ahead 4 and 1,
+    each graph's first replay bit-identical to its eager step; the build
+    report's static shared memory and registers against the model; one
+    oversized plan refused by the model and by the C entry."""
+    from pathlib import Path
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.kernels import autotune, build
+    from repro_torch.kernels.vp_attention import plan_decode
+    from repro_torch.kernels.vp_dequant_matmul import plan_skinny
+    from repro_torch.launch import serve
+    from repro_torch.models.layers import canonical_formats
+    from repro_torch.models.model import init_params, quantize_params
+
+    _, vp = canonical_formats(QuantConfig(mode="vp"))
+    out = {}
+    with isolated_plan_cache() as path:
+        torch.cuda.empty_cache()
+        build.reset_launches()
+        # -- the main path: the serve CLI, tuning first ----------------------
+        report = serve.main(TUNE_ARGV + ["--tune-decode"])
+        counts = dict(build.LAUNCHES)
+        # ---------------------------------------------------------------------
+        plans = autotune.entries()
+        text = Path(path).read_text()
+        print(f"[tune] {' '.join(TUNE_ARGV)} --tune-decode: "
+              f"{report['tune_decode']['entries']} entries in "
+              f"{report['tune_decode']['s']:.2f}s; decode "
+              f"{report['decode_s'] / GEN * 1e3:.3f} ms/step; launches "
+              f"{counts}")
+        _need("[tune]", counts, {"vp_dqmm_skinny": 1, "vp_dec_split": 1,
+                                 "vp_qp_kv": 1, "flash_tc": 1})
+        if report["tune_decode"]["entries"] != len(plans) or not plans:
+            raise AssertionError(f"profile {report['tune_decode']} vs the "
+                                 f"cache's {len(plans)} entries")
+        again = serve.main(TUNE_ARGV + ["--tune-decode"])
+        if autotune.entries() != plans or Path(path).read_text() != text:
+            raise AssertionError("a second --tune-decode run changed the "
+                                 "cache")
+        print(f"[tune] a second run in the process: the same {len(plans)} "
+              f"entries, no new one ({again['tune_decode']['s']:.3f}s)")
+
+        timer, gen = Timer(torch), torch.Generator(device="cuda")
+        gen.manual_seed(9)
+        entries = []
+        for key, plan in sorted(plans.items()):
+            kernel, dims, fmts, backend, mesh = key.split("|")
+            dims = tuple(int(d) for d in dims.split("x"))
+            if fmts != repr(vp) or mesh != "mesh=1" or \
+                    backend != torch.cuda.get_device_name(0):
+                raise AssertionError(f"unexpected key {key}")
+            if kernel == "vp_dqmm_skinny":
+                e = _tuned_skinny(torch, peaks, timer, gen, *dims, vp, plan)
+                heur = sum(e["heuristic_ms"].values())
+                tuned = sum(e["tuned_ms"].values())
+                sp = plan_skinny(BATCH, *dims, torch.cuda.get_device_properties(0)
+                                 .multi_processor_count, None, vp, 0)
+                if (sp.split, sp.k_per) != plan:
+                    raise AssertionError(f"{key}: the wrapper resolves "
+                                         "another split")
+            else:
+                e = _tuned_decode(torch, peaks, timer, gen, dims, vp, plan)
+                heur, tuned = e["heuristic_ms"]["bf16"], e["tuned_ms"]["bf16"]
+            e["launches"] = counts.get(kernel, 0)
+            entries.append(e)
+            print(f"[tune] {kernel} {e['shape']}: heuristic {e['heuristic']} "
+                  f"{e['heuristic_ms']} ms, tuned {e['tuned']} "
+                  f"{e['tuned_ms']} ms; bound {e['bound_ms']:.4f} "
+                  f"({e['bound_by']}), plain {e['plain_ms']:.4f}, library "
+                  f"{e['library_ms']}")
+            retime = e.pop("retime")
+            if tuned > heur * TUNE_NOISE[0] + TUNE_NOISE[1]:
+                heur, tuned = e["retimed"] = retime()
+                print(f"[tune] {kernel} {e['shape']}: re-timed in "
+                      f"{TUNE_TURNS} turns, heuristic {heur:.4f} ms, tuned "
+                      f"{tuned:.4f}")
+                if tuned > heur * TUNE_NOISE[0] + TUNE_NOISE[1]:
+                    raise AssertionError(f"{key}: tuned {tuned:.4f} ms "
+                                         f"slower than the heuristic's "
+                                         f"{heur:.4f}")
+        by_name = {r["name"]: r for r in rows}
+        for e in entries:
+            name = ("vp_dequant_matmul" if e["kernel"] == "vp_dqmm_skinny"
+                    else "vp_decode_attention")
+            if name in by_name:
+                by_name[name].setdefault("tune_shapes", []).append(e)
+
+        f32 = _format_cli(torch, "[tune]", TUNE_ARGV,
+                          {"vp_dqmm_skinny": 1, "vp_dec_split": 1})
+        cfg = registry.get_config(ARCH, QuantConfig(
+            mode="vp", quantize_kv_cache=True))
+        dplan = plan_decode(cfg.n_kv_heads, ENGINE_CAP,
+                            cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, 2,
+                            None, None, False, vp, 0)
+        params = quantize_params(init_params(cfg, seed=0, device="cuda"), cfg)
+        reqs = _engine_requests(cfg, ENGINE_REQS)
+        tokens = {}
+        for la in ENGINE_LOOKAHEAD:
+            eng = _engine(cfg, params, decode_lookahead=la)
+            recs, wall, calls, ran = _engine_wave(torch, eng, reqs)
+            _check_graph_log(eng.runner, f"[tune] engine run-ahead {la}:")
+            tokens[la] = [r["tokens"] for r in recs]
+            out[f"engine_run_ahead_{la}"] = dict(
+                wall_s=wall, launches=ran, **_decode_rates(recs, calls))
+            del eng
+        if len({str(t) for t in tokens.values()}) != 1:
+            raise AssertionError("engine tokens differ between run-ahead "
+                                 f"{ENGINE_LOOKAHEAD} on the tuned cache")
+        print(f"[tune] engine on the tuned cache (decode plan {dplan}): "
+              f"{ENGINE_REQS} requests, the same tokens at run-ahead "
+              f"{ENGINE_LOOKAHEAD}")
+        del params
+        torch.cuda.empty_cache()
+    out.update(smem=_smem_against_build(torch), oversized=_oversized(torch))
+    record["tune"] = dict(out, launches=counts, plans={
+        k: list(v) for k, v in plans.items()}, entries=entries,
+        tune_s=report["tune_decode"]["s"],
+        decode_ms_per_step=report["decode_s"] / GEN * 1e3,
+        f32_tokens_equal=True, f32_launches=f32["launches"])
 
 
 def dequant_phase(torch, record, rows):

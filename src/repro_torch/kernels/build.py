@@ -6,7 +6,10 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds), and loaded with `ctypes`.  The hash covers the source, the
 shared headers and the flags, so an edit rebuilds and an unchanged tree
 reuses what it built.  `build_all` starts one `nvcc` per source, all at
-once.  Nothing here falls back: a failed build raises.
+once, and keeps nvcc's report beside each library (`<name>-<hash>.log`),
+so `build_log` gives the same report in a process that built the
+library and in one that found it built.  Nothing here falls back: a
+failed build raises.
 
 The wrappers pass `tensor.data_ptr()` and the current stream as integers
 and raise if the launcher returns a CUDA error.  Each launch adds one to
@@ -39,6 +42,10 @@ VP_IDX_TAB = 33   # csrc/vp_common.cuh: bit lengths 0..32
 
 # Launches per kernel since the last `reset_launches()`.
 LAUNCHES: Dict[str, int] = collections.Counter()
+# nvcc's report (`-Xptxas -v`: registers and shared memory per kernel
+# instance) by source name: of each source built in this process, and
+# of each one `build_log` read from beside its library.
+BUILD_LOGS: Dict[str, str] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -206,26 +213,34 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
+@functools.lru_cache(maxsize=None)
+def _digest(name: str) -> str:
     h = hashlib.sha256()
     for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def _target(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
-    """Compile every missing library, one nvcc each, all started at once.
+    """Compile every missing library (or one built without its report),
+    one nvcc each, all started at once.
 
     Returns {name: nvcc's output} for the sources it compiled (the
-    `-Xptxas -v` register and shared-memory report).  Raises on the
-    first failed compile, after every nvcc has ended.
+    `-Xptxas -v` register and shared-memory report), also kept in
+    `BUILD_LOGS` and written beside the library before the library
+    itself.  Raises on the first failed compile, after every nvcc has
+    ended.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         target = _target(name)
-        if target.exists():
+        if target.exists() and target.with_suffix(".log").exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -235,14 +250,31 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     logs, failed = {}, []
     for name, (proc, tmp, target) in procs.items():
         out, _ = proc.communicate()
-        logs[name] = out
+        logs[name] = BUILD_LOGS[name] = out
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}.cu:\n{out}")
             continue
+        log_tmp = tmp.with_suffix(".logtmp")
+        log_tmp.write_text(out)
+        os.replace(log_tmp, target.with_suffix(".log"))
         os.replace(tmp, target)
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs
+
+
+def build_log(name: str) -> Optional[str]:
+    """nvcc's report of csrc/<name>.cu's current build: from this
+    process's compile, else from the file beside the built library;
+    None where the library is not built."""
+    log = BUILD_LOGS.get(name)
+    if log is None:
+        try:
+            log = BUILD_LOGS[name] = _target(name).with_suffix(
+                ".log").read_text()
+        except OSError:
+            return None
+    return log
 
 
 def library(name: str) -> ctypes.CDLL:

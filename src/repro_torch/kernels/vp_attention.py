@@ -10,9 +10,13 @@ Decode has one body, split over the cache span: `plan_decode` fixes the
 split (blocks of a cluster, warps of a block, lanes per position) from
 the shapes of one row alone, not the batch, so a row's bits do not
 depend on the rows decoded beside it (the serving engine's buckets), and
-`decode_runs` lists the positions each run reads.  A lane loads 16
-bytes of a row, or 8 at int8 rows of dh = 8 mod 16, or 32 at int32 rows
-past dh 128 (`lane_bytes`), and
+`decode_runs` lists the positions each run reads.  The (cluster, warps)
+of a launch come from a caller (`plan=`), else on the card from the
+measured plan cache (`autotune.tuned`, read inside `plan_decode`'s memo
+and keyed on the row's shape, the window and the ring, never the batch),
+else from the heuristic.  A lane
+loads 16 bytes of a row, or 8 at int8 rows of dh = 8 mod 16, or 32 at
+int32 rows past dh 128 (`lane_bytes`), and
 query rows past its registers (`DEC_MAX_G`) split over slices of a grid
 axis; neither changes a row's sums.
 Prefill has two, and `flash_body` alone picks one from q's dtype and the
@@ -35,7 +39,7 @@ import torch
 
 from repro_torch.core.formats import VPFormat
 from repro_torch.core.packing import storage_dtype
-from . import build
+from . import autotune, build
 
 DEC_MAX_WARPS = 8     # runs (warps) per block
 DEC_MAX_CLUSTER = 8   # blocks per cluster (portable size)
@@ -50,6 +54,7 @@ DEC_MAX_G_WIDE = 4    # ... on 32-byte lanes (8 int32 words)
 # whose 84 output f32 a thread still fit its registers.
 TC_DHS = frozenset(range(16, 129, 16)) | {160, 168}
 BODY_COUNTER = {"tensor_core": "flash_tc", "cuda_core": "flash_cuda_core"}
+DECODE_KERNEL = "vp_dec_split"   # the plan cache's name for the body
 _BODY_CODE = {"tensor_core": 0, "cuda_core": 1}
 
 
@@ -84,9 +89,13 @@ class DecodePlan:
         return 32 // self.lpp
 
 
+@autotune.memoised_planner
 @functools.lru_cache(maxsize=1024)
-def plan_decode(KV: int, smax: int, G: int, dh: int,
-                w_bytes: int = 2) -> DecodePlan:
+def plan_decode(KV: int, smax: int, G: int, dh: int, w_bytes: int = 2,
+                cluster_warps: Optional[Tuple[int, int]] = None,
+                window: Optional[int] = None, rolling: bool = False,
+                fmt: Optional[VPFormat] = None,
+                device: Optional[int] = None) -> DecodePlan:
     """The split for one row of q (KV, G, dh) over a cache of smax
     positions of `w_bytes` words.  Runs of at least DEC_MIN_STEPS warp
     steps, as many as the buffer holds up to DEC_WARPS warps per row; at
@@ -100,9 +109,15 @@ def plan_decode(KV: int, smax: int, G: int, dh: int,
     gemma3's 168).  G above DEC_MAX_G[nw] (DEC_MAX_G_WIDE on 32-byte
     lanes; the registers of a lane: qwen2's G = 7 at 16 int8 words)
     splits into slices of that many rows; the runs do not depend on G,
-    so a row's bits are the same in every slicing.  Raises for shapes
-    the body does not take: dh not a multiple of nw or past 32 * nw,
-    G < 1."""
+    so a row's bits are the same in every slicing.  `cluster_warps`
+    (a caller's), else on CUDA device `device` (an index) the plan
+    cache's entry for (KV, smax, G, dh, w_bytes, window, rolling) and
+    `fmt` (one outside the body's limits is ignored), takes the place of
+    the heuristic's (cluster, warps); the lanes and slices stay, since
+    they decide what the body can take.  Memoised; `autotune.record` and
+    `clear_cache` drop the memo.  The serving engine checks its caches
+    with it at construction.  Raises for shapes the body does not take:
+    dh not a multiple of nw or past 32 * nw, G < 1."""
     if w_bytes not in (1, 2, 4):
         raise ValueError(f"packed words of {w_bytes} bytes")
     lane_bytes = (8 if w_bytes == 1 and dh % 16
@@ -121,7 +136,33 @@ def plan_decode(KV: int, smax: int, G: int, dh: int,
     cluster = min(DEC_MAX_CLUSTER, cap,
                   max(_cdiv(DEC_BLOCKS, KV), _cdiv(want, DEC_MAX_WARPS)))
     warps = min(DEC_MAX_WARPS, max(1, _cdiv(want, cluster)))
+    if cluster_warps is None and device is not None:
+        cluster_warps = autotune.tuned(
+            DECODE_KERNEL, (KV, smax, G, dh, w_bytes, int(window or 0),
+                            int(rolling)), (fmt,), device)
+        if cluster_warps is not None and \
+                not valid_cluster_warps(cluster_warps):
+            cluster_warps = None
+    if cluster_warps is not None:
+        cluster, warps = cluster_warps
     return DecodePlan(cluster, warps, lpp, lane_bytes, slices)
+
+
+def valid_cluster_warps(p) -> bool:
+    """Whether `p` is a (cluster, warps) the body takes (any shape)."""
+    return (len(p) == 2 and 1 <= p[0] <= DEC_MAX_CLUSTER
+            and 1 <= p[1] <= DEC_MAX_WARPS)
+
+
+def decode_candidates(KV: int, smax: int, G: int, dh: int, w_bytes: int
+                      ) -> List[Tuple[int, int]]:
+    """The (cluster, warps) a tuning run times: the heuristic's first,
+    then every pair within DEC_MAX_CLUSTER and DEC_MAX_WARPS."""
+    h = plan_decode(KV, smax, G, dh, w_bytes)
+    out = [(h.cluster, h.warps)]
+    out += [(c, w) for c in range(1, DEC_MAX_CLUSTER + 1)
+            for w in range(1, DEC_MAX_WARPS + 1) if (c, w) != out[0]]
+    return out
 
 
 def decode_runs(plan: DecodePlan, length: int, smax: int,
@@ -147,10 +188,12 @@ def decode_runs(plan: DecodePlan, length: int, smax: int,
 
 def vp_decode_attention_cuda(q, k_w, v_w, k_s, v_s, lengths, fmt: VPFormat,
                              window: Optional[int], rolling: bool,
-                             scale: float):
+                             scale: float,
+                             plan: Optional[Tuple[int, int]] = None):
     """q (B, KV, G, dh) f32 or bf16, not scaled (the kernel multiplies it
     by `scale` in f32); k_w / v_w (B, Smax, KV, dh) packed words; k_s /
-    v_s (B, Smax) f32; lengths (B,) -> (B, KV, G, dh) in q's dtype."""
+    v_s (B, Smax) f32; lengths (B,) -> (B, KV, G, dh) in q's dtype; at
+    the (cluster, warps) `plan` where a caller gives one."""
     B, KV, G, dh = q.shape
     smax = k_w.shape[1]
     if not all(t.is_cuda and t.device == q.device
@@ -168,7 +211,11 @@ def vp_decode_attention_cuda(q, k_w, v_w, k_s, v_s, lengths, fmt: VPFormat,
                          f"{tuple(k_s.shape)} do not match the cache "
                          f"{tuple(k_w.shape)}")
     q_bf16 = build.dtype_code(q.dtype, "q")
-    plan = plan_decode(KV, smax, G, dh, k_w.element_size())
+    if plan is not None and not valid_cluster_warps(plan):
+        raise ValueError(f"plan {plan}: (cluster, warps) within "
+                         f"{DEC_MAX_CLUSTER} and {DEC_MAX_WARPS}")
+    plan = plan_decode(KV, smax, G, dh, k_w.element_size(), plan, window,
+                       rolling, fmt, q.device.index)
     q, k_w, v_w = q.contiguous(), k_w.contiguous(), v_w.contiguous()
     align = min(plan.lane_bytes, 16)
     if k_w.data_ptr() % align or v_w.data_ptr() % align:

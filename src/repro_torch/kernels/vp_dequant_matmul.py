@@ -11,8 +11,14 @@ shared memory, `vp_bwd_matmul`'s body in its forward role) for large M
 where the dequantized words are exact in bf16, else the CUDA-core body.
 A failed build or launch raises; no body stands in for another.
 `plan_skinny` sizes the skinny body's grid, `vp_bwd_matmul.plan_tiles`
-the tensor-core body's.  `build.LAUNCHES` counts every launch under
-`vp_dequant_matmul`, and also each body's under `vp_dqmm_skinny`,
+the tensor-core body's.  The skinny body's split of K, (split, k_per),
+comes from a caller (`plan=`), else on the card from the measured plan
+cache (`autotune.tuned`, read inside `plan_skinny`'s memo and keyed on
+(K, N) and the format: the split fixes the order of a row's sums, so one
+split serves every M and a row's bits do not depend on the rows beside
+it), else from the heuristic.
+`build.LAUNCHES` counts every launch under `vp_dequant_matmul`, and also
+each body's under `vp_dqmm_skinny`,
 `vp_dqmm_tc` or `vp_dqmm_cuda_core`, and the tensor-core body's split
 reduction under `vp_dqmm_splitk_reduce` (the skinny body sums its splits
 inside its own launch, across a thread-block cluster).
@@ -22,13 +28,13 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
 from repro_torch.core.formats import VPFormat
 from repro_torch.core.packing import storage_dtype
-from . import build
+from . import autotune, build
 from .vp_bwd_matmul import TC_MAX_M, _cdiv, plan_tiles
 
 # Largest M the skinny body takes, from row 2's M sweep in chip_smoke.py
@@ -44,6 +50,7 @@ SK_MAX_SPLIT = 8    # the blocks of a split form one cluster (portable size)
 
 BODY_COUNTER = {"skinny": "vp_dqmm_skinny", "tensor_core": "vp_dqmm_tc",
                 "cuda_core": "vp_dqmm_cuda_core"}
+SKINNY_KERNEL = "vp_dqmm_skinny"   # the plan cache's name for the body
 
 
 def fwd_body(M: int, x_dtype: torch.dtype, fmt: VPFormat) -> str:
@@ -72,25 +79,68 @@ class SkinnyPlan:
     k_per: int
 
 
+@autotune.memoised_planner
 @functools.lru_cache(maxsize=1024)
-def plan_skinny(M: int, K: int, N: int, num_sms: int) -> SkinnyPlan:
-    """Split K (in runs of whole 32-row units, at most SK_MAX_SPLIT) into
-    the fewest runs that give SK_WAVES blocks per SM, where the column
-    groups alone give fewer."""
+def plan_skinny(M: int, K: int, N: int, num_sms: int,
+                split_k: Optional[Tuple[int, int]] = None,
+                fmt: Optional[VPFormat] = None,
+                device: Optional[int] = None) -> SkinnyPlan:
+    """The grid for out (M, N) over K: `mt` the snug power of two of M
+    (at most 16), then K in `split_k` = (split, k_per) runs; where it is
+    None, the plan cache's split for words (K, N) of `fmt` on CUDA device
+    `device` (an index; an entry that is not a split of K is ignored),
+    else the heuristic's: the fewest runs of whole 32-row units, at most
+    SK_MAX_SPLIT, that give SK_WAVES blocks per SM where the column
+    groups alone give fewer.  `mt` leaves a row's sums as they are; the
+    split fixes their order.  Memoised; `autotune.record` and
+    `clear_cache` drop the memo."""
     mt = next(t for t in SK_MTS if t >= min(M, SK_MTS[-1]))
     m_chunks, groups = _cdiv(M, mt), _cdiv(N, SK_COLS)
+    if split_k is None and device is not None:
+        split_k = autotune.tuned(SKINNY_KERNEL, (K, N), (fmt,), device)
+        if split_k is not None and not valid_split(K, split_k):
+            split_k = None
+    if split_k is None:
+        units = max(1, _cdiv(K, SK_KL))
+        split = min(units, SK_MAX_SPLIT,
+                    max(1, _cdiv(SK_WAVES * num_sms, groups * m_chunks)))
+        k_per = _cdiv(units, split) * SK_KL
+        split_k = (max(1, _cdiv(K, k_per)), k_per)
+    return SkinnyPlan(mt, m_chunks, groups, *split_k)
+
+
+def valid_split(K: int, split_k) -> bool:
+    """Whether (split, k_per) covers K in `split` non-empty runs of one
+    cluster (the C entry's conditions)."""
+    if len(split_k) != 2:
+        return False
+    split, k_per = split_k
+    return (1 <= split <= SK_MAX_SPLIT and k_per >= 1
+            and split * k_per >= K > (split - 1) * k_per)
+
+
+def skinny_candidates(K: int, N: int, num_sms: int) -> List[Tuple[int, int]]:
+    """The splits of K a tuning run times: the heuristic's first, then
+    every split of whole 32-row units into 1..SK_MAX_SPLIT runs."""
+    h = plan_skinny(1, K, N, num_sms)
+    out = [(h.split, h.k_per)]
     units = max(1, _cdiv(K, SK_KL))
-    split = min(units, SK_MAX_SPLIT,
-                max(1, _cdiv(SK_WAVES * num_sms, groups * m_chunks)))
-    k_per = _cdiv(units, split) * SK_KL
-    return SkinnyPlan(mt, m_chunks, groups, max(1, _cdiv(K, k_per)), k_per)
+    for s in range(1, SK_MAX_SPLIT + 1):
+        k_per = _cdiv(units, s) * SK_KL
+        c = (_cdiv(K, k_per), k_per)
+        if c not in out:
+            out.append(c)
+    return out
 
 
 def vp_dequant_matmul_cuda(x: torch.Tensor, w: torch.Tensor, w_fmt: VPFormat,
                            out_dtype: torch.dtype,
-                           body: Optional[str] = None) -> torch.Tensor:
+                           body: Optional[str] = None,
+                           plan: Optional[Tuple[int, int]] = None
+                           ) -> torch.Tensor:
     """x (M, K) f32/bf16 @ dequant(w (K, N) packed) -> (M, N) out_dtype,
-    on `fwd_body`'s body, or on `body` where a caller measures one."""
+    on `fwd_body`'s body, or on `body` where a caller measures one; the
+    skinny body at the (split, k_per) `plan` where a caller gives one."""
     if not (x.is_cuda and w.device == x.device):
         raise ValueError("vp_dequant_matmul kernel takes CUDA tensors on "
                          "one device")
@@ -111,6 +161,9 @@ def vp_dequant_matmul_cuda(x: torch.Tensor, w: torch.Tensor, w_fmt: VPFormat,
     if body == "tensor_core" and w_fmt.M > TC_MAX_M:
         raise ValueError(f"{w_fmt}: words not exact in bf16 (M > "
                          f"{TC_MAX_M}); no tensor-core body")
+    if plan is not None and (body != "skinny" or not valid_split(K, plan)):
+        raise ValueError(f"plan {plan} is not a split of K {K} for the "
+                         f"skinny body (on the {body} body)")
     x, w = x.contiguous(), w.contiguous()
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if M == 0 or N == 0:
@@ -125,7 +178,7 @@ def vp_dequant_matmul_cuda(x: torch.Tensor, w: torch.Tensor, w_fmt: VPFormat,
         num_sms = torch.cuda.get_device_properties(
             x.device).multi_processor_count
         if body == "skinny":
-            sp = plan_skinny(M, K, N, num_sms)
+            sp = plan_skinny(M, K, N, num_sms, plan, w_fmt, x.device.index)
             err = lib.vp_dqmm_skinny_launch(
                 x.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N, xc,
                 w.element_size(), oc, sp.mt, sp.split, sp.k_per,

@@ -9,9 +9,11 @@ Prints the Fig. 7 statistics, the Fig. 8 NMSE gap, the Table I BERs
 (float, A-FXP and B-FXP through the fake-quant model, B-VP both through
 the model and through the VP kernels), the CSPADE thresholds and muting
 rate, and wideband NMSE/BER with the whole band in one batched kernel
-launch.  Runs on the card by default and raises when CUDA is absent;
-`--device cpu` runs the plain PyTorch versions of the kernels.  The
-Fig. 11 cost-model block waits for `core/cost_model.py`.
+launch, and the Fig. 11 cost-model ratios (`core/cost_model.py`: area
+of B-FXP / A-FXP and B-VP / B-FXP, power of B-VP / B-FXP at a CSPADE
+muting rate of 0.5, and the custom-FLP / VP CMAC array area).  Runs on
+the card by default and raises when CUDA is absent; `--device cpu` runs
+the plain PyTorch versions of the kernels.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import List, Optional
 
 import torch
 
+from repro_torch.core import cost_model as cm
 from repro_torch.mimo import cspade
 from repro_torch.mimo.channel import ChannelConfig
 from repro_torch.mimo.equalizer import table1_specs
@@ -41,6 +44,21 @@ def _generator(device: torch.device, seed: int) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return gen
+
+
+def fig11(muting_rate: float = 0.5) -> dict:
+    """The four Fig. 11 ratios of the unit-gate model over the paper's
+    designs, as `examples/mimo_equalizer.py` prints them."""
+    designs = cm.paper_designs()
+    area = {k: cm.total(cm.mvm_area(s)) for k, s in designs.items()}
+    power = {k: sum(cm.mvm_power(s, muting_rate=muting_rate).values())
+             for k, s in designs.items()}
+    return {"area_bfxp_afxp": area["B-FXP"] / area["A-FXP"],
+            "area_bvp_bfxp": area["B-VP"] / area["B-FXP"],
+            "power_bvp_bfxp": power["B-VP"] / power["B-FXP"],
+            "flp_vp_cmac": cm.flp_cmac_array_area(8)
+            / cm.vp_cmac_array_area(designs["B-VP"]),
+            "muting_rate": muting_rate}
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
@@ -121,6 +139,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
           f"{max(s.w_gain for s in wspecs):.3g})")
     print(f"  NMSE  B-VP={wb['nmse_vp']:.2e}  float={wb['nmse_float']:.2e}")
     print(f"  BER   B-VP={wb['ber_vp']:.4f}  float={wb['ber_float']:.4f}")
+
+    print("\n=== Fig. 11: cost model ===")
+    report["fig11"] = fig = fig11()
+    print(f"  area  B-FXP/A-FXP = {fig['area_bfxp_afxp']:.2f} (paper ~1.25)")
+    print(f"  area  B-VP /B-FXP = {fig['area_bvp_bfxp']:.2f} (paper ~0.80)")
+    print(f"  power B-VP /B-FXP = {fig['power_bvp_bfxp']:.2f} "
+          "(paper 0.86-0.90)")
+    print(f"  FLP/VP CMAC array = {fig['flp_vp_cmac']:.2f} (paper 3.4)")
     if args.json:
         with open(args.json, "w") as f:
             json.dump(report, f, indent=1)

@@ -38,8 +38,14 @@ static path (`encode_s`); the engine refuses it, as the reference's
 does.  internvl2-1b (VLM): the static path prefills zero patch
 embeddings (n_patches of them, as the reference's CLI) before the
 prompt, its caches sized to n_patches + prompt + generation; the engine
-serves it text-only, as the reference's.  `--tune-decode` of the
-reference is not ported yet.
+serves it text-only, as the reference's.  `--tune-decode` first times the
+decode kernels' launch plans at this model's shapes (the skinny
+`vp_dequant_matmul` body over every packed weight panel, the split
+decode-attention body over every cache geometry of the run) and keeps
+the fastest in the plan cache (`$REPRO_TORCH_AUTOTUNE_CACHE`, else
+`~/.cache/repro-vp-torch/autotune.json`), which every later launch reads;
+entries already there are not timed again, and on the CPU nothing is
+timed.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
         --quant vp --kv-quant --batch 4 --prompt-len 128 --gen 16
@@ -62,6 +68,7 @@ from repro_torch.models.model import (
     cross_kv, decode_step, encoder_forward, init_cache, init_params,
     model_dtype, prefill, quantize_params, resolve_device,
 )
+from repro_torch.serving.profile import tune_decode_profile
 from repro_torch.serving.runner import gumbel_noise, sample
 
 
@@ -159,7 +166,7 @@ def _run_engine(args, params, cfg, report: dict) -> None:
             else [args.gen] * n_req)
     arrivals = [i * args.arrival_gap for i in range(n_req)]
     ps = args.page_size
-    capacity = -(-(args.prompt_len + max(gens)) // ps) * ps
+    capacity = _cache_len(args, cfg)
     max_slots = args.max_slots or min(n_req, 4)
     engine = ServingEngine(
         params, cfg, max_slots=max_slots, capacity=capacity, page_size=ps,
@@ -216,6 +223,17 @@ def _run_engine(args, params, cfg, report: dict) -> None:
     print("[sample tokens]", [r["tokens"][:8] for r in recs[:4]])
 
 
+def _cache_len(args, cfg) -> int:
+    """Positions of the decode caches this run makes: the engine's
+    capacity (the prompt and the longest generation, `--gen`, in whole
+    pages), or the static path's patches, prompt and generation."""
+    if args.engine:
+        ps = args.page_size
+        return -(-(args.prompt_len + args.gen) // ps) * ps
+    patches = cfg.n_patches if cfg.family == "vlm" else 0
+    return patches + args.prompt_len + args.gen
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="qwen3-0.6b",
@@ -250,6 +268,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     choices=["packed", "planes"],
                     help="VP KV-cache storage: packed kernel words "
                          "(default) or two planes dequantized whole")
+    ap.add_argument("--tune-decode", action="store_true",
+                    help="time the decode kernels' launch plans at this "
+                         "model's shapes first and keep the fastest in the "
+                         "plan cache")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--batch", type=int, default=4,
                     help="batch size; with --engine the number of requests")
@@ -335,6 +357,21 @@ def main(argv: Optional[List[str]] = None) -> dict:
     report["weight_bytes"] = weight_bytes(params)
     print(f"[serve] {cfg.name} on {device}: weights "
           f"{report['weight_bytes'] / 1e6:.2f} MB ({args.quant})")
+    # Tunable decode launches: packed-word weight panels (vp, packed
+    # layout) and the packed VP KV cache's decode attention.
+    tunable = (args.quant == "vp" and args.layout == "packed") or \
+        (args.kv_quant and args.kv_layout == "packed")
+    if args.tune_decode and tunable:
+        t0 = time.perf_counter()
+        prof = tune_decode_profile(params, cfg, args.batch,
+                                   max_len=_cache_len(args, cfg),
+                                   seed=args.seed)
+        report["tune_decode"] = {"entries": len(prof),
+                                 "s": time.perf_counter() - t0}
+        if prof:
+            print(f"[serve] decode autotune profile: {len(prof)} entries "
+                  f"over {len(prof)} shapes in "
+                  f"{report['tune_decode']['s']:.1f}s")
 
     if args.engine:
         _run_engine(args, params, cfg, report)

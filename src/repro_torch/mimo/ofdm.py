@@ -9,7 +9,8 @@ subcarrier: S independent (U, B) x (B,) products per channel use.
     taps gives the per-subcarrier responses H[s]);
   * `make_wideband_ensemble`: per-subcarrier 16-QAM symbols, AWGN,
     beamspace transform and LMMSE matrices, leading axis S;
-  * `WidebandCalibrator`: per-subcarrier AGC gains, cached;
+  * `WidebandCalibrator`: per-subcarrier AGC gains and exponent lists
+    (the Sec. II-D search), cached;
   * `equalize_wideband`: every (subcarrier, realization) MVM folded into
     the leading batch axis of one batched kernel launch ("flat"), or a
     loop over subcarriers ("vmap", the same numbers).  The gains ride
@@ -24,6 +25,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import param_search
 from repro_torch.core.formats import VPFormat
 from repro_torch.models.model import resolve_device
 from .beamspace import to_beamspace
@@ -132,6 +134,7 @@ class WidebandCalibrator:
             raise ValueError("the wideband path is the B-VP design")
         self.base_spec = base_spec
         self._spec_cache: Dict[tuple, EqualizerSpec] = {}
+        self._vp_cache: Dict[tuple, VPFormat] = {}
 
     @staticmethod
     def _fingerprint(x: torch.Tensor) -> tuple:
@@ -151,16 +154,37 @@ class WidebandCalibrator:
         return [self.spec_for(s, ens.w_beam[s], ens.y_beam[s])
                 for s in range(ens.S)]
 
-    def search_vp_format(self, s_idx: int, w_s, M: Optional[int] = None,
-                         E: Optional[int] = None,
+    def search_vp_format(self, s_idx: int, w_s: torch.Tensor,
+                         M: Optional[int] = None, E: Optional[int] = None,
                          max_samples: int = 100_000) -> VPFormat:
-        raise NotImplementedError(
-            "the per-subcarrier exponent-list search needs "
-            "core/param_search.py, not ported yet (ROADMAP queue 1, item 7)")
+        """Per-subcarrier exponent-list search (Sec. II-D), cached per
+        (s_idx, M, E).
+
+        Runs `param_search.search_exponent_list` on `search_samples`
+        against the base spec's FXP grid, on `w_s`'s device (the
+        quantize and dequantize kernels on the card)."""
+        M = self.base_spec.w_vp.M if M is None else M
+        E = self.base_spec.w_vp.E if E is None else E
+        key = (s_idx, M, E)
+        if key not in self._vp_cache:
+            fmt, _ = param_search.search_exponent_list(
+                self.search_samples(w_s, max_samples), self.base_spec.w_fxp,
+                M=M, E=E)
+            self._vp_cache[key] = fmt
+        return self._vp_cache[key]
+
+    @staticmethod
+    def search_samples(w_s: torch.Tensor, max_samples: int = 100_000
+                       ) -> torch.Tensor:
+        """The samples `search_vp_format` searches over: the first
+        `max_samples` values of the real W plane over their largest
+        magnitude, in f32 on `w_s`'s device."""
+        samples = torch.real(w_s).reshape(-1)[:max_samples]
+        return samples / torch.clamp(samples.abs().max(), min=1e-30)
 
     @property
     def cache_sizes(self) -> Tuple[int, int]:
-        return len(self._spec_cache), 0
+        return len(self._spec_cache), len(self._vp_cache)
 
 
 def _stack_operands(specs: Sequence[EqualizerSpec], w, y):

@@ -61,7 +61,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.packing import storage_dtype
-from repro_torch.kernels import paged
+from repro_torch.kernels import autotune, paged
 from repro_torch.kernels.vp_attention import plan_decode
 from repro_torch.models.attention import kv_cache_formats
 from .faults import FaultPlan, TransientComputeError
@@ -161,8 +161,9 @@ class ServingEngine:
         packed cache of some layer (a paged layer's view of the engine's
         capacity, a ring's `buf_len` rows; `plan_decode` raises for the
         shapes it refuses, none of the dense configs' at int8 or int16
-        words): at construction, not at the first decode.  The counterpart of the reference's VMEM budget
-        check."""
+        words): at construction, not at the first decode, and with the
+        plan each decode launch takes (the plan cache's on the card).
+        The counterpart of the reference's VMEM budget check."""
         q = self.cfg.quant
         if not (q.quantize_kv_cache and q.kv_layout == "packed"):
             return
@@ -173,7 +174,10 @@ class ServingEngine:
             if not spec.has_len:   # an SSM state: no attention
                 continue
             smax = self.kv.capacity if spec.kind == PAGED else spec.buf_len
-            plan_decode(KV, smax, self.cfg.n_heads // KV, dh, w_bytes)
+            window = spec.window
+            plan_decode(KV, smax, self.cfg.n_heads // KV, dh, w_bytes, None,
+                        window, window is not None and smax <= window, vp,
+                        autotune.cuda_index(self.device))
 
     # -- request API --------------------------------------------------------
 

@@ -9,13 +9,16 @@ on one card.
 they run; the kernels build into that tree's own `.repro_torch_build/`.
 Each phase runs as `chip_smoke.main` runs it (the same backend settings,
 its arguments by name), with the kernel rows of the phases before it;
-a failing phase is reported and the next one runs.  Prints the card's
+a failing phase is reported and the next one runs.  The plan cache
+(`REPRO_TORCH_AUTOTUNE_CACHE`) points at a fresh temporary file, as in
+`chip_smoke.main`.  Prints the card's
 name and power limit, each phase's own lines and its time, and exits 1
 if a phase failed.  Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import inspect
 import json
 import sys
@@ -59,22 +62,25 @@ def main() -> None:
              "peaks": cs.PEAKS["pcie" if "pcie" in kind.lower() else "sxm"],
              "rows": []}
     failed = []
-    for name in args.phases:
-        phase = getattr(cs, name)
-        kw = {p: given[p] for p in inspect.signature(phase).parameters}
-        t = time.perf_counter()
-        try:
-            out = phase(**kw)
-            torch.cuda.synchronize()
-        except Exception:
-            traceback.print_exc()
-            failed.append(name)
-            print(f"[phases] {name} FAILED", flush=True)
-            continue
-        if name.endswith("kernel_phase"):
-            given["rows"] += out
-        s = given["record"]["phase_s"][name] = time.perf_counter() - t
-        print(f"[time] {name}: {s:.2f}s", flush=True)
+    # no phase reads the machine's plan cache (a tree from before the
+    # cache has none to read)
+    with getattr(cs, "isolated_plan_cache", contextlib.nullcontext)():
+        for name in args.phases:
+            phase = getattr(cs, name)
+            kw = {p: given[p] for p in inspect.signature(phase).parameters}
+            t = time.perf_counter()
+            try:
+                out = phase(**kw)
+                torch.cuda.synchronize()
+            except Exception:
+                traceback.print_exc()
+                failed.append(name)
+                print(f"[phases] {name} FAILED", flush=True)
+                continue
+            if name.endswith("kernel_phase"):
+                given["rows"] += out
+            s = given["record"]["phase_s"][name] = time.perf_counter() - t
+            print(f"[time] {name}: {s:.2f}s", flush=True)
     if args.json_out:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json_out).write_text(json.dumps(

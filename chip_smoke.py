@@ -307,7 +307,32 @@ Run from the root of a checkout.  Phases, each raising on failure:
                remat="full" and "none" (`remat_phase`): loss bit-identical,
                gradient max diff 0, the peak device memory of each (lower
                with remat, or the phase fails).
-  7c. tune   - the measured plan cache (`tune_phase`, a cache file of
+  7c. mesh   - distribution (`repro_torch.parallel`, `launch.mesh`;
+               `mesh_phase`): (a) world size 1 over NCCL in this
+               process, the engine at mesh (data, model) = (1, 1) on the
+               engine phase's requests, its decode graphs capturing the
+               NCCL collectives, each first replay bit-identical to its
+               eager step, the unsharded engine's tokens; (b) gloo ranks
+               spawned on cuda:0 (collectives staged through host
+               memory: every figure labelled "gloo via host, one
+               card"): qwen3-0.6b through `sharded_forward_fns` at tp 2,
+               4 x 128 and 32 greedy steps, logits and tokens
+               bit-identical to this process's unsharded kernel run; the
+               engine on qwen3-0.6b cut to 4 layers at (1, 2) and (2, 2)
+               (eager, and saying so) with the unsharded engine's tokens
+               and equal pools on every rank;
+               qwen3-moe cut to 2 layers, expert parallel at tp 2, the
+               unsharded tokens; (c) the op-level modes at tp 2: column,
+               gather and ring at (4, 1024, 3072) and gemma3's prefill
+               w_up (2304, 5376, 21504), vp_block's column shard through
+               `qdot` at (4, 1024, 3072), seq and heads decode attention
+               and heads flash prefill bit-identical to the unsharded
+               kernel, dx psum / ring within 1e-5 relative and dw bit
+               for bit at (1024, 1024, 3072) bf16 and f32,
+               `dp_compress_reduce` at dp 2 in both codecs, the shard
+               launch counters; (d) the wideband equalizer sharded over
+               subcarriers bit-identical to the flat path.
+  7d. tune   - the measured plan cache (`tune_phase`, a cache file of
                its own): the serve CLI with `--tune-decode` on qwen3-0.6b
                at full width, bf16, `--quant vp --kv-quant`, batch 4 x
                128, 32 steps, tuning the skinny `vp_dequant_matmul`
@@ -669,6 +694,7 @@ def main() -> None:
                 (search_phase, record, rows, peaks),
                 (train_phase, record, rows, smi),
                 (remat_phase, record, rows, smi),
+                (mesh_phase, record, rows, smi),
                 (tune_phase, record, rows, smi, peaks)):
             out = timed(phase, *extra)
             if phase.__name__.endswith("kernel_phase"):
@@ -2726,6 +2752,7 @@ def engine_phase(torch, record, rows, smi):
     logits = {}
     eng = _engine(cfg, params, decode_lookahead=ENGINE_LOOKAHEAD[0])
     recs, wall, calls, ran = _engine_wave(torch, eng, reqs, logits)
+    record["engine_tokens"] = {r["rid"]: r["tokens"] for r in recs}
     ran_all.update(ran)
     _check_graph_log(eng.runner, f"{tag} run-ahead {ENGINE_LOOKAHEAD[0]}:")
     print(f"{tag} run-ahead {ENGINE_LOOKAHEAD[0]}: {wall:.3f}s (graphs "
@@ -7090,6 +7117,678 @@ def _rel_diffs(torch, got, want):
         float((g.argmax(-1) == w.argmax(-1)).float().mean())
         for g, w in zip(got, want))
     return rels, agree
+
+
+# ---------------------------------------------------------------------------
+# 7c. mesh
+# ---------------------------------------------------------------------------
+
+# (M, K, N) of the op-level matmul modes: qwen3's decode w_up and gemma3's
+# prefill w_up
+MESH_DQMM = ((4, 1024, 3072), (2304, 5376, 21504))
+MESH_BWD = (1024, 1024, 3072)        # dx / dw (M, K, N)
+MESH_MOE_LAYERS = 2                  # qwen3-moe-30b-a3b cut 48 -> 2
+MESH_ENGINE_LAYERS = 4               # the gloo engines' qwen3-0.6b, 28 -> 4
+MESH_BLOCK = (4, 1024, 3072, 256)    # vp_block column shard: M, K, N, block
+MESH_TIMEOUT_S = 180                 # a collective's longest wait
+GLOO = "gloo via host, one card"     # the label of every gloo figure
+
+
+def _greedy(torch, cfg, params, prompts, steps, fns):
+    """Prefill `prompts`, then `steps` greedy decode steps through
+    `fns` = (prefill(p, t, c), decode(p, t, c)) -> (logits (steps + 1,
+    B, V) f32 on the host, tokens (B, steps + 1), prefill s, decode ms
+    per step)."""
+    from repro_torch.models.model import init_cache
+
+    B, S = prompts.shape
+    pre, dec = fns
+    caches = init_cache(cfg, B, S + steps, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, caches = pre(params, prompts, caches)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits, toks = [lg], [torch.argmax(lg, -1)]
+    for _ in range(steps):
+        lg, caches = dec(params, toks[-1].to(torch.int32)[:, None], caches)
+        logits.append(lg)
+        toks.append(torch.argmax(lg, -1))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (torch.stack(logits).cpu(), torch.stack(toks, 1).cpu(), t1 - t0,
+            (t2 - t1) / max(steps, 1) * 1e3)
+
+
+def _plain_fns(cfg):
+    from repro_torch.models.model import decode_step, prefill
+
+    return (lambda p, t, c: prefill(p, t, c, cfg),
+            lambda p, t, c: decode_step(p, t, c, cfg))
+
+
+def _prompts(torch, cfg, B, S):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).to("cuda")
+
+
+def _moe_cfg():
+    from repro_torch.configs.base import QuantConfig
+
+    return _dense_cfg("qwen3-moe-30b-a3b",
+                      QuantConfig(mode="vp", quantize_kv_cache=True),
+                      MESH_MOE_LAYERS)
+
+
+def _mesh_engine_cfg():
+    from repro_torch.configs.base import QuantConfig
+
+    return _dense_cfg(ARCH, QuantConfig(mode="vp", quantize_kv_cache=True),
+                      MESH_ENGINE_LAYERS)
+
+
+def _pool_digest(kv) -> str:
+    """sha256 of an engine's pools past the dummy page, dense rows and
+    lengths."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in ([kv.pools[k][:, 1:] for k in sorted(kv.pools)]
+              + [kv.dense[k] for k in sorted(kv.dense)] + [kv.lengths]):
+        h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def _comm_per(before, steps):
+    """Collective launches, bytes and their f32 equivalent per step
+    since `before` (a `comm.snapshot()`)."""
+    from repro_torch.parallel import comm
+
+    now = comm.snapshot()
+    out = {}
+    for what in ("launches", "bytes", "f32_bytes"):
+        d = collections.Counter(now[what])
+        d.subtract(before[what])
+        out[what] = sum(v for k, v in d.items() if k != "agree") / steps
+    return out
+
+
+def _mesh_engine(torch, cfg, params, reqs, mesh, want, tag):
+    """The engine on `mesh` (run-ahead 4) over `reqs`: its tokens must be
+    `want`'s -> (records, rates, launches that ran, collectives per
+    decode step)."""
+    from repro_torch.parallel import comm
+
+    eng = _engine(cfg, params, decode_lookahead=ENGINE_LOOKAHEAD[0],
+                  mesh=mesh)
+    before = comm.snapshot()
+    recs, wall, calls, ran = _engine_wave(torch, eng, reqs)
+    rates = _decode_rates(recs, calls)
+    steps = sum(c[1] for c in calls)
+    per = _comm_per(before, max(steps, 1))
+    got = {r["rid"]: r["tokens"] for r in recs}
+    differ = [rid for rid in want if got.get(rid) != want[rid]]
+    if differ:
+        raise AssertionError(f"{tag} tokens differ from the unsharded "
+                             f"engine's in requests {differ}")
+    return eng, recs, wall, rates, ran, per
+
+
+# -- the ranks (spawned processes; gloo on cuda:0) ---------------------------
+
+def _mesh_rank(rank, world, run_dir):
+    """One gloo rank on cuda:0: run the jobs of `run_dir/job.pt`, save
+    their results to `run_dir/rank<i>.pt`."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    # the ranks share the host's cores (gloo stages every collective
+    # there): more threads than a rank's share only contend
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    from repro_torch.launch.mesh import init_world
+
+    init_world(rank, world, store=dist.FileStore(
+        os.path.join(run_dir, "store"), world), device="cuda",
+        backend="gloo", timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    job = torch.load(os.path.join(run_dir, "job.pt"), weights_only=False)
+    out = {}
+    for name in job["jobs"]:
+        t = time.perf_counter()
+        out[name] = MESH_JOBS[name](torch, job, world)
+        out[name]["s"] = time.perf_counter() - t
+    torch.save(out, os.path.join(run_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _ran_since(before):
+    from repro_torch.kernels import build
+
+    d = collections.Counter(build.LAUNCHES)
+    d.subtract(before)
+    return {k: v for k, v in d.items() if v}
+
+
+def _rank_static(torch, job, world):
+    """Full-width qwen3-0.6b through `sharded_forward_fns` at tp 2: the
+    logits of the prefill and every greedy step bit-identical to the
+    single-process kernel run's (`job["static"]`)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import elastic_mesh
+    from repro_torch.models.model import init_params, quantize_params
+    from repro_torch.parallel import comm, shard_ops
+
+    cfg = registry.get_config(ARCH, QuantConfig(mode="vp",
+                                                quantize_kv_cache=True))
+    params = quantize_params(init_params(cfg, seed=0, device="cuda"), cfg)
+    mesh = elastic_mesh(1, 1, world)
+    local = shard_ops.place_params(params, cfg, mesh)
+    del params
+    want = torch.load(job["static"], weights_only=False)
+    before, c0 = collections.Counter(build.LAUNCHES), comm.snapshot()
+    logits, toks, pre_s, dec_ms = _greedy(
+        torch, cfg, local, _prompts(torch, cfg, BATCH, PROMPT), GEN,
+        shard_ops.sharded_forward_fns(None, cfg, mesh))
+    ran = _ran_since(before)
+    per = _comm_per(c0, GEN + 1)
+    same = [i for i in range(GEN + 1) if torch.equal(logits[i],
+                                                      want["logits"][i])]
+    diff = float((logits - want["logits"]).abs().max())
+    if len(same) != GEN + 1 or not torch.equal(toks, want["tokens"]):
+        raise AssertionError(
+            f"[mesh] tp {world}: logits of steps "
+            f"{[i for i in range(GEN + 1) if i not in same]} differ from "
+            f"the single-process run (max abs {diff:.3e}); tokens equal: "
+            f"{torch.equal(toks, want['tokens'])}")
+    return {"prefill_s": pre_s, "decode_ms": dec_ms, "ran": ran,
+            "comm_per_pass": per}
+
+
+def _rank_moe(torch, job, world):
+    """qwen3-moe cut to MESH_MOE_LAYERS layers, expert parallel at tp 2
+    (each rank 64 of the 128 experts): the unsharded run's tokens."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import elastic_mesh
+    from repro_torch.models.model import init_params, quantize_params
+    from repro_torch.parallel import shard_ops
+
+    cfg = _moe_cfg()
+    params = quantize_params(init_params(cfg, seed=0, device="cuda"), cfg)
+    mesh = elastic_mesh(1, 1, world)
+    local = shard_ops.place_params(params, cfg, mesh)
+    del params
+    experts = local["layers"][0]["moe"]["w_gate"]["w_packed"].shape[0]
+    want = torch.load(job["moe"], weights_only=False)
+    B, S, steps = MOE_SERVE
+    before = collections.Counter(build.LAUNCHES)
+    logits, toks, pre_s, dec_ms = _greedy(
+        torch, cfg, local, _prompts(torch, cfg, B, S), steps,
+        shard_ops.sharded_forward_fns(None, cfg, mesh))
+    ran = _ran_since(before)
+    if not torch.equal(toks, want["tokens"]):
+        raise AssertionError(f"[mesh] MoE expert parallel at tp {world}: "
+                             f"tokens differ from the unsharded run's")
+    return {"experts": experts, "prefill_s": pre_s, "decode_ms": dec_ms,
+            "ran": ran, "same_logits": bool(torch.equal(logits, want["logits"])),
+            "max_abs": float((logits - want["logits"]).abs().max())}
+
+
+def _eager_said(eng, calls: int) -> bool:
+    """A mesh of gloo groups decodes eagerly and says so: the runner's
+    `graphs_off` and `graph_log`, one `eager_decodes` a decode call."""
+    off = eng.runner.graphs_off
+    return bool(off) and eng.stats["eager_decodes"] == calls and \
+        eng.runner.graph_log == [{"bucket": None, "eager": off}]
+
+
+def _rank_engine(torch, job, world):
+    """The engine at mesh `job["engine_mesh"]` on qwen3-0.6b cut to
+    MESH_ENGINE_LAYERS layers: the unsharded engine's tokens, eager and
+    saying so, the pools equal on every rank."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import elastic_mesh
+    from repro_torch.models.model import init_params, quantize_params
+
+    cfg = _mesh_engine_cfg()
+    params = quantize_params(init_params(cfg, seed=0, device="cuda"), cfg)
+    data, model = job["engine_mesh"]
+    mesh = elastic_mesh(1, data, model)
+    tag = f"[mesh] engine ({data}, {model})"
+    eng, recs, wall, rates, ran, per = _mesh_engine(
+        torch, cfg, params, _engine_requests(cfg, ENGINE_REQS), mesh,
+        job["engine_tokens"], tag)
+    if not _eager_said(eng, rates["decode_calls"]):
+        raise AssertionError(f"{tag}: a gloo mesh must decode eagerly and "
+                             f"say so: {eng.runner.graph_log}, "
+                             f"{dict(eng.stats)}")
+    digests = [None] * world
+    dist.all_gather_object(digests, _pool_digest(eng.kv))
+    if len(set(digests)) != 1:
+        raise AssertionError(f"{tag}: the ranks' pools differ")
+    return {"wall": wall, "rates": rates, "ran": ran, "comm_per_step": per,
+            "eager": eng.runner.graphs_off, "digest": digests[0],
+            "stats": dict(eng.stats)}
+
+
+def _rank_ops(torch, job, world):
+    """The op-level modes at tp `world`, each against the unsharded
+    kernel on the same inputs: the matmul's column / gather / ring,
+    vp_block's column shard through `qdot`, the decode attention's seq /
+    heads, flash prefill's heads (bit for
+    bit), dx psum / ring (1e-5 relative), dw (bit for bit),
+    `dp_compress_reduce` at dp `world` (both codecs)."""
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import elastic_mesh
+    from repro_torch.models.layers import (canonical_formats, qdot,
+                                           quantize_weight)
+    from repro_torch.parallel import comm, shard_ops
+    from repro_torch.train.compression import (
+        CompressionConfig, compress_decompress, init_compressor_state)
+
+    fxp, vp = canonical_formats(QuantConfig(mode="vp"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def words(*shape):
+        return ops.vp_quant(randn(*shape, dtype=torch.float32), fxp, vp,
+                            packed=True)
+
+    def timed(fn, reps=3):
+        spans = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            spans.append(time.perf_counter() - t)
+        return statistics.median(spans) * 1e3
+
+    out, bad = {"lines": []}, []
+    mesh = elastic_mesh(1, 1, world)
+    shard_ops.SHARD_LAUNCHES.clear()
+    before = collections.Counter(build.LAUNCHES)
+    with comm.use_mesh(mesh):
+        for M, K, N in MESH_DQMM:
+            x, w = randn(M, K), words(K, N)
+            full = ops.vp_dequant_matmul(x, w, vp)
+            full_ms = timed(lambda: ops.vp_dequant_matmul(x, w, vp))
+            w_loc = comm.slab(w, "model", 1).contiguous()
+            for mode in shard_ops.MODES:
+                c0 = comm.snapshot()
+                got = shard_ops.sharded_dequant_matmul(x, w_loc, vp,
+                                                       mode=mode)
+                per = _comm_per(c0, 1)
+                ms = timed(lambda: shard_ops.sharded_dequant_matmul(
+                    x, w_loc, vp, mode=mode))
+                if not torch.equal(got, full):
+                    bad.append(f"{mode} at {(M, K, N)}")
+                out["lines"].append(
+                    f"{mode} ({M}, {K}, {N}) bf16: bit-identical "
+                    f"{torch.equal(got, full)}; {ms:.3f} ms (the unsharded "
+                    f"kernel {full_ms:.3f}); {per['bytes']:.0f} collective "
+                    f"bytes a rank (f32 equivalent {per['f32_bytes']:.0f})")
+            del x, w, w_loc, full, got
+
+        # vp_block's weights: qdot on this rank's column shard, planned as
+        # the unsharded launch (`vp_block_matmul.shard_skinny`), gathered
+        M, K, N, blk = MESH_BLOCK
+        qb = QuantConfig(mode="vp_block", block=blk)
+        x = randn(M, K)
+        wq = quantize_weight(randn(K, N, dtype=torch.float32), qb)
+        full = qdot(x, wq, qb)
+        got = qdot(x, shard_ops.place_params({"w": wq}, None, mesh)["w"],
+                   shard_ops.tp_quant(qb))
+        if not torch.equal(got, full):
+            bad.append(f"vp_block column at {(M, K, N)}")
+        out["lines"].append(f"vp_block column ({M}, {K}, {N}) block {blk} "
+                            f"bf16 (`qdot`): bit-identical "
+                            f"{torch.equal(got, full)}")
+
+        B, smax, KV, G, dh = DEC_SHAPE
+        q = randn(B, 1, KV * G, dh)
+        k_w, v_w = words(B, smax, KV, dh), words(B, smax, KV, dh)
+        ones = torch.ones((B, smax, 1, 1), device="cuda")
+        lens = torch.tensor([smax, 97, 33, 1][:B], dtype=torch.int32,
+                            device="cuda")
+        full = ops.vp_decode_attention(q, k_w, v_w, ones, ones, lens, vp)
+        for mode, args in (
+                ("seq", (q,) + tuple(comm.slab(t, "model", 1)
+                                     for t in (k_w, v_w, ones, ones))),
+                ("heads", tuple(comm.slab(t, "model", 2)
+                                for t in (q, k_w, v_w)) + (ones, ones))):
+            got = shard_ops.sharded_decode_attention(*args, lens, vp,
+                                                     mode=mode)
+            if not torch.equal(got, full):
+                bad.append(f"decode attention {mode}")
+            out["lines"].append(f"decode attention {mode} {DEC_SHAPE} bf16 "
+                                f"q: bit-identical {torch.equal(got, full)}")
+        fq, fk, fv = (randn(BATCH, PROMPT, h, 64) for h in (16, 8, 8))
+        full = ops.flash_prefill(fq, fk, fv)
+        got = shard_ops.sharded_flash_prefill(
+            *(comm.slab(t, "model", 2) for t in (fq, fk, fv)))
+        if not torch.equal(got, full):
+            bad.append("flash prefill heads")
+        out["lines"].append(f"flash prefill heads (B {BATCH}, S {PROMPT}, "
+                            f"H 16, KV 8, dh 64) bf16: bit-identical "
+                            f"{torch.equal(got, full)}")
+
+        M, K, N = MESH_BWD
+        w, a_w = words(K, N), words(M, K)
+        w_loc = comm.slab(w, "model", 1).contiguous()
+        n_loc = N // world
+        cols = slice(comm.axis_index("model") * n_loc,
+                     (comm.axis_index("model") + 1) * n_loc)
+        for dt in (torch.bfloat16, torch.float32):
+            g = randn(M, N, dtype=dt)
+            dx = ops.vp_matmul_dx(g, w, vp)
+            for mode in ("psum", "ring"):
+                got = shard_ops.sharded_matmul_dx(g, w_loc, vp, mode=mode)
+                rel = float((got - dx).abs().max() / dx.abs().max())
+                if rel > 1e-5:
+                    bad.append(f"dx {mode} {dt}: {rel:.2e}")
+                out["lines"].append(f"dx {mode} {MESH_BWD} {dt}: max rel "
+                                    f"{rel:.2e} (limit 1e-5)")
+            dw = ops.vp_matmul_dw(a_w, g, vp)[:, cols]
+            got = shard_ops.sharded_matmul_dw(a_w, g, vp)
+            if not torch.equal(got, dw):
+                bad.append(f"dw {dt}")
+            out["lines"].append(f"dw {MESH_BWD} {dt}: bit-identical "
+                                f"{torch.equal(got, dw)}")
+    out["shard_launches"] = {f"{k} {s}": v for (k, s), v in
+                             shard_ops.SHARD_LAUNCHES.items()}
+
+    with comm.use_mesh(elastic_mesh(1, world, 1)):
+        r = comm.axis_index("data")
+        grads = randn(world, 1024, 1024, dtype=torch.float32)
+        for codec in ("int8", "vp"):
+            cc = CompressionConfig(codec=codec)
+            mine = {"w": grads[r:r + 1]}
+            red, _ = shard_ops.dp_compress_reduce(
+                mine, init_compressor_state(mine), axis="data", config=cc)
+            want = sum(compress_decompress(
+                {"w": grads[i:i + 1]}, None, cc)[0]["w"]
+                for i in range(world)) / world
+            err = float((red["w"] - want).abs().max())
+            if err > 1e-6 * float(want.abs().max()):
+                bad.append(f"dp_compress_reduce {codec}: {err:.2e}")
+            out["lines"].append(f"dp_compress_reduce {codec} at dp {world} "
+                                f"(1024 x 1024 f32): max abs {err:.2e} "
+                                f"against each rank's codec, then the mean")
+    out["ran"] = _ran_since(before)
+    if bad:
+        raise AssertionError(f"[mesh] op level at tp {world}: {bad}")
+    return out
+
+
+def _rank_equalizer(torch, job, world):
+    """`equalize_wideband(how="shard_map")` over the ranks (a 1-D "sc"
+    mesh) on the WIDEBAND band: bit-identical to `how="flat"`."""
+    from repro_torch.kernels import build
+    from repro_torch.mimo.channel import ChannelConfig
+    from repro_torch.mimo.equalizer import table1_specs
+    from repro_torch.mimo.ofdm import (OFDMConfig, WidebandCalibrator,
+                                       equalize_wideband,
+                                       make_wideband_ensemble)
+    from repro_torch.parallel import sharding
+
+    S, n = WIDEBAND
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    ens = make_wideband_ensemble(gen, ChannelConfig(),
+                                 OFDMConfig(n_subcarriers=S), n, 20.0)
+    specs = WidebandCalibrator(table1_specs()[2]).specs_for(ens)
+    mesh = sharding.subcarrier_mesh()
+    flat = equalize_wideband(specs, ens.w_beam, ens.y_beam)
+    before = collections.Counter(build.LAUNCHES)
+    got = equalize_wideband(specs, ens.w_beam, ens.y_beam, how="shard_map",
+                            mesh=mesh)
+    ran = _ran_since(before)
+    if not torch.equal(got, flat) or sharding.UNSHARDED:
+        raise AssertionError(f"[mesh] wideband shard_map over {world} ranks "
+                             f"differs from flat (or ran unsharded: "
+                             f"{dict(sharding.UNSHARDED)})")
+    ms = {}
+    for how in ("flat", "shard_map"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        equalize_wideband(specs, ens.w_beam, ens.y_beam, how=how, mesh=mesh)
+        torch.cuda.synchronize()
+        ms[how] = (time.perf_counter() - t) * 1e3
+    return {"ms": ms, "ran": ran}
+
+
+MESH_JOBS = {"static": _rank_static, "moe": _rank_moe,
+             "engine": _rank_engine, "ops": _rank_ops,
+             "equalizer": _rank_equalizer}
+
+
+def _spawn(torch, world, job, run_dir):
+    """Run `job` on `world` gloo ranks on cuda:0 -> each rank's results."""
+    import torch.multiprocessing as mp
+
+    d = os.path.join(run_dir, f"world{world}")
+    os.makedirs(d)
+    torch.save(job, os.path.join(d, "job.pt"))
+    ctx = mp.start_processes(_mesh_rank, args=(world, d), nprocs=world,
+                             join=False, start_method="spawn")
+    while not ctx.join():
+        pass
+    return [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _mesh_nccl(torch, record, cfg, params, reqs, want, smi):
+    """(a): the engine at mesh (1, 1) over NCCL in this process, its
+    decode graphs capturing the collectives -> the kernels that ran."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world, smoke_mesh
+
+    tag = "[mesh] NCCL (1, 1)"
+    with tempfile.TemporaryDirectory() as d:
+        init_world(0, 1, store=dist.FileStore(os.path.join(d, "store"), 1),
+                   device="cuda")
+        try:
+            eng, recs, wall, rates, ran, per = _mesh_engine(
+                torch, cfg, params, reqs, smoke_mesh(), want, tag)
+            _check_graph_log(eng.runner, f"{tag}:")
+            coll = eng.runner.captured_collectives
+            if not coll.get("all_gather") or eng.runner.graphs_off:
+                raise AssertionError(f"{tag}: the graphs hold no "
+                                     f"collective: {dict(coll)}")
+            # a second wave replays the graphs captured in the first
+            eng.check_finite = False
+            recs_w, wall_w, calls_w, ran_w = _engine_wave(torch, eng, reqs)
+            if [r["tokens"] for r in sorted(recs_w, key=lambda r: r["rid"])] \
+                    != [want[k] for k in sorted(want)]:
+                raise AssertionError(f"{tag}: the second wave's tokens "
+                                     f"differ from the unsharded engine's")
+            warm = _decode_rates(recs_w, calls_w)
+            full = f"{ENGINE_SLOTS}x{ENGINE_LOOKAHEAD[0]}"
+            print(f"{tag}, world size 1: the unsharded engine's tokens in "
+                  f"all {len(recs)} requests, twice; "
+                  f"{len(eng.runner.graph_log)} graphs captured "
+                  f"{dict(coll)} collectives in all; first wave (captures "
+                  f"and checks in it) decode "
+                  f"{rates['decode_ms_per_step']:.3f} ms/step, wave "
+                  f"{wall:.3f}s; second wave decode "
+                  f"{warm['decode_ms_per_step']:.3f} ms/step, at bucket "
+                  f"{full} {warm['bucket_ms_per_step'][full]:.3f}, "
+                  f"{warm['decode_tok_s']:.1f} kept decode tok/s, wave "
+                  f"{wall_w:.3f}s; {per['launches']:.1f} collectives a "
+                  f"decode step; {smi}")
+            record["mesh_nccl"] = dict(warm, wall=wall_w, first=rates,
+                                       collectives=dict(coll))
+            return collections.Counter(ran) + collections.Counter(ran_w)
+        finally:
+            dist.destroy_process_group()
+
+
+def mesh_phase(torch, record, rows, smi):
+    """Distribution (`repro_torch.parallel`, `launch.mesh`) on the one
+    card.  (a) World size 1 over NCCL in this process: full-width
+    qwen3-0.6b (bf16, packed VP weights and KV cache) through the engine
+    at mesh (data, model) = (1, 1) on the engine phase's requests, the
+    decode graphs capturing the NCCL collectives, each first replay
+    bit-identical to its eager step, the unsharded engine's tokens.
+    (b) Gloo ranks spawned on cuda:0, collectives staged through host
+    memory (a transport for several ranks on one card, not NVLink: every
+    figure is labelled so): the same model through `sharded_forward_fns`
+    at tp 2 (4 x 128, 32 greedy steps) with logits and tokens
+    bit-identical to this process's unsharded kernel run (each shard
+    planned as the unsharded launch); the engine on the model cut to
+    MESH_ENGINE_LAYERS layers at (1, 2) and (2, 2), eager (gloo cannot be
+    captured; said in `graph_log` and `stats`), with the unsharded
+    engine's tokens at that depth and equal pools on every rank; qwen3-moe
+    cut to MESH_MOE_LAYERS layers, expert parallel at tp 2, the
+    unsharded tokens.  (c) The op-level modes at tp 2 (`_rank_ops`) and
+    the shard launch counters.  (d) The wideband equalizer sharded over
+    subcarriers, bit-identical to the flat path."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.models.model import init_params, quantize_params
+
+    tag = "[mesh]"
+    launches = collections.Counter()
+    cfg = registry.get_config(ARCH, QuantConfig(mode="vp",
+                                                quantize_kv_cache=True))
+    params = quantize_params(init_params(cfg, seed=0, device="cuda"), cfg)
+    reqs = _engine_requests(cfg, ENGINE_REQS)
+    want = record.get("engine_tokens")
+    if want is None:     # the phase alone: the unsharded engine first
+        recs, _, _, ran = _engine_wave(torch, _engine(
+            cfg, params, decode_lookahead=ENGINE_LOOKAHEAD[0]), reqs)
+        want = {r["rid"]: r["tokens"] for r in recs}
+    print(f"{tag} {cfg.name}, {cfg.dtype}, packed VP weights and KV cache; "
+          f"{smi}")
+
+    # -- (a) NCCL, world size 1, decode graphs ---------------------------------
+    launches.update(_mesh_nccl(torch, record, cfg, params, reqs, want, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the unsharded runs the ranks are held against ----------------------
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        logits, toks, pre_s, dec_ms = _greedy(
+            torch, cfg, params, _prompts(torch, cfg, BATCH, PROMPT), GEN,
+            _plain_fns(cfg))
+        torch.save({"logits": logits, "tokens": toks},
+                   os.path.join(run_dir, "static.pt"))
+        print(f"{tag} single process, unsharded: prefill {pre_s:.4f}s, "
+              f"decode {dec_ms:.3f} ms/step ({BATCH} x {PROMPT}, {GEN} "
+              f"steps)")
+        del params
+        mcfg = _moe_cfg()
+        mp_ = quantize_params(init_params(mcfg, seed=0, device="cuda"), mcfg)
+        B, S, steps = MOE_SERVE
+        mlogits, mtoks, mpre, mdec = _greedy(
+            torch, mcfg, mp_, _prompts(torch, mcfg, B, S), steps,
+            _plain_fns(mcfg))
+        torch.save({"logits": mlogits, "tokens": mtoks},
+                   os.path.join(run_dir, "moe.pt"))
+        del mp_
+        ecfg = _mesh_engine_cfg()
+        ep = quantize_params(init_params(ecfg, seed=0, device="cuda"), ecfg)
+        erecs, ewall, ecalls, _ = _engine_wave(torch, _engine(
+            ecfg, ep, decode_lookahead=ENGINE_LOOKAHEAD[0]),
+            _engine_requests(ecfg, ENGINE_REQS))
+        ewant = {r["rid"]: r["tokens"] for r in erecs}
+        erates = _decode_rates(erecs, ecalls)
+        del ep
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- (b) - (d) gloo ranks ----------------------------------------------
+        job = {"jobs": ("static", "engine", "moe", "ops", "equalizer"),
+               "static": os.path.join(run_dir, "static.pt"),
+               "moe": os.path.join(run_dir, "moe.pt"),
+               "engine_tokens": ewant, "engine_mesh": (1, 2)}
+        t = time.perf_counter()
+        two = _spawn(torch, 2, job, run_dir)
+        two_s = time.perf_counter() - t
+        t = time.perf_counter()
+        four = _spawn(torch, 4, dict(job, jobs=("engine",),
+                                     engine_mesh=(2, 2)), run_dir)
+        four_s = time.perf_counter() - t
+    finally:
+        import shutil
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+    st, mo, eq = two[0]["static"], two[0]["moe"], two[0]["equalizer"]
+    print(f"{tag} tp 2 ({GLOO}): logits of the prefill and all {GEN} steps "
+          f"and the tokens bit-identical to the single-process run; prefill "
+          f"{st['prefill_s']:.4f}s, decode {st['decode_ms']:.3f} ms/step; "
+          f"{st['comm_per_pass']['launches']:.1f} collectives, "
+          f"{st['comm_per_pass']['bytes']:.0f} bytes a rank a pass (f32 "
+          f"equivalent {st['comm_per_pass']['f32_bytes']:.0f}); {smi}")
+    print(f"{tag} engine at {MESH_ENGINE_LAYERS} layers, single process, "
+          f"unsharded (graphs): {erates['decode_ms_per_step']:.3f} ms/step, "
+          f"wave {ewall:.3f}s; {smi}")
+    for e, (dm, w) in ((two[0]["engine"], ((1, 2), 2)),
+                       (four[0]["engine"], ((2, 2), 4))):
+        r = e["rates"]
+        print(f"{tag} engine {dm} at {MESH_ENGINE_LAYERS} layers ({GLOO}): "
+              f"the unsharded tokens, pools equal on all {w} ranks; decode "
+              f"eager ({e['eager']}; "
+              f"{e['stats'].get('eager_decodes')} eager decode calls); "
+              f"{r['decode_ms_per_step']:.3f} ms/step, "
+              f"{r['decode_tok_s']:.1f} kept decode tok/s, wave "
+              f"{e['wall']:.3f}s; {e['comm_per_step']['launches']:.1f} "
+              f"collectives, {e['comm_per_step']['bytes']:.0f} bytes a rank "
+              f"a decode step (f32 equivalent "
+              f"{e['comm_per_step']['f32_bytes']:.0f}); {smi}")
+    print(f"{tag} MoE {_moe_cfg().name} at {MESH_MOE_LAYERS} layers, expert "
+          f"parallel at tp 2 ({mo['experts']} experts a rank; {GLOO}): the "
+          f"unsharded tokens; logits bit-identical {mo['same_logits']} (max "
+          f"abs {mo['max_abs']:.3e}); prefill {mo['prefill_s']:.4f}s, decode "
+          f"{mo['decode_ms']:.3f} ms/step (single process: {mpre:.4f}s, "
+          f"{mdec:.3f} ms/step)")
+    for line in two[0]["ops"]["lines"]:
+        print(f"{tag} ops tp 2 ({GLOO}): {line}")
+    print(f"{tag} shard launches, rank 0: {two[0]['ops']['shard_launches']}")
+    print(f"{tag} wideband {WIDEBAND} shard_map over 2 ranks: bit-identical "
+          f"to flat; flat {eq['ms']['flat']:.3f} ms, shard_map "
+          f"{eq['ms']['shard_map']:.3f} ms ({GLOO})")
+    print(f"[time] mesh world 2: {two_s:.2f}s (jobs "
+          + ", ".join(f"{k} {v['s']:.2f}s" for k, v in two[0].items())
+          + f"); world 4: {four_s:.2f}s")
+    for res in two + four:
+        for v in res.values():
+            launches.update(v.get("ran", {}))
+    for name in ("vp_dequant_matmul", "vp_dqmm_skinny", "vp_dqmm_tc",
+                 "block_vp_matmul", "vp_block_quant", "vp_decode_attention",
+                 "flash_prefill", "vp_quant_packed", "vp_qp_kv", "rms_norm",
+                 "vp_matmul_dx", "vp_matmul_dw", "vp_dequant_packed",
+                 "vp_quant_matmul"):
+        if not launches.get(name):
+            raise AssertionError(f"{tag} {name} did not run: "
+                                 f"{dict(launches)}")
+    for row in rows:
+        if launches.get(row["name"]):
+            row["mesh_launches"] = launches[row["name"]]
+    record["mesh"] = {"tp2": st, "moe": mo, "equalizer": eq,
+                      "engine": [two[0]["engine"], four[0]["engine"]],
+                      "world_s": [two_s, four_s], "launches": dict(launches)}
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Model configuration schema (a copy of `repro.configs.base` cut to
 the fields the port's serving and training paths read: every family,
-dense, MoE, SSM, hybrid, encoder-decoder and VLM; the reference's
-distribution hints are not ported).
+dense, MoE, SSM, hybrid, encoder-decoder and VLM, and `QuantConfig.
+tp_axis` for the sharded forward; the reference's GSPMD hints are not
+ported).
 """
 from __future__ import annotations
 
@@ -40,6 +41,10 @@ class QuantConfig:
                                      # bit-packed indices, dequantized
                                      # whole before plain attention)
     qat_mode: str = "fake"
+    tp_axis: Optional[str] = None    # set only by the sharded forward
+                                     # (`parallel.shard_ops.tp_quant`):
+                                     # the mesh dim whose ranks hold the
+                                     # weights' output-column shards
 
     def __post_init__(self):
         if self.mode not in ("none", "fxp", "vp", "vp_block"):

@@ -34,6 +34,7 @@ import contextlib
 import functools
 import json
 import os
+import re
 import statistics
 import threading
 from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
@@ -183,15 +184,67 @@ def clear_cache() -> None:
         pass
 
 
+_mesh_local = threading.local()
+_MESH_DESC = re.compile(r"^(\D+?)(\d+)\.(\w+)$")
+
+
+@contextlib.contextmanager
+def mesh_scope(desc: str):
+    """Tag the launches inside with the mesh and shard geometry, e.g.
+    `model2.N` (the weights' output dim N cut 2 ways over "model") or
+    `model2.H` (the heads cut 2 ways): the reference's scope.
+
+    Entered by the sharded paths (`parallel.shard_ops`, `layers.qdot`
+    under `QuantConfig.tp_axis`) around each shard's kernel launch.
+    Inside it `make_key` appends `|mesh=<desc>`, so a plan tuned on a
+    shard's operand never replaces the unsharded shape's entry; and the
+    planners that choose a summation order from a dim the shard cuts
+    plan it from the unsharded size instead (`unsharded`), reading the
+    cache under the unsharded shape's key: a shard sums each output in
+    the unsharded launch's order, so the concatenated shards equal the
+    unsharded launch bit for bit."""
+    prev = getattr(_mesh_local, "desc", None)
+    _mesh_local.desc = str(desc)
+    try:
+        yield
+    finally:
+        _mesh_local.desc = prev
+
+
+def mesh_desc(mesh, axis: str = "model", spec: str = "N") -> str:
+    """The scope string of a mesh dim and shard spec, e.g. `model8.N`
+    (`mesh` a DeviceMesh with named dims)."""
+    names = tuple(mesh.mesh_dim_names or ())
+    size = mesh.size(names.index(axis)) if axis in names else 1
+    return f"{axis}{size}.{spec}"
+
+
+def current_mesh_desc() -> str:
+    return getattr(_mesh_local, "desc", None) or "1"
+
+
+def unsharded(spec: str, n: int) -> int:
+    """`n`, a launch's size along the dim that shard spec `spec` ("N":
+    the weights' output columns; "H": the attention heads) names, as the
+    unsharded launch sees it: times the scope's shard count where the
+    active `mesh_scope` cuts that dim, else `n`."""
+    m = _MESH_DESC.match(current_mesh_desc())
+    if m is None or m.group(3) != spec:
+        return n
+    return n * int(m.group(2))
+
+
 def make_key(kernel: str, shape: Sequence[int], formats: Sequence,
              backend: str, mesh: Optional[str] = None) -> str:
     """`kernel|dims|fmts|backend|mesh=<m>`, the reference's key: `shape`
     the dims the plan depends on, `formats` FXPFormat / VPFormat (their
-    reprs are stable), `backend` the device's name, `mesh` "1" (one
-    device; sharded launches come with the distribution layer)."""
+    reprs are stable), `backend` the device's name, `mesh` the mesh and
+    shard geometry (default: the active `mesh_scope`'s, "1" outside
+    any)."""
     fmts = ",".join(repr(f) for f in formats)
     dims = "x".join(str(int(d)) for d in shape)
-    return f"{kernel}|{dims}|{fmts}|{backend}|mesh={mesh or '1'}"
+    seg = mesh if mesh is not None else current_mesh_desc()
+    return f"{kernel}|{dims}|{fmts}|{backend}|mesh={seg}"
 
 
 def entries() -> Dict[str, Plan]:
@@ -242,8 +295,11 @@ def tuned(kernel: str, shape: Tuple[int, ...], formats: Tuple,
     reads it memoises its own plan (`memoised_planner`), so the cache
     file's path is read at the first launch after a `record` or
     `clear_cache`: call `clear_cache()` after pointing
-    `REPRO_TORCH_AUTOTUNE_CACHE` elsewhere."""
-    return get_cached(make_key(kernel, shape, formats, backend_name(device)))
+    `REPRO_TORCH_AUTOTUNE_CACHE` elsewhere.  Always the unsharded entry
+    (`mesh=1`): inside a `mesh_scope` a planner passes the unsharded
+    shape, and a plan tuned on a shard never changes a shard's sums."""
+    return get_cached(make_key(kernel, shape, formats, backend_name(device),
+                               mesh="1"))
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,9 @@ depend on the rows decoded beside it (the serving engine's buckets), and
 of a launch come from a caller (`plan=`), else on the card from the
 measured plan cache (`autotune.tuned`, read inside `plan_decode`'s memo
 and keyed on the row's shape, the window and the ring, never the batch),
-else from the heuristic.  A lane
+else from the heuristic; a launch on a shard of the heads (inside a
+`mesh_scope` of spec "H") is planned at the unsharded KV, so it merges
+its positions in the unsharded launch's order.  A lane
 loads 16 bytes of a row, or 8 at int8 rows of dh = 8 mod 16, or 32 at
 int32 rows past dh 128 (`lane_bytes`), and
 query rows past its registers (`DEC_MAX_G`) split over slices of a grid
@@ -148,6 +150,19 @@ def plan_decode(KV: int, smax: int, G: int, dh: int, w_bytes: int = 2,
     return DecodePlan(cluster, warps, lpp, lane_bytes, slices)
 
 
+def shard_decode(KV: int, smax: int, G: int, dh: int, w_bytes: int,
+                 cluster_warps: Optional[Tuple[int, int]] = None,
+                 window: Optional[int] = None, rolling: bool = False,
+                 fmt: Optional[VPFormat] = None,
+                 device: Optional[int] = None) -> DecodePlan:
+    """The plan of a launch over KV heads: `plan_decode`'s, at the
+    unsharded head count inside a `mesh_scope` cutting the heads (spec
+    "H"), so a shard merges its positions in the unsharded launch's
+    order (the cluster aims at DEC_BLOCKS / KV blocks)."""
+    return plan_decode(autotune.unsharded("H", KV), smax, G, dh, w_bytes,
+                       cluster_warps, window, rolling, fmt, device)
+
+
 def valid_cluster_warps(p) -> bool:
     """Whether `p` is a (cluster, warps) the body takes (any shape)."""
     return (len(p) == 2 and 1 <= p[0] <= DEC_MAX_CLUSTER
@@ -214,8 +229,8 @@ def vp_decode_attention_cuda(q, k_w, v_w, k_s, v_s, lengths, fmt: VPFormat,
     if plan is not None and not valid_cluster_warps(plan):
         raise ValueError(f"plan {plan}: (cluster, warps) within "
                          f"{DEC_MAX_CLUSTER} and {DEC_MAX_WARPS}")
-    plan = plan_decode(KV, smax, G, dh, k_w.element_size(), plan, window,
-                       rolling, fmt, q.device.index)
+    plan = shard_decode(KV, smax, G, dh, k_w.element_size(), plan, window,
+                        rolling, fmt, q.device.index)
     q, k_w, v_w = q.contiguous(), k_w.contiguous(), v_w.contiguous()
     align = min(plan.lane_bytes, 16)
     if k_w.data_ptr() % align or v_w.data_ptr() % align:

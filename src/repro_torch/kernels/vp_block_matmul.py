@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.core.formats import VPFormat
 from repro_torch.core.vp_tensor import SIGNIFICAND_DTYPES
-from . import build
+from . import autotune, build
 
 BK = 256            # the k-tile the skinny and tensor-core bodies take
 # Largest M the skinny body takes, from the M sweep in chip_smoke.py
@@ -98,6 +98,17 @@ def plan_skinny(M: int, K: int, N: int, num_sms: int) -> SkinnyPlan:
     return SkinnyPlan(mt, m_chunks, groups, split, tg)
 
 
+def shard_skinny(M: int, K: int, N: int, num_sms: int) -> SkinnyPlan:
+    """The skinny grid of a launch at out (M, N): `plan_skinny`'s, at
+    the unsharded N inside a `mesh_scope` cutting the output columns
+    (`autotune.unsharded`), so a shard adds its k-tiles in the unsharded
+    launch's runs; the column groups stay the shard's."""
+    full = autotune.unsharded("N", N)
+    sp = plan_skinny(M, K, full, num_sms)
+    return sp if full == N else dataclasses.replace(
+        sp, groups=_cdiv(N, SK_COLS))
+
+
 @functools.lru_cache(maxsize=None)
 def _num_sms(device: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -156,7 +167,7 @@ def block_vp_matmul_cuda(a_m: torch.Tensor, a_i: torch.Tensor,
     with torch.cuda.device(a_m.device):
         stream = torch.cuda.current_stream().cuda_stream
         if body == "skinny":
-            sp = plan_skinny(M, K, N, _num_sms(a_m.device.index))
+            sp = shard_skinny(M, K, N, _num_sms(a_m.device.index))
             err = lib.block_vp_matmul_skinny_launch(
                 *args, oc, sp.mt, sp.tile_groups, sp.split,
                 ctypes.byref(fa),

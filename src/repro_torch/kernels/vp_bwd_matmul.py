@@ -11,7 +11,8 @@ the format and g's dtype, before the launch: the tensor-core body
 (`wgmma` on bf16 tiles dequantized in shared memory) where the
 dequantized words are exact in bf16, else the CUDA-core body.  A failed
 build or launch of either raises; neither stands in for the other.
-`plan_tiles` sizes the tensor-core body's grid.  `build.LAUNCHES` counts
+`plan_tiles` sizes the tensor-core body's grid (dw's at the unsharded
+N inside a column-sharded `mesh_scope`: `shard_cols`).  `build.LAUNCHES` counts
 every launch under the op's name, and also the CUDA-core body's under
 `vp_bwd_cuda_core` and the split reduction's under
 `vp_bwd_splitk_reduce`.
@@ -25,7 +26,7 @@ import torch
 
 from repro_torch.core.formats import VPFormat
 from repro_torch.core.packing import storage_dtype
-from . import build
+from . import autotune, build
 
 # bf16 has an 8-bit significand: a dequantized word m * 2^-f is exact in
 # bf16 when |m| <= 2^(M-1) <= 256.
@@ -67,6 +68,15 @@ def plan_tiles(R: int, C: int, S: int, num_sms: int) -> TilePlan:
     return TilePlan(_cdiv(nkb, kb_per), kb_per)
 
 
+def shard_cols(name: str, C: int) -> int:
+    """The output columns `plan_tiles` plans a launch of `name` at: dw's
+    (K, N) output is cut along N by a shard of the weight's columns, so
+    inside a `mesh_scope` of spec "N" it takes the unsharded N (and the
+    unsharded launch's split); dx contracts over the cut N, and its
+    partial sums are reduced across the shards afterwards."""
+    return autotune.unsharded("N", C) if name == "vp_matmul_dw" else C
+
+
 def _launch(name: str, words: torch.Tensor, g: torch.Tensor, fmt: VPFormat,
             out_dtype: torch.dtype, first, second, M: int, K: int,
             N: int) -> torch.Tensor:
@@ -87,8 +97,9 @@ def _launch(name: str, words: torch.Tensor, g: torch.Tensor, fmt: VPFormat,
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
         if body == "tensor_core":
-            plan = plan_tiles(R, C, S, torch.cuda.get_device_properties(
-                g.device).multi_processor_count)
+            plan = plan_tiles(R, shard_cols(name, C), S,
+                              torch.cuda.get_device_properties(
+                                  g.device).multi_processor_count)
             ws = (torch.empty((plan.split, R, C), dtype=torch.float32,
                               device=g.device) if plan.split > 1 else None)
             err = getattr(lib, f"{name}_tc_launch")(

@@ -16,7 +16,9 @@ comes from a caller (`plan=`), else on the card from the measured plan
 cache (`autotune.tuned`, read inside `plan_skinny`'s memo and keyed on
 (K, N) and the format: the split fixes the order of a row's sums, so one
 split serves every M and a row's bits do not depend on the rows beside
-it), else from the heuristic.
+it), else from the heuristic.  A launch on a shard of the output columns
+(inside a `mesh_scope` of spec "N") takes the unsharded launch's split
+on either body (`shard_skinny`, `shard_tiles`).
 `build.LAUNCHES` counts every launch under `vp_dequant_matmul`, and also
 each body's under `vp_dqmm_skinny`,
 `vp_dqmm_tc` or `vp_dqmm_cuda_core`, and the tensor-core body's split
@@ -109,6 +111,29 @@ def plan_skinny(M: int, K: int, N: int, num_sms: int,
     return SkinnyPlan(mt, m_chunks, groups, *split_k)
 
 
+def shard_skinny(M: int, K: int, N: int, num_sms: int,
+                 plan: Optional[Tuple[int, int]] = None,
+                 fmt: Optional[VPFormat] = None,
+                 device: Optional[int] = None) -> SkinnyPlan:
+    """The skinny grid of a launch at out (M, N): `plan_skinny`'s, except
+    that inside a `mesh_scope` cutting N (a shard of the output columns)
+    a launch with no `plan` takes the (split, k_per) of the unsharded
+    launch (`autotune.unsharded`; the plan cache read under that shape's
+    key), so a shard sums each column in the unsharded order."""
+    full = autotune.unsharded("N", N)
+    if plan is None and full != N:
+        p = plan_skinny(M, K, full, num_sms, None, fmt, device)
+        plan = (p.split, p.k_per)
+    return plan_skinny(M, K, N, num_sms, plan, fmt, device)
+
+
+def shard_tiles(M: int, K: int, N: int, num_sms: int):
+    """The tensor-core body's plan (`vp_bwd_matmul.plan_tiles`) for out
+    (M, N) over K, at the unsharded N inside a `mesh_scope` cutting the
+    output columns: the split of K is the unsharded launch's."""
+    return plan_tiles(M, autotune.unsharded("N", N), K, num_sms)
+
+
 def valid_split(K: int, split_k) -> bool:
     """Whether (split, k_per) covers K in `split` non-empty runs of one
     cluster (the C entry's conditions)."""
@@ -178,13 +203,14 @@ def vp_dequant_matmul_cuda(x: torch.Tensor, w: torch.Tensor, w_fmt: VPFormat,
         num_sms = torch.cuda.get_device_properties(
             x.device).multi_processor_count
         if body == "skinny":
-            sp = plan_skinny(M, K, N, num_sms, plan, w_fmt, x.device.index)
+            sp = shard_skinny(M, K, N, num_sms, plan, w_fmt,
+                              x.device.index)
             err = lib.vp_dqmm_skinny_launch(
                 x.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N, xc,
                 w.element_size(), oc, sp.mt, sp.split, sp.k_per,
                 ctypes.byref(f), stream)
         elif body == "tensor_core":
-            tp = plan_tiles(M, N, K, num_sms)
+            tp = shard_tiles(M, K, N, num_sms)
             ws = (torch.empty((tp.split, M, N), dtype=torch.float32,
                               device=x.device) if tp.split > 1 else None)
             err = lib.vp_dqmm_tc_launch(

@@ -215,7 +215,12 @@ def equalize_wideband(
     how="flat": fold (S, n) into one leading batch dim: one batched
         kernel launch of S * n programs.
     how="vmap": one batched launch per subcarrier (the same numbers).
-    how="shard_map" (a device mesh over subcarriers) is not ported.
+    how="shard_map": each rank of `mesh` (a 1-D mesh with dim "sc",
+        `parallel.sharding.subcarrier_mesh`, the whole world by default)
+        runs the flat path on its slab of subcarriers and the slabs are
+        all-gathered (`parallel.sharding.shard_over_subcarriers`); when S
+        does not divide the mesh, the flat path runs unsharded (counted
+        in `sharding.UNSHARDED`), as in the reference.
     """
     S, n, U, B = w.shape
     if len(specs) != S:
@@ -228,18 +233,22 @@ def equalize_wideband(
                 "(only AGC gains may vary per subcarrier)")
 
     a, b, g = _stack_operands(specs, w, y)
+
+    def flat(a_f, b_f):
+        S_f = a_f.shape[0]
+        return batched_complex_mvm(
+            a_f.reshape(S_f * n, 2 * U, B), b_f.reshape(S_f * n, B, 2),
+            *fmts, fused=fused, blocks=blocks).reshape(S_f, n, 2 * U, 2)
+
     if how == "flat":
-        out = batched_complex_mvm(
-            a.reshape(S * n, 2 * U, B), b.reshape(S * n, B, 2), *fmts,
-            fused=fused, blocks=blocks).reshape(S, n, 2 * U, 2)
+        out = flat(a, b)
     elif how == "vmap":
         out = torch.stack([
             batched_complex_mvm(a[s], b[s], *fmts, fused=fused,
                                 blocks=blocks) for s in range(S)])
     elif how == "shard_map":
-        raise NotImplementedError(
-            "how='shard_map' needs the distribution layer, not ported yet "
-            "(ROADMAP queue 1, items 7 and 10)")
+        from repro_torch.parallel.sharding import shard_over_subcarriers
+        out = shard_over_subcarriers(flat, mesh=mesh, n_subcarriers=S)(a, b)
     else:
         raise ValueError(
             f"unknown how {how!r} (want 'flat', 'vmap' or 'shard_map')")

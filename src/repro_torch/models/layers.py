@@ -44,7 +44,8 @@ from repro_torch.core.formats import FXPFormat, default_vp_format
 from repro_torch.core.packing import dequant_words
 from repro_torch.core.quantize import pow2_scale, vp_fake_quant_ste
 from repro_torch.core.vp_tensor import pack_indices, unpack_indices
-from repro_torch.kernels import ops
+from repro_torch.kernels import autotune, ops
+from repro_torch.parallel import comm
 
 LAYOUTS = ("packed", "planes")
 
@@ -147,7 +148,24 @@ def qdot(x: torch.Tensor, wq: Any, q: QuantConfig,
     on the fly (QAT, module docstring); its pow2 scale carries no
     gradient and commutes exactly with the contraction.  `xq`: x already
     block-VP quantized (`block_activation`), used by a block-VP weight.
+
+    With `q.tp_axis` set (the sharded forward, `parallel.shard_ops`), an
+    exported weight dict is this rank's shard of the output columns: the
+    local product (planned as the unsharded launch, `autotune.
+    mesh_scope`) is all-gathered along the columns, a concatenation, so
+    the result equals the unsharded product bit for bit.  Float weights
+    (mode none, the router) are replicated and need no collective.
     """
+    if q.tp_axis is None or not isinstance(wq, dict):
+        return _qdot_local(x, wq, q, train, xq)
+    with autotune.mesh_scope(autotune.mesh_desc(comm.active_mesh(),
+                                                q.tp_axis)):
+        out = _qdot_local(x, wq, q, train, xq)
+    return comm.all_gather(out, q.tp_axis, dim=-1)
+
+
+def _qdot_local(x: torch.Tensor, wq: Any, q: QuantConfig, train: bool,
+                xq) -> torch.Tensor:
     dtype = x.dtype
     if not isinstance(wq, dict):
         w = wq
@@ -267,9 +285,18 @@ def embed_lookup(tokens: torch.Tensor, table: Any, q: QuantConfig,
     block VP, whose row r takes the indices of block r // block; int8
     FXP.  A float table is gathered as it is, in
     training too (`train` is accepted for the reference's signature; the
-    embedding is not fake-quantized)."""
+    embedding is not fake-quantized).  Under `q.tp_axis` a quantized
+    table is this rank's shard of d_model (its last dim): the rows of the
+    local columns are all-gathered along d_model."""
     if not isinstance(table, dict):
         return table[tokens]
+    if q.tp_axis is not None:
+        return comm.all_gather(_embed_local(tokens, table, q), q.tp_axis,
+                               dim=-1)
+    return _embed_local(tokens, table, q)
+
+
+def _embed_local(tokens: torch.Tensor, table: dict, q: QuantConfig):
     _, vp = canonical_formats(q)
     if "w_packed" in table:
         rows = dequant_words(table["w_packed"][tokens], vp, torch.float32)

@@ -5,9 +5,10 @@ Tokens are cut into groups of ~4096 (`_moe_group_count`); each group
 sorts its (token, expert) assignments by expert, numbers them within
 their expert, drops those past the per-expert capacity C and scatters
 the rest into an (E, C, d) buffer.  The three expert products are plain
-einsums over the stacked experts, as the reference leaves them to XLA;
-a quantized stack is dequantized whole first (`_w`), on the card by one
-launch of the packed dequant kernel per stacked weight.
+einsums over chunks of EXPERT_CHUNK stacked experts, as the reference
+leaves them to XLA; a quantized stack is dequantized whole first (`_w`),
+on the card by one launch of the packed dequant kernel per stacked
+weight.
 
 Where the reference's order is not spelled out by its ops, the port
 fixes it so that a run gives the same bits every time on the card:
@@ -29,9 +30,16 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, QuantConfig
 from repro_torch.core.quantize import block_vp_dequantize
 from repro_torch.kernels import ops
+from repro_torch.parallel import comm
 from .layers import canonical_formats, dequant_planes_weight, qdot
 
 NO_QUANT = QuantConfig("none")
+# Experts per library product in the expert FFNs.  A batched product may
+# sum in another order for another number of experts (cuBLAS picks its
+# kernel by the batch), so the block multiplies fixed chunks: a rank
+# holding a multiple of EXPERT_CHUNK experts (expert parallelism) makes
+# the unsharded block's calls on its chunks and gets its bits.
+EXPERT_CHUNK = 16
 
 
 def router_probs(x: torch.Tensor, w_router: torch.Tensor, q: QuantConfig
@@ -71,7 +79,9 @@ def moe_block(x: torch.Tensor, params: Dict, cfg: ModelConfig,
     params: w_router (d, E) f32; w_gate / w_up (E, d, ff) and w_down (E,
     ff, d), float or exported by `quantize_params` with one scale per
     expert.  `train` is accepted for the reference's signature: as
-    there, the experts are not fake-quantized."""
+    there, the experts are not fake-quantized.  Under `q.tp_axis` the
+    expert stacks may be this rank's share of the experts (`parallel.
+    shard_ops`): it runs those and all-gathers the expert outputs."""
     q = cfg.quant
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
@@ -116,14 +126,30 @@ def moe_block(x: torch.Tensor, params: Dict, cfg: ModelConfig,
     buf = torch.zeros((G, E, C, d), dtype=x.dtype, device=dev)
     buf.index_put_((gi, se, slot), vals, accumulate=True)
 
-    # -- expert FFNs, each stacked weight dequantized whole and freed -----
-    h = buf
-    g = torch.einsum("gecd,edf->gecf", h, _w(params["w_gate"], q, h.dtype))
-    u = torch.einsum("gecd,edf->gecf", h, _w(params["w_up"], q, h.dtype))
-    act = F.silu(g.to(torch.float32)).to(h.dtype) * u
-    del g, u
-    out_buf = torch.einsum("gecf,efd->gecd", act,
-                           _w(params["w_down"], q, h.dtype))
+    # -- expert FFNs: each stacked weight dequantized whole, the products
+    # on fixed chunks of experts ---------------------------------------------
+    def ffn(h):
+        wg, wu, wd = (_w(params[k], q, h.dtype)
+                      for k in ("w_gate", "w_up", "w_down"))
+        outs = []
+        for e0 in range(0, h.shape[1], EXPERT_CHUNK):
+            e = slice(e0, e0 + EXPERT_CHUNK)
+            g = torch.einsum("gecd,edf->gecf", h[:, e], wg[e])
+            u = torch.einsum("gecd,edf->gecf", h[:, e], wu[e])
+            act = F.silu(g.to(torch.float32)).to(h.dtype) * u
+            outs.append(torch.einsum("gecf,efd->gecd", act, wd[e]))
+        return torch.cat(outs, dim=1)
+
+    E_local = _experts(params["w_gate"])
+    if q.tp_axis is not None and E_local < E:
+        # expert parallelism: routing and dispatch ran alike on every
+        # rank; each runs its resident experts on their slots of the
+        # buffer and the outputs concatenate along the experts
+        i = comm.axis_index(q.tp_axis)
+        out_buf = comm.all_gather(
+            ffn(buf[:, i * E_local:(i + 1) * E_local]), q.tp_axis, dim=1)
+    else:
+        out_buf = ffn(buf)
 
     # -- combine: each token's k outputs, by ascending expert -------------
     gathered = out_buf[gi, se, slot]                           # (G, Tg k, d)
@@ -140,6 +166,14 @@ def moe_block(x: torch.Tensor, params: Dict, cfg: ModelConfig,
     for r in range(k):
         out = out + by_token[:, :, r]
     return out.reshape(B, S, d).to(x.dtype), aux
+
+
+def _experts(wq) -> int:
+    """Experts in a stacked weight (float, or any exported layout): this
+    rank's share of them under expert parallelism."""
+    if not isinstance(wq, dict):
+        return wq.shape[0]
+    return (wq["w_packed"] if "w_packed" in wq else wq["m"]).shape[0]
 
 
 def _w(wq, q: QuantConfig, dtype: torch.dtype) -> torch.Tensor:

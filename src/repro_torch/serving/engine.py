@@ -47,8 +47,16 @@ operating condition to contain, not a fatal invariant violation:
 
 Per-request outcomes land on the `run()` records
 (`ok|retried|quarantined|degraded|timeout|shed`) and aggregate counters
-on `engine.stats`.  `mesh=` (tensor- and data-parallel serving) is not
-ported yet and raises.
+on `engine.stats`.
+
+Mesh-native serving (`mesh=`, a DeviceMesh with dims "data" and
+"model", `launch.mesh`): every rank runs this engine on the same
+requests.  The weights are placed once (`shard_ops.place_params`: this
+rank's shards), the runner serves tensor parallel over "model" and data
+parallel over the slot buckets that divide "data"; the scheduler, page
+tables, pools and sampling stay replicated and equal on every rank, and
+the clock is agreed (`AgreedClock`: every rank reads the latest rank's
+time), so every rank takes the same decisions.
 """
 from __future__ import annotations
 
@@ -64,12 +72,28 @@ from repro_torch.core.packing import storage_dtype
 from repro_torch.kernels import autotune, paged
 from repro_torch.kernels.vp_attention import plan_decode
 from repro_torch.models.attention import kv_cache_formats
+from repro_torch.parallel import comm
 from .faults import FaultPlan, TransientComputeError
 from .page_cache import PAGED, PagedKVCache, buf_key
 from .runner import ModelRunner, device_of, oracle_generate, \
     supports_chunked
 from .scheduler import Request, RunningRequest, Scheduler, SLOClass, \
     WallClock
+
+
+class AgreedClock:
+    """A clock the ranks of a mesh read alike: `now()` is the largest of
+    the ranks' readings (one collective over the world); `tick` and
+    `wait_until` act on this rank's clock, which it wraps."""
+
+    def __init__(self, clock):
+        self._clock = clock
+
+    def now(self) -> float:
+        return comm.agree_max(self._clock.now())
+
+    def __getattr__(self, name):
+        return getattr(self._clock, name)
 
 
 class ServingEngine:
@@ -82,7 +106,8 @@ class ServingEngine:
     mode); `prefill_chunk` enables chunked prefill for full-causal
     models.  The cache lives on the device of `params`.
     `check_graphs` holds each decode graph's first replay against the
-    eager step (`runner.ModelRunner`).
+    eager step (`runner.ModelRunner`).  `mesh`: serve sharded (module
+    docstring); `params` is then the whole tree on every rank.
 
     Resilience knobs (all default OFF / legacy-equivalent):
       policy="fifo"|"edf", preempt, max_queue, check_finite +
@@ -113,10 +138,20 @@ class ServingEngine:
             raise ValueError(
                 f"on_nonfinite must be 'quarantine' or 'raise', "
                 f"got {on_nonfinite!r}")
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh-native serving is not ported yet (ROADMAP.md queue "
-                "1 item 6)")
+            if "model" not in tuple(getattr(mesh, "mesh_dim_names", None)
+                                    or ()):
+                raise ValueError(
+                    f"mesh= takes a DeviceMesh with a 'model' dim (and "
+                    f"optionally 'data'; launch.mesh), got {mesh!r}")
+            # the weights sharded once: packed words along d_out over
+            # "model", MoE experts along their expert dim
+            from repro_torch.parallel import shard_ops
+            params = shard_ops.place_params(params, cfg, mesh)
+            if degrade_params is not None:
+                degrade_params = shard_ops.place_params(degrade_params, cfg,
+                                                        mesh)
         self.params = params
         self.cfg = cfg
         self.device = device_of(params)
@@ -133,9 +168,11 @@ class ServingEngine:
         self.prefill_chunk = prefill_chunk
         self.decode_lookahead = int(decode_lookahead)
         self.runner = ModelRunner(cfg, self.kv, temperature=temperature,
-                                  check_graphs=check_graphs)
+                                  mesh=mesh, check_graphs=check_graphs)
         self.scheduler = Scheduler(self.kv, policy=policy, preempt=preempt)
         self.clock = clock if clock is not None else WallClock()
+        if mesh is not None:
+            self.clock = AgreedClock(self.clock)
         self.check_finite = bool(check_finite)
         self.on_nonfinite = on_nonfinite
         self.max_queue = max_queue
@@ -163,7 +200,11 @@ class ServingEngine:
         shapes it refuses, none of the dense configs' at int8 or int16
         words): at construction, not at the first decode, and with the
         plan each decode launch takes (the plan cache's on the card).
-        The counterpart of the reference's VMEM budget check."""
+        The counterpart of the reference's VMEM budget check.  Under a
+        mesh the check is the same: data shards cut only the slot batch,
+        which the plan does not read (one row's plan holds for every
+        shard), and tensor parallelism gathers q, k and v whole, so each
+        rank attends over every head."""
         q = self.cfg.quant
         if not (q.quantize_kv_cache and q.kv_layout == "packed"):
             return
@@ -282,8 +323,10 @@ class ServingEngine:
         t0 = time.perf_counter()
         params = self.degrade_params if self.degrade_params is not None \
             else self.params
-        toks = oracle_generate(params, self.cfg, run.req.prompt,
-                               run.req.max_new_tokens, self.kv.capacity)
+        toks = oracle_generate(
+            params, self.cfg, run.req.prompt, run.req.max_new_tokens,
+            self.kv.capacity,
+            fns=self.runner.model_fns() if self.mesh is not None else None)
         self._charge(time.perf_counter() - t0)
         run.tokens = toks
         run.outcome = "degraded"
@@ -424,6 +467,8 @@ class ServingEngine:
                     f"consecutive times; giving up")
             return
         slot_tokens = {r.slot: r.tokens[-1] for r in runs}
+        if self.runner.graphs_off:
+            self.stats["eager_decodes"] += 1
         try:
             out = self._timed(self.runner.decode_batch, self.params,
                               slot_tokens, self._next_key(),

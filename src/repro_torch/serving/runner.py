@@ -42,6 +42,18 @@ runner keeps `captured` (the launches recorded into graphs) and
 `LAUNCHES - captured + replayed`.
 
 Prefill and chunked prefill run eagerly: their shapes follow the prompt.
+
+Under a mesh (`mesh=`, a DeviceMesh with dims "data" and "model") every
+rank runs the same steps on its parameter shards through
+`parallel.shard_ops.sharded_forward_fns`: tensor parallel over "model";
+a decode bucket that divides "data" decodes each data rank's slab of
+its rows, whose new cache positions (and dense or state rows), tokens
+and logits are all-gathered over "data" before the commit, so every
+rank's pools, dense rows and lengths stay equal.  Over NCCL the decode
+graphs capture the collectives.  A mesh with gloo groups cannot be
+captured: its decode runs eagerly, which `graphs_off` and `graph_log`
+record (and the engine's `stats["eager_decodes"]` counts), never
+silently.
 """
 from __future__ import annotations
 
@@ -53,6 +65,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import build, paged
 from repro_torch.models.model import decode_step, init_cache, prefill
+from repro_torch.parallel import comm
 from .page_cache import DENSE, PAGED, PagedKVCache, SubSpec, buf_key
 
 
@@ -116,7 +129,8 @@ def device_of(tree) -> torch.device:
 
 
 def oracle_generate(params, cfg: ModelConfig, prompt: Sequence[int],
-                    max_new_tokens: int, capacity: int) -> List[int]:
+                    max_new_tokens: int, capacity: int,
+                    fns=None) -> List[int]:
     """Static B=1 greedy generation on the plain serving path.
 
     The engine's graceful-degradation fallback: a request that is
@@ -124,18 +138,23 @@ def oracle_generate(params, cfg: ModelConfig, prompt: Sequence[int],
     `prefill` and per-token `decode_step` on a fresh DENSE cache
     (`init_cache`, max_len = capacity), with no paged pools and no state
     shared with the engine's cache.  `params` may be the serving params
-    or a separately quantized copy (the engine's `degrade_params`).
+    or a separately quantized copy (the engine's `degrade_params`);
+    under a mesh this rank's shards of them, with `fns` the runner's
+    (prefill, decode) model functions.
     """
+    pre, dec = fns if fns is not None else (
+        lambda p, t, c: prefill(p, t, c, cfg),
+        lambda p, t, c: decode_step(p, t, c, cfg))
     dev = device_of(params)
     caches = init_cache(cfg, 1, capacity, device=dev)
-    logits, caches = prefill(
+    logits, caches = pre(
         params, torch.tensor([list(prompt)], dtype=torch.int64, device=dev),
-        caches, cfg)
+        caches)
     toks = [int(torch.argmax(logits[0]))]
     for _ in range(max_new_tokens - 1):
-        logits, caches = decode_step(
+        logits, caches = dec(
             params, torch.tensor([[toks[-1]]], dtype=torch.int32,
-                                 device=dev), caches, cfg)
+                                 device=dev), caches)
         toks.append(int(torch.argmax(logits[0])))
     return toks
 
@@ -155,13 +174,17 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 class _DecodeGraph:
     """One captured decode step: its input tensors, graph and outputs."""
 
-    def __init__(self, step, inputs: Dict[str, torch.Tensor], pool):
+    def __init__(self, step, inputs: Dict[str, torch.Tensor], pool,
+                 mode: str = "global"):
         self.inputs = inputs
         self.graph = torch.cuda.CUDAGraph()
         before = collections.Counter(build.LAUNCHES)
-        with torch.cuda.graph(self.graph, pool=pool):
+        coll = collections.Counter(comm.LAUNCHES)
+        with torch.cuda.graph(self.graph, pool=pool,
+                              capture_error_mode=mode):
             self.outputs = step(**inputs)
         self.launches = collections.Counter(build.LAUNCHES) - before
+        self.collectives = collections.Counter(comm.LAUNCHES) - coll
 
     def replay(self, **values) -> Tuple[torch.Tensor, torch.Tensor]:
         for k, v in values.items():
@@ -176,15 +199,26 @@ class ModelRunner:
     def __init__(self, cfg: ModelConfig, kv: PagedKVCache,
                  temperature: float = 0.0, mesh=None,
                  check_graphs: bool = False):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-native serving is not ported yet (ROADMAP.md queue "
-                "1 item 6)")
         self.cfg = cfg
         self.kv = kv
         self.temperature = float(temperature)
+        self.mesh = mesh
+        self._fns = None
+        self._dp = 1
         self.use_graphs = kv.device.type == "cuda"
+        # why a CUDA decode runs without graphs (None: it does not)
+        self.graphs_off: Optional[str] = None
+        if mesh is not None:
+            from repro_torch.parallel.shard_ops import tp_size
+            self._dp = tp_size(mesh, "data")
+            if self.use_graphs and not comm.capturable(mesh):
+                self.use_graphs = False
+                self.graphs_off = ("the mesh's gloo groups run on the host "
+                                   "and cannot be captured: decode eager")
         self.check_graphs = bool(check_graphs)
+        # under NCCL, its watchdog thread polls events while a graph is
+        # captured: only this thread's calls may not break the capture
+        self._capture_mode = "global" if mesh is None else "thread_local"
         self._graphs: Dict[Tuple[int, int], _DecodeGraph] = {}
         self._graph_params = None
         self._pool = None
@@ -192,14 +226,40 @@ class ModelRunner:
         self.captured: collections.Counter = collections.Counter()
         self.replayed: collections.Counter = collections.Counter()
         self.replays = 0
-        # [{"bucket": (Bp, steps), "launches": {...}}] per capture, with
-        # the check's verdict under check_graphs.
+        # Collectives recorded into graphs, and the same per replay.
+        self.captured_collectives: collections.Counter = \
+            collections.Counter()
+        self.replayed_collectives: collections.Counter = \
+            collections.Counter()
+        # [{"bucket": (Bp, steps), "launches": {...}, "collectives":
+        # {...}}] per capture, with the check's verdict under
+        # check_graphs; one {"bucket": None, "eager": why} when a mesh
+        # keeps decode eager.
         self.graph_log: List[dict] = []
+        if self.graphs_off:
+            self.graph_log.append({"bucket": None, "eager": self.graphs_off})
         # (slots, active) device operands keyed by batch composition: it
         # changes only on admission / retirement.
         self._comp_cache: Dict[Tuple[Tuple[int, ...], int], tuple] = {}
 
     # -- helpers -------------------------------------------------------------
+
+    def model_fns(self):
+        """(prefill_fn(p, tokens, caches, chunked=False), decode_fn(p,
+        token, caches)): the model's, or under a mesh its sharded
+        wrappers (`shard_ops.sharded_forward_fns`)."""
+        if self._fns is None:
+            if self.mesh is None:
+                cfg = self.cfg
+                self._fns = (
+                    lambda p, t, c, chunked=False: prefill(
+                        p, t, c, cfg, chunked=chunked),
+                    lambda p, t, c: decode_step(p, t, c, cfg))
+            else:
+                from repro_torch.parallel.shard_ops import \
+                    sharded_forward_fns
+                self._fns = sharded_forward_fns(None, self.cfg, self.mesh)
+        return self._fns
 
     def _noise(self, key, shape) -> Optional[torch.Tensor]:
         if self.temperature <= 0:
@@ -244,8 +304,8 @@ class ModelRunner:
         S, ps = len(prompt), kv.page_size
         Sp = min(-(-S // ps) * ps, kv.capacity) if kv.has_paged else S
         fresh, stacked = self._fresh_cache(Sp)
-        logits, _ = prefill(params, self._tokens(prompt, (1, S)), fresh,
-                            self.cfg)
+        logits, _ = self.model_fns()[0](params, self._tokens(prompt, (1, S)),
+                                        fresh)
         nxt = sample(logits, self._noise(key, logits.shape),
                      self.temperature)
         bt_row = kv.block_table[slot]
@@ -270,8 +330,8 @@ class ModelRunner:
         slots = torch.tensor([slot], dtype=torch.int64, device=kv.device)
         view, stacked = build_view(kv.specs, kv.pools, kv.dense,
                                    kv.block_table, kv.lengths, slots)
-        logits, _ = prefill(params, self._tokens(chunk, (1, C)), view,
-                            self.cfg, chunked=True)
+        logits, _ = self.model_fns()[0](params, self._tokens(chunk, (1, C)),
+                                        view, chunked=True)
         nxt = sample(logits, self._noise(key, logits.shape),
                      self.temperature)
         idxs = kv.lengths[slot].to(torch.int64) + torch.arange(
@@ -290,7 +350,21 @@ class ModelRunner:
 
     # -- decode (one CUDA graph per bucket) -----------------------------------
 
-    def _commit(self, stacked, slots, active, pos0, n: int) -> None:
+    def _written(self, stacked, pos0, n: int) -> Dict[str, torch.Tensor]:
+        """What a decode step wrote into its view, per buffer: the n new
+        positions of each row of a paged buffer (reps, B, n, ...), the
+        whole rows of a dense ring or SSM state (reps, B, ...)."""
+        kv = self.kv
+        idxs = pos0.to(torch.int64)[:, None] + torch.arange(
+            n, device=kv.device)[None]                       # (B, n)
+        rows = torch.arange(pos0.shape[0], device=kv.device)[:, None]
+        return {buf_key(spec, name): (stacked[buf_key(spec, name)][:, rows,
+                                                                   idxs]
+                                      if spec.kind == PAGED
+                                      else stacked[buf_key(spec, name)])
+                for spec in kv.specs for name, _, _ in spec.bufs}
+
+    def _commit(self, written, slots, active, pos0, n: int) -> None:
         """Scatter the n new positions of every active row back to the
         pools (inactive rows to the dummy page 0), write back the active
         rows of dense rings and SSM states (inactive rows keep theirs),
@@ -299,48 +373,72 @@ class ModelRunner:
         ps, Bp = kv.page_size, slots.shape[0]
         idxs = pos0.to(torch.int64)[:, None] + torch.arange(
             n, device=kv.device)[None]                       # (Bp, n)
-        rows = torch.arange(Bp, device=kv.device)[:, None]
         pages = torch.where(
             active[:, None],
             torch.gather(kv.block_table[slots].long(), 1, idxs // ps), 0)
         for spec in kv.specs:
             for name, _, _ in spec.bufs:
                 k = buf_key(spec, name)
-                nb = stacked[k]
+                nb = written[k]
                 if spec.kind == PAGED:
                     paged.scatter_positions(kv.pools[k], pages, idxs % ps,
-                                            nb[:, rows, idxs])
+                                            nb)
                 else:
                     mask = active.reshape((1, Bp) + (1,) * (nb.ndim - 2))
                     kv.dense[k][:, slots] = torch.where(
                         mask, nb, kv.dense[k][:, slots])
         kv.lengths[slots] = kv.lengths[slots] + n * active.to(torch.int32)
 
-    def _make_decode(self, params, n: int):
+    def _make_decode(self, params, n: int, Bp: int):
         """The decode step: gather the slot views once, run n feedback
-        `decode_step`s, commit the n new positions per slot once.  Each
+        decode steps, commit the n new positions per slot once.  Each
         step is the model's own decode on the same contiguous view a
         single-step call would see, so n steps give the logits of n
-        separate calls."""
-        kv, cfg, temperature = self.kv, self.cfg, self.temperature
+        separate calls.  Under a mesh whose "data" size divides the
+        bucket `Bp`, each data rank decodes its slab of the rows and the
+        writes, tokens and logits are all-gathered before the commit."""
+        kv, temperature = self.kv, self.temperature
+        decode = self.model_fns()[1]
+        data = "data" if self._dp > 1 and Bp % self._dp == 0 else None
 
         def step(tokens, slots, active, noise=None):
             lens = torch.where(active, kv.lengths[slots], 0)
+            mine, my_lens, my_noise = slots, lens, noise
+            if data is not None:
+                tokens, mine, my_lens = (comm.slab(t, data)
+                                         for t in (tokens, slots, lens))
+                if noise is not None:
+                    my_noise = comm.slab(noise, data, dim=1)
             view, stacked = build_view(kv.specs, kv.pools, kv.dense,
-                                       kv.block_table, kv.lengths, slots,
-                                       lens=lens)
+                                       kv.block_table, kv.lengths, mine,
+                                       lens=my_lens)
             toks, nxts, lgs = tokens, [], []
             for i in range(n):
-                logits, view = decode_step(params, toks, view, cfg)
-                toks = sample(logits, None if noise is None else noise[i],
+                logits, view = decode(params, toks, view)
+                toks = sample(logits,
+                              None if my_noise is None else my_noise[i],
                               temperature)
                 nxts.append(toks)
                 lgs.append(logits)
-            self._commit(stacked, slots, active, lens, n)
-            nxt = torch.where(active[None, :, None], torch.stack(nxts), 0)
-            return nxt, torch.stack(lgs)
+            written = self._written(stacked, my_lens, n)
+            nxts, lgs = torch.stack(nxts), torch.stack(lgs)
+            if data is not None:
+                written = {k: comm.all_gather(v, data, dim=1)
+                           for k, v in written.items()}
+                nxts, lgs = (comm.all_gather(t, data, dim=1)
+                             for t in (nxts, lgs))
+            self._commit(written, slots, active, lens, n)
+            nxt = torch.where(active[None, :, None], nxts, 0)
+            return nxt, lgs
 
-        return step
+        if self.mesh is None:
+            return step
+
+        def in_mesh(**kw):
+            with comm.use_mesh(self.mesh):
+                return step(**kw)
+
+        return in_mesh
 
     def _state(self) -> Dict[str, torch.Tensor]:
         kv = self.kv
@@ -361,20 +459,21 @@ class ModelRunner:
                    inputs: Dict[str, torch.Tensor]):
         """Run the step eagerly, capture it, and (under check_graphs)
         hold the first replay against the eager run bit for bit."""
-        step = self._make_decode(params, n)
+        step = self._make_decode(params, n, Bp)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         static = {k: v.clone() for k, v in inputs.items()}
         if not self.check_graphs:
             out = step(**static)
-            g = _DecodeGraph(step, static, self._pool)
-            entry = {"bucket": (Bp, n), "launches": dict(g.launches)}
+            g = _DecodeGraph(step, static, self._pool, self._capture_mode)
+            entry = {"bucket": (Bp, n), "launches": dict(g.launches),
+                     "collectives": dict(g.collectives)}
         else:
             before = self._state()
             want = tuple(t.clone() for t in step(**static))
             after = self._state()
             self._restore(before)
-            g = _DecodeGraph(step, static, self._pool)
+            g = _DecodeGraph(step, static, self._pool, self._capture_mode)
             out = g.replay()
             self._count(g)
             diffs = [name for name, a, b in
@@ -383,18 +482,21 @@ class ModelRunner:
                         zip(after.items(), self._state().values())]
                      if not torch.equal(_bits(a), _bits(b))]
             entry = {"bucket": (Bp, n), "launches": dict(g.launches),
+                     "collectives": dict(g.collectives),
                      "identical": not diffs}
             if diffs:
                 raise AssertionError(
                     f"decode graph ({Bp}, {n}): the replay differs from the "
                     f"eager step in {diffs}")
         self.captured.update(g.launches)
+        self.captured_collectives.update(g.collectives)
         self.graph_log.append(entry)
         self._graphs[(Bp, n)] = g
         return out
 
     def _count(self, g: _DecodeGraph) -> None:
         self.replayed.update(g.launches)
+        self.replayed_collectives.update(g.collectives)
         self.replays += 1
 
     def decode_batch(self, params, slot_tokens: Dict[int, int], key,
@@ -432,7 +534,7 @@ class ModelRunner:
         if noise is not None:
             inputs["noise"] = noise
         if not self.use_graphs:
-            nxt, logits = self._make_decode(params, steps)(**inputs)
+            nxt, logits = self._make_decode(params, steps, Bp)(**inputs)
         else:
             if params is not self._graph_params:
                 self._graphs.clear()

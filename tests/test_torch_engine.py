@@ -216,7 +216,7 @@ def test_engine_rejections(what):
         with pytest.raises(ValueError, match="encoder-decoder"):
             _engine(params, dataclasses.replace(cfg, family="encdec"))
     else:
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        with pytest.raises(ValueError, match="DeviceMesh"):
             _engine(params, cfg, mesh=object())
 
 
